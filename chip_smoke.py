@@ -18,7 +18,14 @@ Phases, each printing its own lines:
    step times are medians over steps each ended by a synchronize;
 4. frames: the collected frames decode with the port's StreamDecoder and
    wire codec, their counts match what the probe and the sink counted, and
-   the per-kernel device-time flame graph is built from them.
+   the per-kernel device-time flame graph is built from them;
+5. server: the port's server runs as its own process
+   (python -m deepflow_tpu_torch.server), takes the same frame bytes over
+   one TCP connection, and must hold every span, memory sample and step
+   record with no decode error or bad frame; its TpuFlame answer must
+   equal phase 4's flame graph, its step timeline the step records, and
+   its memory view phase 4's largest sample. Ingest rows/s and each
+   query's wall time are host numbers.
 
 The port has no hand-written kernels: the JAX package it ports has no
 Pallas kernel, so the kernel list is empty. Any failed check raises and
@@ -44,6 +51,8 @@ TINY_CUDA_VS_CPU_ATOL = 1e-4   # float32, full-precision matmuls
 BASE_STEPS = 20
 CAPTURES = 3            # the first one pays CUPTI's start-up
 PROBE_CAP_S = 60.0
+SERVER_START_S = 120.0   # the server process imports and listens
+SERVER_INGEST_S = 600.0  # first byte sent to the last row visible
 OUT_DIR = "results"
 
 
@@ -201,7 +210,7 @@ def training_phase(torch, tl, model, tokens) -> tuple:
     return sink, probe, nums, (wall0, wall1, wall_s)
 
 
-def frames_phase(sink, probe, window) -> dict:
+def frames_phase(sink, probe, window) -> tuple:
     from deepflow_tpu_torch.codec import MessageType, StreamDecoder
     from deepflow_tpu_torch.proto import wire
     from deepflow_tpu_torch.query.flamegraph import device_flame
@@ -264,6 +273,147 @@ def frames_phase(sink, probe, window) -> dict:
           "span times lie on the wall clock inside the probe's run")
     check(leaves and flame.total_value > 0, "device flame graph not empty")
     nums["top_kernels"] = [[n, c, ns] for ns, c, n in leaves[:5]]
+    return nums, {"flame": flame.to_dict(), "records": records}
+
+
+def _canon_flame(node: dict) -> dict:
+    """Siblings in a fixed order: their order among equal totals is
+    unspecified."""
+    return {"name": node["name"], "total_value": node["total_value"],
+            "self_value": node["self_value"],
+            "children": sorted((_canon_flame(c) for c in node["children"]),
+                               key=lambda c: (-c["total_value"], c["name"]))}
+
+
+def _http(port: int, path: str, body: dict | None = None) -> tuple:
+    """(status, answer, wall ms) of one GET (body None) or POST."""
+    import urllib.error
+    import urllib.request
+    req = urllib.request.Request(
+        f"http://127.0.0.1:{port}{path}",
+        data=None if body is None else json.dumps(body).encode(),
+        method="GET" if body is None else "POST")
+    t0 = time.perf_counter()
+    try:
+        with urllib.request.urlopen(req, timeout=120) as r:
+            code, data = r.status, r.read()
+    except urllib.error.HTTPError as e:
+        code, data = e.code, e.read()
+    return code, json.loads(data), (time.perf_counter() - t0) * 1000.0
+
+
+def _server_ports(proc) -> dict:
+    """The JSON line the server prints once it listens."""
+    import select
+    ready, _, _ = select.select([proc.stdout], [], [], SERVER_START_S)
+    line = proc.stdout.readline() if ready else ""
+    check(bool(line), "the server printed its ports")
+    return json.loads(line)
+
+
+def server_phase(sink, probe, seen) -> dict:
+    """The frames of phase 3 through the port's own server process."""
+    import socket
+    os.makedirs(OUT_DIR, exist_ok=True)
+    log_path = os.path.join(OUT_DIR, "server.log")
+    want = {"profile.tpu_hlo_span": probe.stats["spans_sent"],
+            "profile.tpu_memory": probe.stats["mem_samples_sent"],
+            "profile.tpu_step_metrics": probe.stats["steps_sent"]}
+    data = b"".join(sink.frames)
+    with open(log_path, "w") as log:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "deepflow_tpu_torch.server",
+             "--ingest-port", "0", "--query-port", "0"],
+            cwd=os.path.dirname(os.path.abspath(__file__)),
+            stdout=subprocess.PIPE, stderr=log, text=True)
+    try:
+        ports = _server_ports(proc)
+        qport = ports["query_port"]
+        t0 = time.perf_counter()
+        with socket.create_connection(("127.0.0.1", ports["ingest_port"]),
+                                      timeout=60) as conn:
+            conn.sendall(data)
+        while True:
+            _, health, _ = _http(qport, "/v1/health")
+            if health["tables"] == want \
+                    or time.perf_counter() - t0 > SERVER_INGEST_S:
+                break
+            time.sleep(0.02)
+        ingest_s = time.perf_counter() - t0
+        stats = health["stats"]
+        check(health["tables"] == want,
+              f"server rows {health['tables']} == rows sent {want}")
+        check(all(d["errors"] == 0 for d in stats["decoders"].values()),
+              "no decode errors")
+        check(stats["receiver"]["bad_frames"] == 0
+              and stats["receiver"]["dropped"] == 0,
+              "no bad or dropped frames")
+
+        answers, query_ms = {}, {}
+        for name, path, body in (
+                ("flame", "/v1/profile/TpuFlame", {}),
+                ("steps", "/v1/tpu/steps",
+                 {"limit": len(seen["records"]) + 1}),
+                ("critical_path", "/v1/tpu/steps/critical_path", {}),
+                ("step_trace", "/v1/profile/TpuStepTrace", {}),
+                ("memory", "/v1/profile/TpuMemory",
+                 {"limit": probe.stats["mem_samples_sent"] + 1}),
+                ("collectives", "/v1/profile/TpuCollectives", {})):
+            code, ans, ms = _http(qport, path, body)
+            check(code == 200, f"{path} answers 200 (got {code}: {ans})")
+            answers[name], query_ms[f"{name}_ms"] = ans["result"], ms
+
+        check(_canon_flame(answers["flame"])
+              == _canon_flame(seen["flame"]),
+              "TpuFlame equals the in-process device flame graph")
+        # one rollup per (job, run_id, step): first start to last end
+        spans: dict[tuple, list[int]] = {}
+        for r in seen["records"]:
+            k = (r["job"], r["run_id"], r["step"])
+            b = spans.setdefault(k, [r["time"], r["end_ns"]])
+            b[0], b[1] = min(b[0], r["time"]), max(b[1], r["end_ns"])
+        steps = answers["steps"]
+        check(steps["total_steps"] == len(spans),
+              f"{steps['total_steps']} steps == {len(spans)} distinct")
+        check({(s["job"], s["run_id"], s["step"]): s["latency_ns"]
+               for s in steps["steps"]}
+              == {k: max(0, b[1] - b[0]) for k, b in spans.items()},
+              "step latencies equal the step records'")
+        mem = answers["memory"]
+        check(max((s["bytes_in_use"] for s in mem["timeline"]), default=0)
+              == seen["max_bytes_in_use"],
+              "largest bytes_in_use equals phase 4's")
+        trace = answers["step_trace"]
+        check(bool(trace["devices"]) and trace["run_id"] > 0,
+              "step trace not empty")
+        cp = answers["critical_path"]
+        check(cp["step"]["step"] > 0 and cp["attribution"]["verdict"],
+              "critical path not empty")
+    finally:
+        proc.terminate()
+        try:
+            proc.wait(timeout=60)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+        proc.stdout.close()
+    with open(log_path) as f:
+        log_text = f.read()
+    check(proc.returncode == 0, f"server exit code {proc.returncode}")
+    check("Traceback" not in log_text and " ERROR " not in log_text,
+          f"server logged no exception (see {log_path})")
+    rows = sum(want.values())
+    dec = stats["decoders"]
+    nums = {"rows": rows, **{t.split(".")[1] + "_rows": n
+                             for t, n in want.items()},
+            "frame_bytes": len(data), "ingest_s": ingest_s,
+            "ingest_rows_per_s": rows / ingest_s,
+            "recv_ms": stats["receiver"]["recv_ns"] / 1e6,
+            "decode_ms": sum(d["handle_ns"] - d["append_ns"]
+                             for d in dec.values()) / 1e6,
+            "append_ms": sum(d["append_ns"] for d in dec.values()) / 1e6,
+            "collectives": len(answers["collectives"]), **query_ms}
+    phase("server", **nums)
     return nums
 
 
@@ -283,7 +433,9 @@ def main() -> int:
     model, tokens, result["model"] = model_phase(torch, tl)
     sink, probe, result["training"], window = training_phase(
         torch, tl, model, tokens)
-    result["frames"] = frames_phase(sink, probe, window)
+    result["frames"], seen = frames_phase(sink, probe, window)
+    seen["max_bytes_in_use"] = result["frames"]["max_bytes_in_use"]
+    result["server"] = server_phase(sink, probe, seen)
     result["seconds"] = time.perf_counter() - t0
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
