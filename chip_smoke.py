@@ -25,7 +25,27 @@ Phases, each printing its own lines:
    record with no decode error or bad frame; its TpuFlame answer must
    equal phase 4's flame graph, its step timeline the step records, and
    its memory view phase 4's largest sample. Ingest rows/s and each
-   query's wall time are host numbers.
+   query's wall time are host numbers;
+6. runner: zero-code profiling of an unmodified training script. Phase
+   2's model is freed; a fresh server process starts; the example
+   (deepflow_tpu_torch/examples/train_with_observability.py, phase 2's
+   configuration) trains as a plain subprocess, then twice under
+   python -m deepflow_tpu_torch.cli.runner, whose in-process agent
+   (OnCPU sampler, Kineto probe, self-stats) ships over the durable
+   sender: first with nothing listening at its server address (no
+   ingest), then into the server while the child trains. Agent overhead
+   % is the live child's median step against the plain one, live-ingest
+   cost % the live child's against the no-ingest one (means and longest
+   steps beside them). Kernels per step come from the server's step
+   records: every capture's most common count must equal phase 4's (the
+   last capture, which detach cuts, only when it holds five steps or
+   more); every span row must lie in a step record; the four tables must
+   hold rows, the CPU flame graph a stack through the example's main, the
+   receiver must have acked, with no decode error, bad frame or dup. The
+   children's peak RSS (/proc/<pid>/statm) and CPU-seconds
+   (/proc/<pid>/stat), over their life and over the training loop, come
+   from samples every 0.1 s; the ingest lag is the live child's exit to
+   the last frame decoded.
 
 The port has no hand-written kernels: the JAX package it ports has no
 Pallas kernel, so the kernel list is empty. Any failed check raises and
@@ -36,6 +56,7 @@ JSON result; results/chip_smoke.json keeps every number.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import math
 import os
@@ -53,7 +74,19 @@ CAPTURES = 3            # the first one pays CUPTI's start-up
 PROBE_CAP_S = 60.0
 SERVER_START_S = 120.0   # the server process imports and listens
 SERVER_INGEST_S = 600.0  # first byte sent to the last row visible
+EXAMPLE = "deepflow_tpu_torch.examples.train_with_observability"
+EXAMPLE_ARGS = ["--preset", "llama7b", "--layers", str(N_LAYERS),
+                "--seq", str(SEQ), "--batch", str(BATCH)]
+RUNNER = ["-m", "deepflow_tpu_torch.cli.runner"]
+PLAIN_STEPS = 60
+RUNNER_STEPS = 300      # room for three or more captures
+RUNNER_WARMUP = 3       # first steps of each child left out of its medians
+RUNNER_CHILD_S = 600.0  # each training child's time limit
+# the last capture, which detach cuts, is held to the whole step only when
+# its interior steps outnumber its two edge steps
+WHOLE_CAPTURE_STEPS = 5
 OUT_DIR = "results"
+ROOT = os.path.dirname(os.path.abspath(__file__))
 
 
 def check(ok: bool, what: str) -> None:
@@ -249,6 +282,9 @@ def frames_phase(sink, probe, window) -> tuple:
             "kernels_per_step_max": max(per_step.values(), default=0),
             "kernels_per_step_median": statistics.median(per_step.values())
             if per_step else 0,
+            # the most common count: the whole step's
+            "kernels_per_step_mode": statistics.mode(per_step.values())
+            if per_step else 0,
             "median_step_device_ms": statistics.median(lat) if lat else 0.0,
             # kernel time over the steps' first-kernel-to-last-kernel spans
             "device_busy_pct": 100.0 * sum(s.duration_ns for s in kernels)
@@ -311,21 +347,43 @@ def _server_ports(proc) -> dict:
     return json.loads(line)
 
 
+def _start_server(log_path: str):
+    """The port's server as its own process, its stderr into log_path."""
+    with open(log_path, "w") as log:
+        return subprocess.Popen(
+            [sys.executable, "-m", "deepflow_tpu_torch.server",
+             "--ingest-port", "0", "--query-port", "0"],
+            cwd=ROOT, stdout=subprocess.PIPE, stderr=log, text=True)
+
+
+def _stop_server(proc, log_path: str) -> None:
+    """SIGTERM; the server must exit 0 with no exception in its log."""
+    proc.terminate()
+    try:
+        proc.wait(timeout=60)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+    proc.stdout.close()
+    with open(log_path) as f:
+        log_text = f.read()
+    check(proc.returncode == 0, f"server exit code {proc.returncode}")
+    check("Traceback" not in log_text and " ERROR " not in log_text,
+          f"server logged no exception (see {log_path})")
+
+
 def server_phase(sink, probe, seen) -> dict:
     """The frames of phase 3 through the port's own server process."""
     import socket
     os.makedirs(OUT_DIR, exist_ok=True)
     log_path = os.path.join(OUT_DIR, "server.log")
-    want = {"profile.tpu_hlo_span": probe.stats["spans_sent"],
+    want = {"deepflow_system.deepflow_system": 0,
+            "profile.in_process_profile": 0,
+            "profile.tpu_hlo_span": probe.stats["spans_sent"],
             "profile.tpu_memory": probe.stats["mem_samples_sent"],
             "profile.tpu_step_metrics": probe.stats["steps_sent"]}
     data = b"".join(sink.frames)
-    with open(log_path, "w") as log:
-        proc = subprocess.Popen(
-            [sys.executable, "-m", "deepflow_tpu_torch.server",
-             "--ingest-port", "0", "--query-port", "0"],
-            cwd=os.path.dirname(os.path.abspath(__file__)),
-            stdout=subprocess.PIPE, stderr=log, text=True)
+    proc = _start_server(log_path)
     try:
         ports = _server_ports(proc)
         qport = ports["query_port"]
@@ -390,18 +448,7 @@ def server_phase(sink, probe, seen) -> dict:
         check(cp["step"]["step"] > 0 and cp["attribution"]["verdict"],
               "critical path not empty")
     finally:
-        proc.terminate()
-        try:
-            proc.wait(timeout=60)
-        except subprocess.TimeoutExpired:
-            proc.kill()
-            proc.wait()
-        proc.stdout.close()
-    with open(log_path) as f:
-        log_text = f.read()
-    check(proc.returncode == 0, f"server exit code {proc.returncode}")
-    check("Traceback" not in log_text and " ERROR " not in log_text,
-          f"server logged no exception (see {log_path})")
+        _stop_server(proc, log_path)
     rows = sum(want.values())
     dec = stats["decoders"]
     nums = {"rows": rows, **{t.split(".")[1] + "_rows": n
@@ -416,6 +463,264 @@ def server_phase(sink, probe, seen) -> dict:
     phase("server", **nums)
     return nums
 
+def _proc_sample(pid: int) -> tuple[float, int] | None:
+    """(CPU seconds, resident bytes) of a live process, from /proc; None
+    once it is gone."""
+    try:
+        with open(f"/proc/{pid}/stat") as f:
+            fields = f.read().rsplit(")", 1)[1].split()
+        with open(f"/proc/{pid}/statm") as f:
+            resident_pages = int(f.read().split()[1])
+    except (OSError, IndexError, ValueError):
+        return None
+    # fields[11], fields[12]: utime, stime (stat fields 14 and 15)
+    cpu_s = (int(fields[11]) + int(fields[12])) / os.sysconf("SC_CLK_TCK")
+    return cpu_s, resident_pages * os.sysconf("SC_PAGE_SIZE")
+
+
+def _train_child(args: list[str], name: str) -> dict:
+    """Run one training child to its end while sampling its /proc every
+    0.1 s (CPU time and resident memory; the last sample may be of the
+    exited child, whose CPU time is final); parse its per-step JSON
+    lines."""
+    out_path = os.path.join(OUT_DIR, f"{name}.out")
+    err_path = os.path.join(OUT_DIR, f"{name}.err")
+    with open(out_path, "w") as out, open(err_path, "w") as err:
+        proc = subprocess.Popen([sys.executable, *args], cwd=ROOT,
+                                stdout=out, stderr=err)
+    t0 = time.perf_counter()
+    samples = []   # (seconds since start, CPU seconds, resident bytes)
+    try:
+        while True:
+            got = _proc_sample(proc.pid)
+            if got is not None:
+                samples.append((time.perf_counter() - t0, *got))
+            if proc.poll() is not None:
+                break
+            check(time.perf_counter() - t0 < RUNNER_CHILD_S,
+                  f"{name} ended within {RUNNER_CHILD_S} s")
+            time.sleep(0.1)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    exit_t = time.perf_counter()
+    with open(out_path) as f:
+        steps = [json.loads(line) for line in f if line.startswith("{")]
+    with open(err_path) as f:
+        err_text = f.read()
+    check(proc.returncode == 0,
+          f"{name} exit code {proc.returncode} (see {err_path})")
+    check("Traceback" not in err_text, f"{name} raised (see {err_path})")
+    check(len(steps) > RUNNER_WARMUP, f"{name} printed its steps")
+    ms = [st["ms"] for st in steps[RUNNER_WARMUP:]]
+    train_s = sum(st["ms"] for st in steps) / 1000.0
+    last_t, last_cpu, _ = samples[-1] if samples else (0.0, 0.0, 0)
+    # CPU over the training loop: the last sample against the one
+    # nearest the loop's start
+    t_a, cpu_a, _ = min(samples, key=lambda x: abs(x[0] - (last_t
+                                                           - train_s)),
+                        default=(0.0, 0.0, 0))
+    return {"steps": len(steps), "step_ms_median": statistics.median(ms),
+            "step_ms_mean": statistics.mean(ms), "step_ms_max": max(ms),
+            "samples": len(ms), "loss_last": steps[-1]["loss"],
+            "wall_s": exit_t - t0, "train_s": train_s,
+            "peak_rss_bytes": max((x[2] for x in samples), default=0),
+            "cpu_s": last_cpu,
+            "cpu_per_wall_s": last_cpu / last_t if last_t else 0.0,
+            "cpu_per_wall_s_training": (last_cpu - cpu_a) / (last_t - t_a)
+            if last_t > t_a else 0.0,
+            "exit_t": exit_t, "step_ms_all": [st["ms"] for st in steps]}
+
+
+def _ingest_settled(qport: int) -> dict:
+    """/v1/health once every frame the receiver took is decoded and two
+    polls 0.2 s apart agree."""
+    t0, prev = time.perf_counter(), None
+    while True:
+        _, health, _ = _http(qport, "/v1/health")
+        st = health["stats"]
+        done = sum(d["batches"] + d["errors"] + d["dups"]
+                   for d in st["decoders"].values())
+        settled = done == st["receiver"]["frames"] - \
+            st["receiver"]["dropped"]
+        key = (st["receiver"]["frames"], done)
+        if settled and key == prev:
+            return health
+        check(time.perf_counter() - t0 < SERVER_INGEST_S,
+              "the server decoded every frame it took")
+        prev = key if settled else None
+        time.sleep(0.2)
+
+
+def _closed_port() -> int:
+    """A local TCP port with nothing listening on it."""
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _flame_paths(node: dict, pre: tuple = ()):
+    here = pre + (node["name"],)
+    yield here
+    for c in node["children"]:
+        yield from _flame_paths(c, here)
+
+
+def _cpu_model() -> str:
+    """The host CPU as /proc/cpuinfo names its first processor: vendor,
+    family, model, model name, clock (some kernels report the name as
+    "unknown")."""
+    keys = ("vendor_id", "cpu family", "model", "model name", "cpu MHz")
+    got: dict[str, str] = {}
+    try:
+        with open("/proc/cpuinfo") as f:
+            for line in f:
+                if not line.strip():
+                    break  # the first processor only
+                k, _, v = line.partition(":")
+                if k.strip() in keys:
+                    got[k.strip()] = v.strip()
+    except OSError:
+        pass
+    return ", ".join(f"{k}={got[k]}" for k in keys if k in got) or "unknown"
+
+
+def runner_phase(kernels_per_step_in_process: int, nums: dict) -> None:
+    """The example, plain and under the zero-code runner, with the port's
+    server ingesting live. kernels_per_step_in_process is phase 4's most
+    common kernel count per step; the numbers land in ``nums`` before
+    the checks run."""
+    os.makedirs(OUT_DIR, exist_ok=True)
+    log_path = os.path.join(OUT_DIR, "runner_server.log")
+    proc = _start_server(log_path)
+    try:
+        ports = _server_ports(proc)
+        qport = ports["query_port"]
+        plain = _train_child(
+            ["-m", EXAMPLE, *EXAMPLE_ARGS, "--steps", str(PLAIN_STEPS)],
+            "plain")
+        # the same agent with nothing listening at its server address: no
+        # frame leaves the process, so the live child's difference from
+        # this one is what live ingest costs the loop
+        quiet = _train_child(
+            [*RUNNER, "--server", f"127.0.0.1:{_closed_port()}",
+             "--service", "llama-train", "-m", EXAMPLE, *EXAMPLE_ARGS,
+             "--steps", str(RUNNER_STEPS)], "runner_no_ingest")
+        run = _train_child(
+            [*RUNNER, "--server", f"127.0.0.1:{ports['ingest_port']}",
+             "--service", "llama-train", "-m", EXAMPLE, *EXAMPLE_ARGS,
+             "--steps", str(RUNNER_STEPS)], "runner")
+        health = _ingest_settled(qport)
+        ingest_lag_s = time.perf_counter() - run["exit_t"]
+        stats, tables = health["stats"], health["tables"]
+        _, steps, _ = _http(qport, "/v1/tpu/steps",
+                            {"limit": RUNNER_STEPS + 1})
+        steps = steps["result"]["steps"]
+        kernels, spans_in_steps = [], 0
+        for st in steps:
+            code, ans, _ = _http(qport, "/v1/profile/TpuStepTrace", {
+                "run_id": st["run_id"], "time_start": st["time"],
+                "time_end": st["end_ns"] + 1})
+            check(code == 200, f"TpuStepTrace answers 200 ({ans})")
+            devs = ans["result"]["devices"]
+            # each device's spans less its one module span
+            kernels.append(sum(d["n_spans"] - 1 for d in devs.values()))
+            spans_in_steps += sum(d["n_spans"] for d in devs.values())
+        # consecutive run_ids are one capture's steps
+        by_run = sorted(zip((st["run_id"] for st in steps), kernels))
+        groups: list[list[int]] = []
+        for i, (rid, n) in enumerate(by_run):
+            if not i or rid - by_run[i - 1][0] > 1:
+                groups.append([])
+            groups[-1].append(n)
+        captures = len(groups)
+        capture_modes = [statistics.mode(g) for g in groups]
+        capture_steps = [len(g) for g in groups]
+        _, flame, flame_ms = _http(qport, "/v1/profile/TpuFlame", {})
+        _, cpu, cpu_ms = _http(qport, "/v1/profile/ProfileTracing",
+                               {"app_service": "llama-train"})
+    finally:
+        _stop_server(proc, log_path)
+    flame, cpu = flame["result"], cpu["result"]
+    through_main = [p for p in _flame_paths(cpu) if "runpy.run_module" in p
+                    and "__main__.main" in p[p.index("runpy.run_module"):]]
+    rec, dec = stats["receiver"], stats["decoders"]
+    nums.update({
+        "agent_overhead_pct": (run["step_ms_median"]
+                               - plain["step_ms_median"])
+        / plain["step_ms_median"] * 100.0,
+        "agent_overhead_mean_pct": (run["step_ms_mean"]
+                                    - plain["step_ms_mean"])
+        / plain["step_ms_mean"] * 100.0,
+        **{f"plain_{k}": v for k, v in plain.items()
+           if k not in ("exit_t", "step_ms_all")},
+        **{f"runner_{k}": v for k, v in run.items()
+           if k not in ("exit_t", "step_ms_all")},
+        "live_ingest_pct": (run["step_ms_median"]
+                            - quiet["step_ms_median"])
+        / quiet["step_ms_median"] * 100.0,
+        "live_ingest_mean_pct": (run["step_ms_mean"] - quiet["step_ms_mean"])
+        / quiet["step_ms_mean"] * 100.0,
+        **{f"no_ingest_{k}": v for k, v in quiet.items()
+           if k not in ("exit_t", "step_ms_all")},
+        "kernels_per_step_max": max(kernels, default=0),
+        "kernels_per_step_mode": statistics.mode(kernels) if kernels else 0,
+        "capture_modes": capture_modes, "capture_steps": capture_steps,
+        "kernels_per_step_in_process": kernels_per_step_in_process,
+        "steps_recorded": len(steps), "captures_seen": captures,
+        "spans_in_step_records": spans_in_steps,
+        **{t.split(".")[1] + "_rows": n for t, n in tables.items()},
+        "acks_sent": rec["acks_sent"], "seq_bases": rec["seq_bases"],
+        "frames": rec["frames"], "payload_bytes": rec["bytes"],
+        "bad_frames": rec["bad_frames"], "dropped": rec["dropped"],
+        "decode_errors": sum(d["errors"] for d in dec.values()),
+        "dups": sum(d["dups"] for d in dec.values()),
+        "ingest_lag_s": ingest_lag_s, "tpu_flame_ms": flame_ms,
+        "profile_tracing_ms": cpu_ms,
+        "cpu_stacks_through_main": len(through_main),
+        "host_cpu_count": os.cpu_count(), "host_cpu_model": _cpu_model()})
+    phase("runner", **{k: v for k, v in nums.items()
+                       if not isinstance(v, list)})
+    print(f"  captures (most common kernels per step x steps): "
+          f"{list(zip(capture_modes, capture_steps))}", flush=True)
+    nums.update(runner_step_ms_all=run["step_ms_all"],
+                plain_step_ms_all=plain["step_ms_all"],
+                no_ingest_step_ms_all=quiet["step_ms_all"],
+                kernels_per_step=kernels)
+    check(tables["profile.tpu_hlo_span"] > 0, "kernel span rows")
+    check(tables["profile.tpu_step_metrics"] > 0, "step record rows")
+    check(tables["profile.in_process_profile"] > 0, "CPU profile rows")
+    check(tables["deepflow_system.deepflow_system"] > 0, "self-stats rows")
+    check(captures >= CAPTURES, f"at least {CAPTURES} captures' steps")
+    # the last step of the last capture is recorded only by the probe's
+    # stop inside detach: every span in a step record means it arrived
+    check(spans_in_steps == tables["profile.tpu_hlo_span"],
+          f"every span row ({tables['profile.tpu_hlo_span']}) lies in a "
+          f"step record ({spans_in_steps})")
+    # a step's count can differ at a window's edge (the loss read of the
+    # step before is launched after its optimizer hook), so a capture's
+    # whole step is its most common count. Every capture must see every
+    # kernel of the step: one that lost a launching thread's device
+    # records fails here
+    short = [(i, m, n) for i, (m, n) in enumerate(zip(capture_modes,
+                                                      capture_steps))
+             if m != kernels_per_step_in_process
+             and (i < captures - 1 or n >= WHOLE_CAPTURE_STEPS)]
+    check(not short,
+          f"every capture's whole step holds the in-process path's "
+          f"{kernels_per_step_in_process} kernels (short: capture, kernels, "
+          f"steps = {short})")
+    check(flame["total_value"] > 0 and bool(flame["children"]),
+          "TpuFlame has kernels")
+    check(bool(through_main),
+          "ProfileTracing holds a stack through the example's main")
+    check(rec["acks_sent"] > 0, "the receiver acked")
+    check(nums["decode_errors"] == 0 and rec["bad_frames"] == 0
+          and nums["dups"] == 0 and rec["dropped"] == 0,
+          "no decode error, bad or dropped frame, or dup")
+
 
 def main() -> int:
     import torch
@@ -429,17 +734,28 @@ def main() -> int:
               file=sys.stderr)
         return 2
     t0 = time.perf_counter()
-    result = {"device": device_phase(torch)}
-    model, tokens, result["model"] = model_phase(torch, tl)
-    sink, probe, result["training"], window = training_phase(
-        torch, tl, model, tokens)
-    result["frames"], seen = frames_phase(sink, probe, window)
-    seen["max_bytes_in_use"] = result["frames"]["max_bytes_in_use"]
-    result["server"] = server_phase(sink, probe, seen)
-    result["seconds"] = time.perf_counter() - t0
-    os.makedirs(OUT_DIR, exist_ok=True)
-    with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
-        json.dump(result, f, indent=1)
+    result: dict = {}
+    try:
+        result["device"] = device_phase(torch)
+        model, tokens, result["model"] = model_phase(torch, tl)
+        sink, probe, result["training"], window = training_phase(
+            torch, tl, model, tokens)
+        result["frames"], seen = frames_phase(sink, probe, window)
+        seen["max_bytes_in_use"] = result["frames"]["max_bytes_in_use"]
+        result["server"] = server_phase(sink, probe, seen)
+        # the card's memory to the children
+        del model, tokens, sink, probe, seen
+        gc.collect()
+        torch.cuda.empty_cache()
+        result["runner"] = {}
+        runner_phase(result["frames"]["kernels_per_step_mode"],
+                     result["runner"])
+    finally:
+        # every number so far, also when a check failed
+        result["seconds"] = time.perf_counter() - t0
+        os.makedirs(OUT_DIR, exist_ok=True)
+        with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
+            json.dump(result, f, indent=1)
     # no hand-written kernels in this port yet: the reference has none
     print(json.dumps({"kernels": []}))
     print(json.dumps({"ok": True, "device": {

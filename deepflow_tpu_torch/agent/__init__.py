@@ -1,1 +1,2 @@
-"""Agent side of the probe: its configuration and frame sink."""
+"""Agent side: configuration, the frame sink, the durable sender, the
+OnCPU sampler and the in-process Agent."""

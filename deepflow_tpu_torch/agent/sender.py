@@ -1,0 +1,353 @@
+"""UniformSender: the agent's durable, reconnecting TCP frame sender.
+
+Own copy of ``deepflow_tpu/agent/sender.py::UniformSender`` without its
+on-disk spool, fault injection and telemetry hooks. Every frame carries a
+per-agent ``seq`` (codec v2). The server writes ACK frames (the highest
+contiguous seq it has decoded) back down the same connection; the sender
+keeps sent-but-unacked frames in a bounded window and sends them again
+after a reconnect, and the server's dedup window drops the copies it
+already holds: at-least-once frames, exactly-once rows.
+
+Seq space:
+
+* The counter starts from a per-boot epoch (``time_ns >> 20`` above a
+  22-bit counter), so a restarted agent's seqs lie above anything the
+  server still holds for its agent_id.
+* A seq is allocated at a frame's first write to the wire, never at
+  ``send()``: a frame shed from a full queue owned no seq and leaves no
+  gap that would stall the server's contiguous watermark.
+* Every (re)connect announces ``SEQ_BASE``, the lowest seq this sender
+  may still send; the server moves its watermark up to it.
+
+Under a full queue, ``send()`` sheds the oldest queued frame of a lower
+priority class (``codec.priority_of``: self-stats first) before it drops
+the new frame.
+"""
+
+from __future__ import annotations
+
+import logging
+import queue
+import select
+import socket
+import threading
+import time
+
+from deepflow_tpu_torch.agent.config import parse_addr
+from deepflow_tpu_torch.codec import (
+    FrameDecodeError, FrameHeader, MessageType, StreamDecoder, decode_ack,
+    encode_frame, encode_seq_base, priority_of)
+
+log = logging.getLogger("df.sender")
+
+_PRIO_NAMES = {0: "high", 1: "mid", 2: "low"}
+
+
+class _Frame:
+    """One frame's transit state. ``seq`` stays None until the frame first
+    reaches the wire; ``sent`` turns True at its first write, so later
+    writes count as retransmits."""
+
+    __slots__ = ("msg_type", "payload", "seq", "sent")
+
+    def __init__(self, msg_type: MessageType, payload: bytes) -> None:
+        self.msg_type = msg_type
+        self.payload = payload
+        self.seq: int | None = None
+        self.sent = False
+
+
+class UniformSender:
+    """One TCP connection shipping frames for all message types.
+
+    ``send()`` is thread-safe and never blocks: it enqueues. A background
+    thread frames and writes, reads acks, and reconnects with exponential
+    backoff across the configured servers (failover)."""
+
+    def __init__(self, servers: list, agent_id: int = 0,
+                 queue_size: int = 8192, connect_timeout: float = 3.0,
+                 ack_window: int = 1024) -> None:
+        if not servers:
+            raise ValueError("need at least one server address")
+        self.servers = [parse_addr(s) if isinstance(s, str) else tuple(s)
+                        for s in servers]
+        self.agent_id = agent_id
+        self.connect_timeout = connect_timeout
+        self.ack_window = max(1, ack_window)
+        self._q: queue.Queue = queue.Queue(maxsize=queue_size)
+        self._stop = threading.Event()
+        self._thread: threading.Thread | None = None
+        self._sock: socket.socket | None = None
+        self._server_idx = 0
+        self._seq_lock = threading.Lock()
+        # per-boot epoch in the high bits (~1 ms units) above a 22-bit
+        # counter; a counter that outgrows 22 bits runs on into the epoch
+        # bits and stays monotonic
+        self._next_seq = ((time.time_ns() >> 20) << 22) | 1
+        self.seq_base = self._next_seq - 1     # seqs are seq_base+1, +2, ...
+        self._acked = 0                        # highest contiguous acked
+        self._unacked: dict[int, _Frame] = {}  # sent, awaiting ack
+        self._pending: list[_Frame] = []       # to send again, in order
+        self._inflight: _Frame | None = None
+        self._base_dirty = False  # re-announce SEQ_BASE on this connection
+        # delivered frames evicted from the window before their ack: they
+        # may still sit in a server decode queue, so SEQ_BASE stays below
+        # them (the dedup floor would drop their rows)
+        self._evicted_unacked: set[int] = set()
+        self._ackdec = StreamDecoder()
+        self.stats = {"sent_frames": 0, "sent_bytes": 0, "dropped": 0,
+                      "reconnects": 0, "errors": 0, "retransmits": 0,
+                      "acked_seq": 0, "shed": 0, "unacked_evicted": 0,
+                      "seq_bases": 0}
+
+    def start(self) -> "UniformSender":
+        self._thread = threading.Thread(
+            target=self._run, name="df-uniform-sender", daemon=True)
+        self._thread.start()
+        return self
+
+    def _alloc_seq(self) -> int:
+        with self._seq_lock:
+            seq = self._next_seq
+            self._next_seq += 1
+            return seq
+
+    def send(self, msg_type: MessageType, payload: bytes) -> bool:
+        f = _Frame(msg_type, payload)
+        try:
+            self._q.put_nowait(f)
+            return True
+        except queue.Full:
+            pass
+        # shed the oldest queued frame of a strictly lower class first
+        mine = priority_of(msg_type)
+        victim = self._shed_lower_than(mine)
+        if victim is not None:
+            self.stats["dropped"] += 1
+            self.stats["shed"] += 1
+            log.debug("shed a %s frame for a %s one",
+                      _PRIO_NAMES[priority_of(victim.msg_type)],
+                      _PRIO_NAMES[mine])
+            try:
+                self._q.put_nowait(f)
+                return True
+            except queue.Full:
+                pass  # raced with another sender: drop this one
+        self.stats["dropped"] += 1
+        return False
+
+    def _shed_lower_than(self, prio: int) -> _Frame | None:
+        """Remove and return the oldest queued frame of a strictly lower
+        priority class than ``prio`` (higher number = lower class)."""
+        with self._q.mutex:
+            dq = self._q.queue
+            worst_i, worst_p = -1, prio
+            for i, f in enumerate(dq):
+                p = priority_of(f.msg_type)
+                if p > worst_p:
+                    worst_i, worst_p = i, p
+                    if p == 2:
+                        break  # none lower
+            if worst_i < 0:
+                return None
+            victim = dq[worst_i]
+            del dq[worst_i]
+            self._q.not_full.notify()
+            return victim
+
+    # -- shutdown ------------------------------------------------------------
+
+    def flush_and_stop(self, timeout: float = 5.0) -> None:
+        """Wait up to ``timeout`` for the queue, the resend list and the
+        frame in flight to reach the wire, then stop and close."""
+        deadline = time.monotonic() + timeout
+        while time.monotonic() < deadline:
+            if self._q.empty() and self._inflight is None \
+                    and not self._pending:
+                break
+            if self._stop.wait(0.02):
+                break
+        self._stop.set()
+        if self._thread:
+            self._thread.join(timeout=2.0)
+        self._close()
+
+    def _close(self) -> None:
+        if self._sock:
+            try:
+                self._sock.close()
+            except OSError:
+                pass
+            self._sock = None
+        self._ackdec = StreamDecoder()
+        # the server may or may not hold the unacked frames: send them
+        # again (dedup makes that safe), HIGH class first, seq order
+        # within a class
+        if self._unacked:
+            backlog = list(self._unacked.values())
+            self._unacked.clear()
+            self._pending = sorted(
+                self._pending + backlog,
+                key=lambda f: (priority_of(f.msg_type), f.seq))
+
+    def _fail_over(self, what: str, err: Exception) -> None:
+        log.warning("%s failed (%s); reconnecting", what, err)
+        self.stats["errors"] += 1
+        self._close()
+        self._server_idx = (self._server_idx + 1) % len(self.servers)
+
+    def _connect(self) -> bool:
+        """Try the servers round-robin from the current one."""
+        for i in range(len(self.servers)):
+            idx = (self._server_idx + i) % len(self.servers)
+            try:
+                s = socket.create_connection(self.servers[idx],
+                                             timeout=self.connect_timeout)
+            except OSError:
+                continue
+            s.settimeout(10.0)
+            self._sock = s
+            self._server_idx = idx
+            self.stats["reconnects"] += 1
+            return True
+        return False
+
+    # -- seq-base announcements ----------------------------------------------
+
+    def _outstanding_base(self) -> int:
+        """Lowest seq this sender may still (re)send; everything below it
+        is acked or will never be sent. A too-low answer is harmless: the
+        server only moves forward."""
+        with self._seq_lock:
+            cands = [self._next_seq]
+        f = self._inflight
+        if f is not None and f.seq is not None:
+            cands.append(f.seq)
+        cands.extend(fr.seq for fr in self._pending if fr.seq is not None)
+        if self._unacked:
+            cands.append(min(self._unacked))
+        if self._evicted_unacked:
+            cands.append(min(self._evicted_unacked))
+        return min(cands)
+
+    def _send_base(self) -> None:
+        """Announce SEQ_BASE on the live connection (worker thread only)."""
+        frame = encode_seq_base(self.agent_id, self._outstanding_base())
+        try:
+            self._sock.sendall(frame)
+        except OSError as e:
+            self._fail_over("seq-base send", e)
+            return
+        self.stats["seq_bases"] += 1
+        self.stats["sent_bytes"] += len(frame)
+        self._base_dirty = False
+
+    # -- ack processing ------------------------------------------------------
+
+    def _read_acks(self) -> None:
+        """Drain the ACK frames the server wrote back (non-blocking)."""
+        sock = self._sock
+        if sock is None:
+            return
+        try:
+            while True:
+                r, _, _ = select.select([sock], [], [], 0)
+                if not r:
+                    return
+                data = sock.recv(4096)
+                if not data:
+                    raise OSError("server closed connection")
+                for header, payload in self._ackdec.feed(data):
+                    if header.msg_type == MessageType.ACK:
+                        self._on_ack(decode_ack(payload))
+        except (OSError, FrameDecodeError) as e:
+            self._fail_over("ack channel", e)
+
+    def _on_ack(self, seq: int) -> None:
+        if seq <= self._acked:
+            return
+        self._acked = seq
+        self.stats["acked_seq"] = seq
+        for s in [s for s in self._unacked if s <= seq]:
+            del self._unacked[s]
+        self._pending = [f for f in self._pending
+                         if f.seq is None or f.seq > seq]
+        self._evicted_unacked = {s for s in self._evicted_unacked
+                                 if s > seq}
+        # everything below a gap of never-sent seqs is acked: announce the
+        # jump so the server's watermark does not stall at the gap's edge
+        if self._outstanding_base() > seq + 1:
+            self._base_dirty = True
+
+    # -- send loop -----------------------------------------------------------
+
+    def _next_frame(self) -> _Frame | None:
+        if self._pending:
+            return self._pending.pop(0)
+        try:
+            return self._q.get(timeout=0.2)
+        except queue.Empty:
+            return None
+
+    def _send_frame(self, f: _Frame) -> None:
+        self._inflight = f
+        if f.seq is None:
+            # first wire write: the seq is born here, in write order
+            f.seq = self._alloc_seq()
+        frame = encode_frame(
+            FrameHeader(f.msg_type, agent_id=self.agent_id, seq=f.seq),
+            f.payload)
+        try:
+            self._sock.sendall(frame)
+        except OSError as e:
+            # the frame is not lost: it goes first when the connection is
+            # back (or to the next server)
+            self._pending.insert(0, f)
+            self._fail_over("send", e)
+            return
+        finally:
+            self._inflight = None
+        self.stats["sent_frames"] += 1
+        self.stats["sent_bytes"] += len(frame)
+        if f.sent:
+            self.stats["retransmits"] += 1
+        f.sent = True
+        self._unacked[f.seq] = f
+        self._cap_unacked()
+
+    def _cap_unacked(self) -> None:
+        """Bound the window's memory. An evicted frame was delivered; only
+        the chance to send it again is lost, so past the window delivery
+        is at-most-once. A server that acks never lets it fill."""
+        while len(self._unacked) > self.ack_window:
+            oldest = min(self._unacked)
+            del self._unacked[oldest]
+            self._evicted_unacked.add(oldest)
+            self.stats["unacked_evicted"] += 1
+        while len(self._evicted_unacked) > 4 * self.ack_window:
+            self._evicted_unacked.discard(min(self._evicted_unacked))
+
+    def _run(self) -> None:
+        backoff = 0.1
+        while not self._stop.is_set():
+            if self._sock is None:
+                if not self._connect():
+                    # interruptible, so flush_and_stop returns promptly
+                    if self._stop.wait(min(backoff, 5.0)):
+                        return
+                    backoff = min(backoff * 2, 5.0)
+                    continue
+                backoff = 0.1
+                self._send_base()  # adopt this boot's seq space
+                if self._sock is None:
+                    continue
+            self._read_acks()
+            if self._sock is None:
+                continue  # the ack channel died; reconnect first
+            if self._base_dirty:
+                self._send_base()
+                if self._sock is None:
+                    continue
+            f = self._next_frame()
+            if f is not None:
+                self._send_frame(f)

@@ -1,0 +1,58 @@
+"""deepflow-run for the PyTorch port: profile a script with no change to
+its code.
+
+    python -m deepflow_tpu_torch.cli.runner [--server H:P] [--service NAME]
+        [--device cuda|cpu] [-m] target [args...]
+
+Attaches the in-process agent (OnCPU sampler, device probe, self-stats,
+durable sender), then runs the target with ``runpy`` as a script path or,
+with ``-m``, as a module, and detaches when it ends. The runner itself
+never touches the device: the probe waits until the workload has
+initialised CUDA. Without CUDA it exits with status 2 unless ``--device
+cpu`` is given.
+"""
+
+from __future__ import annotations
+
+import argparse
+import runpy
+import sys
+
+from deepflow_tpu_torch.agent.agent import attach, detach
+from deepflow_tpu_torch.device import resolve_device
+
+
+def main(argv: list[str] | None = None) -> int:
+    parser = argparse.ArgumentParser(prog="deepflow-run")
+    parser.add_argument("--server", default="127.0.0.1:20033")
+    parser.add_argument("--service", default="")
+    parser.add_argument("--device", default="cuda",
+                        help="cuda (default) or cpu: where the workload "
+                             "runs; the device probe needs cuda")
+    parser.add_argument("-m", dest="module", action="store_true",
+                        help="run target as a module (python -m style)")
+    parser.add_argument("target")
+    parser.add_argument("args", nargs=argparse.REMAINDER)
+    opts = parser.parse_args(argv)
+    try:
+        resolve_device(opts.device)  # asks is_available(), no context
+    except RuntimeError as e:
+        print(f"deepflow-run: {e}", file=sys.stderr)
+        return 2
+
+    attach(app_service=opts.service or opts.target, servers=[opts.server],
+           device=opts.device)
+    sys.argv = [opts.target] + opts.args
+    try:
+        if opts.module:
+            runpy.run_module(opts.target, run_name="__main__",
+                             alter_sys=True)
+        else:
+            runpy.run_path(opts.target, run_name="__main__")
+        return 0
+    finally:
+        detach()
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -12,6 +12,11 @@ Frame layout (big-endian), 18-byte header followed by the payload:
 Version 2 frames carry a u64 ``seq`` between the header and the payload
 (frame_size covers it; the crc covers the payload only). Payloads over
 512 bytes are zlib-compressed, flagged by bit 0x80 of the version byte.
+
+The durable transport adds two control frames with a u64 payload: ACK
+(server -> agent, the highest contiguous seq received) and SEQ_BASE
+(agent -> server, the lowest seq the agent may still send). Priority
+classes say which message types a full sender queue sheds first.
 """
 
 from __future__ import annotations
@@ -53,6 +58,32 @@ class MessageType(IntEnum):
     CACHE_PARTIAL = 16
 
 
+# Delivery priority classes: under queue pressure the sender sheds by
+# class, lowest first. Self-monitoring re-ships on the next tick; profile,
+# span and step data is shed last.
+PRIORITY_HIGH = 0   # never shed for another frame
+PRIORITY_MID = 1    # shed after LOW is exhausted
+PRIORITY_LOW = 2    # shed first
+
+_PRIORITY = {
+    MessageType.DFSTATS: PRIORITY_LOW,
+    MessageType.PCAP: PRIORITY_LOW,
+    MessageType.ACK: PRIORITY_LOW,
+    MessageType.SEQ_BASE: PRIORITY_LOW,
+    MessageType.METRICS: PRIORITY_MID,
+    MessageType.EVENT: PRIORITY_MID,
+    MessageType.OTEL: PRIORITY_MID,
+    MessageType.PROMETHEUS: PRIORITY_MID,
+    MessageType.APP_LOG: PRIORITY_MID,
+    MessageType.SHARD_RESULT: PRIORITY_MID,
+}
+
+
+def priority_of(msg_type: MessageType) -> int:
+    """Shed class for a message type (HIGH unless registered lower)."""
+    return _PRIORITY.get(msg_type, PRIORITY_HIGH)
+
+
 @dataclass(frozen=True)
 class FrameHeader:
     msg_type: MessageType
@@ -85,6 +116,33 @@ def encode_frame(header: FrameHeader, payload: bytes,
         HEADER_FMT, size, MAGIC, ver, int(header.msg_type),
         header.agent_id, header.org_id, header.team_id, crc)
     return hdr + ext + payload
+
+
+def encode_ack(agent_id: int, seq: int) -> bytes:
+    """Server->agent ACK: highest contiguous seq received for agent_id."""
+    return encode_frame(FrameHeader(MessageType.ACK, agent_id=agent_id),
+                        struct.pack(SEQ_EXT_FMT, seq), compress=False)
+
+
+def decode_ack(payload: bytes) -> int:
+    if len(payload) < SEQ_EXT_SIZE:
+        raise FrameDecodeError("short ACK payload")
+    return struct.unpack_from(SEQ_EXT_FMT, payload)[0]
+
+
+def encode_seq_base(agent_id: int, base: int) -> bytes:
+    """Agent->server: no frame with seq < base will be sent (again). The
+    server moves its contiguous watermark to base - 1, forward only, so a
+    restarted agent's fresh seq space, or a gap of seqs that will never
+    come, does not stall its acks."""
+    return encode_frame(FrameHeader(MessageType.SEQ_BASE, agent_id=agent_id),
+                        struct.pack(SEQ_EXT_FMT, base), compress=False)
+
+
+def decode_seq_base(payload: bytes) -> int:
+    if len(payload) < SEQ_EXT_SIZE:
+        raise FrameDecodeError("short SEQ_BASE payload")
+    return struct.unpack_from(SEQ_EXT_FMT, payload)[0]
 
 
 def decode_frame(buf: bytes, off: int = 0

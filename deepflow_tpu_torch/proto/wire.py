@@ -1,15 +1,20 @@
-"""Dependency-free protobuf codec for the device-span messages.
+"""Dependency-free protobuf codec for the messages the agent ships.
 
-Encodes and decodes ``TpuSpan``, ``TpuMemorySample`` and ``TpuSpanBatch``
-of ``deepflow_tpu/proto/messages.proto`` without the protobuf package: the
-fields are written in field-number order and proto3 defaults (0, "") are
-skipped, so ``TpuSpanBatch.SerializeToString()`` gives the same bytes as
-the generated class. Unknown fields are skipped on decode.
+Encodes and decodes ``TpuSpan``, ``TpuMemorySample``, ``TpuSpanBatch``,
+``Profile``, ``ProfileBatch``, ``StatsMetric`` and ``StatsBatch`` of
+``deepflow_tpu/proto/messages.proto`` without the protobuf package: the
+fields are written in field-number order and proto3 defaults (0, "", b"")
+are skipped, so ``TpuSpanBatch`` and ``ProfileBatch`` serialize to the
+same bytes as the generated classes. ``StatsMetric``'s two maps are
+written in their dicts' order, each entry with its key and value; map
+order on the wire is not fixed, so only the parsed messages compare.
+Unknown fields are skipped on decode.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import struct
 from dataclasses import dataclass, field
 from enum import IntEnum
 
@@ -21,6 +26,15 @@ class TpuSpanKind(IntEnum):
     DEVICE_TRANSFER = 3     # memcpy / memset
     HOST_RUNTIME = 4
     HOST_COMPILE = 5
+
+
+class ProfileEventType(IntEnum):
+    PROFILE_EVENT_UNKNOWN = 0
+    ON_CPU = 1
+    OFF_CPU = 2
+    MEM_ALLOC = 3
+    TPU_DEVICE = 4
+    TPU_HOST = 5
 
 
 SPAN_UNKNOWN = TpuSpanKind.SPAN_UNKNOWN
@@ -75,12 +89,29 @@ class TpuMemorySample:
     process_name: str = ""
 
 
+@dataclass
+class Profile:
+    process_name: str = ""
+    app_service: str = ""
+    pid: int = 0
+    tid: int = 0
+    thread_name: str = ""
+    event_type: int = 0     # ProfileEventType
+    timestamp_ns: int = 0
+    stack: bytes = b""      # folded: root;frame;...;leaf
+    value: int = 0          # microseconds or bytes
+    count: int = 0
+    container_id: str = ""
+    profiler: str = ""
+
+
 def _schema(cls, widths: dict[str, int]) -> tuple:
-    """(name, field number, "u" varint | "s" string, max value) per field;
-    the dataclass fields are declared in field-number order."""
+    """(name, field number, "u" varint | "s" string | "b" bytes, max
+    value) per field; the dataclass fields are declared in field-number
+    order."""
     out = []
     for num, f in enumerate(dataclasses.fields(cls), start=1):
-        kind = "s" if f.type == "str" else "u"
+        kind = {"str": "s", "bytes": "b"}.get(f.type, "u")
         out.append((f.name, num, kind, widths.get(f.name, _U64)))
     return tuple(out)
 
@@ -90,6 +121,8 @@ _SPAN_SCHEMA = _schema(TpuSpan, {
                       "program_id", "run_id", "replica_group_size", "pid")})
 _MEM_SCHEMA = _schema(TpuMemorySample, {
     n: _U32 for n in ("device_id", "num_allocs", "pid")})
+_PROFILE_SCHEMA = _schema(Profile, {
+    n: _U32 for n in ("pid", "tid", "event_type", "count")})
 
 
 def _varint(v: int) -> bytes:
@@ -102,14 +135,17 @@ def _varint(v: int) -> bytes:
             return bytes(out)
 
 
+def _len_field(num: int, b: bytes) -> bytes:
+    return _varint(num << 3 | 2) + _varint(len(b)) + b
+
+
 def _encode_msg(msg, schema) -> bytes:
     out = bytearray()
     for name, num, kind, vmax in schema:
         v = getattr(msg, name)
-        if kind == "s":
+        if kind in "sb":
             if v:
-                b = v.encode()
-                out += _varint(num << 3 | 2) + _varint(len(b)) + b
+                out += _len_field(num, v.encode() if kind == "s" else v)
         elif v:
             v = int(v)
             if not 0 <= v <= vmax:
@@ -134,43 +170,42 @@ def _read_varint(buf: bytes, i: int) -> tuple[int, int]:
 
 
 def _iter_fields(buf: bytes):
-    """(field number, value) for each field; varints as int, length-
-    delimited as bytes, fixed widths skipped."""
+    """(field number, wire type, value) for each field; varints as int,
+    length-delimited and fixed-width fields as their bytes."""
     i, n = 0, len(buf)
     while i < n:
         tag, i = _read_varint(buf, i)
         num, wt = tag >> 3, tag & 7
         if wt == 0:
             v, i = _read_varint(buf, i)
-            yield num, v
-        elif wt == 2:
+            yield num, wt, v
+            continue
+        if wt == 2:
             ln, i = _read_varint(buf, i)
-            if i + ln > n:
-                raise WireError("truncated bytes")
-            yield num, buf[i:i + ln]
-            i += ln
         elif wt in (1, 5):
-            i += 8 if wt == 1 else 4
-            if i > n:
-                raise WireError("truncated fixed field")
+            ln = 8 if wt == 1 else 4
         else:
             raise WireError(f"unsupported wire type {wt}")
+        if i + ln > n:
+            raise WireError("truncated field")
+        yield num, wt, buf[i:i + ln]
+        i += ln
 
 
 def _decode_msg(buf: bytes, cls, schema):
     by_num = {num: (name, kind) for name, num, kind, _ in schema}
     msg = cls()
-    for num, v in _iter_fields(buf):
+    for num, wt, v in _iter_fields(buf):
         spec = by_num.get(num)
         if spec is None:
             continue
         name, kind = spec
-        if kind == "s":
-            if not isinstance(v, bytes):
+        if kind in "sb":
+            if wt != 2:
                 raise WireError(f"{name}: expected a string")
-            setattr(msg, name, v.decode("utf-8"))
+            setattr(msg, name, v.decode("utf-8") if kind == "s" else v)
         else:
-            if not isinstance(v, int):
+            if wt != 0:
                 raise WireError(f"{name}: expected a varint")
             setattr(msg, name, v)
     return msg
@@ -186,17 +221,97 @@ class TpuSpanBatch:
         for num, items, schema in ((1, self.spans, _SPAN_SCHEMA),
                                    (2, self.memory, _MEM_SCHEMA)):
             for m in items:
-                b = _encode_msg(m, schema)
-                out += _varint(num << 3 | 2) + _varint(len(b)) + b
+                out += _len_field(num, _encode_msg(m, schema))
         return bytes(out)
 
     @classmethod
     def FromString(cls, data) -> "TpuSpanBatch":  # noqa: N802
         batch = cls()
-        for num, v in _iter_fields(bytes(data)):
-            if num == 1:
+        for num, wt, v in _iter_fields(bytes(data)):
+            if num == 1 and wt == 2:
                 batch.spans.append(_decode_msg(v, TpuSpan, _SPAN_SCHEMA))
-            elif num == 2:
+            elif num == 2 and wt == 2:
                 batch.memory.append(
                     _decode_msg(v, TpuMemorySample, _MEM_SCHEMA))
         return batch
+
+
+@dataclass
+class ProfileBatch:
+    profiles: list = field(default_factory=list)
+
+    def SerializeToString(self) -> bytes:  # noqa: N802
+        return b"".join(_len_field(1, _encode_msg(p, _PROFILE_SCHEMA))
+                        for p in self.profiles)
+
+    @classmethod
+    def FromString(cls, data) -> "ProfileBatch":  # noqa: N802
+        return cls([_decode_msg(v, Profile, _PROFILE_SCHEMA)
+                    for num, wt, v in _iter_fields(bytes(data))
+                    if num == 1 and wt == 2])
+
+
+@dataclass
+class StatsMetric:
+    name: str = ""
+    timestamp_ns: int = 0
+    tags: dict = field(default_factory=dict)     # str -> str
+    values: dict = field(default_factory=dict)   # str -> float (double)
+
+    def encode(self) -> bytes:
+        out = bytearray()
+        if self.name:
+            out += _len_field(1, self.name.encode())
+        if self.timestamp_ns:
+            if not 0 <= self.timestamp_ns <= _U64:
+                raise WireError(f"timestamp_ns={self.timestamp_ns} "
+                                "out of range")
+            out += _varint(2 << 3) + _varint(int(self.timestamp_ns))
+        for k, v in self.tags.items():
+            out += _len_field(3, _len_field(1, k.encode())
+                              + _len_field(2, v.encode()))
+        for k, v in self.values.items():
+            out += _len_field(4, _len_field(1, k.encode()) + _varint(2 << 3 | 1)
+                              + struct.pack("<d", float(v)))
+        return bytes(out)
+
+    @classmethod
+    def decode(cls, buf: bytes) -> "StatsMetric":
+        m = cls()
+        for num, wt, v in _iter_fields(buf):
+            if num == 1 and wt == 2:
+                m.name = v.decode("utf-8")
+            elif num == 2 and wt == 0:
+                m.timestamp_ns = v
+            elif num in (3, 4) and wt == 2:
+                key, val = _map_entry(v, num)
+                (m.tags if num == 3 else m.values)[key] = val
+        return m
+
+
+def _map_entry(buf: bytes, num: int) -> tuple:
+    """(key, value) of one map entry; an entry may leave either out, and
+    then it takes its default."""
+    key, val = "", "" if num == 3 else 0.0
+    for f, wt, v in _iter_fields(buf):
+        if f == 1 and wt == 2:
+            key = v.decode("utf-8")
+        elif f == 2 and num == 3 and wt == 2:
+            val = v.decode("utf-8")
+        elif f == 2 and num == 4 and wt == 1:
+            val = struct.unpack("<d", v)[0]
+    return key, val
+
+
+@dataclass
+class StatsBatch:
+    metrics: list = field(default_factory=list)
+
+    def SerializeToString(self) -> bytes:  # noqa: N802
+        return b"".join(_len_field(1, m.encode()) for m in self.metrics)
+
+    @classmethod
+    def FromString(cls, data) -> "StatsBatch":  # noqa: N802
+        return cls([StatsMetric.decode(v)
+                    for num, wt, v in _iter_fields(bytes(data))
+                    if num == 1 and wt == 2])

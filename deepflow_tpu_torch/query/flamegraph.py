@@ -1,7 +1,8 @@
-"""Flame-graph tree assembly from folded stacks, and the per-kernel
-device-time flame over span events.
+"""Flame-graph tree assembly from folded stacks, the CPU flame graph over
+the profile table, and the per-kernel device-time flame over span events.
 
-``build_flame_tree`` is an own copy of the reference's
+``build_flame_tree``, ``profile_stack_values``, ``merge_stack_values`` and
+``profile_flame_tree`` are own copies of the reference's
 (``deepflow_tpu/query/flamegraph.py``); ``device_flame`` folds spans as
 the reference server's ``tpu_flame`` query does
 (``deepflow_tpu/server/querier.py``), without the store in between.
@@ -11,7 +12,10 @@ from __future__ import annotations
 
 from dataclasses import dataclass, field
 
+import numpy as np
+
 from deepflow_tpu_torch.proto import wire
+from deepflow_tpu_torch.store.table import ColumnarTable
 
 SEP = ";"
 DEVICE_KINDS = (wire.DEVICE_COMPUTE, wire.DEVICE_COLLECTIVE,
@@ -54,6 +58,76 @@ def build_flame_tree(stacks: list[str], values: list[int],
             node = child
         node.self_value += value
     return root
+
+
+def profile_stack_values(table: ColumnarTable,
+                         time_start_ns: int | None = None,
+                         time_end_ns: int | None = None,
+                         event_type: str | None = None,
+                         app_service: str | None = None,
+                         profiler: str | None = None) -> tuple[list, list]:
+    """(folded stacks, summed values) of the rows that pass the filters:
+    grouped by the stack's dictionary id, and only the surviving ids are
+    decoded. A None filter is no filter; an unknown app_service or
+    profiler matches nothing; an unknown event_type raises ValueError."""
+    d = table.dicts["stack"]
+    etype_code = None
+    if event_type is not None:
+        etype_code = table.columns["event_type"].enum_of(event_type)
+    svc_code = None
+    if app_service is not None:
+        svc_code = table.dicts["app_service"].lookup(app_service)
+        if svc_code is None:
+            return [], []
+    prof_code = None
+    if profiler is not None:
+        prof_code = table.dicts["profiler"].lookup(profiler)
+        if prof_code is None:
+            return [], []
+    agg: dict[int, int] = {}
+    for ch in table.snapshot():
+        mask = np.ones(len(ch["stack"]), dtype=bool)
+        if time_start_ns is not None:
+            mask &= ch["time"] >= time_start_ns
+        if time_end_ns is not None:
+            mask &= ch["time"] < time_end_ns
+        if etype_code is not None:
+            mask &= ch["event_type"] == etype_code
+        if svc_code is not None:
+            mask &= ch["app_service"] == svc_code
+        if prof_code is not None:
+            mask &= ch["profiler"] == prof_code
+        sids = ch["stack"][mask]
+        if not len(sids):
+            continue
+        uniq, inv = np.unique(sids, return_inverse=True)
+        sums = np.bincount(inv, weights=ch["value"][mask]
+                           .astype(np.float64))
+        for sid, v in zip(uniq.tolist(), sums.tolist()):
+            agg[sid] = agg.get(sid, 0) + int(v)
+    return [d.decode(sid) for sid in agg], list(agg.values())
+
+
+def merge_stack_values(parts: list[tuple[list, list]]) -> tuple[list, list]:
+    """Sum several (stacks, values) aggregates by stack string."""
+    agg: dict[str, int] = {}
+    for stacks, values in parts:
+        for s, v in zip(stacks, values):
+            agg[s] = agg.get(s, 0) + int(v)
+    return list(agg.keys()), list(agg.values())
+
+
+def profile_flame_tree(table: ColumnarTable,
+                       time_start_ns: int | None = None,
+                       time_end_ns: int | None = None,
+                       event_type: str | None = None,
+                       app_service: str | None = None,
+                       profiler: str | None = None) -> FlameNode:
+    """Flame tree straight off the in_process_profile table."""
+    stacks, values = profile_stack_values(
+        table, time_start_ns=time_start_ns, time_end_ns=time_end_ns,
+        event_type=event_type, app_service=app_service, profiler=profiler)
+    return build_flame_tree(stacks, values)
 
 
 def device_flame(spans, include_host: bool = False) -> FlameNode:

@@ -1,9 +1,11 @@
 """Per-message-type decoders: frame payloads -> tag-injected store rows.
 
 Own copy of the profile path of ``deepflow_tpu/server/decoders.py``: the
+``DedupWindow`` that makes retransmitted frames into no second row, the
 ``Decoder`` base (one receiver queue, a worker thread, stats) and the
-TPU_SPAN and STEP_METRICS decoders. Span batches decode with this
-package's ``proto/wire.py``; there is no native columnar decode here.
+PROFILE, TPU_SPAN, STEP_METRICS and DFSTATS decoders. Payloads decode
+with this package's ``proto/wire.py``; there is no native columnar
+decode here.
 """
 
 from __future__ import annotations
@@ -44,17 +46,88 @@ def _shifted(times: list[int], off: int) -> np.ndarray:
     return (t.astype(np.int64) + off).astype(np.uint64)
 
 
+class DedupWindow:
+    """Per-agent exactly-once guard: a floor that advances with
+    contiguity plus a bounded park set of decoded seqs above it.
+
+    Every seq at or below an agent's floor is a dup; seqs above it park
+    and are absorbed into the floor as the run becomes contiguous. Floors
+    also move forward by ``advance_floor`` (SEQ_BASE). If a park set
+    outgrows ``capacity`` (an unannounced permanent gap), the floor jumps
+    to the oldest parked seq. One window is shared by all decoders: the
+    seq space is per agent, not per message type."""
+
+    def __init__(self, capacity: int = 65536) -> None:
+        self.capacity = capacity
+        self._lock = threading.Lock()
+        # agent_id -> [floor, set of parked seqs > floor]
+        self._state: dict[int, list] = {}
+        self.stats = {"dups": 0, "tracked": 0, "floor_jumps": 0}
+
+    def seen(self, agent_id: int, seq: int) -> bool:
+        """Mark (agent, seq); True if it was marked before (a dup)."""
+        with self._lock:
+            st = self._state.get(agent_id)
+            if st is None:
+                st = self._state[agent_id] = [0, set()]
+            floor, parked = st
+            if seq <= floor or seq in parked:
+                self.stats["dups"] += 1
+                return True
+            parked.add(seq)
+            self.stats["tracked"] += 1
+            if seq == floor + 1:
+                while floor + 1 in parked:
+                    floor += 1
+                    parked.discard(floor)
+                st[0] = floor
+            elif len(parked) > self.capacity:
+                floor = min(parked)
+                parked.discard(floor)
+                while floor + 1 in parked:
+                    floor += 1
+                    parked.discard(floor)
+                st[0] = floor
+                self.stats["floor_jumps"] += 1
+            return False
+
+    def advance_floor(self, agent_id: int, floor: int) -> None:
+        """Forward-only floor jump (SEQ_BASE)."""
+        with self._lock:
+            st = self._state.get(agent_id)
+            if st is None:
+                self._state[agent_id] = [floor, set()]
+                return
+            if floor <= st[0]:
+                return
+            parked = st[1]
+            parked.difference_update({s for s in parked if s <= floor})
+            while floor + 1 in parked:
+                floor += 1
+                parked.discard(floor)
+            st[0] = floor
+
+
 class Decoder:
-    """Base: drain one queue, decode, write. Subclasses set MSG_TYPE."""
+    """Base: drain one queue, decode, write. Subclasses set MSG_TYPE.
+
+    With a ``dedup`` window, a seq'd frame seen before is counted in
+    ``dups`` and writes nothing. With a ``seq_tracker``, every seq'd frame
+    is observed after the pass that wrote its rows, so an ack means the
+    rows are in the store (dups and decode errors are observed too: a
+    resend would meet the same fate)."""
 
     MSG_TYPE: MessageType
     DRAIN_FRAMES = 64  # max frames one wakeup consumes
 
     def __init__(self, q: queue.Queue, db: Database,
-                 platform: PlatformInfoTable) -> None:
+                 platform: PlatformInfoTable, dedup: DedupWindow | None = None,
+                 seq_tracker=None) -> None:
         self.q = q
         self.db = db
         self.platform = platform
+        self.dedup = dedup
+        self.seq_tracker = seq_tracker
         self._stop = threading.Event()
         self._thread: threading.Thread | None = None
         self._stats_lock = threading.Lock()
@@ -89,9 +162,13 @@ class Decoder:
 
     def _handle_items(self, items: list) -> None:
         """Decode and write a list of (header, payload)."""
-        batches = rows = errors = 0
+        batches = rows = errors = dups = 0
         t0 = time.perf_counter_ns()
         for header, payload in items:
+            if (self.dedup is not None and header.seq is not None
+                    and self.dedup.seen(header.agent_id, header.seq)):
+                dups += 1
+                continue
             try:
                 rows += self.handle(header, payload)
                 batches += 1
@@ -99,10 +176,15 @@ class Decoder:
                 errors += 1
                 log.exception("decode error (%s)", self.MSG_TYPE.name)
         dt = time.perf_counter_ns() - t0
+        if self.seq_tracker is not None:
+            for header, _ in items:
+                if header.seq is not None:
+                    self.seq_tracker.observe(header.agent_id, header.seq)
         with self._stats_lock:
             self.stats["batches"] += batches
             self.stats["rows"] += rows
             self.stats["errors"] += errors
+            self.stats["dups"] += dups
             self.stats["handle_ns"] += dt
 
     def _run(self) -> None:
@@ -145,6 +227,59 @@ class Decoder:
     def write_columns(self, table_name: str, cols: dict, n: int) -> None:
         self._timed_append(self.db.table(table_name).append_columns,
                            cols, n)
+
+
+class ProfileDecoder(Decoder):
+    """ProfileBatch -> profile.in_process_profile."""
+
+    MSG_TYPE = MessageType.PROFILE
+
+    def handle(self, header: FrameHeader, payload: bytes) -> int:
+        batch = wire.ProfileBatch.FromString(payload)
+        tags = self._agent_tags(header)
+        off = self._clock_offset(header)
+        rows = [{
+            "time": p.timestamp_ns + off,
+            "app_service": p.app_service or p.process_name,
+            "process_name": p.process_name,
+            "event_type": int(p.event_type),
+            "profiler": p.profiler,
+            "pid": p.pid,
+            "tid": p.tid,
+            "thread_name": p.thread_name,
+            "stack": p.stack.decode("utf-8", "replace"),
+            "value": p.value,
+            "count": p.count,
+            **tags,
+        } for p in batch.profiles]
+        self.write("profile.in_process_profile", rows)
+        return len(rows)
+
+
+class StatsDecoder(Decoder):
+    """StatsBatch -> deepflow_system.deepflow_system (self-stats): one row
+    per (metric, value name)."""
+
+    MSG_TYPE = MessageType.DFSTATS
+
+    def handle(self, header: FrameHeader, payload: bytes) -> int:
+        batch = wire.StatsBatch.FromString(payload)
+        tags = self._agent_tags(header)
+        off = self._clock_offset(header)
+        rows = []
+        for m in batch.metrics:
+            tag_json = json.dumps(m.tags, sort_keys=True)
+            for vname, v in m.values.items():
+                rows.append({
+                    "time": m.timestamp_ns + off,
+                    "metric_name": m.name,
+                    "tag_json": tag_json,
+                    "value_name": vname,
+                    "value": v,
+                    **tags,
+                })
+        self.write("deepflow_system.deepflow_system", rows)
+        return len(rows)
 
 
 class TpuSpanDecoder(Decoder):

@@ -1,7 +1,8 @@
 """Querier: the profile queries over the store, and their HTTP API.
 
-Own copy of the TPU queries of ``deepflow_tpu/server/querier.py``
-(``tpu_flame``, ``tpu_memory``, ``tpu_collectives``, ``tpu_step_trace``,
+Own copy of the profile queries of ``deepflow_tpu/server/querier.py``
+(``profile_tracing``, the CPU flame graph, and the TPU queries
+``tpu_flame``, ``tpu_memory``, ``tpu_collectives``, ``tpu_step_trace``,
 ``tpu_steps``, ``tpu_step_critical_path``) and of their POST routes, with
 the same request bodies and answers. The reference phrases each query in
 DF-SQL; here each is the same filter, group-by and sort over the table's
@@ -16,7 +17,8 @@ import threading
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
 from deepflow_tpu_torch.query import columnar
-from deepflow_tpu_torch.query.flamegraph import build_flame_tree
+from deepflow_tpu_torch.query.flamegraph import (
+    build_flame_tree, profile_flame_tree)
 from deepflow_tpu_torch.server import stephealth
 from deepflow_tpu_torch.store.db import Database
 from deepflow_tpu_torch.store.schema import TPU_SPAN_KINDS
@@ -63,6 +65,19 @@ class QuerierAPI:
                        for name in self.db.tables()},
             "stats": self.stats_provider(),
         }
+
+    def profile_tracing(self, body: dict) -> dict:
+        """CPU flame graph of the sampled stacks; each of time_start,
+        time_end (ns), event_type, app_service and profiler filters when
+        given."""
+        tree = profile_flame_tree(
+            self.db.table("profile.in_process_profile"),
+            time_start_ns=body.get("time_start"),
+            time_end_ns=body.get("time_end"),
+            event_type=body.get("event_type"),
+            app_service=body.get("app_service"),
+            profiler=body.get("profiler"))
+        return {"result": tree.to_dict()}
 
     def tpu_flame(self, body: dict) -> dict:
         """Flame view over device spans: module -> category -> op.
@@ -236,6 +251,7 @@ class QuerierHTTP:
     def start(self) -> "QuerierHTTP":
         api = self.api
         routes = {
+            "/v1/profile/ProfileTracing": api.profile_tracing,
             "/v1/profile/TpuFlame": api.tpu_flame,
             "/v1/profile/TpuCollectives": api.tpu_collectives,
             "/v1/profile/TpuStepTrace": api.tpu_step_trace,

@@ -1,10 +1,17 @@
-"""Framed TCP receiver with per-message-type decoder queues.
+"""Framed TCP receiver with per-message-type decoder queues and acks.
 
 Own copy of the TCP path of ``deepflow_tpu/server/receiver.py::Receiver``:
 one listener, one ``StreamDecoder`` per connection, and the frames of each
 recv() handed to the queue that ``register`` returned for their message
 type. A corrupt frame drops its connection and counts in
-``stats["bad_frames"]``. There are no acks, sequence numbers, QoS or UDP.
+``stats["bad_frames"]``.
+
+Durable delivery: v2 frames carry a per-agent ``seq``. ``SeqAckTracker``
+keeps the highest contiguous seq per agent; the decoders feed it after a
+frame's rows are written, so an acked frame has reached the store. Each
+connection writes an ACK frame back whenever an agent's watermark moved.
+A SEQ_BASE control frame moves the watermark (and the dedup floor) up to
+the base the agent announced. QoS and UDP are not part of this copy.
 """
 
 from __future__ import annotations
@@ -17,9 +24,79 @@ import threading
 import time
 
 from deepflow_tpu_torch.codec import (
-    FrameDecodeError, FrameHeader, MessageType, StreamDecoder)
+    FrameDecodeError, FrameHeader, MessageType, StreamDecoder,
+    decode_seq_base, encode_ack)
 
 log = logging.getLogger("df.receiver")
+
+
+class SeqAckTracker:
+    """Per-agent highest-contiguous-seq bookkeeping.
+
+    ``observe()`` is called for every decoded v2 frame; ``contiguous()``
+    is what gets acked. Seqs above a gap park in a bounded set until the
+    gap fills; if the set overflows, the gap is declared permanent and
+    the watermark jumps to the oldest parked seq."""
+
+    MAX_OOS = 4096
+
+    def __init__(self) -> None:
+        self._lock = threading.Lock()
+        # agent_id -> [contiguous seq, set of parked seqs above it]
+        self._state: dict[int, list] = {}
+
+    def advance(self, agent_id: int, contiguous: int) -> None:
+        """Forward-only watermark jump (SEQ_BASE): parked seqs at or below
+        it are absorbed, and parked seqs just above drain into it."""
+        with self._lock:
+            st = self._state.get(agent_id)
+            if st is None:
+                self._state[agent_id] = [contiguous, set()]
+                return
+            contig, oos = st
+            if contiguous <= contig:
+                return
+            contig = contiguous
+            oos.difference_update({s for s in oos if s <= contig})
+            while contig + 1 in oos:
+                contig += 1
+                oos.discard(contig)
+            st[0] = contig
+
+    def observe(self, agent_id: int, seq: int) -> None:
+        with self._lock:
+            st = self._state.get(agent_id)
+            if st is None:
+                # an agent's first frame anchors its window
+                self._state[agent_id] = [seq, set()]
+                return
+            contig, oos = st
+            if seq <= contig:
+                return  # dup or old
+            if seq == contig + 1:
+                contig += 1
+                while contig + 1 in oos:
+                    contig += 1
+                    oos.discard(contig)
+                st[0] = contig
+                return
+            oos.add(seq)
+            if len(oos) > self.MAX_OOS:
+                contig = min(oos)
+                oos.discard(contig)
+                while contig + 1 in oos:
+                    contig += 1
+                    oos.discard(contig)
+                st[0] = contig
+
+    def contiguous(self, agent_id: int) -> int | None:
+        with self._lock:
+            st = self._state.get(agent_id)
+            return st[0] if st is not None else None
+
+    def snapshot(self) -> dict[int, int]:
+        with self._lock:
+            return {a: st[0] for a, st in self._state.items()}
 
 
 class Receiver:
@@ -39,10 +116,14 @@ class Receiver:
         self._handlers_lock = threading.Lock()
         self._handlers: dict[threading.Thread, socket.socket] = {}
         self._stopping = False
+        self.seq_tracker = SeqAckTracker()
+        # the server's shared DedupWindow: SEQ_BASE advances its floor too
+        self.dedup = None
         # recv_ns: wall time parsing frames out of recv chunks and
         # enqueueing them
         self.stats = {"frames": 0, "bytes": 0, "dropped": 0, "bad_frames": 0,
-                      "connections": 0, "recv_ns": 0}
+                      "connections": 0, "acks_sent": 0, "seq_bases": 0,
+                      "recv_ns": 0}
         self._stats_lock = threading.Lock()
 
     def register(self, msg_type: MessageType) -> queue.Queue:
@@ -60,25 +141,67 @@ class Receiver:
     def _dispatch_many(self, frames: list[tuple[FrameHeader, bytes]]) -> None:
         """Hand the frames of one recv() to their decoder queues with one
         put per message type. A frame with no registered decoder, or a
-        full queue, is dropped and counted."""
+        full queue, is dropped and counted. A frame of no registered type
+        is acked all the same (a resend would meet the same fate); a frame
+        dropped on a full queue is not, so the agent sends it again."""
         by_type: dict[MessageType, list] = {}
         for header, payload in frames:
             by_type.setdefault(header.msg_type, []).append((header, payload))
         dropped = 0
         for msg_type, group in by_type.items():
             q = self._queues.get(msg_type)
+            if q is None:
+                dropped += len(group)
+                for header, _ in group:
+                    if header.seq is not None:
+                        self.seq_tracker.observe(header.agent_id, header.seq)
+                continue
             try:
-                if q is None:
-                    raise queue.Full
                 q.put_nowait(group)
             except queue.Full:
                 dropped += len(group)
         self._count(frames=len(frames),
                     bytes=sum(len(p) for _, p in frames), dropped=dropped)
 
+    def _handle_seq_base(self, header: FrameHeader, payload: bytes) -> None:
+        """SEQ_BASE: the agent will never (re)send a seq below base, so
+        the watermark and the dedup floor move up to base - 1. Moving the
+        floor is safe: acked means decoded, so nothing below the base
+        still waits in a decoder queue."""
+        try:
+            base = decode_seq_base(payload)
+        except FrameDecodeError:
+            self._count(bad_frames=1)
+            return
+        self._count(seq_bases=1)
+        if base <= 0:
+            return
+        self.seq_tracker.advance(header.agent_id, base - 1)
+        if self.dedup is not None:
+            self.dedup.advance_floor(header.agent_id, base - 1)
+
+    def _send_acks(self, sock: socket.socket, agents: set[int],
+                   last_sent: dict[int, int]) -> None:
+        """One ACK frame per agent seen on this connection whose
+        contiguous watermark moved since the last one."""
+        for agent_id in agents:
+            contig = self.seq_tracker.contiguous(agent_id)
+            if contig is None or last_sent.get(agent_id) == contig:
+                continue
+            try:
+                sock.sendall(encode_ack(agent_id, contig))
+            except OSError:
+                return  # peer gone; the read path notices and closes
+            last_sent[agent_id] = contig
+            self._count(acks_sent=1)
+
     def _serve(self, sock: socket.socket) -> None:
         dec = StreamDecoder()
-        sock.settimeout(0.5)  # wake up to notice stop()
+        # a short read timeout: wake up to notice stop(), and to write
+        # acks while the peer is quiet
+        sock.settimeout(0.5)
+        agents: set[int] = set()      # agents with seq'd frames here
+        acks_sent: dict[int, int] = {}
         idle_deadline = time.monotonic() + 60.0
         while not self._stopping:
             try:
@@ -86,6 +209,7 @@ class Receiver:
             except socket.timeout:
                 if time.monotonic() > idle_deadline:
                     return
+                self._send_acks(sock, agents, acks_sent)
                 continue
             except OSError:
                 return
@@ -94,7 +218,17 @@ class Receiver:
             idle_deadline = time.monotonic() + 60.0
             t0 = time.perf_counter_ns()
             try:
-                frames = dec.feed(data)
+                frames = []
+                for h, p in dec.feed(data):
+                    if h.msg_type == MessageType.SEQ_BASE:
+                        # a control frame, handled here; the agent gets
+                        # acks from now on
+                        self._handle_seq_base(h, p)
+                        agents.add(h.agent_id)
+                        continue
+                    frames.append((h, p))
+                    if h.seq is not None:
+                        agents.add(h.agent_id)
                 if frames:
                     self._dispatch_many(frames)
             except FrameDecodeError as e:
@@ -103,6 +237,9 @@ class Receiver:
                 return
             finally:
                 self._count(recv_ns=time.perf_counter_ns() - t0)
+            # ack eagerly; the moved-watermark check limits the rate. A
+            # seq-less (v1) peer is never written to.
+            self._send_acks(sock, agents, acks_sent)
 
     def start(self) -> "Receiver":
         recv = self

@@ -1,9 +1,10 @@
 """The port's server: receiver + decoders + store + querier in one process.
 
 Own copy of the profile path of ``deepflow_tpu/server/server.py::Server``:
-TPU_SPAN and STEP_METRICS frames arrive over TCP, decode into the
-profile tables, and the querier answers the profile queries over HTTP.
-The server touches no device.
+PROFILE, TPU_SPAN, STEP_METRICS and DFSTATS frames arrive over TCP,
+decode into the profile and self-stats tables through one shared dedup
+window, the receiver acks what was written, and the querier answers the
+profile queries over HTTP. The server touches no device.
 
     python -m deepflow_tpu_torch.server [--host H] [--ingest-port P]
                                         [--query-port Q]
@@ -24,7 +25,8 @@ import time
 
 from deepflow_tpu_torch.codec import MessageType
 from deepflow_tpu_torch.server.decoders import (
-    StepMetricsDecoder, TpuSpanDecoder)
+    DedupWindow, ProfileDecoder, StatsDecoder, StepMetricsDecoder,
+    TpuSpanDecoder)
 from deepflow_tpu_torch.server.platform_info import PlatformInfoTable
 from deepflow_tpu_torch.server.querier import QuerierAPI, QuerierHTTP
 from deepflow_tpu_torch.server.receiver import Receiver
@@ -39,6 +41,10 @@ class Server:
         self.db = Database()
         self.platform = PlatformInfoTable()
         self.receiver = Receiver(host=host, port=ingest_port)
+        # one window for every decoder: the seq space is per agent, and a
+        # resent frame must dedup whichever decoder it lands on
+        self.dedup = DedupWindow()
+        self.receiver.dedup = self.dedup
         self.decoders = []
         self.api = QuerierAPI(self.db, stats_provider=self._stats)
         self.http = QuerierHTTP(self.api, host=host, port=query_port)
@@ -48,13 +54,17 @@ class Server:
             "receiver": dict(self.receiver.stats),
             "decoders": {d.MSG_TYPE.name: dict(d.stats)
                          for d in self.decoders},
+            "dedup": dict(self.dedup.stats),
         }
 
     def start(self) -> "Server":
         # register every queue before listening: no frame finds none
-        for cls in (TpuSpanDecoder, StepMetricsDecoder):
+        for cls in (ProfileDecoder, TpuSpanDecoder, StepMetricsDecoder,
+                    StatsDecoder):
             q = self.receiver.register(cls.MSG_TYPE)
-            self.decoders.append(cls(q, self.db, self.platform).start())
+            self.decoders.append(cls(
+                q, self.db, self.platform, dedup=self.dedup,
+                seq_tracker=self.receiver.seq_tracker).start())
         self.receiver.start()
         self.http.start()
         log.info("server up: ingest :%d query :%d", self.ingest_port,

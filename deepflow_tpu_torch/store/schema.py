@@ -1,14 +1,18 @@
-"""Schemas of the profile tables the TPU_SPAN / STEP_METRICS ingest writes.
+"""Schemas of the tables the agent's frames land in.
 
-Own copy of the profile part of ``deepflow_tpu/store/schema.py``: the same
-table names, columns, kinds and defaults, so rows and queries mean the
-same in both packages. Times are u64 nanoseconds.
+Own copy of the profile and self-telemetry parts of
+``deepflow_tpu/store/schema.py``: the same table names, columns, kinds and
+defaults, so rows and queries mean the same in both packages. Times are
+u64 nanoseconds.
 """
 
 from __future__ import annotations
 
 from deepflow_tpu_torch.store.table import ColumnSpec as C
 
+# labels of wire.ProfileEventType, in its order: ingest stores the int
+PROFILE_EVENT_TYPES = (
+    "unknown", "on-cpu", "off-cpu", "mem-alloc", "tpu-device", "tpu-host")
 # labels of wire.TpuSpanKind, in its order: ingest stores int(kind)
 TPU_SPAN_KINDS = (
     "unknown", "device-compute", "device-collective", "device-transfer",
@@ -36,6 +40,22 @@ TABLES: dict[str, list[C]] = {}
 def _table(name: str, cols: list[C]) -> None:
     TABLES[name] = cols
 
+
+# one row per (thread, folded stack) per sampler emit window
+_table("profile.in_process_profile", [
+    C("time", "u64"),                   # ns
+    C("app_service", "str"),
+    C("process_name", "str"),
+    C("event_type", "enum", PROFILE_EVENT_TYPES),
+    C("profiler", "str"),
+    C("pid", "u32"),
+    C("tid", "u32"),
+    C("thread_name", "str"),
+    C("stack", "str"),                  # folded stack, dictionary-encoded
+    C("value", "u64"),                  # us or bytes
+    C("count", "u32"),
+    *UNIVERSAL_TAGS,
+])
 
 # one row per device span (kernel, memcpy, collective, or module)
 _table("profile.tpu_hlo_span", [
@@ -94,5 +114,15 @@ _table("profile.tpu_memory", [
     C("num_allocs", "u32"),
     C("pid", "u32"),
     C("process_name", "str"),
+    *UNIVERSAL_TAGS,
+])
+
+# the agents' self-stats: one row per (metric, value name) per emit
+_table("deepflow_system.deepflow_system", [
+    C("time", "u64"),
+    C("metric_name", "str"),
+    C("tag_json", "str"),
+    C("value_name", "str"),
+    C("value", "f64"),
     *UNIVERSAL_TAGS,
 ])

@@ -9,6 +9,7 @@
 from __future__ import annotations
 
 import collections
+import contextlib
 import logging
 import os
 import shutil
@@ -17,8 +18,7 @@ import threading
 import time
 
 from deepflow_tpu_torch.tpuprobe.events import TpuSpanEvent
-from deepflow_tpu_torch.tpuprobe.kineto import (
-    extract_device_spans, load_trace)
+from deepflow_tpu_torch.tpuprobe.kineto import extract_device_spans, load_trace
 
 log = logging.getLogger("df.tpuprobe")
 
@@ -39,9 +39,11 @@ def _user_profiler_active() -> bool:
 class StepHook:
     """Zero-code step signal: a global optimizer step post-hook that
     records (step number, wall-clock ns) for every optimizer.step() in the
-    process. Steps count from 1 at install()."""
+    process. Steps count from 1 at install(). It can also hold the next
+    step's thread in the hook for a while (``held``)."""
 
     MAX_MARKS = 4096   # far more steps than one capture window holds
+    MAX_HOLD_S = 30.0  # a held step never waits longer than this
 
     def __init__(self) -> None:
         self._lock = threading.Lock()
@@ -49,6 +51,8 @@ class StepHook:
             maxlen=self.MAX_MARKS)
         self._count = 0
         self._handle = None
+        # (parked, release) of the hold the next step takes
+        self._hold: tuple[threading.Event, threading.Event] | None = None
 
     def install(self) -> "StepHook":
         from torch.optim.optimizer import register_optimizer_step_post_hook
@@ -66,6 +70,43 @@ class StepHook:
         with self._lock:
             self._count += 1
             self._marks.append((self._count, now))
+            hold, self._hold = self._hold, None
+        if hold is not None:
+            parked, release = hold
+            parked.set()
+            release.wait(self.MAX_HOLD_S)
+
+    @contextlib.contextmanager
+    def held(self, timeout_s: float, cancel: threading.Event | None = None):
+        """Hold the thread of the next optimizer step in its step hook for
+        the body of the with-block. Yields True once it is held: backward
+        has finished and the optimizer's work is launched, so no thread of
+        a plain training loop launches device work until the body ends.
+        Yields False when no step came within timeout_s or ``cancel`` was
+        set first; the body then runs beside the workload."""
+        parked, release = threading.Event(), threading.Event()
+        with self._lock:
+            self._hold = (parked, release)
+        try:
+            deadline = time.monotonic() + timeout_s
+            while not parked.wait(0.05):
+                if time.monotonic() >= deadline or (cancel is not None
+                                                    and cancel.is_set()):
+                    break
+            with self._lock:
+                mine = self._hold is not None and self._hold[0] is parked
+                if mine:
+                    self._hold = None
+            # a step that took the hold just now parks at once
+            yield parked.is_set() or (not mine and parked.wait(1.0))
+        finally:
+            release.set()
+
+    @property
+    def count(self) -> int:
+        """Optimizer steps since install()."""
+        with self._lock:
+            return self._count
 
     def since(self, t_ns: int) -> list[tuple[int, int]]:
         """Marks at or after t_ns, plus the last one before it (which
@@ -89,6 +130,15 @@ class KinetoSource:
     captured, net of the measured per-cycle dead time (start, stop,
     export and parse). Without step signal (no optimizer in the process)
     the fallback cadence holds.
+
+    Step boundaries: with step signal, the session opens and closes
+    while the next optimizer step's thread is held in the step hook, so
+    no workload thread launches work meanwhile. Sessions set up or closed
+    beside launching threads (the probe's own thread under the agent)
+    sometimes left one launching thread without device records for the
+    rest of the process. A session opened or closed with no step to hold
+    (none within three step times, or the workload is done) is counted
+    as `unheld`.
 
     Contention guard: a window that would collide with a user's own
     profiler session, or another source, is skipped and counted as
@@ -120,18 +170,45 @@ class KinetoSource:
         # windows stretch to amortize it
         self._dead_s = 0.0
         self._started_monotonic = time.monotonic()
+        self._cuda_up_at: float | None = None  # first seen initialised
         self.stats = {"captures": 0, "events": 0, "errors": 0, "skipped": 0,
                       "contended": 0, "steps_seen": 0,
                       "coverage_pct": 0.0, "est_step_ms": 0.0,
-                      "captured_s": 0.0, "dead_ms": 0.0}
+                      "captured_s": 0.0, "dead_ms": 0.0, "unheld": 0}
 
     def available(self) -> bool:
-        """Capture only once the workload has initialised CUDA itself:
-        the probe never creates a CUDA context on its own."""
+        """Capture only once the workload has initialised CUDA itself (the
+        probe never creates a CUDA context on its own) and is past its
+        start-up: an optimizer step has run since start(), or, with no
+        step signal, one fallback interval has passed since CUDA came up.
+        A session opened while a workload launched from the runner was
+        still building its model and first step crashed the process on
+        the card (SIGSEGV)."""
         import torch
-        return torch.cuda.is_initialized()
+        if not torch.cuda.is_initialized():
+            return False
+        if self.step_hook.count:
+            return True
+        now = time.monotonic()
+        if self._cuda_up_at is None:
+            self._cuda_up_at = now
+        return now - self._cuda_up_at >= self.interval_s
 
     def start(self) -> "KinetoSource":
+        # a session's start imports torch._inductor (torch.profiler asks
+        # hasattr(torch, "_inductor"), a lazy import that brings in
+        # torch._dynamo too). Done from the probe's thread, that import
+        # raced the workload's own (an optimizer's first param group
+        # imports torch._dynamo) and left the workload a partly
+        # initialised module. Import it here, in the attaching thread,
+        # before the workload runs; it touches no device.
+        import torch._inductor.config  # noqa: F401
+        # Kineto tears CUPTI down after every session and sets it up again
+        # at the next one (TEARDOWN_CUPTI, on unless set to 0). torch turns
+        # that off for CUDA graphs after crashes on re-initialisation, and
+        # a runner child with it on hung on an H100 (PERF.md, PR 3). CUPTI
+        # stays up between windows unless the user chose otherwise.
+        os.environ.setdefault("TEARDOWN_CUPTI", "0")
         self.step_hook.install()
         self._started_monotonic = time.monotonic()
         self._thread = threading.Thread(
@@ -203,6 +280,20 @@ class KinetoSource:
             self.stats["coverage_pct"] = round(
                 100.0 * self._captured_s / elapsed, 1)
 
+    @contextlib.contextmanager
+    def _at_step_boundary(self):
+        """The body runs while the next step's thread is held in the step
+        hook, when there is step signal and the workload still steps."""
+        if not self.step_hook.count or self._stop.is_set():
+            yield
+            return
+        wait_s = (max(1.0, 3.0 * self._step_time_s) if self._step_time_s > 0
+                  else self.interval_s)
+        with self.step_hook.held(wait_s, cancel=self._stop) as held:
+            if not held:
+                self.stats["unheld"] += 1
+            yield
+
     def capture_once(self) -> list[TpuSpanEvent]:
         if not _PROFILER_SESSION_LOCK.acquire(blocking=False):
             self.stats["contended"] += 1
@@ -222,22 +313,28 @@ class KinetoSource:
         t0 = time.monotonic()
         try:
             prof = profile(activities=[ProfilerActivity.CUDA])
-            prof.start()
-            # the covered span is the open-session wait only: start
-            # setup, stop, export and parse are dead time
+            with self._at_step_boundary():
+                if self._stop.is_set():
+                    return []
+                prof.start()
+            # the covered span is the open session's time: start setup,
+            # stop, export and parse are dead time
             window_t0 = time.monotonic()
             window_wall_ns = time.time_ns()
             self._stop.wait(self._next_duration_s())
-            window_t1 = time.monotonic()
-            prof.stop()
+            with self._at_step_boundary():
+                window_t1 = time.monotonic()
+                prof.stop()
             t_stopped = time.monotonic()
             path = os.path.join(tmpdir, "trace.json")
             prof.export_chrome_trace(path)
             t_exported = time.monotonic()
             window_s = window_t1 - window_t0
             self._captured_s += window_s
+            trace = load_trace(path)
             events = extract_device_spans(
-                load_trace(path), self.step_hook.since(window_wall_ns))
+                trace, self.step_hook.since(window_wall_ns))
+            del trace
             t_parsed = time.monotonic()
             self.stats["captures"] += 1
             self.stats["events"] += len(events)

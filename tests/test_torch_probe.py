@@ -450,3 +450,168 @@ def test_entry_points_raise_without_cuda(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         tl.params_from_numpy({"tok_embed": np.zeros((2, 2), np.float32)})
     assert resolve_device("cpu") == torch.device("cpu")
+    # the agent and the zero-code runner: the runner exits 2 before it
+    # attaches or runs its target
+    from deepflow_tpu_torch.agent import agent as agent_mod
+    from deepflow_tpu_torch.cli import runner
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        agent_mod.Agent()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        agent_mod.attach("svc")
+    assert agent_mod._Attached.agent is None
+    ran = []
+    monkeypatch.setattr(runner.runpy, "run_path", ran.append)
+    assert runner.main(["--server", "127.0.0.1:1", "script.py"]) == 2
+    assert ran == [] and agent_mod._Attached.agent is None
+
+
+def test_kineto_start_imports_inductor_in_the_attaching_thread():
+    """A capture's session start imports torch._inductor lazily; done from
+    the probe's thread it raced the workload's own import of
+    torch._dynamo (an optimizer's first param group) and the workload got
+    a partly initialised module. start() does that import in the calling
+    thread, before the workload runs, and touches no device."""
+    code = (
+        "import sys, threading, torch\n"
+        "from deepflow_tpu_torch.tpuprobe.sources import KinetoSource\n"
+        "assert 'torch._inductor' not in sys.modules\n"
+        "seen = []\n"
+        "orig = threading.Thread.start\n"
+        "def start(t):\n"
+        "    seen.append('torch._inductor.config' in sys.modules)\n"
+        "    orig(t)\n"
+        "threading.Thread.start = start\n"
+        "s = KinetoSource(lambda e: None).start()\n"
+        "s.stop()\n"
+        "print(seen, torch.cuda.is_initialized())\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[True] False"
+
+
+def test_kineto_first_capture_waits_for_the_workload(monkeypatch):
+    """No capture before CUDA is up; then none before the first optimizer
+    step, unless a fallback interval passes with no step signal."""
+    src = S.KinetoSource(lambda e: None, interval_s=5.0)
+    up = []
+    monkeypatch.setattr(torch.cuda, "is_initialized", lambda: bool(up))
+    clock = [100.0]
+    monkeypatch.setattr(S.time, "monotonic", lambda: clock[0])
+    assert not src.available()
+    up.append(1)
+    assert not src.available()          # CUDA up, no step yet
+    clock[0] += 4.9
+    assert not src.available()
+    clock[0] += 0.2
+    assert src.available()              # a fallback interval later
+    src2 = S.KinetoSource(lambda e: None, interval_s=5.0)
+    assert not src2.available()
+    src2.step_hook._on_step(None, (), {})
+    assert src2.available()             # the first step has run
+
+
+
+def test_kineto_start_keeps_cupti_up_between_windows(monkeypatch):
+    """start() asks Kineto to keep CUPTI set up between sessions, and
+    leaves a TEARDOWN_CUPTI the user set as it is."""
+    monkeypatch.setattr(torch.cuda, "is_initialized", lambda: False)
+    monkeypatch.setenv("TEARDOWN_CUPTI", "")  # restored after the test
+    for preset, want in ((None, "0"), ("1", "1")):
+        if preset is None:
+            monkeypatch.delenv("TEARDOWN_CUPTI", raising=False)
+        else:
+            monkeypatch.setenv("TEARDOWN_CUPTI", preset)
+        src = S.KinetoSource(lambda e: None).start()
+        try:
+            assert os.environ["TEARDOWN_CUPTI"] == want
+        finally:
+            src.stop()
+
+
+def test_step_hook_holds_the_next_step():
+    """held() parks the next step's thread in the hook for the body; with
+    no step in time, or once cancelled, it yields False and no later step
+    waits."""
+    import threading
+    import time
+    hook = S.StepHook()
+    done = threading.Event()
+
+    def stepper():
+        while not done.is_set():
+            hook._on_step(None, (), {})
+            time.sleep(0.005)
+    t = threading.Thread(target=stepper)
+    t.start()
+    try:
+        with hook.held(5.0) as held:
+            assert held
+            n = hook.count
+            time.sleep(0.1)
+            assert hook.count == n          # the stepper waits in the hook
+        time.sleep(0.1)
+        assert hook.count > n               # and steps on after the body
+    finally:
+        done.set()
+        t.join()
+    t0 = time.monotonic()
+    with hook.held(0.1) as held:
+        assert not held
+    cancel = threading.Event()
+    cancel.set()
+    with hook.held(30.0, cancel=cancel) as held:
+        assert not held
+    hook._on_step(None, (), {})             # nothing left to hold it
+    assert time.monotonic() - t0 < 2.0
+
+
+def test_kineto_opens_and_closes_sessions_while_a_step_is_held(
+        monkeypatch, tmp_path):
+    """With step signal, the session starts and stops while the stepping
+    thread is held in its hook; with none, both run unheld and count."""
+    import json
+    import threading
+    import time
+    import torch.profiler as tp
+    src = S.KinetoSource(lambda e: None, interval_s=0.3, duration_ms=100)
+    log = []
+
+    class FakeProfile:
+        def __init__(self, activities):
+            pass
+
+        def _note(self, what):
+            n = src.step_hook.count
+            time.sleep(0.05)
+            log.append((what, src.step_hook.count == n))
+
+        def start(self):
+            self._note("start")
+
+        def stop(self):
+            self._note("stop")
+
+        def export_chrome_trace(self, path):
+            with open(path, "w") as f:
+                json.dump({"traceEvents": []}, f)
+    monkeypatch.setattr(tp, "profile", FakeProfile)
+    done = threading.Event()
+
+    def stepper():
+        while not done.is_set():
+            src.step_hook._on_step(None, (), {})
+            time.sleep(0.005)
+    t = threading.Thread(target=stepper)
+    t.start()
+    try:
+        src.capture_once()
+    finally:
+        done.set()
+        t.join()
+    assert log == [("start", True), ("stop", True)]
+    assert src.stats["unheld"] == 0 and src.stats["captures"] == 1
+    log.clear()
+    src.capture_once()                      # the workload stopped stepping
+    assert [w for w, _ in log] == ["start", "stop"]
+    assert src.stats["unheld"] == 2

@@ -2,9 +2,9 @@
 frame bytes, made by the port's probe from synthetic Kineto steps, go
 over TCP into a reference ``deepflow_tpu.server.Server`` and into the
 port's ``deepflow_tpu_torch.server.Server``; both must hold the same rows
-in the three profile tables and give the same answers to the six
-profile queries (exact for integers, to the reference's own rounding for
-its rounded floats)."""
+in the profile and self-stats tables and give the same answers to the
+seven profile queries (exact for integers, to the reference's own
+rounding for its rounded floats)."""
 
 import json
 import os
@@ -34,9 +34,10 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BASE_NS = 1_760_000_000_000_000_000
 STEP_PS = 10_000_000_000  # 10 ms a step
 TABLES = ("profile.tpu_hlo_span", "profile.tpu_memory",
-          "profile.tpu_step_metrics")
+          "profile.tpu_step_metrics", "profile.in_process_profile",
+          "deepflow_system.deepflow_system")
 QUERIES = ("tpu_flame", "tpu_memory", "tpu_collectives", "tpu_step_trace",
-           "tpu_steps", "tpu_step_critical_path")
+           "tpu_steps", "tpu_step_critical_path", "profile_tracing")
 
 
 def _spec(n_devices=2, n_steps=3):
@@ -105,9 +106,49 @@ def _host_and_transfer_batch() -> bytes:
                         wire.TpuSpanBatch(spans, memory).SerializeToString())
 
 
+def _profile_and_stats_frames() -> tuple[list, dict]:
+    """A PROFILE batch (two services, on- and off-cpu, two profilers,
+    stacks sharing prefixes, times across the query windows) and a DFSTATS
+    batch, as the agent ships them."""
+    stacks = ["runpy._run_code;__main__.main;m.train_step;torch.backward",
+              "runpy._run_code;__main__.main;m.train_step",
+              "runpy._run_code;__main__.main;queue.get",
+              "threading._bootstrap;t.loop;time.sleep"]
+    profiles = [
+        wire.Profile(process_name="trainer", app_service=svc, pid=7,
+                     tid=tid, thread_name=tname, event_type=etype,
+                     timestamp_ns=BASE_NS + t_ms * 1_000_000,
+                     stack=stacks[i].encode(), value=10101 * n, count=n,
+                     profiler=prof)
+        for i, (svc, tid, tname, etype, t_ms, n, prof) in enumerate([
+            ("llama-train", 1, "MainThread", 1, 3, 40, "pysampler"),
+            ("llama-train", 1, "MainThread", 1, 17, 7, "pysampler"),
+            ("llama-train", 1, "MainThread", 2, 25, 2, "pysampler"),
+            ("", 2, "loader", 2, 12, 5, "other")])]
+    profiles.append(wire.Profile(
+        process_name="trainer", app_service="llama-train", pid=7, tid=1,
+        thread_name="MainThread", event_type=1,
+        timestamp_ns=BASE_NS + 21_000_000, stack=stacks[0].encode(),
+        value=10101 * 3, count=3, profiler="pysampler"))
+    stats = wire.StatsBatch([
+        wire.StatsMetric("agent.sender", BASE_NS + 30_000_000,
+                         {"process": "trainer"},
+                         {"sent_frames": 12.0, "acked_seq": 2.0 ** 60}),
+        wire.StatsMetric("agent.oncpu_sampler", BASE_NS + 30_000_000,
+                         {"process": "trainer", "z": "1"},
+                         {"samples": 57.0, "overruns": 0.0})])
+    frames = [encode_frame(FrameHeader(MessageType.PROFILE),
+                           wire.ProfileBatch(profiles).SerializeToString()),
+              encode_frame(FrameHeader(MessageType.DFSTATS),
+                           stats.SerializeToString())]
+    return frames, {"profile.in_process_profile": len(profiles),
+                    "deepflow_system.deepflow_system": 4}
+
+
 def _frames():
-    """(frame bytes, counts) as the port's probe ships them: span batches,
-    memory-sample batches and step records, plus the hand-built batch."""
+    """(frame bytes, counts) as the port's agent ships them: span batches,
+    memory-sample batches and step records, the hand-built batch, and a
+    profile batch and a stats batch."""
     trace, steps = kineto_synth.build_trace(_spec(), base_ns=BASE_NS)
     events = kineto.extract_device_spans(trace, steps)
     sink = FrameSink(AgentConfig(tpuprobe=TpuProbeConfig(step_topk=3)),
@@ -120,10 +161,12 @@ def _frames():
     probe._sink(events[half:])
     probe._mem_sink([_mem(21, 1, 30, 60), _mem(23, 0, 12, 41)])
     probe.stop()
-    frames = list(sink.frames) + [_host_and_transfer_batch()]
+    more, more_counts = _profile_and_stats_frames()
+    frames = list(sink.frames) + [_host_and_transfer_batch()] + more
     counts = {"profile.tpu_hlo_span": probe.stats["spans_sent"] + 3,
               "profile.tpu_memory": probe.stats["mem_samples_sent"] + 2,
-              "profile.tpu_step_metrics": probe.stats["steps_sent"]}
+              "profile.tpu_step_metrics": probe.stats["steps_sent"],
+              **more_counts}
     return frames, counts
 
 
@@ -142,7 +185,10 @@ def _ingest(servers, frames, counts) -> None:
 
 
 def _start_pair(offset_ns=None):
-    ref = RefServer(host="127.0.0.1", ingest_port=0, query_port=0).start()
+    # the reference server writes its own telemetry into deepflow_system
+    # every selfstats_interval_s: keep it out of the comparison
+    ref = RefServer(host="127.0.0.1", ingest_port=0, query_port=0,
+                    selfstats_interval_s=3600).start()
     port = Server(ingest_port=0, query_port=0).start()
     if offset_ns is not None:
         for srv in (ref, port):
@@ -215,7 +261,13 @@ def _bodies():
             {"include_host": True, "device_id": 0}, {"run_id": 2},
             {"run_id": 3, "step": 3}, {"step": 2}, {"job": "train_step"},
             {"job": "nope"}, {"top": 2, "limit": 3},
-            {"forensics_window_s": 0}, {"time_start": 0, "time_end": 0}]
+            {"forensics_window_s": 0}, {"time_start": 0, "time_end": 0},
+            {"app_service": "llama-train"}, {"app_service": "nope"},
+            {"event_type": "off-cpu"}, {"event_type": "no-such-type"},
+            {"profiler": "other"}, {"profiler": "nope"},
+            {"app_service": "llama-train", "event_type": "on-cpu",
+             "time_start": BASE_NS + 10_000_000,
+             "time_end": BASE_NS + 22_000_000}]
 
 
 def _answer(api, method, body):
@@ -228,9 +280,9 @@ def _answer(api, method, body):
 # -- the tests ---------------------------------------------------------------
 
 def test_schema_matches_reference_and_wire():
-    """The three tables have the reference's columns, kinds, labels and
-    defaults, and TPU_SPAN_KINDS is wire.TpuSpanKind's order (ingest
-    stores int(kind); queries filter on labels)."""
+    """The five tables have the reference's columns, kinds, labels and
+    defaults, and TPU_SPAN_KINDS / PROFILE_EVENT_TYPES are the wire
+    enums' order (ingest stores the int; queries filter on labels)."""
     for name in TABLES:
         mine = [(c.name, c.kind, c.enum_values, c.default)
                 for c in schema.TABLES[name]]
@@ -242,6 +294,12 @@ def test_schema_matches_reference_and_wire():
         ["span-unknown", *schema.TPU_SPAN_KINDS[1:]]
     assert [int(k) for k in wire.TpuSpanKind] == \
         list(range(len(schema.TPU_SPAN_KINDS)))
+    assert schema.PROFILE_EVENT_TYPES == ref_schema.PROFILE_EVENT_TYPES
+    assert [k.name.lower().replace("_", "-")
+            for k in wire.ProfileEventType][1:] == \
+        list(schema.PROFILE_EVENT_TYPES[1:])
+    assert [int(k) for k in wire.ProfileEventType] == \
+        list(range(len(schema.PROFILE_EVENT_TYPES)))
 
 
 @pytest.mark.parametrize("table", TABLES)
@@ -284,6 +342,10 @@ def test_answers_are_not_empty(pair):
     assert cp["step"]["step"] == 3 and cp["attribution"]["baseline_steps"]
     with pytest.raises(QueryError):
         api.tpu_step_critical_path({"step": 99})
+    cpu = api.profile_tracing({"app_service": "llama-train"})["result"]
+    assert cpu["total_value"] == 10101 * (40 + 7 + 2 + 3)
+    assert api.profile_tracing({"profiler": "other"})["result"][
+        "total_value"] == 10101 * 5
 
 
 @pytest.mark.parametrize("offset_ns", [5_000_000, -3_000_000, 999_999])
@@ -350,7 +412,8 @@ def test_undecodable_payload_counts_as_decode_error():
                     time.monotonic() < deadline:
                 time.sleep(0.02)
         errs = {d.MSG_TYPE.name: d.stats["errors"] for d in port.decoders}
-        assert errs == {"TPU_SPAN": 1, "STEP_METRICS": 1}
+        assert errs == {"TPU_SPAN": 1, "STEP_METRICS": 1, "PROFILE": 0,
+                        "DFSTATS": 0}
         assert {d.MSG_TYPE.name: d.stats["errors"] for d in ref.decoders
                 if d.MSG_TYPE.name in errs} == errs
     finally:
@@ -389,7 +452,8 @@ def test_http_routes_and_errors(pair):
         except urllib.error.HTTPError as e:
             return e.code, json.loads(e.read())
 
-    routes = {"/v1/profile/TpuFlame": "tpu_flame",
+    routes = {"/v1/profile/ProfileTracing": "profile_tracing",
+              "/v1/profile/TpuFlame": "tpu_flame",
               "/v1/profile/TpuCollectives": "tpu_collectives",
               "/v1/profile/TpuStepTrace": "tpu_step_trace",
               "/v1/tpu/steps": "tpu_steps",
@@ -407,7 +471,9 @@ def test_http_routes_and_errors(pair):
     assert code == 200 and health["status"] == "ok"
     assert health["tables"] == {t: len(port.db.table(t)) for t in TABLES}
     assert health["stats"]["receiver"]["bad_frames"] == 0
-    assert set(health["stats"]["decoders"]) == {"TPU_SPAN", "STEP_METRICS"}
+    assert set(health["stats"]["decoders"]) == {
+        "PROFILE", "TPU_SPAN", "STEP_METRICS", "DFSTATS"}
+    assert health["stats"]["receiver"]["acks_sent"] == 0  # v1 frames only
 
 
 def test_server_subprocess_prints_ports_and_answers():
@@ -468,3 +534,26 @@ def test_port_server_takes_reference_frames_unchanged():
     finally:
         ref.stop()
         port.stop()
+
+
+def test_profile_stack_values_and_merge_like_reference(pair):
+    """The per-stack aggregate behind ProfileTracing, and the merge of
+    several aggregates by stack string, equal the reference's."""
+    from deepflow_tpu.query import flamegraph as ref_flame
+    from deepflow_tpu_torch.query import flamegraph
+    ref, port = pair
+    filters = [{}, {"app_service": "llama-train"}, {"profiler": "other"},
+               {"event_type": "on-cpu", "time_start_ns": BASE_NS + 10**7},
+               {"time_end_ns": BASE_NS + 20_000_000}, {"app_service": "x"}]
+    parts, ref_parts = [], []
+    for f in filters:
+        got = flamegraph.profile_stack_values(
+            port.db.table("profile.in_process_profile"), **f)
+        want = ref_flame.profile_stack_values(
+            ref.db.table("profile.in_process_profile"), **f)
+        assert sorted(zip(*got)) == sorted(zip(*want)), f
+        parts.append(got)
+        ref_parts.append(want)
+    got = flamegraph.merge_stack_values(parts)
+    want = ref_flame.merge_stack_values(ref_parts)
+    assert sorted(zip(*got)) == sorted(zip(*want)) and got[0]

@@ -4,6 +4,7 @@ server, whose tpu_flame answer must equal the port's device_flame; and
 the same steps through the JAX chain give the same rows."""
 
 import json
+import socket
 import time
 
 import pytest
@@ -12,7 +13,7 @@ from deepflow_tpu.server import Server
 from deepflow_tpu.tpuprobe.xplane import parse_xplane_file
 from deepflow_tpu.tpuprobe.xplane_synth import build_xspace
 from deepflow_tpu_torch.agent.config import AgentConfig, TpuProbeConfig
-from deepflow_tpu_torch.agent.sink import FrameSink, parse_target
+from deepflow_tpu_torch.agent.sink import FrameSink
 from deepflow_tpu_torch.codec import MessageType, StreamDecoder
 from deepflow_tpu_torch.proto import wire
 from deepflow_tpu_torch.query.flamegraph import device_flame
@@ -65,6 +66,12 @@ def _events():
     return kineto.extract_device_spans(trace, steps)
 
 
+def _write_frames(port: int, frames: list[bytes]) -> None:
+    """The sink's frames down one TCP connection, as an agent writes them."""
+    with socket.create_connection(("127.0.0.1", port), timeout=5.0) as c:
+        c.sendall(b"".join(frames))
+
+
 @pytest.fixture
 def server():
     srv = Server(host="127.0.0.1", ingest_port=0, query_port=0).start()
@@ -76,13 +83,11 @@ def server():
 
 def test_frames_into_reference_server_flame_equal(server):
     events = _events()
-    sink = FrameSink(AgentConfig(
-        sink_target=f"127.0.0.1:{server.ingest_port}"), process_name="t")
+    sink = FrameSink(process_name="t")
     probe = TpuProbe(sink)  # not started: the test feeds its sinks
     probe._sink(events)
     probe.stop()  # flushes the last step record
-    sink.close()
-    assert sink.stats["send_errors"] == 0
+    _write_frames(server.ingest_port, sink.frames)
     assert server.wait_for_rows("profile.tpu_hlo_span", len(events))
     assert server.wait_for_rows("profile.tpu_step_metrics", 3)
     got = server.api.tpu_flame({})["result"]
@@ -126,12 +131,11 @@ def test_port_and_reference_chains_give_same_rows(tmp_path):
             srv.stop()
 
     def send_port(srv, events):
-        sink = FrameSink(AgentConfig(
-            sink_target=f"127.0.0.1:{srv.ingest_port}"))
+        sink = FrameSink()
         p = TpuProbe(sink)
         p._sink(events)
         p.stop()
-        sink.close()
+        _write_frames(srv.ingest_port, sink.frames)
 
     def send_ref(srv, events):
         from deepflow_tpu.agent.agent import Agent
@@ -190,18 +194,18 @@ def test_memory_samples_and_step_frames_decode():
     json.dumps(records)
 
 
-def test_sink_target_validation_and_send_errors():
-    assert parse_target("127.0.0.1:20033") == ("127.0.0.1", 20033)
-    assert parse_target("[::1]:9") == ("::1", 9)
-    for bad in ("nohost", ":1", "h:", "h:x"):
-        with pytest.raises(ValueError):
-            parse_target(bad)
-    # a refused connection is counted and the frame dropped, not raised
-    import socket
-    s = socket.socket()
-    s.bind(("127.0.0.1", 0))
-    port = s.getsockname()[1]
-    s.close()
-    sink = FrameSink(AgentConfig(sink_target=f"127.0.0.1:{port}"))
-    assert sink.send_step_metrics(b"{}") is False
-    assert sink.stats["send_errors"] == 1 and sink.stats["frames"] == 0
+def test_sink_keeps_every_frame_in_order():
+    """The sink keeps each payload as one frame, in call order, and counts
+    it by type."""
+    sink = FrameSink(process_name="t")
+    payloads = [(MessageType.STEP_METRICS, b"{}"),
+                (MessageType.TPU_SPAN, wire.TpuSpanBatch().SerializeToString()),
+                (MessageType.STEP_METRICS, b'{"records": []}')]
+    for t, p in payloads:
+        send = (sink.send_step_metrics if t == MessageType.STEP_METRICS
+                else sink.send_tpu_spans)
+        assert send(p) is True
+    frames = StreamDecoder().feed(b"".join(sink.frames))
+    assert [(h.msg_type, p) for h, p in frames] == payloads
+    assert sink.stats == {"frames": 3, "bytes": sum(map(len, sink.frames)),
+                          "tpu_span_frames": 1, "step_frames": 2}
