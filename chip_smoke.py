@@ -19,8 +19,8 @@ Phases, each printing its own lines:
 4. frames: the collected frames decode with the port's StreamDecoder and
    wire codec, their counts match what the probe and the sink counted, and
    the per-kernel device-time flame graph is built from them;
-5. server: the port's server runs as its own process
-   (python -m deepflow_tpu_torch.server), takes the same frame bytes over
+5. server: the port's server runs as its own process (the entry point
+   of python -m deepflow_tpu_torch.server), takes the same frame bytes over
    one TCP connection, and must hold every span, memory sample and step
    record with no decode error or bad frame; its TpuFlame answer must
    equal phase 4's flame graph, its step timeline the step records, and
@@ -45,7 +45,34 @@ Phases, each printing its own lines:
    children's peak RSS (/proc/<pid>/statm) and CPU-seconds
    (/proc/<pid>/stat), over their life and over the training loop, come
    from samples every 0.1 s; the ingest lag is the live child's exit to
-   the last frame decoded.
+   the last frame decoded. The live child's default agent runs the guard
+   and the deadman too: its agent.guard rows must show two checks or more
+   and no degrade (the largest readings are printed: the guard's, the
+   agent's threads with the work done while the training step was held,
+   and the whole process), no
+   agent stage may be wedged, its sender hop must balance with nothing
+   pending after the final flush and no HIGH-class frame dropped, and the
+   server's own hop ledgers must balance;
+7. resilience: phase 2's configuration trains in this process under
+   Agent(device="cuda") with a 16-frame send queue, an on-disk spool and
+   a guard that checks every second, while nothing listens at the
+   agent's server address: HIGH frames overflow into the spool until
+   two captures are sent. The port's server process then starts on that
+   address; the sender reconnects and replays until every spooled record
+   is acked. A guard limit set below any reading pauses the probe and
+   the sampler within two checks, and no capture opens while degraded;
+   restored limits bring a fresh probe whose first capture must hold
+   phase 4's kernels a step. After detach the server must hold every
+   step record, span and memory sample both probes sent exactly once,
+   every span inside a step record, agent.guard at one degrade and one
+   recovery, and a balanced sender hop with no wedge. Step ms during the
+   outage, the replay and after it, the guard's readings at every check,
+   the peak spool bytes and the time to drain are printed.
+
+The servers of phases 5-7 run the server's entry point (its main(),
+stopped by SIGTERM after its drain) in a process of their own
+(multiprocessing, spawn) that then hands the smoke their tables' rows.
+Every phase line carries the card's name and power limit.
 
 The port has no hand-written kernels: the JAX package it ports has no
 Pallas kernel, so the kernel list is empty. Any failed check raises and
@@ -59,7 +86,9 @@ import dataclasses
 import gc
 import json
 import math
+import multiprocessing
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -85,8 +114,24 @@ RUNNER_CHILD_S = 600.0  # each training child's time limit
 # the last capture, which detach cuts, is held to the whole step only when
 # its interior steps outnumber its two edge steps
 WHOLE_CAPTURE_STEPS = 5
+RESILIENCE_QUEUE = 16         # send-queue frames: overflow reaches the spool
+RESILIENCE_CAPTURES = 2       # captures sent while the server is away
+RESILIENCE_OUTAGE_S = 120.0   # the outage's time limit
+RESILIENCE_DRAIN_S = 90.0     # server start to every spooled record acked
+RESILIENCE_AFTER_STEPS = 30   # steps timed after the drain
+GUARD_CHECK_S = 1.0           # the guard's cadence in the resilience phase
+# the resilience phase's CPU limit: that phase drives the pause and the
+# resume; the default agent's budget is the runner phase's. A 1 s check
+# reads a capture's parse alone near 100 %
+GUARD_PHASE_CPU_PCT = 1000.0
+# a pause waits for a capture in its parse; a check itself may wait
+# seconds for the capture's interpreter lock, so "within two checks" is
+# counted in checks, with this as the wall-clock limit
+PAUSE_S = 30.0
+DEGRADED_STEPS = 20           # steps trained while the guard has paused
 OUT_DIR = "results"
 ROOT = os.path.dirname(os.path.abspath(__file__))
+CARD = {"line": ""}           # nvidia-smi's name and power limit
 
 
 def check(ok: bool, what: str) -> None:
@@ -95,8 +140,8 @@ def check(ok: bool, what: str) -> None:
 
 
 def phase(name: str, **numbers) -> None:
-    print(f"[{name}] " + " ".join(f"{k}={v}" for k, v in numbers.items()),
-          flush=True)
+    print(f"[{name}] card=\"{CARD['line']}\" "
+          + " ".join(f"{k}={v}" for k, v in numbers.items()), flush=True)
 
 
 def device_phase(torch) -> dict:
@@ -105,6 +150,7 @@ def device_phase(torch) -> dict:
          "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True)
     line = smi.stdout.strip().splitlines()[0]
+    CARD["line"] = line
     print(line, flush=True)
     return {"nvidia_smi": line, "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count(),
@@ -338,38 +384,115 @@ def _http(port: int, path: str, body: dict | None = None) -> tuple:
     return code, json.loads(data), (time.perf_counter() - t0) * 1000.0
 
 
-def _server_ports(proc) -> dict:
-    """The JSON line the server prints once it listens."""
-    import select
-    ready, _, _ = select.select([proc.stdout], [], [], SERVER_START_S)
-    line = proc.stdout.readline() if ready else ""
-    check(bool(line), "the server printed its ports")
-    return json.loads(line)
+def _table_rows(srv, name: str, cols: list[str]) -> dict[str, list]:
+    t = srv.db.table(name)
+    data = t.column_concat(cols)
+    return {c: t.dicts[c].decode_many(data[c]) if c in t.dicts
+            else data[c].tolist() for c in cols}
 
 
-def _start_server(log_path: str):
-    """The port's server as its own process, its stderr into log_path."""
+def _server_child(conn, argv: list[str], log_path: str,
+                  dump: dict[str, list[str]]) -> None:
+    """The server's entry point (deepflow_tpu_torch.server's main, with
+    its own SIGTERM handling and drain) in this process, its output into
+    log_path. Its ports go up the pipe once it listens, and the rows of
+    the tables in ``dump`` once main has drained and returned."""
     with open(log_path, "w") as log:
-        return subprocess.Popen(
-            [sys.executable, "-m", "deepflow_tpu_torch.server",
-             "--ingest-port", "0", "--query-port", "0"],
-            cwd=ROOT, stdout=subprocess.PIPE, stderr=log, text=True)
+        sys.stdout = sys.stderr = log
+        from deepflow_tpu_torch.server import server as server_mod
+        started = []
+
+        def on_start(srv) -> None:
+            started.append(srv)
+            conn.send({"ingest_port": srv.ingest_port,
+                       "query_port": srv.query_port})
+        server_mod.main(argv, on_start=on_start)
+        conn.send({name: _table_rows(started[0], name, cols)
+                   for name, cols in dump.items()})
 
 
-def _stop_server(proc, log_path: str) -> None:
-    """SIGTERM; the server must exit 0 with no exception in its log."""
-    proc.terminate()
-    try:
-        proc.wait(timeout=60)
-    except subprocess.TimeoutExpired:
-        proc.kill()
-        proc.wait()
-    proc.stdout.close()
-    with open(log_path) as f:
-        log_text = f.read()
-    check(proc.returncode == 0, f"server exit code {proc.returncode}")
-    check("Traceback" not in log_text and " ERROR " not in log_text,
-          f"server logged no exception (see {log_path})")
+class _ServerProcess:
+    """The port's server in a process of its own (multiprocessing, spawn)
+    on ``ingest_port`` (0: any free one), its log in ``log_path``; its
+    stop hands back the rows of the tables in ``dump`` (name: columns)."""
+
+    def __init__(self, log_path: str, ingest_port: int = 0,
+                 dump: dict[str, list[str]] | None = None) -> None:
+        self.log_path = log_path
+        self.dump = dump or {}
+        self._stopped = False
+        ctx = multiprocessing.get_context("spawn")
+        self._conn, child = ctx.Pipe()
+        argv = ["--ingest-port", str(ingest_port), "--query-port", "0"]
+        self._proc = ctx.Process(target=_server_child,
+                                 args=(child, argv, log_path, self.dump),
+                                 name="df-smoke-server", daemon=True)
+        t0 = time.perf_counter()
+        self._proc.start()
+        child.close()
+        try:
+            check(self._conn.poll(SERVER_START_S),
+                  f"the server process listens (see {log_path})")
+            try:
+                ports = self._conn.recv()
+            except EOFError:
+                check(False, f"the server process exited before it "
+                      f"listened (see {log_path})")
+        except BaseException:
+            self._proc.kill()
+            self._proc.join()
+            raise
+        self.start_s = time.perf_counter() - t0
+        self.ingest_port = ports["ingest_port"]
+        self.query_port = ports["query_port"]
+
+    def stop(self) -> dict[str, dict[str, list]]:
+        """SIGTERM: the server drains its decoders, hands over its rows
+        and must exit 0 with no exception logged. Once only; a second
+        call returns nothing."""
+        if self._stopped:
+            return {}
+        self._stopped = True
+        self._proc.terminate()
+        rows: dict = {}
+        try:
+            if self._conn.poll(60):
+                rows = self._conn.recv()
+        except EOFError:
+            pass
+        self._proc.join(60)
+        if self._proc.is_alive():
+            self._proc.kill()
+            self._proc.join()
+        self._conn.close()
+        with open(self.log_path) as f:
+            log_text = f.read()
+        check(self._proc.exitcode == 0,
+              f"server exit code {self._proc.exitcode}")
+        check("Traceback" not in log_text and " ERROR " not in log_text,
+              f"server logged no exception (see {self.log_path})")
+        check(set(rows) == set(self.dump),
+              f"the server handed over its rows ({sorted(rows)})")
+        return rows
+
+
+def _latest_and_max(rows: dict, metric: str) -> tuple[dict, dict]:
+    """deepflow_system rows of one metric: per value name, the latest
+    value and the largest."""
+    latest: dict[str, tuple[int, float]] = {}
+    most: dict[str, float] = {}
+    for name, t, vname, v in zip(rows["metric_name"], rows["time"],
+                                 rows["value_name"], rows["value"]):
+        if name != metric:
+            continue
+        if vname not in latest or t >= latest[vname][0]:
+            latest[vname] = (t, v)
+        most[vname] = max(most.get(vname, v), v)
+    return {k: v for k, (_, v) in latest.items()}, most
+
+
+_SELFSTATS = "deepflow_system.deepflow_system"
+_SELFSTATS_COLS = ["metric_name", "time", "value_name", "value"]
 
 
 def server_phase(sink, probe, seen) -> dict:
@@ -383,12 +506,11 @@ def server_phase(sink, probe, seen) -> dict:
             "profile.tpu_memory": probe.stats["mem_samples_sent"],
             "profile.tpu_step_metrics": probe.stats["steps_sent"]}
     data = b"".join(sink.frames)
-    proc = _start_server(log_path)
+    srv = _ServerProcess(log_path)
     try:
-        ports = _server_ports(proc)
-        qport = ports["query_port"]
+        qport = srv.query_port
         t0 = time.perf_counter()
-        with socket.create_connection(("127.0.0.1", ports["ingest_port"]),
+        with socket.create_connection(("127.0.0.1", srv.ingest_port),
                                       timeout=60) as conn:
             conn.sendall(data)
         while True:
@@ -448,7 +570,7 @@ def server_phase(sink, probe, seen) -> dict:
         check(cp["step"]["step"] > 0 and cp["attribution"]["verdict"],
               "critical path not empty")
     finally:
-        _stop_server(proc, log_path)
+        srv.stop()
     rows = sum(want.values())
     dec = stats["decoders"]
     nums = {"rows": rows, **{t.split(".")[1] + "_rows": n
@@ -593,11 +715,10 @@ def runner_phase(kernels_per_step_in_process: int, nums: dict) -> None:
     common kernel count per step; the numbers land in ``nums`` before
     the checks run."""
     os.makedirs(OUT_DIR, exist_ok=True)
-    log_path = os.path.join(OUT_DIR, "runner_server.log")
-    proc = _start_server(log_path)
+    srv = _ServerProcess(os.path.join(OUT_DIR, "runner_server.log"),
+                         dump={_SELFSTATS: _SELFSTATS_COLS})
     try:
-        ports = _server_ports(proc)
-        qport = ports["query_port"]
+        qport = srv.query_port
         plain = _train_child(
             ["-m", EXAMPLE, *EXAMPLE_ARGS, "--steps", str(PLAIN_STEPS)],
             "plain")
@@ -609,7 +730,7 @@ def runner_phase(kernels_per_step_in_process: int, nums: dict) -> None:
              "--service", "llama-train", "-m", EXAMPLE, *EXAMPLE_ARGS,
              "--steps", str(RUNNER_STEPS)], "runner_no_ingest")
         run = _train_child(
-            [*RUNNER, "--server", f"127.0.0.1:{ports['ingest_port']}",
+            [*RUNNER, "--server", f"127.0.0.1:{srv.ingest_port}",
              "--service", "llama-train", "-m", EXAMPLE, *EXAMPLE_ARGS,
              "--steps", str(RUNNER_STEPS)], "runner")
         health = _ingest_settled(qport)
@@ -641,8 +762,16 @@ def runner_phase(kernels_per_step_in_process: int, nums: dict) -> None:
         _, flame, flame_ms = _http(qport, "/v1/profile/TpuFlame", {})
         _, cpu, cpu_ms = _http(qport, "/v1/profile/ProfileTracing",
                                {"app_service": "llama-train"})
+        selfstats = srv.stop()[_SELFSTATS]
     finally:
-        _stop_server(proc, log_path)
+        srv.stop()
+    guard_last, guard_max = _latest_and_max(selfstats, "agent.guard")
+    guard_rows = _guard_rows(selfstats)
+    kineto_last, kineto_max = _latest_and_max(selfstats,
+                                              "agent.tpuprobe.kineto")
+    agents = health.get("agents_selfmon", {})
+    sender_hop = agents.get("pipeline", {}).get("sender", {})
+    steps_hop = agents.get("pipeline", {}).get("tpuprobe.steps", {})
     flame, cpu = flame["result"], cpu["result"]
     through_main = [p for p in _flame_paths(cpu) if "runpy.run_module" in p
                     and "__main__.main" in p[p.index("runpy.run_module"):]]
@@ -680,9 +809,28 @@ def runner_phase(kernels_per_step_in_process: int, nums: dict) -> None:
         "ingest_lag_s": ingest_lag_s, "tpu_flame_ms": flame_ms,
         "profile_tracing_ms": cpu_ms,
         "cpu_stacks_through_main": len(through_main),
-        "host_cpu_count": os.cpu_count(), "host_cpu_model": _cpu_model()})
+        "host_cpu_count": os.cpu_count(), "host_cpu_model": _cpu_model(),
+        # the guard's readings (agent threads; RSS above the first step)
+        # beside the whole process's, largest over its checks
+        **{f"guard_{k}_max": guard_max.get(k) for k in (
+            "cpu_pct", "threads_cpu_pct", "rss_mb", "proc_cpu_pct",
+            "proc_rss_mb")},
+        **{f"guard_{k}": guard_last.get(k) for k in (
+            "checks", "degrades", "recoveries")},
+        # the capture's phases (the longest of its stats rows)
+        **{f"kineto_{k}_max": kineto_max.get(k) for k in (
+            "last_start_ms", "last_stop_ms", "last_export_ms",
+            "last_parse_ms", "dead_ms")},
+        **{f"kineto_{k}": kineto_last.get(k) for k in (
+            "captures", "unheld", "coverage_pct")},
+        "sender_hop": sender_hop, "steps_hop": steps_hop,
+        "agent_wedges": agents.get("wedges"),
+        "server_ledger_imbalance": health.get("ledger_imbalance"),
+        "server_wedges": health.get("wedges"), "guard_rows": guard_rows})
     phase("runner", **{k: v for k, v in nums.items()
                        if not isinstance(v, list)})
+    for row in guard_rows:
+        phase("runner guard", **row)
     print(f"  captures (most common kernels per step x steps): "
           f"{list(zip(capture_modes, capture_steps))}", flush=True)
     nums.update(runner_step_ms_all=run["step_ms_all"],
@@ -720,6 +868,285 @@ def runner_phase(kernels_per_step_in_process: int, nums: dict) -> None:
     check(nums["decode_errors"] == 0 and rec["bad_frames"] == 0
           and nums["dups"] == 0 and rec["dropped"] == 0,
           "no decode error, bad or dropped frame, or dup")
+    # a check's CPU reading is over the time since the one before
+    check((guard_last.get("checks") or 0) >= 2,
+          f"the guard read the agent's CPU ({guard_last})")
+    check(guard_last.get("degrades") == 0,
+          f"the guard never degraded the default agent (largest reading "
+          f"{guard_max.get('cpu_pct')} %, {guard_max.get('rss_mb')} MB)")
+    check(agents.get("wedges") == [] and health.get("wedges") == [],
+          "no wedged stage, agent or server")
+    _check_sender_hop(sender_hop, steps_hop)
+    check(health.get("ledger_imbalance") == 0,
+          f"the server's hop ledgers balance ({health.get('pipeline')})")
+
+
+def _guard_rows(rows: dict) -> list[dict]:
+    """The agent.guard rows, one per guard check, in time order."""
+    by_time: dict[int, dict] = {}
+    for name, t, vname, v in zip(rows["metric_name"], rows["time"],
+                                 rows["value_name"], rows["value"]):
+        if name == "agent.guard":
+            by_time.setdefault(t, {})[vname] = v
+    out: dict[float, dict] = {}
+    for t in sorted(by_time):
+        out.setdefault(by_time[t].get("checks", 0.0), by_time[t])
+    return list(out.values())
+
+
+def _check_sender_hop(hop: dict, steps_hop: dict) -> None:
+    """The agent's last sender hop row: emitted = delivered + dropped +
+    pending, nothing pending after the final flush, no HIGH-class frame
+    dropped (HIGH drops: a full queue with no spool, a spool error or
+    eviction), no step record dropped."""
+    check(bool(hop) and hop["emitted"] == hop["delivered"] + hop["dropped"]
+          + hop["in_flight"], f"the sender hop balances ({hop})")
+    check(hop["in_flight"] == 0, f"nothing pending after the flush ({hop})")
+    high = {r: n for r, n in hop.get("dropped_by_reason", {}).items()
+            if r.endswith("_high") or r.startswith("spool")}
+    check(not high, f"no HIGH-class frame dropped ({high})")
+    check(steps_hop.get("dropped", 0) == 0, f"no step record dropped "
+          f"({steps_hop})")
+
+
+def _step_summary(steps: list[tuple[str, float]]) -> dict:
+    out = {}
+    for label in dict.fromkeys(lab for lab, _ in steps):
+        ms = [m for lab, m in steps if lab == label]
+        out[label] = {"n": len(ms), "median": statistics.median(ms),
+                      "mean": statistics.mean(ms), "max": max(ms)}
+    return out
+
+
+def _spans_in_step_records(records: dict, spans: dict) -> int:
+    """Span rows inside a step record of their run_id: time at or after
+    the record's start and at or before its end."""
+    by_run: dict[int, list[tuple[int, int]]] = {}
+    for rid, t0, t1 in zip(records["run_id"], records["time"],
+                           records["end_ns"]):
+        by_run.setdefault(rid, []).append((t0, t1))
+    return sum(1 for rid, t in zip(spans["run_id"], spans["time"])
+               if any(t0 <= t <= t1 for t0, t1 in by_run.get(rid, ())))
+
+
+def resilience_phase(torch, tl, kernels_per_step_in_process: int,
+                     nums: dict) -> None:
+    """A server outage, the spool's replay and a guard pause, in this
+    process (see the module docstring, phase 7); the numbers land in
+    ``nums`` before the checks run."""
+    from deepflow_tpu_torch.agent.agent import Agent
+    from deepflow_tpu_torch.agent.config import AgentConfig
+    from deepflow_tpu_torch.agent.guard import EXC_CPU_LIMIT
+    from torch.autograd import profiler as autograd_profiler
+
+    cfg_m = tl.LlamaConfig.llama7b(n_layers=N_LAYERS)
+    model = tl.Llama(cfg_m, device="cuda",
+                     generator=torch.Generator(device="cuda").manual_seed(0))
+    tokens = torch.randint(0, cfg_m.vocab, (BATCH, SEQ), device="cuda",
+                           generator=torch.Generator(device="cuda")
+                           .manual_seed(1))
+    train_step, _opt = tl.make_train_step(model)
+    for _ in range(3):  # warm-up, before the agent
+        timed_step(torch, train_step, tokens)
+    spool_dir = os.path.join(OUT_DIR, "resilience_spool")
+    shutil.rmtree(spool_dir, ignore_errors=True)
+    port = _closed_port()
+    cfg = AgentConfig(app_service="resilience", agent_id=7)
+    cfg.sender.servers = [("127.0.0.1", port)]
+    cfg.sender.queue_size = RESILIENCE_QUEUE
+    cfg.sender.spool.enabled = True
+    cfg.sender.spool.dir = spool_dir
+    cfg.guard.check_interval_s = GUARD_CHECK_S
+    cfg.guard.max_cpu_pct = GUARD_PHASE_CPU_PCT
+    t0 = time.perf_counter()
+    agent = Agent(cfg, device="cuda").start()
+    guard, sender = agent.guard, agent.sender
+    readings: list[dict] = []
+    guard_check = guard.check
+
+    def check_and_record(now=None) -> None:
+        guard_check(now)
+        readings.append({
+            "t_s": round(time.perf_counter() - t0, 3),
+            "cpu_pct": guard.cpu_pct, "rss_mb": guard.rss_mb,
+            "threads_cpu_pct": guard.threads_cpu_pct,
+            "proc_cpu_pct": guard.proc_cpu_pct,
+            "proc_rss_mb": guard.proc_rss_mb,
+            "degraded": guard.degraded, "bitmap": guard.exception_bitmap})
+    guard.check = check_and_record
+    probes = [agent.tpuprobe]
+    steps: list[tuple[str, float]] = []
+    # kept in the result also when a check fails
+    nums.update(guard_readings=readings, step_ms_all=steps)
+    peak = [0]
+    srv = None
+    stopped = False
+
+    def step(label: str) -> None:
+        steps.append((label, timed_step(torch, train_step, tokens)[0]))
+        peak[0] = max(peak[0], sender.spool.pending_bytes())
+
+    def train_until(label: str, cond, limit_s: float, what: str) -> float:
+        t = time.perf_counter()
+        while not cond():
+            check(time.perf_counter() - t < limit_s,
+                  f"{what} within {limit_s} s")
+            step(label)
+        return time.perf_counter() - t
+
+    try:
+        # 1. the outage: nothing listens, HIGH frames overflow to disk
+        outage_s = train_until(
+            "outage", lambda: probes[0].stats["batches"]
+            >= RESILIENCE_CAPTURES and sender.stats["spooled"] > 0,
+            RESILIENCE_OUTAGE_S,
+            f"{RESILIENCE_CAPTURES} captures sent and a frame spooled with "
+            "no server")
+        step("outage")  # the last capture's frame reaches the sender
+        spooled = sender.stats["spooled"]
+        pending_records = sender.spool.pending_records()
+        check(spooled > 0 and pending_records > 0,
+              f"HIGH frames spooled ({spooled}, {pending_records} pending)")
+        # 2. the server starts on that address: reconnect, replay, acks
+        t_srv = time.perf_counter()
+        srv = _ServerProcess(
+            os.path.join(OUT_DIR, "resilience_server.log"), ingest_port=port,
+            dump={_SELFSTATS: _SELFSTATS_COLS,
+                  "profile.tpu_step_metrics": ["run_id", "time", "end_ns"],
+                  "profile.tpu_hlo_span": ["run_id", "time"]})
+        drain_s = time.perf_counter() - t_srv + train_until(
+            "replay", lambda: sender.stats["replayed"] >= spooled
+            and sender.stats["acked_seq"] >= sender.spool.max_seq(),
+            RESILIENCE_DRAIN_S, "every spooled record replayed and acked")
+        for _ in range(RESILIENCE_AFTER_STEPS):
+            step("after")
+        # 3. a limit below any reading: the guard pauses the profilers
+        checks_at_trip = guard.stats["checks"]
+        guard.max_cpu_pct = -1.0
+        degrade_s = train_until(
+            "degrading", lambda: guard.degraded, PAUSE_S,
+            "the guard degraded")
+        check(guard.stats["checks"] - checks_at_trip <= 2,
+              f"degraded within two checks "
+              f"({guard.stats['checks'] - checks_at_trip})")
+        check(guard.exception_bitmap & EXC_CPU_LIMIT,
+              f"the CPU bit is set ({guard.exception_bitmap})")
+        pause_s = degrade_s + train_until(
+            "pausing", lambda: agent.tpuprobe is None
+            and agent.sampler is None, PAUSE_S,
+            "the probe and the sampler stopped")
+        captures_at_pause = probes[0].sources[0].stats["captures"]
+        opened = 0
+        for _ in range(DEGRADED_STEPS):
+            step("degraded")
+            opened += bool(autograd_profiler._is_profiler_enabled
+                           or agent.tpuprobe is not None)
+        check(opened == 0 and probes[0].sources[0].stats["captures"]
+              == captures_at_pause, "no capture opened while degraded")
+        # 4. the limits back: a recovery and a fresh probe
+        checks_at_restore = guard.stats["checks"]
+        guard.max_cpu_pct = cfg.guard.max_cpu_pct
+        recover_s = train_until(
+            "recovering", lambda: agent.tpuprobe is not None, PAUSE_S,
+            "the guard recovered")
+        check(guard.stats["checks"] - checks_at_restore <= 2,
+              f"recovered within two checks "
+              f"({guard.stats['checks'] - checks_at_restore})")
+        probes.append(agent.tpuprobe)
+        fresh = probes[1].sources[0]
+        first: list = []
+        sink = fresh.sink
+
+        def tap(events) -> None:
+            if not first:
+                first.append(list(events))
+            sink(events)
+        fresh.sink = tap
+        first_capture_s = train_until(
+            "resumed", lambda: bool(first), RESILIENCE_OUTAGE_S,
+            "the resumed probe's first capture")
+        per_step: dict[int, int] = {}
+        for e in first[0]:
+            if e.hlo_op:
+                per_step[e.run_id] = per_step.get(e.run_id, 0) + 1
+        resumed_mode = statistics.mode(per_step.values()) if per_step else 0
+        # 5. detach, and read the server
+        agent.stop()
+        stopped = True
+        hop = agent.telemetry.hop("sender").snapshot()
+        sent = {k: sum(p.stats.get(k, 0) for p in probes)
+                for k in ("steps_sent", "spans_sent", "mem_samples_sent")}
+        health = _ingest_settled(srv.query_port)
+        dumped = srv.stop()
+        selfstats = dumped[_SELFSTATS]
+        records = dumped["profile.tpu_step_metrics"]
+        spans = dumped["profile.tpu_hlo_span"]
+    finally:
+        if not stopped:
+            agent.stop()
+        if srv is not None:
+            srv.stop()
+        shutil.rmtree(spool_dir, ignore_errors=True)
+        del model, tokens, train_step, _opt
+        gc.collect()
+        torch.cuda.empty_cache()
+    tables, stats = health["tables"], health["stats"]
+    guard_last, _ = _latest_and_max(selfstats, "agent.guard")
+    agents = health.get("agents_selfmon", {})
+    sender_hop = agents.get("pipeline", {}).get("sender", {})
+    steps_hop = agents.get("pipeline", {}).get("tpuprobe.steps", {})
+    in_steps = _spans_in_step_records(records, spans)
+    nums.update({
+        "outage_s": outage_s, "spooled_at_server_start": spooled,
+        "spool_records_at_server_start": pending_records,
+        "peak_spool_bytes": peak[0], "server_start_s": srv.start_s,
+        "drain_s": drain_s, "degrade_s": degrade_s, "pause_s": pause_s,
+        "recover_s": recover_s, "resumed_first_capture_s": first_capture_s,
+        "resumed_kernels_per_step": resumed_mode,
+        "resumed_first_capture_steps": len(per_step),
+        "kernels_per_step_in_process": kernels_per_step_in_process,
+        "sender": dict(sender.stats), "sender_hop_in_process": hop,
+        "spool": dict(sender.spool.stats), **sent,
+        **{t.split(".")[1] + "_rows": n for t, n in tables.items()},
+        "spans_in_step_records": in_steps,
+        "dups": sum(d["dups"] for d in stats["decoders"].values()),
+        "decode_errors": sum(d["errors"]
+                             for d in stats["decoders"].values()),
+        "bad_frames": stats["receiver"]["bad_frames"],
+        "guard_last": guard_last, "sender_hop": sender_hop,
+        "steps_hop": steps_hop, "agent_wedges": agents.get("wedges"),
+        "step_ms": _step_summary(steps), "guard_readings": readings})
+    phase("resilience", **{k: v for k, v in nums.items()
+                           if not isinstance(v, (dict, list))})
+    for label, st in nums["step_ms"].items():
+        phase("resilience step_ms", label=label, **st)
+    for r in readings:
+        phase("resilience guard", **r)
+    phase("resilience sender", **nums["sender"])
+    check(sender.stats["reconnects"] >= 1 and
+          sender.stats["replayed"] >= spooled, "the sender replayed")
+    check(resumed_mode == kernels_per_step_in_process,
+          f"the resumed probe's first capture holds {resumed_mode} kernels "
+          f"a step, phase 4's {kernels_per_step_in_process}")
+    check(tables["profile.tpu_step_metrics"] == sent["steps_sent"],
+          f"step records once each: {tables['profile.tpu_step_metrics']} "
+          f"rows, {sent['steps_sent']} sent")
+    check(tables["profile.tpu_hlo_span"] == sent["spans_sent"],
+          f"spans once each: {tables['profile.tpu_hlo_span']} rows, "
+          f"{sent['spans_sent']} sent")
+    check(tables["profile.tpu_memory"] == sent["mem_samples_sent"],
+          f"memory samples once each: {tables['profile.tpu_memory']} rows, "
+          f"{sent['mem_samples_sent']} sent")
+    check(in_steps == tables["profile.tpu_hlo_span"],
+          f"every span row lies in a step record ({in_steps} of "
+          f"{tables['profile.tpu_hlo_span']})")
+    check(nums["decode_errors"] == 0 and nums["bad_frames"] == 0,
+          "no decode error or bad frame")
+    check(guard_last.get("degrades") == 1
+          and guard_last.get("recoveries") == 1,
+          f"agent.guard: one degrade, one recovery ({guard_last})")
+    check(agents.get("wedges") == [], "no agent stage wedged")
+    _check_sender_hop(sender_hop, steps_hop)
 
 
 def main() -> int:
@@ -750,6 +1177,9 @@ def main() -> int:
         result["runner"] = {}
         runner_phase(result["frames"]["kernels_per_step_mode"],
                      result["runner"])
+        result["resilience"] = {}
+        resilience_phase(torch, tl, result["frames"]["kernels_per_step_mode"],
+                         result["resilience"])
     finally:
         # every number so far, also when a check failed
         result["seconds"] = time.perf_counter() - t0

@@ -1,11 +1,15 @@
-"""Agent runtime: the OnCPU sampler, the device probe and self-stats over
-the durable sender.
+"""Agent runtime: the OnCPU sampler, the device probe, the resource
+guard, self-telemetry and self-stats over the durable sender.
 
 Own copy of the in-process parts of ``deepflow_tpu/agent/agent.py``:
 ``Agent`` wires ``OnCpuSampler`` (PROFILE frames), ``TpuProbe`` (TPU_SPAN
 and STEP_METRICS frames) and a stats thread (DFSTATS frames every
-``stats_interval_s``) into one ``UniformSender``. ``attach`` / ``detach``
-start and stop one agent inside the current process; that is how
+``stats_interval_s``) into one ``UniformSender``, with its spool and
+fault injection when configured. The ``Guard`` pauses the profilers
+while the agent costs too much; the ``Telemetry`` registry (hop ledgers,
+heartbeats) and its ``DeadmanDetector`` ride in every DFSTATS batch, and
+a wedge ships one at once. ``attach`` / ``detach`` start and stop one
+agent inside the current process; that is how
 ``python -m deepflow_tpu_torch.cli.runner`` profiles a script with no
 change to its code.
 
@@ -24,17 +28,22 @@ import atexit
 import logging
 import os
 import sys
+import tempfile
 import threading
 import time
 
 from deepflow_tpu_torch.agent.config import AgentConfig, parse_addr
+from deepflow_tpu_torch.agent.guard import Guard, read_self_usage
 from deepflow_tpu_torch.agent.profiler import OnCpuSampler, ProfileSample
 from deepflow_tpu_torch.agent.sender import UniformSender
+from deepflow_tpu_torch.agent.spool import Spool
+from deepflow_tpu_torch.chaos import ChaosConfig, ChaosInjector, chaos_from_env
 from deepflow_tpu_torch.codec import MessageType
 from deepflow_tpu_torch.device import resolve_device
 from deepflow_tpu_torch.proto import wire
+from deepflow_tpu_torch.telemetry import DeadmanDetector, Telemetry
 from deepflow_tpu_torch.tpuprobe.probe import TpuProbe
-from deepflow_tpu_torch.tpuprobe.sources import KinetoSource
+from deepflow_tpu_torch.tpuprobe.sources import KinetoSource, StepHook
 
 log = logging.getLogger("df.agent")
 
@@ -55,34 +64,149 @@ class Agent:
         # read before a launcher rewrites sys.argv for its target
         self.process_name = os.path.basename(sys.argv[0]) or "python"
         self.app_service = self.config.app_service or self.process_name
+        sm = self.config.selfmon
+        # config False forces it off; True still honours DF_NO_SELFMON
+        self.telemetry = Telemetry(
+            "agent", enabled=None if sm.enabled else False)
+        self.deadman = DeadmanDetector(
+            self.telemetry, window_s=sm.deadman_window_s,
+            check_interval_s=sm.check_interval_s or None,
+            on_wedge=self._on_wedge)
         sc = self.config.sender
         self.sender = UniformSender(
             sc.servers, agent_id=self.config.agent_id,
-            queue_size=sc.queue_size, ack_window=sc.ack_window)
+            queue_size=sc.queue_size, ack_window=sc.ack_window,
+            telemetry=self.telemetry, spool=self._build_spool(),
+            chaos=self._build_chaos())
         self.sampler: OnCpuSampler | None = None
         self.tpuprobe = None
+        self.guard: Guard | None = None
+        # the probe's step hook is the agent's: installed with the first
+        # probe, it counts on while the guard has the probe paused, so the
+        # step numbers (the spans' run_id) of a resumed probe continue
+        # instead of starting again at 1. Its first step sets the guard's
+        # memory baseline, and its holds tell the guard what CPU took the
+        # parked training thread's place.
+        self.step_hook = (StepHook(on_first_step=self.note_first_step)
+                          if self.config.tpuprobe.enabled
+                          and self.device.type == "cuda" else None)
+        self.first_step_rss: int | None = None
         self._stats_thread: threading.Thread | None = None
         self._stop = threading.Event()
         self._components: list[str] = []
+        # serializes the sampler's and the probe's lifecycle across the
+        # guard's thread and the caller's
+        self._profiler_lock = threading.RLock()
+
+    def _build_spool(self) -> Spool | None:
+        sc = self.config.sender.spool
+        if not sc.enabled:
+            return None
+        directory = sc.dir or os.path.join(
+            tempfile.gettempdir(), f"deepflow-spool-{self.config.agent_id}")
+        return Spool(directory, max_bytes=sc.max_mb << 20,
+                     segment_bytes=sc.segment_mb << 20,
+                     max_age_s=sc.max_age_s)
+
+    def _build_chaos(self) -> ChaosInjector | None:
+        """DF_CHAOS wins over the config block."""
+        env = chaos_from_env()
+        if env is not None:
+            return env
+        cc = self.config.chaos
+        if not cc.enabled:
+            return None
+        return ChaosInjector(ChaosConfig(
+            enabled=True, seed=cc.seed, conn_refuse=cc.conn_refuse,
+            conn_reset=cc.conn_reset, partial_write=cc.partial_write,
+            latency_ms=cc.latency_ms, disk_full=cc.disk_full))
 
     # -- lifecycle -----------------------------------------------------------
 
-    def start(self) -> "Agent":
-        self.sender.start()
-        self._components.append("sender")
-        if self.config.profiler.enabled:
+    def start_sampler(self) -> None:
+        with self._profiler_lock:
+            if self.sampler is not None:
+                return
+            if self.guard is not None and self.guard.degraded:
+                return  # paused by the guard; its resume restarts it
             self.sampler = OnCpuSampler(
                 self._profile_sink, hz=self.config.profiler.sample_hz,
                 emit_interval_s=self.config.profiler.emit_interval_s).start()
+
+    def start_tpuprobe(self) -> None:
+        with self._profiler_lock:
+            if self.tpuprobe is not None or self.device.type != "cuda":
+                return
+            if self.guard is not None and self.guard.degraded:
+                return
+            self.tpuprobe = TpuProbe(self).start()
+
+    def pause_profilers(self) -> None:
+        """Stop the sampler and the device probe (the guard's breach).
+        The probe's stop releases a step it holds and waits for its
+        thread to leave the profiler session."""
+        with self._profiler_lock:
+            if self.sampler is not None:
+                self.sampler.stop()
+                self.sampler = None
+            if self.tpuprobe is not None:
+                self.tpuprobe.stop()
+                self.tpuprobe = None
+
+    def resume_profilers(self) -> None:
+        """Start them again as configured, the probe afresh on the
+        agent's step hook, so its step numbers run on."""
+        with self._profiler_lock:
+            if self.config.profiler.enabled:
+                self.start_sampler()
+            if self.config.tpuprobe.enabled:
+                self.start_tpuprobe()
+
+    def note_first_step(self) -> None:
+        """The workload's first optimizer step (the probe's step hook,
+        on the training thread): the guard's memory baseline."""
+        if self.first_step_rss is None:
+            self.first_step_rss = read_self_usage()[1]
+
+    def held_cpu_s(self) -> float:
+        """CPU seconds the probe's thread spent while the step hook held
+        the training thread (the guard leaves them out)."""
+        return self.step_hook.held_cpu_s if self.step_hook else 0.0
+
+    def agent_threads(self) -> list[threading.Thread]:
+        """The threads this agent started (the guard's CPU reading)."""
+        threads = [self.sender._thread, self._stats_thread,
+                   self.deadman._thread]
+        if self.guard is not None:
+            threads.append(self.guard._thread)
+        sampler, tpuprobe = self.sampler, self.tpuprobe
+        if sampler is not None:
+            threads.append(sampler._thread)
+        if tpuprobe is not None:
+            threads += [src._thread for src in tpuprobe.sources]
+        return [t for t in threads if t is not None]
+
+    def start(self) -> "Agent":
+        self.deadman.start()
+        self.sender.start()
+        self._components.append("sender")
+        if self.config.profiler.enabled:
+            self.start_sampler()
             self._components.append("oncpu-sampler")
         left_out = ""
         if self.config.tpuprobe.enabled:
             if self.device.type == "cuda":
-                self.tpuprobe = TpuProbe(self).start()
+                self.start_tpuprobe()
                 self._components.append("tpuprobe")
             else:
                 left_out = (f"; left out on {self.device.type}: tpuprobe "
                             "(its Kineto and memory sources read CUDA only)")
+        if self.config.guard.enabled:
+            g = self.config.guard
+            self.guard = Guard(
+                self, max_cpu_pct=g.max_cpu_pct, max_mem_mb=g.max_mem_mb,
+                check_interval_s=g.check_interval_s).start()
+            self._components.append("guard")
         self._stats_thread = threading.Thread(
             target=self._stats_loop, name="df-agent-stats", daemon=True)
         self._stats_thread.start()
@@ -92,17 +216,27 @@ class Agent:
         return self
 
     def stop(self) -> None:
-        """Stop the sources, ship a last stats batch and flush the
-        sender (up to its 5 s)."""
+        """Stop the guard and the sources, flush the sender, ship a last
+        stats batch and flush that too, within 5 s (and at least 0.5 s
+        for the last batch). The last batch is built after the first
+        flush, so its ledger shows what the flush left pending."""
         self._stop.set()
-        if self.sampler:
-            self.sampler.stop()
-        if self.tpuprobe:
-            self.tpuprobe.stop()  # joins a capture still in its parse
+        self.deadman.stop()
+        if self.guard:
+            self.guard.stop()
+        with self._profiler_lock:  # after a pause or resume in progress
+            if self.sampler:
+                self.sampler.stop()
+            if self.tpuprobe:
+                self.tpuprobe.stop()  # joins a capture still in its parse
+        if self.step_hook is not None:
+            self.step_hook.remove()
         if self._stats_thread:
             self._stats_thread.join(timeout=2.0)
+        deadline = time.monotonic() + 5.0
+        self.sender.flush(5.0)
         self._emit_stats()  # the final stats
-        self.sender.flush_and_stop()
+        self.sender.flush_and_stop(max(0.5, deadline - time.monotonic()))
 
     # -- sinks ---------------------------------------------------------------
 
@@ -129,8 +263,19 @@ class Agent:
 
     # -- self-stats (DFSTATS -> deepflow_system) -----------------------------
 
+    def _on_wedge(self, verdict: dict) -> None:
+        """A deadman verdict ships at once, not at the next stats tick."""
+        try:
+            self._emit_stats()
+        except Exception:
+            log.exception("wedge stats emit failed")
+
     def _stats_loop(self) -> None:
+        hb = self.telemetry.heartbeat(
+            "stats", interval_hint_s=self.config.stats_interval_s)
+        hb.beat()
         while not self._stop.wait(self.config.stats_interval_s):
+            hb.beat()
             try:
                 self._emit_stats()
             except Exception:
@@ -140,10 +285,13 @@ class Agent:
         ts = time.time_ns()
         batch = wire.StatsBatch()
 
-        def metric(name: str, values: dict) -> None:
+        def metric(name: str, values: dict,
+                   extra_tags: dict | None = None) -> None:
+            tags = {"process": self.process_name}
+            if extra_tags:
+                tags.update((k, str(v)) for k, v in extra_tags.items())
             batch.metrics.append(wire.StatsMetric(
-                name=name, timestamp_ns=ts,
-                tags={"process": self.process_name},
+                name=name, timestamp_ns=ts, tags=tags,
                 values={k: float(v) for k, v in values.items()}))
 
         metric("agent.sender", self.sender.stats)
@@ -161,6 +309,12 @@ class Agent:
                     metric("agent.tpuprobe.kineto", {
                         k: v for k, v in src.stats.items()
                         if isinstance(v, (int, float))})
+        guard = self.guard
+        if guard is not None:
+            metric("agent.guard", guard.snapshot())
+        # hop ledgers, heartbeats and wedge verdicts ride the same batch
+        for name, tags, values in self.telemetry.stats_metrics():
+            metric(name, values, extra_tags=tags)
         self.sender.send(MessageType.DFSTATS, batch.SerializeToString())
 
 

@@ -1,10 +1,14 @@
-"""Agent configuration: the sampler, the probe, the sender and self-stats.
+"""Agent configuration: the sampler, the probe, the guard, the sender,
+fault injection, self-telemetry and self-stats.
 
 A subset of ``deepflow_tpu/agent/config.py`` with the reference's field
 names, defaults and validation ranges for the fields kept: the OnCPU
 sampler (``ProfilerConfig``), the device probe (``TpuProbeConfig``), the
-durable sender without its spool (``SenderConfig``) and the agent's
-identity and stats cadence (``AgentConfig``).
+resource guard (``GuardConfig``), the durable sender and its on-disk
+spool (``SenderConfig``, ``SpoolConfig``), transport fault injection
+(``ChaosConfig``), the self-telemetry spine (``SelfmonConfig``) and the
+agent's identity and stats cadence (``AgentConfig``). The guard and
+self-telemetry are on by default, the spool and fault injection off.
 """
 
 from __future__ import annotations
@@ -39,6 +43,28 @@ class TpuProbeConfig:
 
 
 @dataclass
+class GuardConfig:
+    enabled: bool = True
+    max_cpu_pct: float = 50.0
+    max_mem_mb: float = 2048.0
+    check_interval_s: float = 10.0
+
+
+@dataclass
+class SpoolConfig:
+    """On-disk overflow and replay spool of the durable sender
+    (agent/spool.py): HIGH frames that would be dropped land in
+    CRC-framed segment files and replay on reconnect."""
+    enabled: bool = False
+    dir: str = ""                 # "" = <tmpdir>/deepflow-spool-<agent_id>
+    max_mb: int = 64              # oldest-segment eviction past this
+    segment_mb: int = 4
+    # age retention: closed segments older than this are evicted (0 =
+    # size only); evictions ledger as dropped(spool_age_evict)
+    max_age_s: float = 0.0
+
+
+@dataclass
 class SenderConfig:
     servers: list = field(default_factory=lambda: [("127.0.0.1",
                                                     DEFAULT_INGEST_PORT)])
@@ -46,6 +72,33 @@ class SenderConfig:
     # sent-but-unacked frames kept for retransmit after a reconnect (the
     # transport is always durable: per-frame seq, server acks, dedup)
     ack_window: int = 1024
+    spool: SpoolConfig = field(default_factory=SpoolConfig)
+
+
+@dataclass
+class ChaosConfig:
+    """Seeded transport fault injection (chaos.py). The DF_CHAOS
+    environment knob overrides this block; probabilities are per call in
+    [0, 1]. Never on in production: it exists to prove that delivery
+    stays exactly-once under faults."""
+    enabled: bool = False
+    seed: int = 0
+    conn_refuse: float = 0.0
+    conn_reset: float = 0.0
+    partial_write: float = 0.0
+    latency_ms: float = 0.0
+    disk_full: float = 0.0
+
+
+@dataclass
+class SelfmonConfig:
+    """Self-telemetry: hop ledgers, heartbeats and the deadman
+    (telemetry.py). DF_NO_SELFMON=1 turns it off as well."""
+    enabled: bool = True
+    # a stage with no heartbeat for this long is flagged wedged (its
+    # stack is snapshotted and shipped in the DFSTATS batch)
+    deadman_window_s: float = 15.0
+    check_interval_s: float = 0.0   # 0 = deadman_window_s / 4
 
 
 @dataclass
@@ -54,7 +107,10 @@ class AgentConfig:
     app_service: str = ""
     profiler: ProfilerConfig = field(default_factory=ProfilerConfig)
     tpuprobe: TpuProbeConfig = field(default_factory=TpuProbeConfig)
+    guard: GuardConfig = field(default_factory=GuardConfig)
     sender: SenderConfig = field(default_factory=SenderConfig)
+    chaos: ChaosConfig = field(default_factory=ChaosConfig)
+    selfmon: SelfmonConfig = field(default_factory=SelfmonConfig)
     stats_interval_s: float = 10.0
 
     def validate(self) -> "AgentConfig":
@@ -77,8 +133,31 @@ class AgentConfig:
             1, 10_000)
         num(self.tpuprobe.step_topk, "tpuprobe.step_topk", 1, 100)
         num(self.stats_interval_s, "stats_interval_s", 0.1)
+        num(self.selfmon.deadman_window_s, "selfmon.deadman_window_s", 0.1)
+        num(self.selfmon.check_interval_s, "selfmon.check_interval_s", 0)
         num(self.sender.queue_size, "sender.queue_size", 1)
         num(self.sender.ack_window, "sender.ack_window", 1)
+        num(self.sender.spool.max_mb, "sender.spool.max_mb", 1)
+        num(self.sender.spool.segment_mb, "sender.spool.segment_mb", 1)
+        if self.sender.spool.segment_mb > self.sender.spool.max_mb:
+            raise ValueError(
+                "sender.spool.segment_mb must be <= sender.spool.max_mb "
+                "(the cap must hold at least one segment)")
+        for p in ("conn_refuse", "conn_reset", "partial_write", "disk_full"):
+            num(getattr(self.chaos, p), f"chaos.{p}", 0.0, 1.0)
+        num(self.chaos.latency_ms, "chaos.latency_ms", 0)
+        num(self.guard.max_cpu_pct, "guard.max_cpu_pct", 1)
+        num(self.guard.max_mem_mb, "guard.max_mem_mb", 16)
+        num(self.guard.check_interval_s, "guard.check_interval_s", 0.1)
+        for b, name in ((self.profiler.enabled, "profiler.enabled"),
+                        (self.tpuprobe.enabled, "tpuprobe.enabled"),
+                        (self.tpuprobe.step_metrics,
+                         "tpuprobe.step_metrics"),
+                        (self.sender.spool.enabled, "sender.spool.enabled"),
+                        (self.chaos.enabled, "chaos.enabled"),
+                        (self.selfmon.enabled, "selfmon.enabled")):
+            if not isinstance(b, bool):
+                raise ValueError(f"{name} must be a bool, got {b!r}")
         return self
 
 

@@ -1,7 +1,7 @@
 """UniformSender: the agent's durable, reconnecting TCP frame sender.
 
-Own copy of ``deepflow_tpu/agent/sender.py::UniformSender`` without its
-on-disk spool, fault injection and telemetry hooks. Every frame carries a
+Own copy of ``deepflow_tpu/agent/sender.py::UniformSender`` with its
+on-disk spool, fault injection and hop ledger. Every frame carries a
 per-agent ``seq`` (codec v2). The server writes ACK frames (the highest
 contiguous seq it has decoded) back down the same connection; the sender
 keeps sent-but-unacked frames in a bounded window and sends them again
@@ -11,17 +11,26 @@ already holds: at-least-once frames, exactly-once rows.
 Seq space:
 
 * The counter starts from a per-boot epoch (``time_ns >> 20`` above a
-  22-bit counter), so a restarted agent's seqs lie above anything the
-  server still holds for its agent_id.
-* A seq is allocated at a frame's first write to the wire, never at
-  ``send()``: a frame shed from a full queue owned no seq and leaves no
-  gap that would stall the server's contiguous watermark.
-* Every (re)connect announces ``SEQ_BASE``, the lowest seq this sender
-  may still send; the server moves its watermark up to it.
+  22-bit counter), or past a recovered spool's highest seq if that is
+  higher, so a restarted agent's seqs lie above anything the server
+  still holds for its agent_id.
+* A seq is allocated at a frame's first write to the wire or the spool,
+  never at ``send()``: a frame shed from a full queue owned no seq and
+  leaves no gap that would stall the server's contiguous watermark.
+* Every (re)connect, and every event that burns a seq (a spool eviction
+  or disk error), announces ``SEQ_BASE``, the lowest seq this sender may
+  still send; the server moves its watermark up to it.
 
 Under a full queue, ``send()`` sheds the oldest queued frame of a lower
-priority class (``codec.priority_of``: self-stats first) before it drops
-the new frame.
+priority class (``codec.priority_of``: self-stats first); a HIGH frame
+that still finds no room goes to the spool when there is one, and any
+other frame is dropped. A failed write spools the frame too.
+
+Ledger (the ``sender`` hop): ``emitted`` once per ``send()``,
+``delivered`` once per frame at its first successful write (retransmits
+count in ``stats`` only), every shed, evicted or undeliverable frame a
+``dropped(reason)``, so ``emitted == delivered + dropped + in_flight``
+holds, spool or no spool.
 """
 
 from __future__ import annotations
@@ -34,9 +43,11 @@ import threading
 import time
 
 from deepflow_tpu_torch.agent.config import parse_addr
+from deepflow_tpu_torch.chaos import chaos_from_env
 from deepflow_tpu_torch.codec import (
     FrameDecodeError, FrameHeader, MessageType, StreamDecoder, decode_ack,
     encode_frame, encode_seq_base, priority_of)
+from deepflow_tpu_torch.telemetry import Telemetry
 
 log = logging.getLogger("df.sender")
 
@@ -45,16 +56,19 @@ _PRIO_NAMES = {0: "high", 1: "mid", 2: "low"}
 
 class _Frame:
     """One frame's transit state. ``seq`` stays None until the frame first
-    reaches the wire; ``sent`` turns True at its first write, so later
-    writes count as retransmits."""
+    reaches the wire or the spool; ``needs_account`` turns False at its
+    first successful write (or its ack), so retransmits are never
+    accounted twice. ``enq_ns`` is None for spool replays."""
 
-    __slots__ = ("msg_type", "payload", "seq", "sent")
+    __slots__ = ("msg_type", "payload", "seq", "enq_ns", "needs_account")
 
-    def __init__(self, msg_type: MessageType, payload: bytes) -> None:
+    def __init__(self, msg_type: MessageType, payload: bytes,
+                 seq: int | None = None, enq_ns: int | None = None) -> None:
         self.msg_type = msg_type
         self.payload = payload
-        self.seq: int | None = None
-        self.sent = False
+        self.seq = seq
+        self.enq_ns = enq_ns
+        self.needs_account = True
 
 
 class UniformSender:
@@ -66,7 +80,8 @@ class UniformSender:
 
     def __init__(self, servers: list, agent_id: int = 0,
                  queue_size: int = 8192, connect_timeout: float = 3.0,
-                 ack_window: int = 1024) -> None:
+                 ack_window: int = 1024, telemetry: Telemetry | None = None,
+                 spool=None, chaos=None) -> None:
         if not servers:
             raise ValueError("need at least one server address")
         self.servers = [parse_addr(s) if isinstance(s, str) else tuple(s)
@@ -74,6 +89,8 @@ class UniformSender:
         self.agent_id = agent_id
         self.connect_timeout = connect_timeout
         self.ack_window = max(1, ack_window)
+        self.spool = spool
+        self._chaos = chaos if chaos is not None else chaos_from_env()
         self._q: queue.Queue = queue.Queue(maxsize=queue_size)
         self._stop = threading.Event()
         self._thread: threading.Thread | None = None
@@ -84,11 +101,16 @@ class UniformSender:
         # counter; a counter that outgrows 22 bits runs on into the epoch
         # bits and stays monotonic
         self._next_seq = ((time.time_ns() >> 20) << 22) | 1
+        if spool is not None:
+            # a recovered spool's seqs belong to an earlier boot: ours
+            # start past them
+            self._next_seq = max(self._next_seq, spool.max_seq() + 1)
         self.seq_base = self._next_seq - 1     # seqs are seq_base+1, +2, ...
         self._acked = 0                        # highest contiguous acked
         self._unacked: dict[int, _Frame] = {}  # sent, awaiting ack
         self._pending: list[_Frame] = []       # to send again, in order
         self._inflight: _Frame | None = None
+        self._spool_replayed_through = 0       # highest seq handed to replay
         self._base_dirty = False  # re-announce SEQ_BASE on this connection
         # delivered frames evicted from the window before their ack: they
         # may still sit in a server decode queue, so SEQ_BASE stays below
@@ -97,8 +119,24 @@ class UniformSender:
         self._ackdec = StreamDecoder()
         self.stats = {"sent_frames": 0, "sent_bytes": 0, "dropped": 0,
                       "reconnects": 0, "errors": 0, "retransmits": 0,
-                      "acked_seq": 0, "shed": 0, "unacked_evicted": 0,
-                      "seq_bases": 0}
+                      "spooled": 0, "replayed": 0, "acked_seq": 0,
+                      "shed": 0, "unacked_evicted": 0, "seq_bases": 0}
+        self._telemetry = telemetry or Telemetry("agent", enabled=False)
+        self._hop = self._telemetry.hop("sender")
+        if spool is not None:
+            spool.on_evict = self._on_spool_evict
+            # a recovered spool holds frames no send() of this process
+            # emitted: account them in, so their replay keeps the ledger
+            # balanced
+            recovered = spool.pending_records()
+            if recovered:
+                self._hop.account(emitted=recovered)
+
+    def _on_spool_evict(self, n: int, reason: str) -> None:
+        self.stats["dropped"] += n
+        self._hop.account(dropped=n, reason=reason)
+        # the evicted records owned seqs that will never be sent
+        self._base_dirty = True
 
     def start(self) -> "UniformSender":
         self._thread = threading.Thread(
@@ -113,7 +151,8 @@ class UniformSender:
             return seq
 
     def send(self, msg_type: MessageType, payload: bytes) -> bool:
-        f = _Frame(msg_type, payload)
+        self._hop.account(emitted=1)
+        f = _Frame(msg_type, payload, enq_ns=time.monotonic_ns())
         try:
             self._q.put_nowait(f)
             return True
@@ -123,18 +162,29 @@ class UniformSender:
         mine = priority_of(msg_type)
         victim = self._shed_lower_than(mine)
         if victim is not None:
-            self.stats["dropped"] += 1
+            self._drop("priority_shed_"
+                       + _PRIO_NAMES[priority_of(victim.msg_type)])
             self.stats["shed"] += 1
-            log.debug("shed a %s frame for a %s one",
-                      _PRIO_NAMES[priority_of(victim.msg_type)],
-                      _PRIO_NAMES[mine])
             try:
                 self._q.put_nowait(f)
                 return True
             except queue.Full:
-                pass  # raced with another sender: drop this one
-        self.stats["dropped"] += 1
+                pass  # raced with another sender: fall through
+        if self.spool is not None and mine == 0:
+            # a HIGH frame survives the overflow on disk
+            f.seq = self._alloc_seq()
+            if self.spool.append(int(msg_type), f.seq, f.payload):
+                self.stats["spooled"] += 1
+                return True
+            self._drop("spool_error")
+            self._base_dirty = True  # that seq is now a permanent gap
+            return False
+        self._drop(f"queue_full_{_PRIO_NAMES[mine]}")
         return False
+
+    def _drop(self, reason: str) -> None:
+        self.stats["dropped"] += 1
+        self._hop.account(dropped=1, reason=reason)
 
     def _shed_lower_than(self, prio: int) -> _Frame | None:
         """Remove and return the oldest queued frame of a strictly lower
@@ -157,20 +207,33 @@ class UniformSender:
 
     # -- shutdown ------------------------------------------------------------
 
-    def flush_and_stop(self, timeout: float = 5.0) -> None:
-        """Wait up to ``timeout`` for the queue, the resend list and the
-        frame in flight to reach the wire, then stop and close."""
+    def flush(self, timeout: float = 5.0) -> bool:
+        """Wait up to ``timeout`` for the queue, the resend list, the
+        frame in flight and the spool's unreplayed records to reach the
+        wire; True when they did."""
         deadline = time.monotonic() + timeout
-        while time.monotonic() < deadline:
+        while True:
             if self._q.empty() and self._inflight is None \
-                    and not self._pending:
-                break
-            if self._stop.wait(0.02):
-                break
+                    and not self._pending and not self._spool_backlog():
+                return True
+            if time.monotonic() >= deadline or self._stop.wait(0.02):
+                return False
+
+    def flush_and_stop(self, timeout: float = 5.0) -> None:
+        """``flush``, then stop and close."""
+        self.flush(timeout)
         self._stop.set()
         if self._thread:
             self._thread.join(timeout=2.0)
         self._close()
+        if self.spool is not None:
+            self.spool.close()
+
+    def _spool_backlog(self) -> bool:
+        """True while the spool holds records not yet handed to replay."""
+        return (self.spool is not None
+                and self.spool.max_seq() > max(self._acked,
+                                               self._spool_replayed_through))
 
     def _close(self) -> None:
         if self._sock:
@@ -201,6 +264,8 @@ class UniformSender:
         for i in range(len(self.servers)):
             idx = (self._server_idx + i) % len(self.servers)
             try:
+                if self._chaos is not None:
+                    self._chaos.on_connect()
                 s = socket.create_connection(self.servers[idx],
                                              timeout=self.connect_timeout)
             except OSError:
@@ -209,8 +274,39 @@ class UniformSender:
             self._sock = s
             self._server_idx = idx
             self.stats["reconnects"] += 1
+            self._load_replay()
             return True
         return False
+
+    def _load_replay(self) -> None:
+        """Queue the spooled frames not yet handed to replay, HIGH class
+        first (the unacked ones are already back in ``_pending``)."""
+        if self.spool is None:
+            return
+        start = max(self._acked, self._spool_replayed_through)
+        pending_seqs = {f.seq for f in self._pending}
+        fresh = []
+        for mt, seq, payload in self.spool.replay(start):
+            if seq in pending_seqs:
+                continue
+            try:
+                msg_type = MessageType(mt)
+            except ValueError:
+                continue
+            fresh.append(_Frame(msg_type, payload, seq=seq))
+            self._spool_replayed_through = max(
+                self._spool_replayed_through, seq)
+        if fresh:
+            self.stats["replayed"] += len(fresh)
+            self._pending = sorted(
+                self._pending + fresh,
+                key=lambda f: (priority_of(f.msg_type), f.seq))
+
+    def _write(self, frame: bytes) -> None:
+        if self._chaos is not None:
+            self._chaos.on_send(self._sock, frame)
+        else:
+            self._sock.sendall(frame)
 
     # -- seq-base announcements ----------------------------------------------
 
@@ -228,13 +324,17 @@ class UniformSender:
             cands.append(min(self._unacked))
         if self._evicted_unacked:
             cands.append(min(self._evicted_unacked))
+        if self.spool is not None:
+            s = self.spool.min_pending_seq()
+            if s:
+                cands.append(max(s, self._acked + 1))
         return min(cands)
 
     def _send_base(self) -> None:
         """Announce SEQ_BASE on the live connection (worker thread only)."""
         frame = encode_seq_base(self.agent_id, self._outstanding_base())
         try:
-            self._sock.sendall(frame)
+            self._write(frame)
         except OSError as e:
             self._fail_over("seq-base send", e)
             return
@@ -270,10 +370,20 @@ class UniformSender:
         self.stats["acked_seq"] = seq
         for s in [s for s in self._unacked if s <= seq]:
             del self._unacked[s]
-        self._pending = [f for f in self._pending
-                         if f.seq is None or f.seq > seq]
+        kept = []
+        for f in self._pending:
+            if f.seq is None or f.seq > seq:
+                kept.append(f)
+            elif f.needs_account:
+                # acked though its write failed (a partial write that
+                # landed whole): it is delivered
+                self._hop.account(delivered=1)
+                f.needs_account = False
+        self._pending = kept
         self._evicted_unacked = {s for s in self._evicted_unacked
                                  if s > seq}
+        if self.spool is not None:
+            self.spool.trim(seq)
         # everything below a gap of never-sent seqs is acked: announce the
         # jump so the server's watermark does not stall at the gap's edge
         if self._outstanding_base() > seq + 1:
@@ -298,20 +408,29 @@ class UniformSender:
             FrameHeader(f.msg_type, agent_id=self.agent_id, seq=f.seq),
             f.payload)
         try:
-            self._sock.sendall(frame)
+            self._write(frame)
         except OSError as e:
-            # the frame is not lost: it goes first when the connection is
-            # back (or to the next server)
-            self._pending.insert(0, f)
+            # the frame is not lost: it goes to the spool, or first when
+            # the connection is back (or to the next server)
+            if self.spool is not None and f.needs_account \
+                    and f.seq > self._spool_replayed_through \
+                    and self.spool.append(int(f.msg_type), f.seq, f.payload):
+                self.stats["spooled"] += 1
+            else:
+                self._pending.insert(0, f)
             self._fail_over("send", e)
             return
         finally:
             self._inflight = None
         self.stats["sent_frames"] += 1
         self.stats["sent_bytes"] += len(frame)
-        if f.sent:
+        if not f.needs_account:
             self.stats["retransmits"] += 1
-        f.sent = True
+        else:
+            self._hop.account(
+                delivered=1, wait_ns=None if f.enq_ns is None
+                else time.monotonic_ns() - f.enq_ns)
+            f.needs_account = False
         self._unacked[f.seq] = f
         self._cap_unacked()
 
@@ -329,7 +448,9 @@ class UniformSender:
 
     def _run(self) -> None:
         backoff = 0.1
+        hb = self._telemetry.heartbeat("sender")
         while not self._stop.is_set():
+            hb.beat(progress=self.stats["sent_frames"])
             if self._sock is None:
                 if not self._connect():
                     # interruptible, so flush_and_stop returns promptly
@@ -349,5 +470,9 @@ class UniformSender:
                 if self._sock is None:
                     continue
             f = self._next_frame()
-            if f is not None:
-                self._send_frame(f)
+            if f is None:
+                # idle: frames spooled while the connection was busy
+                # drain now, without a reconnect
+                self._load_replay()
+                continue
+            self._send_frame(f)

@@ -5,7 +5,9 @@ Own copy of the profile path of ``deepflow_tpu/server/decoders.py``: the
 ``Decoder`` base (one receiver queue, a worker thread, stats) and the
 PROFILE, TPU_SPAN, STEP_METRICS and DFSTATS decoders. Payloads decode
 with this package's ``proto/wire.py``; there is no native columnar
-decode here.
+decode here. Each decoder accounts its frames on a ``decoder.<TYPE>``
+hop (delivered, or dropped as a dup or a decode error) and its rows on
+the ``table_write`` hop, and its worker beats a heartbeat.
 """
 
 from __future__ import annotations
@@ -22,6 +24,7 @@ from deepflow_tpu_torch.codec import FrameHeader, MessageType
 from deepflow_tpu_torch.proto import wire
 from deepflow_tpu_torch.server.platform_info import PlatformInfoTable
 from deepflow_tpu_torch.store.db import Database
+from deepflow_tpu_torch.telemetry import Telemetry
 from deepflow_tpu_torch.tpuprobe.stepmetrics import decode_step_payload
 
 log = logging.getLogger("df.decoder")
@@ -122,7 +125,7 @@ class Decoder:
 
     def __init__(self, q: queue.Queue, db: Database,
                  platform: PlatformInfoTable, dedup: DedupWindow | None = None,
-                 seq_tracker=None) -> None:
+                 seq_tracker=None, telemetry: Telemetry | None = None) -> None:
         self.q = q
         self.db = db
         self.platform = platform
@@ -135,6 +138,9 @@ class Decoder:
         # in store appends (handle_ns - append_ns = decode)
         self.stats = {"batches": 0, "rows": 0, "errors": 0, "dups": 0,
                       "handle_ns": 0, "append_ns": 0}
+        self.telemetry = telemetry or Telemetry("server", enabled=False)
+        self._hop = self.telemetry.hop(f"decoder.{self.MSG_TYPE.name}")
+        self._tw_hop = self.telemetry.hop("table_write")
 
     def start(self) -> "Decoder":
         self._thread = threading.Thread(
@@ -154,7 +160,7 @@ class Decoder:
         drained = []
         while True:
             try:
-                drained.extend(self.q.get_nowait())
+                drained.extend(self._unwrap(self.q.get_nowait()))
             except queue.Empty:
                 break
         if drained:
@@ -180,6 +186,10 @@ class Decoder:
             for header, _ in items:
                 if header.seq is not None:
                     self.seq_tracker.observe(header.agent_id, header.seq)
+        if dups:
+            self._hop.account(dropped=dups, reason="dup")
+        self._hop.account(delivered=batches, dropped=errors,
+                          reason="decode_error" if errors else "")
         with self._stats_lock:
             self.stats["batches"] += batches
             self.stats["rows"] += rows
@@ -187,19 +197,36 @@ class Decoder:
             self.stats["dups"] += dups
             self.stats["handle_ns"] += dt
 
+    def _unwrap(self, item) -> list:
+        """The frames of one queue item: the receiver's (enqueue ns,
+        frames), or a bare frame list; the dequeue is accounted on the
+        hop with its queue wait."""
+        if isinstance(item, tuple):
+            enq_ns, frames = item
+            self._hop.account(emitted=len(frames),
+                              wait_ns=time.monotonic_ns() - enq_ns)
+        else:
+            frames = item
+            self._hop.account(emitted=len(frames))
+        return frames
+
     def _run(self) -> None:
+        hb = self.telemetry.heartbeat(f"decoder.{self.MSG_TYPE.name}.0")
+        handled = 0
         while not self._stop.is_set():
+            hb.beat(progress=handled)
             try:
-                items = self.q.get(timeout=0.2)
+                items = self._unwrap(self.q.get(timeout=0.2))
             except queue.Empty:
                 continue
             # the receiver queues one frame list per recv(); take whatever
             # else is already queued too, up to a bound
             while len(items) < self.DRAIN_FRAMES:
                 try:
-                    items = items + self.q.get_nowait()
+                    items = items + self._unwrap(self.q.get_nowait())
                 except queue.Empty:
                     break
+            handled += len(items)
             self._handle_items(items)
 
     def handle(self, header: FrameHeader, payload: bytes) -> int:
@@ -214,18 +241,20 @@ class Decoder:
         off = self.platform.offset_for(header.agent_id)
         return off if abs(off) >= 1_000_000 else 0
 
-    def _timed_append(self, append, *args) -> None:
+    def _timed_append(self, n: int, append, *args) -> None:
         t0 = time.perf_counter_ns()
         append(*args)
         dt = time.perf_counter_ns() - t0
+        self._tw_hop.account(emitted=n, delivered=n, wait_ns=dt)
         with self._stats_lock:
             self.stats["append_ns"] += dt
 
     def write(self, table_name: str, rows: list[dict]) -> None:
-        self._timed_append(self.db.table(table_name).append_rows, rows)
+        self._timed_append(len(rows), self.db.table(table_name).append_rows,
+                           rows)
 
     def write_columns(self, table_name: str, cols: dict, n: int) -> None:
-        self._timed_append(self.db.table(table_name).append_columns,
+        self._timed_append(n, self.db.table(table_name).append_columns,
                            cols, n)
 
 

@@ -6,7 +6,11 @@ Own copy of the profile queries of ``deepflow_tpu/server/querier.py``
 ``tpu_steps``, ``tpu_step_critical_path``) and of their POST routes, with
 the same request bodies and answers. The reference phrases each query in
 DF-SQL; here each is the same filter, group-by and sort over the table's
-columns (``query/columnar.py``). No federation.
+columns (``query/columnar.py``). No federation. ``GET /v1/health``
+carries the server's own self-telemetry (``selfmon``, ``stages``,
+``pipeline``, ``ledger_imbalance``, ``wedges``) and the agents', read
+back from ``deepflow_system`` (``agents_selfmon``); a current wedge makes
+its ``status`` ``degraded`` with the ``wedged_stages``.
 """
 
 from __future__ import annotations
@@ -22,6 +26,7 @@ from deepflow_tpu_torch.query.flamegraph import (
 from deepflow_tpu_torch.server import stephealth
 from deepflow_tpu_torch.store.db import Database
 from deepflow_tpu_torch.store.schema import TPU_SPAN_KINDS
+from deepflow_tpu_torch.telemetry import Telemetry, collect_agent_selfmon
 from deepflow_tpu_torch.tpuprobe.collectives import stitch, step_trace
 
 log = logging.getLogger("df.querier")
@@ -54,17 +59,43 @@ def _time_window(body: dict) -> list:
 class QuerierAPI:
     """Route logic, separated from the HTTP plumbing for in-process use."""
 
-    def __init__(self, db: Database, stats_provider=None) -> None:
+    def __init__(self, db: Database, stats_provider=None,
+                 telemetry: Telemetry | None = None) -> None:
         self.db = db
         self.stats_provider = stats_provider or (lambda: {})
+        self.telemetry = telemetry
 
     def health(self) -> dict:
-        return {
+        out = {
             "status": "ok",
             "tables": {name: len(self.db.table(name))
                        for name in self.db.tables()},
             "stats": self.stats_provider(),
         }
+        wedged_stages: list[str] = []
+        if self.telemetry is not None:
+            selfmon = self.telemetry.snapshot()
+            out["selfmon"] = selfmon
+            out["stages"] = selfmon["stages"]
+            out["pipeline"] = selfmon["pipeline"]
+            out["ledger_imbalance"] = selfmon["ledger_imbalance"]
+            out["wedges"] = selfmon["wedges"]
+            wedged_stages += [w["stage"] for w in selfmon["wedges"]]
+        agents = collect_agent_selfmon(self.db)
+        if agents["pipeline"] or agents["heartbeats"] or agents["wedges"]:
+            out["agents_selfmon"] = agents
+        # an agent's wedge degrades health only while it is current (its
+        # latest heartbeat row still says wedged): a recovered stage's
+        # verdict rows stay in the table
+        live = {s["stage"] for s in agents["heartbeats"].values()
+                if s.get("wedged")}
+        for w in agents["wedges"]:
+            if w["stage"] in live or not agents["heartbeats"]:
+                wedged_stages.append("agent:" + w["stage"])
+        if wedged_stages:
+            out["status"] = "degraded"
+            out["wedged_stages"] = sorted(set(wedged_stages))
+        return out
 
     def profile_tracing(self, body: dict) -> dict:
         """CPU flame graph of the sampled stacks; each of time_start,

@@ -11,7 +11,11 @@ keeps the highest contiguous seq per agent; the decoders feed it after a
 frame's rows are written, so an acked frame has reached the store. Each
 connection writes an ACK frame back whenever an agent's watermark moved.
 A SEQ_BASE control frame moves the watermark (and the dedup floor) up to
-the base the agent announced. QoS and UDP are not part of this copy.
+the base the agent announced. The ``receiver`` hop of the server's
+``Telemetry`` accounts every frame (delivered to a decoder queue, or
+dropped with its reason), the accept loop beats a ``receiver``
+heartbeat, and DF_CHAOS may stall a new connection before its first
+read. QoS and UDP are not part of this copy.
 """
 
 from __future__ import annotations
@@ -23,9 +27,11 @@ import socketserver
 import threading
 import time
 
+from deepflow_tpu_torch.chaos import chaos_from_env
 from deepflow_tpu_torch.codec import (
     FrameDecodeError, FrameHeader, MessageType, StreamDecoder,
     decode_seq_base, encode_ack)
+from deepflow_tpu_torch.telemetry import Telemetry
 
 log = logging.getLogger("df.receiver")
 
@@ -103,7 +109,8 @@ class Receiver:
     """Listens on TCP and fans frames out to registered queues."""
 
     def __init__(self, host: str = "127.0.0.1", port: int = 20033,
-                 queue_size: int = 4096) -> None:
+                 queue_size: int = 4096,
+                 telemetry: Telemetry | None = None) -> None:
         self.host = host
         self.port = port
         self._queues: dict[MessageType, queue.Queue] = {}
@@ -125,6 +132,9 @@ class Receiver:
                       "connections": 0, "acks_sent": 0, "seq_bases": 0,
                       "recv_ns": 0}
         self._stats_lock = threading.Lock()
+        self._chaos = chaos_from_env()
+        self.telemetry = telemetry or Telemetry("server", enabled=False)
+        self._hop = self.telemetry.hop("receiver")
 
     def register(self, msg_type: MessageType) -> queue.Queue:
         """The decoder queue for one message type."""
@@ -147,19 +157,24 @@ class Receiver:
         by_type: dict[MessageType, list] = {}
         for header, payload in frames:
             by_type.setdefault(header.msg_type, []).append((header, payload))
+        self._hop.account(emitted=len(frames))
+        enq_ns = time.monotonic_ns()
         dropped = 0
         for msg_type, group in by_type.items():
             q = self._queues.get(msg_type)
             if q is None:
                 dropped += len(group)
+                self._hop.account(dropped=len(group), reason="no_handler")
                 for header, _ in group:
                     if header.seq is not None:
                         self.seq_tracker.observe(header.agent_id, header.seq)
                 continue
             try:
-                q.put_nowait(group)
+                q.put_nowait((enq_ns, group))
+                self._hop.account(delivered=len(group))
             except queue.Full:
                 dropped += len(group)
+                self._hop.account(dropped=len(group), reason="queue_full")
         self._count(frames=len(frames),
                     bytes=sum(len(p) for _, p in frames), dropped=dropped)
 
@@ -196,6 +211,8 @@ class Receiver:
             self._count(acks_sent=1)
 
     def _serve(self, sock: socket.socket) -> None:
+        if self._chaos is not None:
+            self._chaos.on_accept()
         dec = StreamDecoder()
         # a short read timeout: wake up to notice stop(), and to write
         # acks while the peer is quiet
@@ -233,6 +250,7 @@ class Receiver:
                     self._dispatch_many(frames)
             except FrameDecodeError as e:
                 self._count(bad_frames=1)
+                self._hop.account(emitted=1, dropped=1, reason="bad_frame")
                 log.warning("dropping connection: %s", e)
                 return
             finally:
@@ -258,9 +276,17 @@ class Receiver:
                     with recv._handlers_lock:
                         recv._handlers.pop(me, None)
 
+        # beaten from the accept loop, whose thread the deadman's stack
+        # snapshot must name
+        hb = self.telemetry.heartbeat("receiver", interval_hint_s=0.5)
+
         class Server(socketserver.ThreadingTCPServer):
             allow_reuse_address = True
             daemon_threads = True
+
+            def service_actions(self) -> None:
+                # serve_forever calls this every poll (~0.5 s)
+                hb.beat(progress=recv.stats["frames"])
 
         self._tcp = Server((self.host, self.port), Handler)
         self.port = self._tcp.server_address[1]  # resolve port 0

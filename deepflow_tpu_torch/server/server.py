@@ -4,7 +4,12 @@ Own copy of the profile path of ``deepflow_tpu/server/server.py::Server``:
 PROFILE, TPU_SPAN, STEP_METRICS and DFSTATS frames arrive over TCP,
 decode into the profile and self-stats tables through one shared dedup
 window, the receiver acks what was written, and the querier answers the
-profile queries over HTTP. The server touches no device.
+profile queries over HTTP. One ``Telemetry("server")`` holds the
+receiver's and the decoders' hop ledgers and heartbeats, and a
+``DeadmanDetector`` watches them; ``GET /v1/health`` shows both, and the
+agents' self-telemetry from their DFSTATS rows. ``selfmon=None`` honours
+DF_NO_SELFMON; DF_CHAOS reaches the receiver. The server touches no
+device.
 
     python -m deepflow_tpu_torch.server [--host H] [--ingest-port P]
                                         [--query-port Q]
@@ -23,7 +28,6 @@ import signal
 import threading
 import time
 
-from deepflow_tpu_torch.codec import MessageType
 from deepflow_tpu_torch.server.decoders import (
     DedupWindow, ProfileDecoder, StatsDecoder, StepMetricsDecoder,
     TpuSpanDecoder)
@@ -31,22 +35,29 @@ from deepflow_tpu_torch.server.platform_info import PlatformInfoTable
 from deepflow_tpu_torch.server.querier import QuerierAPI, QuerierHTTP
 from deepflow_tpu_torch.server.receiver import Receiver
 from deepflow_tpu_torch.store.db import Database
+from deepflow_tpu_torch.telemetry import DeadmanDetector, Telemetry
 
 log = logging.getLogger("df.server")
 
 
 class Server:
     def __init__(self, host: str = "127.0.0.1", ingest_port: int = 20033,
-                 query_port: int = 20416) -> None:
+                 query_port: int = 20416,
+                 selfmon: bool | None = None) -> None:
         self.db = Database()
         self.platform = PlatformInfoTable()
-        self.receiver = Receiver(host=host, port=ingest_port)
+        # one registry per Server: the tests run several in one process
+        self.telemetry = Telemetry("server", enabled=selfmon)
+        self.deadman = DeadmanDetector(self.telemetry)
+        self.receiver = Receiver(host=host, port=ingest_port,
+                                 telemetry=self.telemetry)
         # one window for every decoder: the seq space is per agent, and a
         # resent frame must dedup whichever decoder it lands on
         self.dedup = DedupWindow()
         self.receiver.dedup = self.dedup
         self.decoders = []
-        self.api = QuerierAPI(self.db, stats_provider=self._stats)
+        self.api = QuerierAPI(self.db, stats_provider=self._stats,
+                              telemetry=self.telemetry)
         self.http = QuerierHTTP(self.api, host=host, port=query_port)
 
     def _stats(self) -> dict:
@@ -64,7 +75,9 @@ class Server:
             q = self.receiver.register(cls.MSG_TYPE)
             self.decoders.append(cls(
                 q, self.db, self.platform, dedup=self.dedup,
-                seq_tracker=self.receiver.seq_tracker).start())
+                seq_tracker=self.receiver.seq_tracker,
+                telemetry=self.telemetry).start())
+        self.deadman.start()
         self.receiver.start()
         self.http.start()
         log.info("server up: ingest :%d query :%d", self.ingest_port,
@@ -74,6 +87,7 @@ class Server:
     def stop(self) -> None:
         # the receiver first: once its handlers are gone nothing enqueues,
         # and each decoder's stop drains what is queued
+        self.deadman.stop()
         self.receiver.stop()
         for d in self.decoders:
             d.stop()
@@ -98,7 +112,10 @@ class Server:
         return len(t) >= n
 
 
-def main(argv: list[str] | None = None) -> None:
+def main(argv: list[str] | None = None, on_start=None) -> None:
+    """Serve until SIGTERM or SIGINT. ``on_start(server)``, when given,
+    runs once the server listens: a process that embeds the entry point
+    keeps the server there, to read its tables after the drain."""
     parser = argparse.ArgumentParser(
         description="deepflow-tpu profile server (PyTorch port)")
     parser.add_argument("--host", default="127.0.0.1",
@@ -118,6 +135,8 @@ def main(argv: list[str] | None = None) -> None:
     try:
         print(json.dumps({"ingest_port": server.ingest_port,
                           "query_port": server.query_port}), flush=True)
+        if on_start is not None:
+            on_start(server)
         stop.wait()
     finally:
         server.stop()

@@ -17,6 +17,7 @@ import tempfile
 import threading
 import time
 
+from deepflow_tpu_torch.telemetry import Telemetry
 from deepflow_tpu_torch.tpuprobe.events import TpuSpanEvent
 from deepflow_tpu_torch.tpuprobe.kineto import extract_device_spans, load_trace
 
@@ -40,12 +41,15 @@ class StepHook:
     """Zero-code step signal: a global optimizer step post-hook that
     records (step number, wall-clock ns) for every optimizer.step() in the
     process. Steps count from 1 at install(). It can also hold the next
-    step's thread in the hook for a while (``held``)."""
+    step's thread in the hook for a while (``held``), and counts the CPU
+    time the holding threads spend while it holds (``held_cpu_s``).
+    ``on_first_step`` is called once, on the training thread, at step 1."""
 
     MAX_MARKS = 4096   # far more steps than one capture window holds
     MAX_HOLD_S = 30.0  # a held step never waits longer than this
 
-    def __init__(self) -> None:
+    def __init__(self, on_first_step=None) -> None:
+        self.on_first_step = on_first_step
         self._lock = threading.Lock()
         self._marks: collections.deque = collections.deque(
             maxlen=self.MAX_MARKS)
@@ -53,6 +57,7 @@ class StepHook:
         self._handle = None
         # (parked, release) of the hold the next step takes
         self._hold: tuple[threading.Event, threading.Event] | None = None
+        self._held_cpu_s = 0.0
 
     def install(self) -> "StepHook":
         from torch.optim.optimizer import register_optimizer_step_post_hook
@@ -69,8 +74,14 @@ class StepHook:
         now = time.time_ns()
         with self._lock:
             self._count += 1
+            first = self._count == 1
             self._marks.append((self._count, now))
             hold, self._hold = self._hold, None
+        if first and self.on_first_step is not None:
+            try:
+                self.on_first_step()
+            except Exception:  # never break the workload's step
+                log.exception("first-step callback failed")
         if hold is not None:
             parked, release = hold
             parked.set()
@@ -83,10 +94,12 @@ class StepHook:
         has finished and the optimizer's work is launched, so no thread of
         a plain training loop launches device work until the body ends.
         Yields False when no step came within timeout_s or ``cancel`` was
-        set first; the body then runs beside the workload."""
+        set first; the body then runs beside the workload. The CPU time
+        this thread spends in a held body adds to ``held_cpu_s``."""
         parked, release = threading.Event(), threading.Event()
         with self._lock:
             self._hold = (parked, release)
+        took, cpu0 = False, 0.0
         try:
             deadline = time.monotonic() + timeout_s
             while not parked.wait(0.05):
@@ -98,9 +111,22 @@ class StepHook:
                 if mine:
                     self._hold = None
             # a step that took the hold just now parks at once
-            yield parked.is_set() or (not mine and parked.wait(1.0))
+            took = parked.is_set() or (not mine and parked.wait(1.0))
+            cpu0 = time.thread_time()
+            yield took
         finally:
+            spent = time.thread_time() - cpu0 if took else 0.0
             release.set()
+            with self._lock:
+                self._held_cpu_s += spent
+
+    @property
+    def held_cpu_s(self) -> float:
+        """CPU seconds the holding threads spent in held bodies: work
+        done while the training thread waited in the hook, so it took no
+        core from the workload."""
+        with self._lock:
+            return self._held_cpu_s
 
     @property
     def count(self) -> int:
@@ -136,9 +162,14 @@ class KinetoSource:
     no workload thread launches work meanwhile. Sessions set up or closed
     beside launching threads (the probe's own thread under the agent)
     sometimes left one launching thread without device records for the
-    rest of the process. A session opened or closed with no step to hold
-    (none within three step times, or the workload is done) is counted
-    as `unheld`.
+    rest of the process. The same hold covers the export and the JSON
+    load after the stop: both are C calls that keep the interpreter lock
+    throughout, so the training thread made almost no progress beside
+    them anyway (PERF.md, PR 1), and parked at a step boundary it waits
+    for them where a resource guard can see whose place they take
+    (``StepHook.held_cpu_s``). A session opened or closed with no step
+    to hold (none within three step times, or the workload is done) is
+    counted as `unheld`.
 
     Contention guard: a window that would collide with a user's own
     profiler session, or another source, is skipped and counted as
@@ -151,7 +182,9 @@ class KinetoSource:
                  steps_per_capture: int = 20,
                  min_duration_ms: int = 200,
                  max_duration_ms: int = 4000,
-                 min_gap_ms: int = 200) -> None:
+                 min_gap_ms: int = 200,
+                 telemetry: Telemetry | None = None,
+                 step_hook: StepHook | None = None) -> None:
         self.sink = sink
         self.interval_s = interval_s        # fallback cadence (no steps yet)
         self.duration_ms = duration_ms
@@ -160,7 +193,13 @@ class KinetoSource:
         self.min_duration_ms = min_duration_ms
         self.max_duration_ms = max_duration_ms
         self.min_gap_ms = min_gap_ms
-        self.step_hook = StepHook()
+        # a hook the caller passes in outlives this source (an agent's
+        # keeps counting while the guard has the probe paused, so a
+        # resumed probe's steps continue the numbering); one of its own
+        # is removed at stop
+        self._owns_hook = step_hook is None
+        self.step_hook = step_hook or StepHook()
+        self._telemetry = telemetry or Telemetry("agent", enabled=False)
         self._stop = threading.Event()
         self._thread: threading.Thread | None = None
         self._step_time_s = 0.0             # estimated from module spans
@@ -222,13 +261,25 @@ class KinetoSource:
             # a window runs up to max_duration_ms, plus export+parse+sink
             self._thread.join(timeout=max(2.0, self.duration_ms / 1000 + 2,
                                           self.max_duration_ms / 1000 + 10))
-        self.step_hook.remove()
+        if self._owns_hook:
+            self.step_hook.remove()
+        # a stopped source is not a stalled one (a guard pause outlasts
+        # the deadman's window)
+        self._telemetry.unregister("tpuprobe.kineto")
 
     def _run(self) -> None:
+        # the deadman's window: a longest window plus the fallback gap
+        hb = self._telemetry.heartbeat(
+            "tpuprobe.kineto",
+            interval_hint_s=self.interval_s + self.max_duration_ms / 1000.0)
+        hb.beat()
         # first capture soon after attach, then on the adaptive cadence
         if self._stop.wait(1.0):
             return
         while not self._stop.is_set():
+            # beat BEFORE the capture: a capture that never returns
+            # freezes the progress counter and trips the deadman
+            hb.beat(progress=self.stats["captures"] + self.stats["skipped"])
             if self.available():
                 try:
                     self.capture_once()
@@ -322,16 +373,16 @@ class KinetoSource:
             window_t0 = time.monotonic()
             window_wall_ns = time.time_ns()
             self._stop.wait(self._next_duration_s())
+            path = os.path.join(tmpdir, "trace.json")
             with self._at_step_boundary():
                 window_t1 = time.monotonic()
                 prof.stop()
-            t_stopped = time.monotonic()
-            path = os.path.join(tmpdir, "trace.json")
-            prof.export_chrome_trace(path)
-            t_exported = time.monotonic()
+                t_stopped = time.monotonic()
+                prof.export_chrome_trace(path)
+                t_exported = time.monotonic()
+                trace = load_trace(path)
             window_s = window_t1 - window_t0
             self._captured_s += window_s
-            trace = load_trace(path)
             events = extract_device_spans(
                 trace, self.step_hook.since(window_wall_ns))
             del trace
@@ -404,9 +455,11 @@ class MemorySource:
     cadence: statistics reads only, no device sync. A process that has
     not initialised CUDA is never given a context by the probe."""
 
-    def __init__(self, sink, poll_interval_s: float = 5.0) -> None:
+    def __init__(self, sink, poll_interval_s: float = 5.0,
+                 telemetry: Telemetry | None = None) -> None:
         self.sink = sink
         self.poll_interval_s = poll_interval_s
+        self._telemetry = telemetry or Telemetry("agent", enabled=False)
         self._stop = threading.Event()
         self._thread: threading.Thread | None = None
         self.stats = {"polls": 0, "samples": 0, "errors": 0}
@@ -442,11 +495,18 @@ class MemorySource:
         self._stop.set()
         if self._thread:
             self._thread.join(timeout=3.0)
+        self._telemetry.unregister("tpuprobe.memory")
 
     def _run(self) -> None:
+        hb = self._telemetry.heartbeat(
+            "tpuprobe.memory", interval_hint_s=self.poll_interval_s)
+        hb.beat()
         if self._stop.wait(1.0):
             return
         while not self._stop.is_set():
+            # beat before the poll: a memory_stats() call that never
+            # returns shows as a stall
+            hb.beat(progress=self.stats["polls"])
             try:
                 self.poll_once()
             except Exception:

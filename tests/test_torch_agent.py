@@ -198,16 +198,16 @@ def _stats_rows(server) -> dict:
 
 
 def test_agent_on_cpu_ships_profiles_and_stats(server, caplog):
-    """device="cpu": the sampler, the stats thread and the sender run,
-    the device probe is left out (and the startup line says so), and a
-    stop ships the final stats, all acked."""
+    """device="cpu": the sampler, the guard, the stats thread and the
+    sender run, the device probe is left out (and the startup line says
+    so), and a stop ships the final stats, all acked."""
     caplog.set_level(logging.INFO, logger="df.agent")
     agent = Agent(_cfg(server, stats_interval_s=0.2), device="cpu").start()
     try:
         assert agent.tpuprobe is None
         line = [r.getMessage() for r in caplog.records
                 if r.getMessage().startswith("agent started")][0]
-        assert "sender, oncpu-sampler, stats" in line
+        assert "sender, oncpu-sampler, guard, stats" in line
         assert "left out on cpu: tpuprobe" in line
         deadline = time.monotonic() + 0.6
         while time.monotonic() < deadline:

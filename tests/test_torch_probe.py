@@ -568,8 +568,9 @@ def test_step_hook_holds_the_next_step():
 
 def test_kineto_opens_and_closes_sessions_while_a_step_is_held(
         monkeypatch, tmp_path):
-    """With step signal, the session starts and stops while the stepping
-    thread is held in its hook; with none, both run unheld and count."""
+    """With step signal, the session starts and stops, and its trace is
+    exported, while the stepping thread is held in its hook; with none,
+    they run unheld, count, and add nothing to the held CPU time."""
     import json
     import threading
     import time
@@ -593,6 +594,7 @@ def test_kineto_opens_and_closes_sessions_while_a_step_is_held(
             self._note("stop")
 
         def export_chrome_trace(self, path):
+            self._note("export")
             with open(path, "w") as f:
                 json.dump({"traceEvents": []}, f)
     monkeypatch.setattr(tp, "profile", FakeProfile)
@@ -609,9 +611,11 @@ def test_kineto_opens_and_closes_sessions_while_a_step_is_held(
     finally:
         done.set()
         t.join()
-    assert log == [("start", True), ("stop", True)]
+    assert log == [("start", True), ("stop", True), ("export", True)]
     assert src.stats["unheld"] == 0 and src.stats["captures"] == 1
+    held_cpu_s = src.step_hook.held_cpu_s
     log.clear()
     src.capture_once()                      # the workload stopped stepping
-    assert [w for w, _ in log] == ["start", "stop"]
+    assert [w for w, _ in log] == ["start", "stop", "export"]
     assert src.stats["unheld"] == 2
+    assert src.step_hook.held_cpu_s == held_cpu_s
