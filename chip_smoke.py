@@ -24,7 +24,13 @@ Phases, each printing its own lines:
    one TCP connection, and must hold every span, memory sample and step
    record with no decode error or bad frame; its TpuFlame answer must
    equal phase 4's flame graph, its step timeline the step records, and
-   its memory view phase 4's largest sample. Ingest rows/s and each
+   its memory view phase 4's largest sample. Then DF-SQL over POST
+   /v1/query: the top ten ops by device time equal phase 4's per-op
+   sums and flame graph, the spans per run_id less its module span
+   equal phase 4's kernels per step, SHOW TABLES lists the five tables,
+   and org_id 1 keeps every row, 2 none. Every query, the six profile
+   queries included, must answer in under 1,000 ms; their times print
+   beside the columnar stand-in's (PERF.md). Ingest rows/s and each
    query's wall time are host numbers;
 6. runner: zero-code profiling of an unmodified training script. Phase
    2's model is freed; a fresh server process starts; the example
@@ -49,10 +55,15 @@ Phases, each printing its own lines:
    and the deadman too: its agent.guard rows must show two checks or more
    and no degrade (the largest readings are printed: the guard's, the
    agent's threads with the work done while the training step was held,
-   and the whole process), no
+   and the whole process; and each agent thread's CPU-seconds), no
    agent stage may be wedged, its sender hop must balance with nothing
    pending after the final flush and no HIGH-class frame dropped, and the
-   server's own hop ledgers must balance;
+   server's own hop ledgers must balance. While the server runs, the
+   agent.guard rows read through POST /v1/query must equal the table
+   the server hands over after its drain, the spans per run_id of one
+   grouped query must equal each step's TpuStepTrace count, and
+   python -m deepflow_tpu_torch.cli.dfctl tpu-flame must exit 0 naming
+   TpuFlame's top kernel;
 7. resilience: phase 2's configuration trains in this process under
    Agent(device="cuda") with a 16-frame send queue, an on-disk spool and
    a guard that checks every second, while nothing listens at the
@@ -88,6 +99,7 @@ import json
 import math
 import multiprocessing
 import os
+import re
 import shutil
 import statistics
 import subprocess
@@ -130,6 +142,11 @@ GUARD_PHASE_CPU_PCT = 1000.0
 PAUSE_S = 30.0
 DEGRADED_STEPS = 20           # steps trained while the guard has paused
 OUT_DIR = "results"
+QUERY_LIMIT_MS = 1000.0       # PERF.md section 2: a person waits for it
+# the six TPU queries on the columnar stand-in the engine replaced
+# (PERF.md, slice 2's run A), printed beside this run's
+COLUMNAR_MS = {"flame": 32.0, "steps": 16.1, "critical_path": 4.5,
+                   "step_trace": 453.9, "memory": 6.4, "collectives": 3.2}
 ROOT = os.path.dirname(os.path.abspath(__file__))
 CARD = {"line": ""}           # nvidia-smi's name and power limit
 
@@ -292,7 +309,7 @@ def training_phase(torch, tl, model, tokens) -> tuple:
 def frames_phase(sink, probe, window) -> tuple:
     from deepflow_tpu_torch.codec import MessageType, StreamDecoder
     from deepflow_tpu_torch.proto import wire
-    from deepflow_tpu_torch.query.flamegraph import device_flame
+    from deepflow_tpu_torch.query.flamegraph import DEVICE_KINDS, device_flame
     from deepflow_tpu_torch.tpuprobe.stepmetrics import decode_step_payload
 
     wall0, wall1, wall_s = window
@@ -312,6 +329,15 @@ def frames_phase(sink, probe, window) -> tuple:
     per_step: dict[int, int] = {}
     for s in kernels:
         per_step[s.run_id] = per_step.get(s.run_id, 0) + 1
+    modules_per_step: dict[int, int] = {}
+    for s in modules:
+        modules_per_step[s.run_id] = modules_per_step.get(s.run_id, 0) + 1
+    # device time per op name (module spans under ""), as the server's
+    # GROUP BY hlo_op over the device kinds sums it
+    op_ns: dict[str, int] = {}
+    for s in spans:
+        if s.kind in DEVICE_KINDS:
+            op_ns[s.hlo_op] = op_ns.get(s.hlo_op, 0) + s.duration_ns
     flame = device_flame(spans)
     leaves = []
     for mod in flame.children.values():
@@ -355,7 +381,23 @@ def frames_phase(sink, probe, window) -> tuple:
           "span times lie on the wall clock inside the probe's run")
     check(leaves and flame.total_value > 0, "device flame graph not empty")
     nums["top_kernels"] = [[n, c, ns] for ns, c, n in leaves[:5]]
-    return nums, {"flame": flame.to_dict(), "records": records}
+    flame_ops: dict[str, int] = {}
+    for name, ns in _kernel_leaves(flame.to_dict()):
+        flame_ops[name] = flame_ops.get(name, 0) + ns
+    return nums, {"flame": flame.to_dict(), "records": records,
+                  "flame_ops": flame_ops, "op_ns": op_ns,
+                  "kernels_per_step": per_step,
+                  "modules_per_step": modules_per_step}
+
+
+def _kernel_leaves(node: dict):
+    """(name, total ns) of a device flame graph's kernels: its leaves,
+    less the "module" leaves of the module spans (module;module)."""
+    for c in node["children"]:
+        if c["children"]:
+            yield from _kernel_leaves(c)
+        elif c["name"] != "module":
+            yield c["name"], c["total_value"]
 
 
 def _canon_flame(node: dict) -> dict:
@@ -569,6 +611,7 @@ def server_phase(sink, probe, seen) -> dict:
         cp = answers["critical_path"]
         check(cp["step"]["step"] > 0 and cp["attribution"]["verdict"],
               "critical path not empty")
+        sql_ms = _sql_checks(qport, seen, want)
     finally:
         srv.stop()
     rows = sum(want.values())
@@ -581,9 +624,74 @@ def server_phase(sink, probe, seen) -> dict:
             "decode_ms": sum(d["handle_ns"] - d["append_ns"]
                              for d in dec.values()) / 1e6,
             "append_ms": sum(d["append_ns"] for d in dec.values()) / 1e6,
-            "collectives": len(answers["collectives"]), **query_ms}
+            "collectives": len(answers["collectives"]), **query_ms,
+            **sql_ms}
     phase("server", **nums)
+    # the six TPU queries on the engine beside the columnar stand-in's
+    # times (PERF.md, slice 2's run A: another call, no comparison)
+    phase("server queries", **{f"{k}_ms": round(query_ms[f"{k}_ms"], 3)
+                               for k in COLUMNAR_MS},
+          **{f"{k}_columnar_ms": v for k, v in COLUMNAR_MS.items()},
+          **{k: round(v, 3) for k, v in sql_ms.items()})
+    slow = {k: v for k, v in {**query_ms, **sql_ms}.items()
+            if k.endswith("_ms") and v >= QUERY_LIMIT_MS}
+    check(not slow, f"every query under {QUERY_LIMIT_MS} ms ({slow})")
     return nums
+
+
+def _sql_checks(qport: int, seen: dict, want: dict) -> dict:
+    """DF-SQL over POST /v1/query on phase 4's rows: the top kernels by
+    device time equal phase 4's flame graph, the spans per run_id less
+    its module spans equal phase 4's kernels per step, SHOW TABLES lists
+    the five tables, and org 1 scoping keeps every row, org 2 none.
+    Returns each query's wall ms and its table's rows."""
+    from deepflow_tpu_torch.store.schema import TPU_SPAN_KINDS
+    kinds = ", ".join(f"'{k}'" for k in TPU_SPAN_KINDS
+                      if k.startswith("device-"))
+    per_run = ("SELECT run_id, Count(*) AS n FROM profile.tpu_hlo_span "
+               "GROUP BY run_id")
+    bodies = {
+        "sql_top_kernels": {
+            "sql": "SELECT hlo_op, Sum(duration_ns) AS d FROM "
+                   f"profile.tpu_hlo_span WHERE kind IN ({kinds}) "
+                   "GROUP BY hlo_op ORDER BY d DESC LIMIT 10"},
+        "sql_per_step": {"sql": per_run},
+        "sql_show_tables": {"sql": "SHOW tables"},
+        "sql_per_step_org1": {"sql": per_run, "org_id": 1},
+        "sql_per_step_org2": {"sql": per_run, "org_id": 2}}
+    res, out = {}, {"sql_span_rows": want["profile.tpu_hlo_span"]}
+    for name, body in bodies.items():
+        code, ans, ms = _http(qport, "/v1/query", body)
+        check(code == 200, f"/v1/query {name} answers 200 ({ans})")
+        res[name], out[f"{name}_ms"] = ans["result"]["values"], ms
+    top = res["sql_top_kernels"]
+    op_ns, flame_ops = seen["op_ns"], seen["flame_ops"]
+    check(len(top) == min(10, len(op_ns))
+          and all(int(d) == op_ns[op] for op, d in top)
+          and [int(d) for _, d in top]
+          == sorted(op_ns.values(), reverse=True)[:len(top)],
+          f"the SQL top kernels' device time equals phase 4's ({top})")
+    check(all(int(d) == flame_ops[op] for op, d in top if op),
+          "each SQL top kernel's time equals its flame graph leaves'")
+    first = next(op for op, _ in top if op)
+    check(flame_ops[first] == max(flame_ops.values()),
+          f"the SQL's top kernel {first!r} tops phase 4's flame graph")
+    counts = {int(r): int(n) for r, n in res["sql_per_step"]}
+    mods = seen["modules_per_step"]
+    kernels = {r: n - mods.get(r, 0) for r, n in counts.items()}
+    check(kernels == seen["kernels_per_step"],
+          "spans per run_id less its module spans == phase 4's kernels "
+          "per step")
+    out["sql_kernels_per_step_mode"] = statistics.mode(kernels.values())
+    check(out["sql_kernels_per_step_mode"]
+          == statistics.mode(seen["kernels_per_step"].values()),
+          "the most common SQL count equals phase 4's kernels per step")
+    check(sorted(r[0] for r in res["sql_show_tables"]) == sorted(want),
+          f"SHOW tables lists the five tables ({res['sql_show_tables']})")
+    check(res["sql_per_step_org1"] == res["sql_per_step"]
+          and res["sql_per_step_org2"] == [],
+          "org_id 1 keeps every row, org_id 2 none")
+    return out
 
 def _proc_sample(pid: int) -> tuple[float, int] | None:
     """(CPU seconds, resident bytes) of a live process, from /proc; None
@@ -736,10 +844,24 @@ def runner_phase(kernels_per_step_in_process: int, nums: dict) -> None:
         health = _ingest_settled(qport)
         ingest_lag_s = time.perf_counter() - run["exit_t"]
         stats, tables = health["stats"], health["tables"]
+        # the agent's guard rows and the spans per run_id through DF-SQL,
+        # while the server runs
+        sql = {"guard": {"db": "deepflow_system", "sql":
+                         "SELECT metric_name, time, value_name, value "
+                         "FROM deepflow_system "
+                         "WHERE metric_name = 'agent.guard'"},
+               "per_step": {"sql": "SELECT run_id, Count(*) AS n FROM "
+                                   "profile.tpu_hlo_span GROUP BY run_id"}}
+        sql_rows, sql_ms = {}, {}
+        for name, body in sql.items():
+            code, ans, sql_ms[f"sql_{name}_ms"] = _http(qport, "/v1/query",
+                                                        body)
+            check(code == 200, f"/v1/query {name} answers 200 ({ans})")
+            sql_rows[name] = ans["result"]["values"]
         _, steps, _ = _http(qport, "/v1/tpu/steps",
                             {"limit": RUNNER_STEPS + 1})
         steps = steps["result"]["steps"]
-        kernels, spans_in_steps = [], 0
+        kernels, spans_in_steps, trace_spans = [], 0, {}
         for st in steps:
             code, ans, _ = _http(qport, "/v1/profile/TpuStepTrace", {
                 "run_id": st["run_id"], "time_start": st["time"],
@@ -748,7 +870,10 @@ def runner_phase(kernels_per_step_in_process: int, nums: dict) -> None:
             devs = ans["result"]["devices"]
             # each device's spans less its one module span
             kernels.append(sum(d["n_spans"] - 1 for d in devs.values()))
-            spans_in_steps += sum(d["n_spans"] for d in devs.values())
+            n = sum(d["n_spans"] for d in devs.values())
+            spans_in_steps += n
+            if n:
+                trace_spans[st["run_id"]] = n
         # consecutive run_ids are one capture's steps
         by_run = sorted(zip((st["run_id"] for st in steps), kernels))
         groups: list[list[int]] = []
@@ -762,6 +887,12 @@ def runner_phase(kernels_per_step_in_process: int, nums: dict) -> None:
         _, flame, flame_ms = _http(qport, "/v1/profile/TpuFlame", {})
         _, cpu, cpu_ms = _http(qport, "/v1/profile/ProfileTracing",
                                {"app_service": "llama-train"})
+        t0 = time.perf_counter()
+        dfctl = subprocess.run(
+            [sys.executable, "-m", "deepflow_tpu_torch.cli.dfctl",
+             "--server", f"127.0.0.1:{qport}", "tpu-flame"],
+            cwd=ROOT, capture_output=True, text=True, timeout=120)
+        dfctl_s = time.perf_counter() - t0
         selfstats = srv.stop()[_SELFSTATS]
     finally:
         srv.stop()
@@ -773,6 +904,16 @@ def runner_phase(kernels_per_step_in_process: int, nums: dict) -> None:
     sender_hop = agents.get("pipeline", {}).get("sender", {})
     steps_hop = agents.get("pipeline", {}).get("tpuprobe.steps", {})
     flame, cpu = flame["result"], cpu["result"]
+    guard_dump = sorted(r for r in zip(selfstats["metric_name"],
+                                       selfstats["time"],
+                                       selfstats["value_name"],
+                                       selfstats["value"])
+                        if r[0] == "agent.guard")
+    guard_sql = sorted(tuple(r) for r in sql_rows["guard"])
+    sql_spans = {int(r): int(n) for r, n in sql_rows["per_step"]}
+    flame_kernels = list(_kernel_leaves(flame))
+    top_ns = max((ns for _, ns in flame_kernels), default=0)
+    dfctl_top = _dfctl_top_kernel(dfctl.stdout)
     through_main = [p for p in _flame_paths(cpu) if "runpy.run_module" in p
                     and "__main__.main" in p[p.index("runpy.run_module"):]]
     rec, dec = stats["receiver"], stats["decoders"]
@@ -820,13 +961,21 @@ def runner_phase(kernels_per_step_in_process: int, nums: dict) -> None:
         # the capture's phases (the longest of its stats rows)
         **{f"kineto_{k}_max": kineto_max.get(k) for k in (
             "last_start_ms", "last_stop_ms", "last_export_ms",
-            "last_parse_ms", "dead_ms")},
+            "last_parse_ms", "dead_ms", "last_extract_cpu_ms",
+            "last_unheld_cpu_ms", "last_trace_events")},
+        # CPU seconds of each agent thread by the end of the run
+        "agent_thread_cpu_s": _latest_and_max(
+            selfstats, "agent.guard.threads")[0],
         **{f"kineto_{k}": kineto_last.get(k) for k in (
             "captures", "unheld", "coverage_pct")},
         "sender_hop": sender_hop, "steps_hop": steps_hop,
         "agent_wedges": agents.get("wedges"),
         "server_ledger_imbalance": health.get("ledger_imbalance"),
-        "server_wedges": health.get("wedges"), "guard_rows": guard_rows})
+        "server_wedges": health.get("wedges"), "guard_rows": guard_rows,
+        **sql_ms, "sql_guard_rows": len(guard_sql),
+        "sql_span_rows": tables["profile.tpu_hlo_span"],
+        "sql_selfstats_rows": tables["deepflow_system.deepflow_system"],
+        "dfctl_tpu_flame_s": dfctl_s, "dfctl_top_kernel": dfctl_top})
     phase("runner", **{k: v for k, v in nums.items()
                        if not isinstance(v, list)})
     for row in guard_rows:
@@ -879,6 +1028,35 @@ def runner_phase(kernels_per_step_in_process: int, nums: dict) -> None:
     _check_sender_hop(sender_hop, steps_hop)
     check(health.get("ledger_imbalance") == 0,
           f"the server's hop ledgers balance ({health.get('pipeline')})")
+    check(bool(guard_sql) and guard_sql == guard_dump,
+          f"the agent.guard rows through /v1/query ({len(guard_sql)}) "
+          f"equal the drained table's ({len(guard_dump)})")
+    check(sql_spans == trace_spans,
+          "spans per run_id through /v1/query equal each step's "
+          "TpuStepTrace count")
+    check(dfctl.returncode == 0, f"dfctl tpu-flame exit code "
+          f"{dfctl.returncode} ({dfctl.stderr[-2000:]})")
+    check((dfctl_top, top_ns) in flame_kernels,
+          f"dfctl tpu-flame's top kernel {dfctl_top!r} is TpuFlame's")
+    slow = {k: v for k, v in sql_ms.items() if v >= QUERY_LIMIT_MS}
+    check(not slow, f"every /v1/query under {QUERY_LIMIT_MS} ms ({slow})")
+
+
+def _dfctl_top_kernel(text: str) -> str | None:
+    """The kernel with the most device time in dfctl tpu-flame's tree:
+    lines "<2 spaces a level><name>  <total ns>,... (<pct>%) <bar>"; a
+    line whose next line is no deeper is a leaf; module spans end in a
+    "module" leaf."""
+    nodes = []
+    for line in text.splitlines():
+        m = re.match(r"^( *)(.*)  ([\d,]+) \([\d.]+%\)", line)
+        if m:
+            nodes.append((len(m.group(1)) // 2, m.group(2),
+                          int(m.group(3).replace(",", ""))))
+    leaves = [(ns, name) for i, (depth, name, ns) in enumerate(nodes)
+              if name != "module" and (i + 1 == len(nodes)
+                                       or nodes[i + 1][0] <= depth)]
+    return max(leaves)[1] if leaves else None
 
 
 def _guard_rows(rows: dict) -> list[dict]:

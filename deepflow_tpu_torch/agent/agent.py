@@ -312,6 +312,8 @@ class Agent:
         guard = self.guard
         if guard is not None:
             metric("agent.guard", guard.snapshot())
+            # which of the agent's threads the guard's reading comes from
+            metric("agent.guard.threads", guard.thread_cpu_s)
         # hop ledgers, heartbeats and wedge verdicts ride the same batch
         for name, tags, values in self.telemetry.stats_metrics():
             metric(name, values, extra_tags=tags)

@@ -102,6 +102,9 @@ class Guard:
         self._last: tuple[float, float, float, float] | None = None
         self._thread_cpu: dict[threading.Thread, float] = {}
         self._ended_cpu_s = 0.0  # agent threads that have ended
+        self._ended_by_name: dict[str, float] = {}
+        # CPU seconds per agent thread name at the last check
+        self.thread_cpu_s: dict[str, float] = {}
         self.mem_baseline: int | None = None  # bytes
         self._check_lock = threading.Lock()
         # the state after the last whole check: a stats row never shows
@@ -141,7 +144,13 @@ class Guard:
         for t, cpu in self._thread_cpu.items():
             if t not in live:
                 self._ended_cpu_s += cpu
+                self._ended_by_name[t.name] = \
+                    self._ended_by_name.get(t.name, 0.0) + cpu
         self._thread_cpu = live
+        by_name = dict(self._ended_by_name)
+        for t, cpu in live.items():
+            by_name[t.name] = by_name.get(t.name, 0.0) + cpu
+        self.thread_cpu_s = by_name
         return self._ended_cpu_s + sum(live.values())
 
     def _state(self) -> dict:

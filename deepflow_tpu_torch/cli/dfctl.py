@@ -1,0 +1,356 @@
+"""dfctl: operator CLI against the port's querier HTTP API.
+
+Own copy of the subcommands of ``deepflow_tpu/cli/dfctl.py`` whose
+routes the port's server has, with the same arguments and the same
+output for the same answers:
+
+    python -m deepflow_tpu_torch.cli.dfctl [--server HOST:PORT] CMD ...
+
+    health [--json]
+    query "SELECT ..." [--db profile] [--org N]
+    flame [--service my-svc] [--event-type on-cpu]
+    tpu-flame [--device 0] [--include-host]
+    tpu-memory [--device 0] [--start NS] [--end NS] [--top N]
+    collectives [--start NS] [--end NS]
+    step-trace [--run-id N]
+    steps [--job J] [--run-id N] [--limit N] [--critical-path STEP] [--json]
+
+An HTTP error or an unreachable server exits non-zero with the server's
+message.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import sys
+import urllib.error
+import urllib.request
+
+
+def _api(server: str, path: str, body: dict | None = None) -> dict:
+    url = f"http://{server}{path}"
+    data = json.dumps(body).encode() if body is not None else None
+    req = urllib.request.Request(url, data=data)
+    try:
+        with urllib.request.urlopen(req, timeout=10) as resp:
+            return json.loads(resp.read())
+    except urllib.error.HTTPError as e:
+        err = e.read().decode("utf-8", "replace")
+        raise SystemExit(f"error {e.code}: {err}")
+    except urllib.error.URLError as e:
+        raise SystemExit(f"cannot reach {url}: {e.reason}")
+
+
+def print_table(columns: list[str], rows: list[list]) -> None:
+    if not rows:
+        print("(no rows)")
+        return
+    widths = [max(len(str(c)), *(len(str(r[i])) for r in rows))
+              for i, c in enumerate(columns)]
+    print("  ".join(str(c).ljust(w) for c, w in zip(columns, widths)))
+    print("  ".join("-" * w for w in widths))
+    for r in rows:
+        print("  ".join(str(v).ljust(w) for v, w in zip(r, widths)))
+
+
+def print_flame(node: dict, depth: int = 0, total: int | None = None,
+                max_depth: int = 12) -> None:
+    if total is None:
+        total = node["total_value"] or 1
+    if depth > max_depth:
+        return
+    pct = 100.0 * node["total_value"] / total
+    bar = "▇" * max(1, int(pct / 5)) if depth else ""
+    print(f"{'  ' * depth}{node['name']}  {node['total_value']:,} "
+          f"({pct:.1f}%) {bar}")
+    for child in node.get("children", [])[:20]:
+        print_flame(child, depth + 1, total, max_depth)
+
+
+def _health(server: str, as_json: bool) -> None:
+    h = _api(server, "/v1/health")
+    if as_json:
+        print(json.dumps(h, indent=2))
+        return
+    print(f"status: {h['status']}")
+    if h.get("wedged_stages"):
+        print("wedged: " + ", ".join(h["wedged_stages"]))
+    stages = h.get("stages", [])
+    if stages:
+        print("\nserver stages:")
+        print_table(
+            ["STAGE", "BEATS", "PROGRESS", "AGE_S", "HINT_S", "STATE"],
+            [[s["stage"], s["beats"], s["progress"], s["age_s"],
+              s["interval_hint_s"],
+              "WEDGED" if s.get("wedged") else "ok"] for s in stages])
+    ag = h.get("agents_selfmon", {})
+    hbs = ag.get("heartbeats", {})
+    if hbs:
+        print("\nagent stages (via deepflow_system):")
+        print_table(
+            ["STAGE", "BEATS", "PROGRESS", "AGE_S", "STATE"],
+            [[s["stage"], int(s.get("beats", 0)),
+              int(s.get("progress", 0)), s.get("age_s", ""),
+              "WEDGED" if s.get("wedged") else "ok"]
+             for s in sorted(hbs.values(), key=lambda x: x["stage"])])
+    for w in h.get("wedges", []):
+        print(f"\nserver wedge: {w['stage']} "
+              f"stalled {w.get('stalled_s', '?')}s "
+              f"(window {w.get('window_s', '?')}s)")
+        if w.get("stack"):
+            print(w["stack"].rstrip())
+    for w in ag.get("wedges", []):
+        print(f"\nagent wedge: {w['stage']} "
+              f"stalled {w.get('stalled_s', '?')}s")
+        if w.get("stack"):
+            print(w["stack"].rstrip())
+    if "ledger_imbalance" in h:
+        print(f"\nledger imbalance (in-flight): "
+              f"{h['ledger_imbalance']}")
+
+
+def _tpu_memory(server: str, args) -> None:
+    body = {"top": args.top}
+    if args.device is not None:
+        body["device_id"] = args.device
+    if args.start:
+        body["time_start"] = args.start
+    if args.end:
+        body["time_end"] = args.end
+    r = _api(server, "/v1/profile/TpuMemory", body)["result"]
+    if not r["devices"]:
+        print("(no HBM samples)")
+        return
+    gib = 1 << 30
+    print_table(
+        ["DEVICE", "IN_USE_GIB", "PEAK_GIB", "LIMIT_GIB", "PEAK_%",
+         "FRAG_FREE_GIB"],
+        [[d["device_id"],
+          round(d["bytes_in_use"] / gib, 2),
+          round(d["peak_bytes_in_use"] / gib, 2),
+          round(d["bytes_limit"] / gib, 2),
+          d["peak_pct"],
+          round(d["largest_free_block"] / gib, 2)]
+         for d in r["devices"]])
+    if r["top_ops"]:
+        print("\ntop HLO ops by HBM traffic:")
+        print_table(
+            ["OP", "MODULE", "GIB_ACCESSED", "GB/S", "COUNT"],
+            [[o["hlo_op"], o["hlo_module"],
+              round(o["bytes_accessed"] / gib, 2), o["hbm_gbps"],
+              o["count"]] for o in r["top_ops"]])
+    f = r.get("forensics")
+    if f:
+        print(f"\npressure peak: {f['pressure_pct']}% of HBM on "
+              f"device {f['pressure_peak']['device_id']} at "
+              f"{f['pressure_peak']['time']}")
+        for o in f["ops_near_peak"]:
+            print(f"  {o['hlo_op']}: {o['bytes_accessed']:,}B near peak")
+
+
+def _collectives(server: str, args) -> None:
+    body = {}
+    if args.start:
+        body["time_start"] = args.start
+    if args.end:
+        body["time_end"] = args.end
+    out = _api(server, "/v1/profile/TpuCollectives", body)
+    rows = [[g["collective"], g["hlo_op"], g["run_id"],
+             g["n_participants"], g.get("transport", "ici"),
+             len(g.get("hosts", [])) or 1, g["latency_ns"],
+             g["skew_ns"], g["algo_bw_gbyte_s"]] for g in out["result"]]
+    print_table(["COLLECTIVE", "OP", "RUN", "DEVS", "TRANSPORT",
+                 "HOSTS", "LATENCY_NS", "SKEW_NS", "GB/S"], rows)
+
+
+def _step_trace(server: str, args) -> None:
+    body = {}
+    if args.run_id is not None:
+        body["run_id"] = args.run_id
+    tr = _api(server, "/v1/profile/TpuStepTrace", body)["result"]
+    if not tr["devices"]:
+        print("(no TPU span data)")
+        return
+    print(f"run {tr['run_id']}: step {tr['step_latency_ns']:,}ns, "
+          f"device skew {tr['device_skew_ns']:,}ns")
+    rows = [[d, v["compute_ns"], v["collective_ns"], v["n_spans"]]
+            for d, v in sorted(tr["devices"].items())]
+    print_table(["DEVICE", "COMPUTE_NS", "COLLECTIVE_NS", "SPANS"], rows)
+    for g in tr["collectives"]:
+        print(f"  {g['collective']} {g['hlo_op']}: "
+              f"{g['latency_ns']:,}ns across "
+              f"{g['n_participants']} devices (skew {g['skew_ns']}ns)")
+
+
+def _critical_path(server: str, body: dict, as_json: bool) -> None:
+    out = _api(server, "/v1/tpu/steps/critical_path", body)
+    if as_json:
+        print(json.dumps(out, indent=2))
+        return
+    r = out["result"]
+    s, att = r["step"], r["attribution"]
+    print(f"{s['job'] or '(job)'} run {s['run_id']} "
+          f"step {s['step']}: {s['latency_ns']:,}ns "
+          f"(baseline {att['baseline_latency_ns']:,}ns over "
+          f"{att['baseline_steps']} healthy steps)")
+    print(f"verdict: {att['verdict']}  straggler: "
+          f"{att['straggler_host'] or '?'}:"
+          f"TPU{att['straggler_device']} "
+          f"(+{att['straggler_lag_ns']:,}ns)")
+    print_table(
+        ["COMPONENT", "NS", "BASELINE_NS", "DELTA_NS"],
+        [[k, att["components_ns"][k],
+          att["baseline_components_ns"][k],
+          att["component_deltas_ns"][k]]
+         for k in att["components_ns"]])
+    if att["dominant_hlos"]:
+        print("\ndominant HLOs by delta vs baseline:")
+        print_table(
+            ["HLO_OP", "SELF_NS", "BASELINE_NS", "DELTA_NS"],
+            [[h["hlo_op"], h["self_ns"], h["baseline_ns"],
+              h["delta_ns"]] for h in att["dominant_hlos"]])
+
+
+def _steps(server: str, args) -> None:
+    body = {"limit": args.limit}
+    if args.job:
+        body["job"] = args.job
+    if args.run_id is not None:
+        body["run_id"] = args.run_id
+    if args.critical_path is not None:
+        body["step"] = args.critical_path
+        _critical_path(server, body, args.json)
+        return
+    out = _api(server, "/v1/tpu/steps", body)
+    if args.json:
+        print(json.dumps(out, indent=2))
+        return
+    steps = out["result"]["steps"]
+    if not steps:
+        print("(no step records)")
+        return
+    # sparkline scaled to the window's max latency
+    blocks = "▁▂▃▄▅▆▇█"
+    peak = max(s["latency_ns"] for s in steps) or 1
+    rows = []
+    for s in steps:
+        spark = blocks[min(len(blocks) - 1,
+                           int(len(blocks) * s["latency_ns"] / peak))]
+        rows.append([
+            s["job"], s["run_id"], s["step"],
+            f"{s['latency_ns']:,}", spark,
+            f"{s['device_skew_ns']:,}", f"{s['collective_ns']:,}",
+            s["device_count"], len(s.get("hosts", [])),
+            s["verdict"] if s["regressed"] else "ok"])
+    print_table(
+        ["JOB", "RUN", "STEP", "LATENCY_NS", "", "SKEW_NS",
+         "WAIT_NS", "DEVS", "HOSTS", "VERDICT"], rows)
+    for s in steps:
+        if not s["regressed"]:
+            continue
+        att = s["attribution"]
+        top = att["dominant_hlos"][0] if att["dominant_hlos"] else None
+        print(f"\nstep {s['step']} (run {s['run_id']}) REGRESSED: "
+              f"{att['verdict']} — straggler "
+              f"{att['straggler_host'] or '?'}:"
+              f"TPU{att['straggler_device']} "
+              f"(+{att['straggler_lag_ns']:,}ns)"
+              + (f", dominant HLO {top['hlo_op']} "
+                 f"(+{top['delta_ns']:,}ns)" if top else ""))
+
+
+def main(argv: list[str] | None = None) -> int:
+    parser = argparse.ArgumentParser(prog="dfctl")
+    parser.add_argument("--server", default="127.0.0.1:20416",
+                        help="querier host:port")
+    sub = parser.add_subparsers(dest="cmd", required=True)
+
+    p_health = sub.add_parser(
+        "health", help="per-stage heartbeats, wedge verdicts, ledger "
+                       "imbalance — server and agents")
+    p_health.add_argument("--json", action="store_true",
+                          help="raw /v1/health JSON instead of tables")
+
+    p_query = sub.add_parser("query")
+    p_query.add_argument("sql")
+    p_query.add_argument("--db", default="")
+    p_query.add_argument("--org", type=int, default=None,
+                         help="scope results to this org id")
+
+    p_flame = sub.add_parser("flame")
+    p_flame.add_argument("--service", default=None)
+    p_flame.add_argument("--event-type", default="on-cpu")
+
+    p_tpu = sub.add_parser("tpu-flame")
+    p_tpu.add_argument("--device", type=int, default=None)
+    p_tpu.add_argument("--include-host", action="store_true",
+                       help="include host compile/runtime spans")
+
+    p_mem = sub.add_parser("tpu-memory",
+                           help="per-device HBM usage, headroom, top ops "
+                                "by memory traffic, OOM forensics")
+    p_mem.add_argument("--device", type=int, default=None)
+    p_mem.add_argument("--start", type=int, default=None)
+    p_mem.add_argument("--end", type=int, default=None)
+    p_mem.add_argument("--top", type=int, default=15)
+
+    p_coll = sub.add_parser("collectives",
+                            help="cross-device collective groups "
+                                 "(latency/skew/bandwidth)")
+    p_coll.add_argument("--start", type=int, default=None)
+    p_coll.add_argument("--end", type=int, default=None)
+
+    p_step = sub.add_parser("step-trace",
+                            help="one training step stitched across devices")
+    p_step.add_argument("--run-id", type=int, default=None)
+
+    p_steps = sub.add_parser(
+        "steps", help="per-step health waterfall: latency sparkline, "
+                      "device skew, collective wait, regression verdict")
+    p_steps.add_argument("--job", default=None)
+    p_steps.add_argument("--run-id", type=int, default=None)
+    p_steps.add_argument("--limit", type=int, default=50)
+    p_steps.add_argument("--critical-path", type=int, default=None,
+                         metavar="STEP",
+                         help="attribute one step's latency against its "
+                              "rolling healthy baseline")
+    p_steps.add_argument("--json", action="store_true",
+                         help="raw endpoint JSON instead of the waterfall")
+
+    args = parser.parse_args(argv)
+    server = args.server
+    if args.cmd == "health":
+        _health(server, args.json)
+    elif args.cmd == "query":
+        body = {"db": args.db, "sql": args.sql}
+        if args.org is not None:
+            body["org_id"] = args.org
+        r = _api(server, "/v1/query/", body)["result"]
+        print_table(r["columns"], r["values"])
+    elif args.cmd == "flame":
+        body = {"event_type": args.event_type}
+        if args.service:
+            body["app_service"] = args.service
+        print_flame(_api(server, "/v1/profile/ProfileTracing", body)
+                    ["result"])
+    elif args.cmd == "tpu-flame":
+        body = {}
+        if args.device is not None:
+            body["device_id"] = args.device
+        if args.include_host:
+            body["include_host"] = True
+        print_flame(_api(server, "/v1/profile/TpuFlame", body)["result"])
+    elif args.cmd == "tpu-memory":
+        _tpu_memory(server, args)
+    elif args.cmd == "collectives":
+        _collectives(server, args)
+    elif args.cmd == "step-trace":
+        _step_trace(server, args)
+    elif args.cmd == "steps":
+        _steps(server, args)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

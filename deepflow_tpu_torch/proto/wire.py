@@ -14,6 +14,7 @@ Unknown fields are skipped on decode.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import struct
 from dataclasses import dataclass, field
 from enum import IntEnum
@@ -125,14 +126,31 @@ _PROFILE_SCHEMA = _schema(Profile, {
     n: _U32 for n in ("pid", "tid", "event_type", "count")})
 
 
+_SMALL_VARINTS = tuple(bytes((v,)) for v in range(0x80))
+
+
 def _varint(v: int) -> bytes:
+    if 0 <= v < 0x80:
+        return _SMALL_VARINTS[v]
+    if 0 < v < 0x4000:
+        return bytes((v & 0x7F | 0x80, v >> 7))
+    if v >> 28:
+        # nanosecond times: the low four groups vary from span to span,
+        # the high ones change every 2**28 ns, so theirs are kept
+        return bytes((v & 0x7F | 0x80, v >> 7 & 0x7F | 0x80,
+                      v >> 14 & 0x7F | 0x80, v >> 21 & 0x7F | 0x80)) \
+            + _high_varint(v >> 28)
     out = bytearray()
-    while True:
-        b = v & 0x7F
+    while v > 0x7F:
+        out.append(v & 0x7F | 0x80)
         v >>= 7
-        out.append(b | (0x80 if v else 0))
-        if not v:
-            return bytes(out)
+    out.append(v)
+    return bytes(out)
+
+
+@functools.lru_cache(maxsize=256)
+def _high_varint(v: int) -> bytes:
+    return _varint(v)
 
 
 def _len_field(num: int, b: bytes) -> bytes:
@@ -209,6 +227,28 @@ def _decode_msg(buf: bytes, cls, schema):
                 raise WireError(f"{name}: expected a varint")
             setattr(msg, name, v)
     return msg
+
+
+def encode_span(span: TpuSpan) -> bytes:
+    """One TpuSpan message's bytes, without the batch's length prefix. The
+    fields are written in number order, so the bytes of a span whose
+    fields are split between several TpuSpans are those spans' bytes
+    joined."""
+    return _encode_msg(span, _SPAN_SCHEMA)
+
+
+def uint_field(name: str, num: int, v: int) -> bytes:
+    """One unsigned 64-bit field with its tag; nothing for 0."""
+    if not v:
+        return b""
+    if not 0 <= v <= _U64:
+        raise WireError(f"{name}={v} out of range")
+    return _varint(num << 3) + _varint(v)
+
+
+def span_entry(body: bytes) -> bytes:
+    """A TpuSpan's bytes as one entry of TpuSpanBatch.spans."""
+    return _len_field(1, body)
 
 
 @dataclass

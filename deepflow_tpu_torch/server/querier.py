@@ -1,16 +1,22 @@
-"""Querier: the profile queries over the store, and their HTTP API.
+"""Querier: DF-SQL and the profile queries over the store, and their
+HTTP API.
 
-Own copy of the profile queries of ``deepflow_tpu/server/querier.py``
-(``profile_tracing``, the CPU flame graph, and the TPU queries
-``tpu_flame``, ``tpu_memory``, ``tpu_collectives``, ``tpu_step_trace``,
-``tpu_steps``, ``tpu_step_critical_path``) and of their POST routes, with
-the same request bodies and answers. The reference phrases each query in
-DF-SQL; here each is the same filter, group-by and sort over the table's
-columns (``query/columnar.py``). No federation. ``GET /v1/health``
-carries the server's own self-telemetry (``selfmon``, ``stages``,
-``pipeline``, ``ledger_imbalance``, ``wedges``) and the agents', read
-back from ``deepflow_system`` (``agents_selfmon``); a current wedge makes
-its ``status`` ``degraded`` with the ``wedged_stages``.
+Own copy of the local path of ``deepflow_tpu/server/querier.py``:
+``POST /v1/query`` runs one DF-SQL statement (``query/sql.py``,
+``query/engine.py``), with SHOW answered from the catalog
+(``query/catalog.py``), the table resolved as the reference resolves it
+(db prefix included) and ``org_id`` scoping; the TPU queries
+(``tpu_flame``, ``tpu_memory``, ``tpu_collectives``, ``tpu_step_trace``,
+``tpu_steps``, ``tpu_step_critical_path``) build the reference's SQL
+text and run it through the engine; ``profile_tracing`` folds the CPU
+flame graph (``query/flamegraph.py``). Each has its POST route, with the
+reference's request bodies and answers. No federation, no rollup
+datasource, no query cache; EXPLAIN answers 400 (the query-trace spans
+it reports are not ported). ``GET /v1/health`` carries the server's own
+self-telemetry (``selfmon``, ``stages``, ``pipeline``,
+``ledger_imbalance``, ``wedges``) and the agents', read back from
+``deepflow_system`` (``agents_selfmon``); a current wedge makes its
+``status`` ``degraded`` with the ``wedged_stages``.
 """
 
 from __future__ import annotations
@@ -20,7 +26,9 @@ import logging
 import threading
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
-from deepflow_tpu_torch.query import columnar
+from deepflow_tpu_torch.query import catalog, engine
+from deepflow_tpu_torch.query import sql as S
+from deepflow_tpu_torch.query.engine import QueryError
 from deepflow_tpu_torch.query.flamegraph import (
     build_flame_tree, profile_flame_tree)
 from deepflow_tpu_torch.server import stephealth
@@ -31,28 +39,19 @@ from deepflow_tpu_torch.tpuprobe.collectives import stitch, step_trace
 
 log = logging.getLogger("df.querier")
 
-DEVICE_KINDS = tuple(k for k in TPU_SPAN_KINDS if k.startswith("device-"))
-_STEP_COLS = ["time", "end_ns", "latency_ns", "run_id", "step", "job",
-              "device_count", "device_skew_ns", "compute_ns",
-              "collective_ns", "straggler_device", "straggler_lag_ns",
-              "top_hlos", "host"]
-_SPAN_ROW_COLS = ["time", "duration_ns", "device_id", "core_id", "hlo_op",
-                  "collective", "run_id", "bytes_transferred",
-                  "replica_group_size", "step", "host", "slice_id",
-                  "tpu_pod"]
+_STEP_COLS = ("time, end_ns, latency_ns, run_id, step, job, "
+              "device_count, device_skew_ns, compute_ns, "
+              "collective_ns, straggler_device, straggler_lag_ns, "
+              "top_hlos, host")
 
 
-class QueryError(Exception):
-    """A query that cannot be answered as asked (HTTP 400)."""
-
-
-def _time_window(body: dict) -> list:
+def _time_window(body: dict) -> list[str]:
     """The reference's time filter: a falsy bound is no bound."""
     where = []
     if body.get("time_start"):
-        where.append(("time", ">=", int(body["time_start"])))
+        where.append(f"time >= {int(body['time_start'])}")
     if body.get("time_end"):
-        where.append(("time", "<", int(body["time_end"])))
+        where.append(f"time < {int(body['time_end'])}")
     return where
 
 
@@ -97,6 +96,60 @@ class QuerierAPI:
             out["wedged_stages"] = sorted(set(wedged_stages))
         return out
 
+    def _resolve_table(self, table_name: str, db_name: str = ""):
+        # resolution order: as-given, db-prefixed, then with the default
+        # interval suffix (flow_metrics tables are <name>.<interval>)
+        candidates = [table_name, f"{table_name}.1s"]
+        if db_name:
+            candidates = [f"{db_name}.{table_name}",
+                          f"{db_name}.{table_name}.1s"] + candidates
+        for cand in candidates:
+            try:
+                return self.db.table(cand)
+            except KeyError:
+                continue
+        raise QueryError(
+            f"no such table {table_name!r}; known: {self.db.tables()}")
+
+    @staticmethod
+    def _org_scope(select: S.Select, table, org) -> None:
+        if "org_id" not in table.columns:
+            # silently dropping the filter would hand one tenant
+            # another tenant's rows — refuse instead
+            raise QueryError(
+                f"table {table.name!r} has no org scoping; "
+                "query it without org_id")
+        # cooperative VIEW filter, not a security boundary: the caller
+        # names the org it wants and nothing verifies it may. ANDed into
+        # the parsed AST rather than the SQL text so the filter can't be
+        # quoted away.
+        cond = S.BinOp("=", S.Col("org_id"), S.Lit(int(org)))
+        select.where = (cond if select.where is None
+                        else S.BinOp("AND", select.where, cond))
+
+    def query(self, body: dict) -> dict:
+        """One DF-SQL statement: body {"sql", "db", "org_id"}; the answer
+        {"result": {"columns", "values"}, "debug": {"table"}}, or for SHOW
+        the catalog's table with {"debug": {"show"}}."""
+        stmt = S.parse_statement(body.get("sql", ""))
+        if isinstance(stmt, S.Show):
+            try:
+                result = catalog.show(stmt.what, stmt.table)
+            except KeyError as e:
+                raise QueryError(
+                    f"no such table {e.args[0]!r} for SHOW") from None
+            return {"result": result, "debug": {"show": stmt.what}}
+        if isinstance(stmt, S.Explain):
+            raise QueryError(
+                "EXPLAIN is not supported by this server: it reports the "
+                "query-trace spans (query/qtrace.py), which are not ported")
+        table = self._resolve_table(stmt.table, body.get("db", ""))
+        org = body.get("org_id")
+        if org is not None:
+            self._org_scope(stmt, table, org)
+        result = engine.execute(table, stmt)
+        return {"result": result.to_dict(), "debug": {"table": table.name}}
+
     def profile_tracing(self, body: dict) -> dict:
         """CPU flame graph of the sampled stacks; each of time_start,
         time_end (ns), event_type, app_service and profiler filters when
@@ -113,17 +166,21 @@ class QuerierAPI:
     def tpu_flame(self, body: dict) -> dict:
         """Flame view over device spans: module -> category -> op.
         Device kinds only, unless include_host."""
-        where = [("duration_ns", ">", 0)]
+        where = ["duration_ns > 0"]
         if not body.get("include_host"):
-            where.append(("kind", "in", DEVICE_KINDS))
+            device_kinds = ", ".join(
+                f"'{k}'" for k in TPU_SPAN_KINDS if k.startswith("device-"))
+            where.append(f"kind IN ({device_kinds})")
         where += _time_window(body)
         if body.get("device_id") is not None:
-            where.append(("device_id", "=", int(body["device_id"])))
-        res = columnar.group(self.db.table("profile.tpu_hlo_span"),
-                             ["hlo_module", "hlo_category", "hlo_op"],
-                             ["duration_ns"], where=where)
+            where.append(f"device_id = {int(body['device_id'])}")
+        res = engine.execute(
+            self.db.table("profile.tpu_hlo_span"),
+            "SELECT hlo_module, hlo_category, hlo_op, Sum(duration_ns) AS d "
+            f"FROM t WHERE {' AND '.join(where)} "
+            "GROUP BY hlo_module, hlo_category, hlo_op")
         stacks, values = [], []
-        for mod, cat, op, d in res:
+        for mod, cat, op, d in res.values:
             stacks.append(";".join(x for x in (mod, cat or "other", op) if x))
             values.append(int(d))
         return {"result": build_flame_tree(stacks, values).to_dict()}
@@ -132,19 +189,19 @@ class QuerierAPI:
         """Memory view: per-device usage timeline, headroom summary, top
         ops by bytes accessed, and the ops that ran around the sample of
         highest pressure."""
-        where = [("bytes_limit", ">", 0), *_time_window(body)]
+        where = ["bytes_limit > 0", *_time_window(body)]
         if body.get("device_id") is not None:
-            where.append(("device_id", "=", int(body["device_id"])))
-        res = columnar.select(
+            where.append(f"device_id = {int(body['device_id'])}")
+        res = engine.execute(
             self.db.table("profile.tpu_memory"),
-            ["time", "device_id", "bytes_in_use", "peak_bytes_in_use",
-             "bytes_limit", "largest_free_block"],
-            where=where, order_by="time")
+            "SELECT time, device_id, bytes_in_use, peak_bytes_in_use, "
+            "bytes_limit, largest_free_block FROM t "
+            f"WHERE {' AND '.join(where)} ORDER BY time")
         timeline = [
             {"time": int(t), "device_id": int(d), "bytes_in_use": int(b),
              "peak_bytes_in_use": int(p), "bytes_limit": int(lim),
              "largest_free_block": int(fr)}
-            for t, d, b, p, lim, fr in res]
+            for t, d, b, p, lim, fr in res.values]
         devices: dict[int, dict] = {}
         for s in timeline:  # time-ordered: last write wins = latest
             d = s["device_id"]
@@ -157,35 +214,37 @@ class QuerierAPI:
                 100.0 * s["peak_bytes_in_use"] / s["bytes_limit"], 1)
             cur["headroom_bytes"] = s["bytes_limit"] - s["peak_bytes_in_use"]
         spans = self.db.table("profile.tpu_hlo_span")
+        swhere = ["bytes_accessed > 0", *_time_window(body)]
         top_n = int(body.get("top", 15))
-        sres = columnar.group(
-            spans, ["hlo_op", "hlo_module"],
-            ["bytes_accessed", "duration_ns"], count=True,
-            where=[("bytes_accessed", ">", 0), *_time_window(body)],
-            order_by="bytes_accessed", desc=True, limit=top_n)
+        sres = engine.execute(
+            spans, "SELECT hlo_op, hlo_module, Sum(bytes_accessed) AS b, "
+                   "Sum(duration_ns) AS d, Count() AS n FROM t "
+                   f"WHERE {' AND '.join(swhere)} "
+                   "GROUP BY hlo_op, hlo_module ORDER BY b DESC "
+                   f"LIMIT {top_n}")
         top_ops = [
             {"hlo_op": op, "hlo_module": mod, "bytes_accessed": int(b),
              "duration_ns": int(d), "count": int(n),
              "hbm_gbps": round(b / max(1, d), 2)}  # bytes/ns = GB/s
-            for op, mod, b, d, n in sres]
+            for op, mod, b, d, n in sres.values]
         forensics = None
         if timeline:
             worst = max(timeline,
                         key=lambda s: s["bytes_in_use"] / s["bytes_limit"])
             w = int(body.get("forensics_window_s", 10)) * 1_000_000_000
             t0, t1 = worst["time"] - w, worst["time"] + w
-            fres = columnar.group(
-                spans, ["hlo_op"], ["bytes_accessed"],
-                where=[("bytes_accessed", ">", 0), ("time", ">=", t0),
-                       ("time", "<", t1)],
-                order_by="bytes_accessed", desc=True, limit=10)
+            fres = engine.execute(
+                spans, "SELECT hlo_op, Sum(bytes_accessed) AS b FROM t "
+                       f"WHERE bytes_accessed > 0 AND time >= {t0} "
+                       f"AND time < {t1} GROUP BY hlo_op "
+                       "ORDER BY b DESC LIMIT 10")
             forensics = {
                 "pressure_peak": worst,
                 "pressure_pct": round(
                     100.0 * worst["bytes_in_use"] / worst["bytes_limit"], 1),
                 "ops_near_peak": [
                     {"hlo_op": op, "bytes_accessed": int(b)}
-                    for op, b in fres],
+                    for op, b in fres.values],
             }
         return {"result": {
             "devices": sorted(devices.values(),
@@ -213,14 +272,18 @@ class QuerierAPI:
         (job, run_id, step), time-ordered."""
         where = []
         if body.get("job"):
-            where.append(("job", "=", str(body["job"]).replace("'", "")))
+            job = str(body["job"]).replace("'", "")
+            where.append(f"job = '{job}'")
         if body.get("run_id") is not None:
-            where.append(("run_id", "=", int(body["run_id"])))
+            where.append(f"run_id = {int(body['run_id'])}")
         where += _time_window(body)
-        res = columnar.select(self.db.table("profile.tpu_step_metrics"),
-                              _STEP_COLS, where=where)
+        sql_text = f"SELECT {_STEP_COLS} FROM t"
+        if where:
+            sql_text += f" WHERE {' AND '.join(where)}"
+        res = engine.execute(self.db.table("profile.tpu_step_metrics"),
+                             sql_text)
         return stephealth.merge_host_partials(
-            [dict(zip(_STEP_COLS, row)) for row in res])
+            [dict(zip(res.columns, row)) for row in res.values])
 
     def tpu_steps(self, body: dict) -> dict:
         """Per-step health timeline, each step scored by the EWMA+MAD
@@ -259,18 +322,22 @@ class QuerierAPI:
 
     def _tpu_span_rows(self, body: dict,
                        collectives_only: bool = False) -> list[dict]:
-        where = [("duration_ns", ">", 0)]
+        where = ["duration_ns > 0"]
         if collectives_only:
-            where.append(("collective", "!=", ""))
+            where.append("collective != ''")
         where += _time_window(body)
-        res = columnar.select(self.db.table("profile.tpu_hlo_span"),
-                              _SPAN_ROW_COLS, where=where)
-        return [dict(zip(_SPAN_ROW_COLS, row)) for row in res]
+        res = engine.execute(
+            self.db.table("profile.tpu_hlo_span"),
+            "SELECT time, duration_ns, device_id, core_id, hlo_op, "
+            "collective, run_id, bytes_transferred, replica_group_size, "
+            "step, host, slice_id, tpu_pod FROM t "
+            f"WHERE {' AND '.join(where)}")
+        return [dict(zip(res.columns, row)) for row in res.values]
 
 
 class QuerierHTTP:
-    """The querier's HTTP server: the profile POST routes and
-    GET /v1/health."""
+    """The querier's HTTP server: POST /v1/query, the profile POST routes
+    and GET /v1/health."""
 
     def __init__(self, api: QuerierAPI, host: str = "127.0.0.1",
                  port: int = 20416) -> None:
@@ -282,6 +349,7 @@ class QuerierHTTP:
     def start(self) -> "QuerierHTTP":
         api = self.api
         routes = {
+            "/v1/query": api.query,
             "/v1/profile/ProfileTracing": api.profile_tracing,
             "/v1/profile/TpuFlame": api.tpu_flame,
             "/v1/profile/TpuCollectives": api.tpu_collectives,
@@ -319,7 +387,7 @@ class QuerierHTTP:
                         self._send(404, {"error": f"no route {self.path}"})
                     else:
                         self._send(200, fn(body))
-                except (QueryError, KeyError, ValueError) as e:
+                except (QueryError, S.SqlError, KeyError, ValueError) as e:
                     # json.JSONDecodeError is a ValueError
                     self._send(400, {"error": str(e)})
                 except Exception as e:

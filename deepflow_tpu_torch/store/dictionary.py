@@ -1,8 +1,9 @@
 """String <-> small-int id dictionaries for string columns.
 
 Own copy of ``deepflow_tpu/store/dictionary.py::Dictionary`` (without the
-native mirror that serves the reference's C++ decode path). Id 0 is
-always the empty string.
+native mirror that serves the reference's C++ decode path), with the
+query side's ``match_ids`` and collation ranks. Id 0 is always the empty
+string.
 """
 
 from __future__ import annotations
@@ -67,3 +68,24 @@ class Dictionary:
     def lookup(self, s: str) -> int | None:
         """The id of s without inserting it (query side)."""
         return self._str_to_id.get(s)
+
+    def _snapshot(self) -> list[str]:
+        with self._lock:
+            return list(self._strings)
+
+    def match_ids(self, predicate) -> np.ndarray:
+        """Ids of all entries satisfying predicate(str): LIKE and ordered
+        string filters resolve over the (small) dictionary, not the
+        rows."""
+        return np.fromiter(
+            (i for i, s in enumerate(self._snapshot()) if predicate(s)),
+            dtype=np.uint32)
+
+    def collation_ranks(self) -> np.ndarray:
+        """int64 rank of every id in the strings' sort order. Ids follow
+        insertion order, so ORDER BY over a str column sorts by these."""
+        strs = np.asarray(self._snapshot(), dtype=object)
+        rank = np.empty(len(strs), dtype=np.int64)
+        rank[np.argsort(strs, kind="stable")] = np.arange(
+            len(strs), dtype=np.int64)
+        return rank

@@ -8,6 +8,7 @@ CUDA's: NCCL kernel names and Kineto's ``gpu_memcpy`` / ``gpu_memset``.
 
 from __future__ import annotations
 
+import functools
 import re
 from dataclasses import dataclass
 
@@ -45,8 +46,10 @@ _NCCL_COLLECTIVES = {
 }
 
 
+@functools.lru_cache(maxsize=4096)
 def classify(category: str, name: str) -> tuple[int, str]:
-    """(TpuSpanKind, collective) from a category and an op/kernel name."""
+    """(TpuSpanKind, collective) from a category and an op/kernel name.
+    A capture repeats a few hundred kernel names, so answers are kept."""
     cat = (category or "").lower()
     m = _NCCL_RE.search(name or "")
     if m:
@@ -81,32 +84,49 @@ class TpuSpanEvent:
     replica_group_size: int = 0   # devices per replica group (0 = all)
     step: int = 0
 
-    def to_pb(self, pid: int = 0, process_name: str = "") -> wire.TpuSpan:
-        return wire.TpuSpan(
-            start_ns=max(0, self.start_ns),
-            duration_ns=self.duration_ns,
-            device_id=self.device_id,
-            chip_id=self.chip_id,
-            core_id=self.core_id,
-            hlo_module=self.hlo_module,
-            hlo_op=self.hlo_op,
-            hlo_category=self.hlo_category,
-            kind=int(self.kind),
-            flops=self.flops,
-            bytes_accessed=self.bytes_accessed,
-            program_id=self.program_id & 0xFFFFFFFF,
-            run_id=self.run_id & 0xFFFFFFFF,
-            collective=self.collective,
-            bytes_transferred=self.bytes_transferred,
-            replica_group_size=self.replica_group_size,
-            step=self.step,
-            pid=pid,
-            process_name=process_name)
+
+@functools.lru_cache(maxsize=8192)
+def _middle_fields(device_id, chip_id, core_id, hlo_module, hlo_op,
+                   hlo_category, kind, flops, bytes_accessed,
+                   program_id) -> bytes:
+    """TpuSpan fields 3-13: one kernel on one stream repeats them in
+    every step of a capture."""
+    return wire.encode_span(wire.TpuSpan(
+        device_id=device_id, chip_id=chip_id, core_id=core_id,
+        hlo_module=hlo_module, hlo_op=hlo_op, hlo_category=hlo_category,
+        kind=int(kind), flops=flops, bytes_accessed=bytes_accessed,
+        program_id=program_id & 0xFFFFFFFF))
+
+
+@functools.lru_cache(maxsize=8192)
+def _last_fields(run_id, collective, bytes_transferred, replica_group_size,
+                 step, pid, process_name) -> bytes:
+    """TpuSpan fields 14-20: the same for every op of one step."""
+    return wire.encode_span(wire.TpuSpan(
+        run_id=run_id & 0xFFFFFFFF, collective=collective,
+        bytes_transferred=bytes_transferred,
+        replica_group_size=replica_group_size, step=step, pid=pid,
+        process_name=process_name))
 
 
 def batch_to_pb(events: list[TpuSpanEvent], pid: int = 0,
                 process_name: str = "") -> bytes:
-    """Span events -> serialized TpuSpanBatch bytes."""
-    return wire.TpuSpanBatch(
-        spans=[ev.to_pb(pid, process_name) for ev in events]
-    ).SerializeToString()
+    """Span events -> serialized TpuSpanBatch bytes, each span with the
+    batch's pid and process_name, a start_ns below 0 as 0, and the low 32
+    bits of program_id and run_id (the reference's ``to_pb``). No
+    TpuSpan is built per event: a capture's tens of thousands of spans
+    were the agent's largest CPU cost outside the held step (PERF.md,
+    slice 5)."""
+    out = bytearray()
+    for ev in events:
+        body = wire.uint_field("start_ns", 1, max(0, ev.start_ns))
+        body += wire.uint_field("duration_ns", 2, ev.duration_ns)
+        body += _middle_fields(
+            ev.device_id, ev.chip_id, ev.core_id, ev.hlo_module, ev.hlo_op,
+            ev.hlo_category, ev.kind, ev.flops, ev.bytes_accessed,
+            ev.program_id)
+        body += _last_fields(
+            ev.run_id, ev.collective, ev.bytes_transferred,
+            ev.replica_group_size, ev.step, pid, process_name)
+        out += wire.span_entry(body)
+    return bytes(out)

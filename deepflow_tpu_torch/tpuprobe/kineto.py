@@ -55,6 +55,9 @@ from deepflow_tpu_torch.tpuprobe.events import TpuSpanEvent, classify
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 LAUNCH_CATS = ("cuda_runtime", "cuda_driver")
 STEP_MODULE = "train_step"
+_DEVICE, _LAUNCH = "device", "launch"
+_ROLE = {**dict.fromkeys(DEVICE_CATS, _DEVICE),
+         **dict.fromkeys(LAUNCH_CATS, _LAUNCH)}
 
 
 def _ns(ts_us, base_ns: int) -> int:
@@ -75,29 +78,39 @@ def extract_device_spans(trace: dict, steps=()) -> list[TpuSpanEvent]:
     chrome trace. ``steps``: [(step, hook wall-clock ns)]."""
     base = int(trace.get("baseTimeNanoseconds", 0) or 0)
     events = trace.get("traceEvents", [])
-    launches: dict[int, int] = {}
-    for e in events:
-        if e.get("cat") in LAUNCH_CATS and "ts" in e:
+    launches: dict = {}  # correlation -> the launch's ts
+    device_events = []  # one pass over the trace; its flows, host
+    for e in events:    # events and metadata are most of it
+        role = _ROLE.get(e.get("cat"))
+        if role is None:
+            continue
+        if role is _DEVICE:
+            if e.get("ph") == "X":
+                device_events.append(e)
+        elif "ts" in e:
             corr = (e.get("args") or {}).get("correlation")
             if corr is not None:
-                launches[corr] = _ns(e["ts"], base)
+                launches[corr] = e["ts"]
     ordered = sorted(steps, key=lambda s: s[1])
     hook_steps = [int(s) for s, _ in ordered]
     hook_ns = [int(t) for _, t in ordered]
 
     out: list[TpuSpanEvent] = []
     bounds: dict[tuple[int, int], list[int]] = {}  # (device, step) -> [t0, t1]
-    for e in events:
-        cat = e.get("cat")
-        if cat not in DEVICE_CATS or e.get("ph") != "X":
-            continue
+    # one str object per kernel name: the names' hashes, which classify
+    # and the encoder's caches take, are then computed once a capture
+    names: dict[str, str] = {}
+    for e in device_events:
+        cat = e["cat"]
         args = e.get("args") or {}
         start = _ns(e["ts"], base)
         dur = max(1, round(float(e.get("dur", 0)) * 1000.0))
-        launch = launches.get(args.get("correlation"), start)
+        launch_ts = launches.get(args.get("correlation"))
+        launch = start if launch_ts is None else _ns(launch_ts, base)
         step = step_of(launch, hook_ns, hook_steps)
         device = int(args.get("device", 0))
         name = str(e.get("name", ""))
+        name = names.setdefault(name, name)
         kind, coll = classify(cat, name)
         nbytes = int(args.get("bytes", 0) or 0)
         out.append(TpuSpanEvent(

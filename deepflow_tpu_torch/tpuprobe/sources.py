@@ -58,6 +58,8 @@ class StepHook:
         # (parked, release) of the hold the next step takes
         self._hold: tuple[threading.Event, threading.Event] | None = None
         self._held_cpu_s = 0.0
+        # (CPU clock, its reading at the start) of the held body running
+        self._holding: tuple[int, float] | None = None
 
     def install(self) -> "StepHook":
         from torch.optim.optimizer import register_optimizer_step_post_hook
@@ -95,7 +97,8 @@ class StepHook:
         a plain training loop launches device work until the body ends.
         Yields False when no step came within timeout_s or ``cancel`` was
         set first; the body then runs beside the workload. The CPU time
-        this thread spends in a held body adds to ``held_cpu_s``."""
+        this thread spends in a held body adds to ``held_cpu_s``, as it
+        goes."""
         parked, release = threading.Event(), threading.Event()
         with self._lock:
             self._hold = (parked, release)
@@ -113,20 +116,31 @@ class StepHook:
             # a step that took the hold just now parks at once
             took = parked.is_set() or (not mine and parked.wait(1.0))
             cpu0 = time.thread_time()
+            if took:
+                with self._lock:
+                    self._holding = (time.pthread_getcpuclockid(
+                        threading.get_ident()), cpu0)
             yield took
         finally:
             spent = time.thread_time() - cpu0 if took else 0.0
             release.set()
             with self._lock:
                 self._held_cpu_s += spent
+                self._holding = None
 
     @property
     def held_cpu_s(self) -> float:
         """CPU seconds the holding threads spent in held bodies: work
         done while the training thread waited in the hook, so it took no
-        core from the workload."""
+        core from the workload. A body still running counts what it has
+        spent so far: a guard check that falls inside a held export and
+        parse (seconds long) must not read that work as the agent's."""
         with self._lock:
-            return self._held_cpu_s
+            if self._holding is None:
+                return self._held_cpu_s
+            clock, cpu0 = self._holding
+            return self._held_cpu_s + max(
+                0.0, time.clock_gettime(clock) - cpu0)
 
     @property
     def count(self) -> int:
@@ -162,14 +176,15 @@ class KinetoSource:
     no workload thread launches work meanwhile. Sessions set up or closed
     beside launching threads (the probe's own thread under the agent)
     sometimes left one launching thread without device records for the
-    rest of the process. The same hold covers the export and the JSON
-    load after the stop: both are C calls that keep the interpreter lock
-    throughout, so the training thread made almost no progress beside
-    them anyway (PERF.md, PR 1), and parked at a step boundary it waits
-    for them where a resource guard can see whose place they take
-    (``StepHook.held_cpu_s``). A session opened or closed with no step
-    to hold (none within three step times, or the workload is done) is
-    counted as `unheld`.
+    rest of the process. The same hold covers the export, the JSON load
+    and the extraction of spans after the stop: the first two are C
+    calls that keep the interpreter lock throughout, the extraction is
+    Python that keeps it most of the time, so the training thread made
+    little progress beside them anyway (PERF.md, slice 1). Parked at a step
+    boundary it waits for them where a resource guard can see whose
+    place they take (``StepHook.held_cpu_s``). A session opened or
+    closed with no step to hold (none within three step times, or the
+    workload is done) is counted as `unheld`.
 
     Contention guard: a window that would collide with a user's own
     profiler session, or another source, is skipped and counted as
@@ -381,12 +396,15 @@ class KinetoSource:
                 prof.export_chrome_trace(path)
                 t_exported = time.monotonic()
                 trace = load_trace(path)
+                cpu0 = time.thread_time()
+                n_trace = len(trace.get("traceEvents", ()))
+                events = extract_device_spans(
+                    trace, self.step_hook.since(window_wall_ns))
+                del trace
+                t_parsed = time.monotonic()
+                cpu1 = time.thread_time()
             window_s = window_t1 - window_t0
             self._captured_s += window_s
-            events = extract_device_spans(
-                trace, self.step_hook.since(window_wall_ns))
-            del trace
-            t_parsed = time.monotonic()
             self.stats["captures"] += 1
             self.stats["events"] += len(events)
             # the last cycle's dead time by phase, and its EWMA
@@ -394,7 +412,9 @@ class KinetoSource:
                 last_start_ms=round((window_t0 - t0) * 1000, 1),
                 last_stop_ms=round((t_stopped - window_t1) * 1000, 1),
                 last_export_ms=round((t_exported - t_stopped) * 1000, 1),
-                last_parse_ms=round((t_parsed - t_exported) * 1000, 1))
+                last_parse_ms=round((t_parsed - t_exported) * 1000, 1),
+                last_extract_cpu_ms=round((cpu1 - cpu0) * 1000, 1),
+                last_trace_events=n_trace)
             dead = max(0.0, (t_parsed - t0) - window_s)
             self._dead_s = (dead if self._dead_s <= 0
                             else 0.5 * self._dead_s + 0.5 * dead)
@@ -402,6 +422,9 @@ class KinetoSource:
             self._observe(events, window_s)
             if events:
                 self.sink(events)
+            # this thread's CPU after the hold: its work the guard reads
+            self.stats["last_unheld_cpu_ms"] = round(
+                (time.thread_time() - cpu1) * 1000, 1)
             return events
         finally:
             shutil.rmtree(tmpdir, ignore_errors=True)

@@ -1,0 +1,142 @@
+"""The port's dfctl held against the reference's on the CPU: each ported
+subcommand, run against a port server, must print what the reference's
+dfctl prints against a reference server fed the same frames; an error
+answer must end both the same way."""
+
+import os
+import subprocess
+import sys
+
+import pytest
+
+import test_torch_server as ts
+from deepflow_tpu.cli import dfctl as ref_dfctl
+from deepflow_tpu_torch.cli import dfctl
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+T_MID = ts.BASE_NS + 15_000_000
+
+COMMANDS = [
+    ["query", "SELECT hlo_op, Sum(duration_ns) AS d FROM tpu_hlo_span "
+              "GROUP BY hlo_op ORDER BY d DESC", "--db", "profile"],
+    ["query", "SELECT run_id, Count() AS n FROM profile.tpu_hlo_span "
+              "GROUP BY run_id", "--org", "1"],
+    ["query", "SELECT run_id, Count() AS n FROM profile.tpu_hlo_span "
+              "GROUP BY run_id", "--org", "2"],
+    ["query", "SHOW tags FROM profile.tpu_memory"],
+    # a map's values: no row order without ORDER BY
+    ["query", "SELECT metric_name, value_name, value FROM deepflow_system "
+              "ORDER BY metric_name, value_name", "--db", "deepflow_system"],
+    ["flame"],
+    ["flame", "--service", "llama-train"],
+    ["flame", "--event-type", "off-cpu"],
+    ["tpu-flame"],
+    ["tpu-flame", "--device", "1"],
+    ["tpu-flame", "--include-host"],
+    ["tpu-memory"],
+    ["tpu-memory", "--device", "0", "--top", "2"],
+    ["tpu-memory", "--start", str(T_MID)],
+    ["tpu-memory", "--device", "7"],
+    ["collectives"],
+    ["collectives", "--end", str(T_MID)],
+    ["step-trace"],
+    ["step-trace", "--run-id", "3"],
+    ["step-trace", "--run-id", "99"],
+    ["steps"],
+    ["steps", "--json"],
+    ["steps", "--job", "nope"],
+    ["steps", "--run-id", "2", "--limit", "1"],
+    ["steps", "--critical-path", "3"],
+    ["steps", "--critical-path", "3", "--json"],
+]
+
+
+@pytest.fixture(scope="module")
+def pair():
+    ref, port = ts._start_pair()
+    try:
+        frames, counts = ts._frames()
+        ts._ingest((ref, port), frames, counts)
+        yield ref, port
+    finally:
+        ref.stop()
+        port.stop()
+
+
+def _run(main, port, args, capsys) -> tuple[str, str]:
+    """(stdout, how it ended) of one dfctl run."""
+    try:
+        rc = main(["--server", f"127.0.0.1:{port}", *args])
+        end = f"rc {rc}"
+    except SystemExit as e:
+        end = f"exit {e.code}"
+    return capsys.readouterr().out, end
+
+
+@pytest.mark.parametrize("args", COMMANDS, ids=lambda a: " ".join(a)[:60])
+def test_subcommand_prints_like_reference(pair, args, capsys):
+    ref, port = pair
+    want = _run(ref_dfctl.main, ref.query_port, args, capsys)
+    got = _run(dfctl.main, port.query_port, args, capsys)
+    assert got == want
+    assert got[1] == "rc 0" and got[0]
+
+
+@pytest.mark.parametrize("args", [
+    ["query", "SELECT nope FROM profile.tpu_hlo_span"],
+    ["query", "SELECT hlo_op FROM"],
+    ["steps", "--critical-path", "99"],
+], ids=lambda a: " ".join(a)[:60])
+def test_errors_end_like_reference(pair, args, capsys):
+    ref, port = pair
+    assert _run(dfctl.main, port.query_port, args, capsys) == \
+        _run(ref_dfctl.main, ref.query_port, args, capsys)
+
+
+@pytest.mark.parametrize("as_json", [False, True])
+def test_health_prints_like_reference(pair, monkeypatch, capsys, as_json):
+    """The same /v1/health answer (the port's, with a wedge and an agent
+    heartbeat added) prints the same in both: the two servers' own
+    health differs in its clocks."""
+    _, port = pair
+    health = port.api.health()
+    health["wedged_stages"] = ["receiver"]
+    health["wedges"] = [{"stage": "receiver", "stalled_s": 20.5,
+                         "window_s": 15.0, "stack": "  File x\n"}]
+    health["agents_selfmon"] = {
+        "heartbeats": {"sender": {"stage": "sender", "beats": 4.0,
+                                  "progress": 9.0, "age_s": 0.5}},
+        "wedges": [{"stage": "sampler", "stalled_s": 30}]}
+    for mod in (dfctl, ref_dfctl):
+        monkeypatch.setattr(mod, "_api", lambda *a, **k: health)
+    args = ["health", *(["--json"] if as_json else [])]
+    want = _run(ref_dfctl.main, port.query_port, args, capsys)
+    got = _run(dfctl.main, port.query_port, args, capsys)
+    assert got == want and got[1] == "rc 0"
+    if not as_json:
+        assert "server wedge: receiver" in got[0]
+        assert "agent wedge: sampler" in got[0]
+
+
+def test_unreachable_server_exits_like_reference(capsys):
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        closed = s.getsockname()[1]
+    got = _run(dfctl.main, closed, ["tpu-flame"], capsys)
+    assert got == _run(ref_dfctl.main, closed, ["tpu-flame"], capsys)
+    assert got[1].startswith("exit cannot reach")
+
+
+def test_runs_as_a_module(pair, capsys):
+    """python -m deepflow_tpu_torch.cli.dfctl --server H:P tpu-flame prints
+    what the in-process call prints, and exits 0."""
+    _, port = pair
+    out = subprocess.run(
+        [sys.executable, "-m", "deepflow_tpu_torch.cli.dfctl", "--server",
+         f"127.0.0.1:{port.query_port}", "tpu-flame"],
+        cwd=ROOT, capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout == _run(dfctl.main, port.query_port, ["tpu-flame"],
+                              capsys)[0]
+    assert "sm90_xmma_gemm" in out.stdout

@@ -141,6 +141,38 @@ def test_agent_cpu_counts_agent_threads_not_the_workload():
     assert g.agent_cpu_s() == pytest.approx(mine_cpu, abs=0.02)
 
 
+
+def test_thread_cpu_by_name_adds_up_to_the_reading():
+    """The per-thread CPU the stats row carries (agent.guard.threads):
+    one entry per agent thread name, adding up to the guard's total, and
+    an ended thread keeps its entry."""
+    park = threading.Event()
+    busy = [threading.Thread(target=_burn, args=(cpu, park, True),
+                             name=name)
+            for name, cpu in (("df-a", 0.2), ("df-b", 0.05))]
+    g = guard.Guard(_FakeAgent(busy), max_cpu_pct=10_000,
+                    max_mem_mb=1 << 20)
+    try:
+        for t in busy:
+            t.start()
+        deadline = time.monotonic() + 30
+        while time.monotonic() < deadline and not (
+                guard.read_thread_cpu(busy[0].native_id) >= 0.2):
+            time.sleep(0.02)
+        g.check()
+        assert set(g.thread_cpu_s) == {"df-a", "df-b"}
+        assert sum(g.thread_cpu_s.values()) == pytest.approx(
+            g.agent_cpu_s(), abs=0.02)
+        assert g.thread_cpu_s["df-a"] >= 0.19
+    finally:
+        park.set()
+        for t in busy:
+            t.join(timeout=10.0)
+    before = dict(g.thread_cpu_s)
+    g.check()
+    assert set(g.thread_cpu_s) == {"df-a", "df-b"}
+    assert g.thread_cpu_s["df-a"] == pytest.approx(before["df-a"], abs=0.02)
+
 def _tiny_step():
     model = torch.nn.Linear(8, 8)
     opt = torch.optim.SGD(model.parameters(), lr=0.1)
@@ -248,6 +280,55 @@ def test_cpu_spent_holding_the_step_is_not_charged():
             t.join(timeout=10.0)
     assert not prober.is_alive() and not trainer.is_alive()
 
+
+
+def test_check_inside_a_held_body_charges_none_of_it():
+    """A guard check that falls while the probe's thread is still inside
+    a held body (a capture's export and parse take seconds) leaves the
+    work done so far out of its reading, and the next check the rest."""
+    hook = StepHook().install()
+    step = _tiny_step()
+    step()  # step signal
+    halfway, go_on, worked, park = (threading.Event() for _ in range(4))
+
+    def probe_side():
+        with hook.held(10.0) as took:
+            assert took
+            _spin(0.3)
+            halfway.set()
+            go_on.wait(30.0)
+            _spin(0.2)
+        worked.set()
+        park.wait(30.0)
+
+    prober = threading.Thread(target=probe_side, name="df-busy")
+    trainer = threading.Thread(target=step, name="trainer")
+    fake = _FakeAgent([prober])
+    fake.held_cpu_s = lambda: hook.held_cpu_s
+    g = guard.Guard(fake, max_cpu_pct=10_000, max_mem_mb=1 << 20)
+    g.check(now=100.0)
+    try:
+        prober.start()
+        time.sleep(0.1)  # the hold is armed before the step comes
+        trainer.start()
+        assert halfway.wait(30.0)
+        g.check(now=101.0)
+        assert hook.held_cpu_s >= 0.29
+        assert g.threads_cpu_pct >= 28.0  # /proc counts 10 ms ticks
+        assert g.cpu_pct < 3.0
+        go_on.set()
+        assert worked.wait(30.0)
+        g.check(now=102.0)
+        assert hook.held_cpu_s == pytest.approx(0.5, abs=0.03)
+        assert g.threads_cpu_pct >= 18.0
+        assert g.cpu_pct < 3.0
+    finally:
+        go_on.set()
+        park.set()
+        hook.remove()
+        for t in (prober, trainer):
+            t.join(timeout=10.0)
+    assert not prober.is_alive() and not trainer.is_alive()
 
 def test_stats_row_does_not_wait_for_a_pause():
     """A pause can wait seconds for a capture's parse; the stats row

@@ -73,6 +73,57 @@ def test_span_batch_bytes_equal_protobuf(seed):
         [p.run_id & 0xFFFFFFFF for p, _ in pairs]
 
 
+
+def test_span_batch_bytes_equal_protobuf_past_the_string_cache():
+    """The encoder keeps the encodings of repeated strings (kernel names,
+    categories): a batch with more distinct names than it keeps, each
+    repeated, and the same batch again, give the protobuf's bytes."""
+    rng = np.random.default_rng(11)
+    names = [f"kernel_{i}_" + "x" * int(rng.integers(0, 300))
+             for i in range(5000)]
+    kws = [dict(start_ns=int(rng.integers(0, 1 << 62)),
+                duration_ns=int(rng.integers(1, 1 << 20)),
+                hlo_op=names[int(rng.integers(0, len(names)))],
+                hlo_category=["kernel", "gpu_memcpy"][i % 2],
+                hlo_module="train_step", run_id=i % 300, step=i % 300)
+           for i in range(12000)]
+    ref = ref_events.batch_to_pb(
+        [ref_events.TpuSpanEvent(**kw) for kw in kws], pid=77,
+        process_name="train.py").SerializeToString()
+    mine = [events.TpuSpanEvent(**kw) for kw in kws]
+    for _ in range(2):
+        assert events.batch_to_pb(mine, pid=77,
+                                  process_name="train.py") == ref
+
+
+_VARINT_EDGES = [0, 1, 127, 128, 16383, 16384, (1 << 21) - 1, 1 << 21,
+                 (1 << 28) - 1, 1 << 28, (1 << 35) + 5, 1 << 56,
+                 (1 << 63) - 1, (1 << 64) - 1]
+
+
+@pytest.mark.parametrize("v", _VARINT_EDGES)
+def test_span_varints_at_group_edges_equal_protobuf(v):
+    """Every width of varint the encoder writes by its own path: times,
+    durations and byte counts at the edges of one to ten 7-bit groups."""
+    small = v & 0xFFFFFFFF
+    kw = dict(start_ns=v, duration_ns=v, bytes_accessed=v, step=v,
+              bytes_transferred=v, flops=v, core_id=small, run_id=small,
+              hlo_op="k")
+    got = events.batch_to_pb([events.TpuSpanEvent(**kw)], pid=small)
+    ref = ref_events.batch_to_pb([ref_events.TpuSpanEvent(**kw)],
+                                 pid=small).SerializeToString()
+    assert got == ref
+
+
+@pytest.mark.parametrize("field,value", [("duration_ns", -1),
+                                         ("device_id", 1 << 32),
+                                         ("step", 1 << 64)])
+def test_span_out_of_range_raises(field, value):
+    ev = events.TpuSpanEvent(**{"start_ns": 5, "duration_ns": 1,
+                                field: value})
+    with pytest.raises(wire.WireError, match=field):
+        events.batch_to_pb([ev])
+
 def test_memory_batch_bytes_equal_protobuf():
     rng = np.random.default_rng(7)
     samples = [{"timestamp_ns": int(rng.integers(0, 1 << 62)),
@@ -407,6 +458,9 @@ def _port_files():
 def test_port_imports_no_jax_and_no_reference():
     files = _port_files()
     assert len(files) >= 15
+    for mod in ("query/sql.py", "query/catalog.py", "query/engine.py",
+                "cli/dfctl.py"):
+        assert os.path.join(ROOT, "deepflow_tpu_torch", mod) in files, mod
     for path in files:
         with open(path) as f:
             tree = ast.parse(f.read(), path)

@@ -8,6 +8,7 @@ rounding for its rounded floats)."""
 
 import json
 import os
+import re
 import socket
 import subprocess
 import sys
@@ -16,13 +17,19 @@ import urllib.request
 
 import numpy as np
 import pytest
+from hypothesis import HealthCheck, given, settings
 
+import test_torch_sql as tsql
+
+from deepflow_tpu.query import sql as ref_sql
+from deepflow_tpu.query.engine import QueryError as RefQueryError
 from deepflow_tpu.server import Server as RefServer
 from deepflow_tpu.store import schema as ref_schema
 from deepflow_tpu_torch.agent.config import AgentConfig, TpuProbeConfig
 from deepflow_tpu_torch.agent.sink import FrameSink
 from deepflow_tpu_torch.codec import FrameHeader, MessageType, encode_frame
 from deepflow_tpu_torch.proto import wire
+from deepflow_tpu_torch.query import sql as S
 from deepflow_tpu_torch.server import Server
 from deepflow_tpu_torch.server.querier import QueryError
 from deepflow_tpu_torch.store import schema
@@ -557,3 +564,233 @@ def test_profile_stack_values_and_merge_like_reference(pair):
     got = flamegraph.merge_stack_values(parts)
     want = ref_flame.merge_stack_values(ref_parts)
     assert sorted(zip(*got)) == sorted(zip(*want)) and got[0]
+
+
+# -- DF-SQL over POST /v1/query ----------------------------------------------
+
+def _post(port: int, path: str, body: dict) -> tuple[int, dict]:
+    req = urllib.request.Request(f"http://127.0.0.1:{port}{path}",
+                                 data=json.dumps(body).encode(),
+                                 method="POST")
+    try:
+        with urllib.request.urlopen(req, timeout=10) as r:
+            return r.status, json.loads(r.read())
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read())
+
+
+DEVICE_KINDS_SQL = ("kind IN ('device-compute', 'device-collective', "
+                    "'device-transfer')")
+SQL_BODIES = [
+    {"sql": "SELECT hlo_op, Sum(duration_ns) AS d FROM profile.tpu_hlo_span "
+            f"WHERE {DEVICE_KINDS_SQL} GROUP BY hlo_op ORDER BY d DESC "
+            "LIMIT 10"},
+    {"sql": "SELECT run_id, Count(*) AS n FROM profile.tpu_hlo_span "
+            "GROUP BY run_id"},
+    {"sql": "SELECT run_id, Count(*) AS n FROM profile.tpu_hlo_span "
+            "GROUP BY run_id", "org_id": 1},
+    {"sql": "SELECT run_id, Count(*) AS n FROM profile.tpu_hlo_span "
+            "GROUP BY run_id", "org_id": 2},
+    {"db": "profile", "sql": "SELECT device_id, Max(bytes_in_use) AS m, "
+                             "Count() AS n FROM tpu_memory "
+                             "GROUP BY device_id ORDER BY device_id"},
+    {"db": "deepflow_system",
+     "sql": "SELECT metric_name, value_name, value, tag_json "
+            "FROM deepflow_system ORDER BY metric_name, value_name"},
+    {"db": "deepflow_system", "org_id": 1,
+     "sql": "SELECT metric_name, value FROM deepflow_system "
+            "WHERE value_name = 'acked_seq'"},
+    {"sql": "SELECT app_service, event_type, profiler, Sum(value) AS v, "
+            "Count() AS n FROM profile.in_process_profile "
+            "WHERE stack LIKE '%train_step%' OR event_type = 'off-cpu' "
+            "GROUP BY app_service, event_type, profiler"},
+    {"sql": "SELECT job, run_id, step, latency_ns, host, top_hlos "
+            "FROM profile.tpu_step_metrics ORDER BY run_id DESC"},
+    {"db": "profile",
+     "sql": "SELECT time(time, 1) AS s, hlo_op, Avg(duration_ns) AS a, "
+            "Percentile(duration_ns, 99) AS p FROM tpu_hlo_span "
+            "WHERE hlo_op != '' AND device_id = 1 GROUP BY s, hlo_op "
+            "HAVING Count() >= 1 ORDER BY a DESC, hlo_op LIMIT 5"},
+    {"sql": "SELECT collective, Count(DISTINCT device_id) AS d, "
+            "Sum(bytes_transferred) AS b FROM profile.tpu_hlo_span "
+            "WHERE collective != '' GROUP BY collective"},
+    {"sql": "SELECT hlo_op FROM profile.tpu_hlo_span WHERE hlo_op = 'absent' "
+            "OR hlo_op IN ('nope') OR hlo_op LIKE 'zz%'"},
+    {"sql": "SHOW tags FROM tpu_hlo_span"},
+    {"sql": "SHOW metrics FROM profile.tpu_memory"},
+    {"sql": "SHOW TAGS FROM deepflow_system.deepflow_system"},
+]
+
+
+@pytest.mark.parametrize("path", ["/v1/query", "/v1/query/"])
+@pytest.mark.parametrize("body", SQL_BODIES,
+                         ids=[str(i) for i in range(len(SQL_BODIES))])
+def test_sql_route_like_reference(pair, path, body):
+    """POST /v1/query, with or without the trailing slash: the reference
+    server's result and debug on the same rows."""
+    ref, port = pair
+    code, got = _post(port.query_port, path, body)
+    ref_code, want = _post(ref.query_port, path, body)
+    assert code == ref_code == 200, (got, want)
+    assert got["result"] == want["result"]
+    assert got["debug"] == want["debug"]
+    assert set(got) == set(want) == {"result", "debug"}
+
+
+def test_sql_route_answers_hold_rows(pair):
+    """The bodies above reach real rows: org 1 holds every span, org 2
+    none; db resolution names the table it read."""
+    _, port = pair
+    res = [_post(port.query_port, "/v1/query", b)[1] for b in SQL_BODIES]
+    spans = len(port.db.table("profile.tpu_hlo_span"))
+    assert res[0]["result"]["values"][0][1] > 0
+    assert sum(n for _, n in res[1]["result"]["values"]) == spans
+    assert res[2]["result"] == res[1]["result"]
+    assert res[3]["result"]["values"] == []
+    assert res[4]["debug"]["table"] == "profile.tpu_memory"
+    assert res[5]["debug"]["table"] == "deepflow_system.deepflow_system"
+    assert res[6]["result"]["values"] == [["agent.sender", 2.0 ** 60]]
+    assert all(r["result"]["values"] for r in res[7:11])
+    assert res[11]["result"]["values"] == []
+    assert res[12]["debug"] == {"show": "tags"}
+    assert res[12]["result"]["table"] == "profile.tpu_hlo_span"
+
+
+def test_show_databases_and_tables_over_http(pair):
+    """SHOW DATABASES / TABLES list the port's five tables: the
+    reference's answer cut to them."""
+    ref, port = pair
+    for what in ("databases", "tables"):
+        code, got = _post(port.query_port, "/v1/query",
+                          {"sql": f"SHOW {what}"})
+        _, want = _post(ref.query_port, "/v1/query",
+                        {"sql": f"SHOW {what}"})
+        assert code == 200 and got["debug"] == {"show": what}
+        names = [r[0] for r in got["result"]["values"]]
+        mine = ({t.split(".")[0] for t in TABLES} if what == "databases"
+                else set(TABLES))
+        assert names == sorted(mine)
+        assert got["result"]["values"] == [
+            r for r in want["result"]["values"] if r[0] in mine]
+
+
+# the engine tests' corpus, each query on the servers' own table
+SERVER_CORPUS = [re.sub(r"\bFROM t\b", f"FROM {t}", q) for t, q in tsql.CORPUS]
+# the property grammar over the span table's columns and the fixture's ops
+_SPAN_GRAMMAR = ("profile.tpu_hlo_span",
+                 ("device_id", "hlo_op", "kind", "duration_ns"),
+                 ("", "sm90_xmma_gemm_bf16bf16_bf16f32_f32_tn_n",
+                  "ncclDevKernel_AllReduce_Sum_bf16_RING_LL",
+                  "Memcpy DtoD (Device -> Device)", "cudaLaunchKernel"),
+                 schema.TPU_SPAN_KINDS, 10**7)
+
+
+def _same_answer(sql: str, got: dict, want: dict) -> bool:
+    """Equal answers up to the order DF-SQL leaves open. The servers store
+    a stats batch's values in the order of a map, which differs between
+    them, and rows that tie on every ORDER BY key (all rows, without an
+    ORDER BY) may come in any order: hold the ranked keys equal, and the
+    rows as multisets unless a LIMIT may have cut a run of ties."""
+    if tsql._same(got, want):
+        return True
+    cols = got["columns"]
+    if cols != want["columns"] or len(got["values"]) != len(want["values"]):
+        return False
+    q = S.parse(sql)
+    idx = [cols.index(S.expr_name(e) if S.expr_name(e) in cols else e.name)
+           for e, _ in q.order_by]
+
+    def keys(res):
+        return {"columns": [], "values": [[r[i] for i in idx]
+                                          for r in res["values"]]}
+    if not tsql._same(keys(got), keys(want)):
+        return False
+    if q.limit is not None and len(got["values"]) >= q.limit:
+        return True
+
+    def rows(res):
+        return {"columns": cols, "values": sorted(res["values"], key=repr)}
+    return tsql._same(rows(got), rows(want))
+
+
+def _same_over_http(pair, body):
+    ref, port = pair
+    code, got = _post(port.query_port, "/v1/query", body)
+    ref_code, want = _post(ref.query_port, "/v1/query", body)
+    assert code == ref_code == 200, (got, want)
+    assert _same_answer(body["sql"], got["result"], want["result"]), \
+        (got, want)
+    assert got["debug"] == want["debug"]
+
+
+@pytest.mark.parametrize("sql", SERVER_CORPUS,
+                         ids=[str(i) for i in range(len(SERVER_CORPUS))])
+def test_sql_corpus_over_http_like_reference(pair, sql):
+    """Every query of the engine tests' corpus, over HTTP on the rows
+    both servers ingested, gives the reference server's result (floats
+    to the engine tests' FLOAT_RTOL)."""
+    _same_over_http(pair, {"sql": sql})
+
+
+@settings(max_examples=40, deadline=None,
+          suppress_health_check=[HealthCheck.function_scoped_fixture])
+@given(sql=tsql.group_queries(*_SPAN_GRAMMAR)
+       | tsql.select_queries(*_SPAN_GRAMMAR))
+def test_generated_sql_over_http_like_reference(pair, sql):
+    _same_over_http(pair, {"sql": sql})
+
+
+@pytest.mark.parametrize("body,names", [
+    ({"sql": "SELECT hlo_op FROM profile.nope"}, "no such table 'profile.nope'"),
+    ({"sql": "SELECT hlo_op FROM nope", "db": "profile"},
+     "no such table 'nope'"),
+    ({"sql": "SELECT nope FROM profile.tpu_hlo_span"}, "unknown columns"),
+    ({"sql": "SELECT hlo_op FROM"}, "expected ident"),
+    ({"sql": "SELECT Sum(hlo_op) FROM profile.tpu_hlo_span"},
+     "SUM over string column"),
+    ({"sql": "SHOW tags FROM nope"}, "no such table 'nope' for SHOW"),
+    ({"sql": "SELECT hlo_op FROM profile.tpu_hlo_span", "org_id": "x"},
+     "invalid literal"),
+    ({}, "expected SELECT"),
+])
+def test_sql_route_errors_like_reference(pair, body, names):
+    """Unknown tables and columns, bad SQL and bad bodies are a 400 from
+    both servers, the port's naming what is wrong."""
+    ref, port = pair
+    code, got = _post(port.query_port, "/v1/query", body)
+    assert code == 400 and names in got["error"], got
+    assert _post(ref.query_port, "/v1/query", body)[0] == 400
+
+
+@pytest.mark.parametrize("sql", ["EXPLAIN SELECT hlo_op FROM t",
+                                 "EXPLAIN ANALYZE SELECT Count() FROM t"])
+def test_explain_answers_400_naming_the_missing_port(pair, sql):
+    _, port = pair
+    code, got = _post(port.query_port, "/v1/query",
+                      {"sql": sql, "db": "profile"})
+    assert code == 400 and "query/qtrace.py" in got["error"]
+
+
+def test_org_scope_refuses_a_table_without_org_id():
+    """org_id on a table with no org_id column is a 400, with the
+    reference's message, not the unscoped rows."""
+    from deepflow_tpu.server.querier import QuerierAPI as RefAPI
+    from deepflow_tpu.store.table import ColumnarTable as RefTable
+    from deepflow_tpu.store.table import ColumnSpec as RefSpec
+    from deepflow_tpu_torch.store.table import ColumnSpec
+    port = Server(ingest_port=0, query_port=0).start()
+    try:
+        t = port.db.create_table("profile.no_org", [ColumnSpec("time", "u64")])
+        t.append_rows([{"time": 1}])
+        body = {"sql": "SELECT time FROM profile.no_org"}
+        assert _post(port.query_port, "/v1/query", body)[1]["result"][
+            "values"] == [[1]]
+        code, got = _post(port.query_port, "/v1/query",
+                          dict(body, org_id=1))
+        ref_table = RefTable("profile.no_org", [RefSpec("time", "u64")])
+        with pytest.raises(RefQueryError) as ref_err:
+            RefAPI._org_scope(ref_sql.parse(body["sql"]), ref_table, 1)
+        assert code == 400 and got["error"] == str(ref_err.value)
+    finally:
+        port.stop()
+
