@@ -5,7 +5,9 @@
 
 Phases, each printing its own lines:
 
-1. device: the card's name and power limit (nvidia-smi);
+1. device: the card's name and power limit (nvidia-smi); then the port's
+   native library (the server's span decoder) built from the checkout's
+   sources, with the compiler, its version and the build's seconds;
 2. model: the Llama at llama7b() widths (vocab 32000, d_model 4096, 32
    heads, 8 KV heads, d_ff 11008) cut to 4 layers, bf16, batch 4 x 1025
    tokens, weights and tokens from torch.Generator seeds. Its initial loss
@@ -22,15 +24,22 @@ Phases, each printing its own lines:
 5. server: the port's server runs as its own process (the entry point
    of python -m deepflow_tpu_torch.server), takes the same frame bytes over
    one TCP connection, and must hold every span, memory sample and step
-   record with no decode error or bad frame; its TpuFlame answer must
-   equal phase 4's flame graph, its step timeline the step records, and
-   its memory view phase 4's largest sample. Then DF-SQL over POST
+   record with no decode error or bad frame, every span frame decoded
+   by the native decoder (no batch on the pure path); its TpuFlame
+   answer must equal phase 4's flame graph, its step timeline the step
+   records, and its memory view phase 4's largest sample. Then DF-SQL over POST
    /v1/query: the top ten ops by device time equal phase 4's per-op
    sums and flame graph, the spans per run_id less its module span
    equal phase 4's kernels per step, SHOW TABLES lists the five tables,
    and org_id 1 keeps every row, 2 none. Every query, the six profile
    queries included, must answer in under 1,000 ms; their times print
-   beside the columnar stand-in's (PERF.md). Ingest rows/s and each
+   beside the columnar stand-in's (PERF.md). In this process the span
+   frames then decode both ways, natively and through the pure wire
+   path, into rows that must be equal, and into a database of small
+   chunks that a janitor sweep with a mid-window cutoff must trim by
+   whole chunks: what stays is every row from the oldest kept chunk's
+   first on, and TpuFlame over it equals a recount. Ingest rows/s (beside
+   the pure decode's from earlier calls), both paths' decode ms and each
    query's wall time are host numbers;
 6. runner: zero-code profiling of an unmodified training script. Phase
    2's model is freed; a fresh server process starts; the example
@@ -147,6 +156,10 @@ QUERY_LIMIT_MS = 1000.0       # PERF.md section 2: a person waits for it
 # (PERF.md, slice 2's run A), printed beside this run's
 COLUMNAR_MS = {"flame": 32.0, "steps": 16.1, "critical_path": 4.5,
                    "step_trace": 453.9, "memory": 6.4, "collectives": 3.2}
+# the server's ingest rate with the pure-Python span decode (PERF.md:
+# slice 2's run A and slice 5's call 1), printed beside this run's
+PURE_INGEST_ROWS_PER_S = {"slice2_run_a": 32021.6, "slice5_call1": 27987.9}
+RETENTION_CHUNKS = 8          # the retention check's chunks over phase 3
 ROOT = os.path.dirname(os.path.abspath(__file__))
 CARD = {"line": ""}           # nvidia-smi's name and power limit
 
@@ -172,6 +185,26 @@ def device_phase(torch) -> dict:
     return {"nvidia_smi": line, "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count(),
             "torch": torch.__version__, "cuda": torch.version.cuda}
+
+
+def native_phase() -> dict:
+    """The port's native library (the server's span decoder), built from
+    the checkout's sources as the server's first use would build it."""
+    from deepflow_tpu_torch import native
+    path = native.library_path()
+    prebuilt = os.path.exists(path)
+    t0 = time.perf_counter()
+    native.load()
+    build_s = time.perf_counter() - t0
+    version = subprocess.run([native.CXX, "--version"], capture_output=True,
+                             text=True, timeout=60).stdout.splitlines()[0]
+    nums = {"compiler": json.dumps(" ".join((native.CXX,
+                                              *native.CXXFLAGS))),
+            "compiler_version": json.dumps(version), "build_s": build_s,
+            "prebuilt": prebuilt,
+            "library": os.path.relpath(path, ROOT)}
+    phase("native", **nums)
+    return nums
 
 
 def model_phase(torch, tl) -> tuple:
@@ -548,6 +581,7 @@ def server_phase(sink, probe, seen) -> dict:
             "profile.tpu_memory": probe.stats["mem_samples_sent"],
             "profile.tpu_step_metrics": probe.stats["steps_sent"]}
     data = b"".join(sink.frames)
+    span_items = _span_frames(data)
     srv = _ServerProcess(log_path)
     try:
         qport = srv.query_port
@@ -570,6 +604,13 @@ def server_phase(sink, probe, seen) -> dict:
         check(stats["receiver"]["bad_frames"] == 0
               and stats["receiver"]["dropped"] == 0,
               "no bad or dropped frames")
+        spans_dec = stats["decoders"]["TPU_SPAN"]
+        check(spans_dec["pure_batches"] == 0
+              and spans_dec["native_batches"] == len(span_items),
+              f"every span frame ({len(span_items)}) decoded natively "
+              f"({spans_dec})")
+        check(stats["janitor"]["rows_trimmed"] == 0,
+              f"the janitor kept this run's rows ({stats['janitor']})")
 
         answers, query_ms = {}, {}
         for name, path, body in (
@@ -625,8 +666,17 @@ def server_phase(sink, probe, seen) -> dict:
                              for d in dec.values()) / 1e6,
             "append_ms": sum(d["append_ns"] for d in dec.values()) / 1e6,
             "collectives": len(answers["collectives"]), **query_ms,
-            **sql_ms}
+            **sql_ms, "span_frames": len(span_items),
+            "native_batches": spans_dec["native_batches"],
+            "pure_batches": spans_dec["pure_batches"],
+            **decode_both_ways(span_items), **retention_check(span_items)}
     phase("server", **nums)
+    phase("server ingest", ingest_rows_per_s=round(nums["ingest_rows_per_s"],
+                                                    1),
+          native_decode_ms=round(nums["native_decode_ms"], 3),
+          pure_decode_ms=round(nums["pure_decode_ms"], 3),
+          **{f"pure_ingest_rows_per_s_{k}": v
+             for k, v in PURE_INGEST_ROWS_PER_S.items()})
     # the six TPU queries on the engine beside the columnar stand-in's
     # times (PERF.md, slice 2's run A: another call, no comparison)
     phase("server queries", **{f"{k}_ms": round(query_ms[f"{k}_ms"], 3)
@@ -637,6 +687,96 @@ def server_phase(sink, probe, seen) -> dict:
             if k.endswith("_ms") and v >= QUERY_LIMIT_MS}
     check(not slow, f"every query under {QUERY_LIMIT_MS} ms ({slow})")
     return nums
+
+
+def _span_frames(data: bytes) -> list:
+    """(header, payload) of every TPU_SPAN frame in the byte stream."""
+    from deepflow_tpu_torch.codec import MessageType, StreamDecoder
+    return [(h, p) for h, p in StreamDecoder().feed(data)
+            if h.msg_type == MessageType.TPU_SPAN]
+
+
+def _db_rows(db, name: str) -> list:
+    """A table's rows in storage order, strings decoded."""
+    t = db.table(name)
+    cols = t.column_concat(list(t.columns))
+    return list(zip(*(t.dicts[c].decode_many(a) if c in t.dicts
+                      else a.tolist() for c, a in cols.items())))
+
+
+def decode_both_ways(items: list) -> dict:
+    """Phase 3's span frames through the server's span decoder in this
+    process, once natively and once through the pure ``wire`` path, each
+    into a database of its own: the rows must be equal. Returns each
+    path's decode ms (its wall time less its store appends), append ms
+    and rows per second."""
+    from deepflow_tpu_torch.server.decoders import TpuSpanDecoder
+    from deepflow_tpu_torch.server.platform_info import PlatformInfoTable
+    from deepflow_tpu_torch.store.db import Database
+    out, dbs = {}, {}
+    for path in ("native", "pure"):
+        dec = TpuSpanDecoder(None, Database(), PlatformInfoTable())
+        handle = dec.handle if path == "native" else dec.handle_pure
+        t0 = time.perf_counter_ns()
+        rows = sum(handle(h, p) for h, p in items)
+        wall_ns = time.perf_counter_ns() - t0
+        out[f"{path}_decode_ms"] = (wall_ns - dec.stats["append_ns"]) / 1e6
+        out[f"{path}_append_ms"] = dec.stats["append_ns"] / 1e6
+        out[f"{path}_rows_per_s"] = rows / (wall_ns / 1e9)
+        dbs[path] = dec.db
+        if path == "native":
+            check(dec.stats["pure_batches"] == 0, "in process, every span "
+                  f"frame decodes natively ({dec.stats})")
+    for name in ("profile.tpu_hlo_span", "profile.tpu_memory"):
+        check(_db_rows(dbs["native"], name) == _db_rows(dbs["pure"], name),
+              f"{name}: the native path's rows equal the pure path's")
+    return out
+
+
+def retention_check(items: list) -> dict:
+    """Phase 3's span frames into a port Database whose chunks hold a
+    RETENTION_CHUNKS-th of the span rows, and one janitor sweep whose
+    cutoff falls mid-window: it drops whole sealed chunks only, so what
+    stays is every row from the oldest kept chunk's first row on, and
+    TpuFlame over it equals a recount of those spans."""
+    from deepflow_tpu_torch.proto import wire
+    from deepflow_tpu_torch.query.flamegraph import device_flame
+    from deepflow_tpu_torch.server.decoders import TpuSpanDecoder
+    from deepflow_tpu_torch.server.janitor import Janitor
+    from deepflow_tpu_torch.server.platform_info import PlatformInfoTable
+    from deepflow_tpu_torch.server.querier import QuerierAPI
+    from deepflow_tpu_torch.store.db import Database
+    spans = [s for _, p in items
+             for s in wire.TpuSpanBatch.FromString(p).spans]
+    db = Database(chunk_rows=max(1, len(spans) // RETENTION_CHUNKS))
+    dec = TpuSpanDecoder(None, db, PlatformInfoTable())
+    for h, p in items:
+        dec.handle(h, p)
+    t = db.table("profile.tpu_hlo_span")
+    before = t.column_concat(["time"])["time"]
+    chunks = len(t.snapshot())
+    ttl_s = 3600
+    mid_ns = (int(before.min()) + int(before.max())) // 2
+    now_s = mid_ns / 1e9 + ttl_s
+    t0 = time.perf_counter()
+    trimmed = Janitor(db, ttl_s={t.name: ttl_s}).sweep(now_s=now_s)
+    sweep_ms = (time.perf_counter() - t0) * 1000.0
+    cutoff = int((now_s - ttl_s) * 1e9)
+    after = t.column_concat(["time"])["time"]
+    check(0 < trimmed < len(before),
+          f"the mid-window sweep trimmed {trimmed} of {len(before)} rows")
+    check(len(after) == len(before) - trimmed == len(t),
+          "the table's row count is its live rows")
+    check(after.tolist() == before[trimmed:].tolist(),
+          "what stays is every row from the oldest kept chunk's first on")
+    check(int(before[:trimmed].max()) < cutoff,
+          "every trimmed row is older than the cutoff")
+    flame = QuerierAPI(db).tpu_flame({})["result"]
+    check(_canon_flame(flame)
+          == _canon_flame(device_flame(spans[trimmed:]).to_dict()),
+          "TpuFlame over what stays equals a recount of those spans")
+    return {"retention_chunks": chunks, "retention_rows": len(before),
+            "retention_trimmed": trimmed, "retention_sweep_ms": sweep_ms}
 
 
 def _sql_checks(qport: int, seen: dict, want: dict) -> dict:
@@ -946,6 +1086,8 @@ def runner_phase(kernels_per_step_in_process: int, nums: dict) -> None:
         "frames": rec["frames"], "payload_bytes": rec["bytes"],
         "bad_frames": rec["bad_frames"], "dropped": rec["dropped"],
         "decode_errors": sum(d["errors"] for d in dec.values()),
+        "native_batches": dec["TPU_SPAN"]["native_batches"],
+        "pure_batches": dec["TPU_SPAN"]["pure_batches"],
         "dups": sum(d["dups"] for d in dec.values()),
         "ingest_lag_s": ingest_lag_s, "tpu_flame_ms": flame_ms,
         "profile_tracing_ms": cpu_ms,
@@ -1017,6 +1159,8 @@ def runner_phase(kernels_per_step_in_process: int, nums: dict) -> None:
     check(nums["decode_errors"] == 0 and rec["bad_frames"] == 0
           and nums["dups"] == 0 and rec["dropped"] == 0,
           "no decode error, bad or dropped frame, or dup")
+    check(nums["pure_batches"] == 0 and nums["native_batches"] > 0,
+          "every span frame decoded natively")
     # a check's CPU reading is over the time since the one before
     check((guard_last.get("checks") or 0) >= 2,
           f"the guard read the agent's CPU ({guard_last})")
@@ -1342,6 +1486,7 @@ def main() -> int:
     result: dict = {}
     try:
         result["device"] = device_phase(torch)
+        result["native"] = native_phase()
         model, tokens, result["model"] = model_phase(torch, tl)
         sink, probe, result["training"], window = training_phase(
             torch, tl, model, tokens)

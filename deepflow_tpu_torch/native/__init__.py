@@ -1,0 +1,319 @@
+"""The port's native library: the span decoder and string dictionary of
+``dfnative.cpp`` and ``ingest.cpp``, built at first use and bound with
+ctypes.
+
+Own copy of the parts of ``deepflow_tpu/native/__init__.py`` that the
+server's span path uses (``NativeDict``, ``ArenaStrings``,
+``SpanColumnDecoder``), and of its build. ``load()`` compiles the
+sources with ``g++ -O3 -std=c++17 -fPIC -shared`` into ``_build/`` beside
+them, the first time a process needs the library. The library's name
+carries a hash of its sources and flags, so a stale one is never
+loaded; it is compiled to a temporary name and moved into place under
+an ``fcntl`` lock, so processes that start at once build it once; and
+its ABI version is checked after loading. A failed build or load
+raises with the compiler's output: no caller runs without it. Delete
+``_build/`` to force a rebuild. Importing this module builds nothing.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import fcntl
+import hashlib
+import os
+import subprocess
+import threading
+
+import numpy as np
+
+_DIR = os.path.dirname(os.path.abspath(__file__))
+BUILD_DIR = os.path.join(_DIR, "_build")
+SOURCES = ("dfnative.cpp", "ingest.cpp")
+CXX = "g++"
+CXXFLAGS = ("-O3", "-std=c++17", "-fPIC", "-shared")
+ABI_VERSION = 1  # must match df_abi_version() in dfnative.cpp
+
+_U64P = ctypes.POINTER(ctypes.c_uint64)
+_lib = None
+_load_lock = threading.Lock()
+
+
+class NativeLibraryError(RuntimeError):
+    """The native library did not build or load."""
+
+
+def library_path() -> str:
+    """Where the library of the current sources and flags lives."""
+    h = hashlib.sha256(" ".join((CXX,) + CXXFLAGS).encode())
+    for name in SOURCES:
+        with open(os.path.join(_DIR, name), "rb") as f:
+            h.update(name.encode() + b"\0" + f.read())
+    return os.path.join(BUILD_DIR, f"libdfnative-{h.hexdigest()[:16]}.so")
+
+
+def build() -> str:
+    """The library's path, compiled first unless it is there already."""
+    path = library_path()
+    if os.path.exists(path):
+        return path
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    with open(os.path.join(BUILD_DIR, ".lock"), "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if os.path.exists(path):  # another process built it meanwhile
+            return path
+        tmp = f"{path}.{os.getpid()}.tmp"
+        cmd = [CXX, *CXXFLAGS, *(os.path.join(_DIR, s) for s in SOURCES),
+               "-o", tmp]
+        try:
+            out = subprocess.run(cmd, capture_output=True, text=True,
+                                 timeout=300)
+        except (OSError, subprocess.TimeoutExpired) as e:
+            raise NativeLibraryError(f"{' '.join(cmd)}: {e}") from e
+        if out.returncode != 0:
+            if os.path.exists(tmp):
+                os.unlink(tmp)
+            raise NativeLibraryError(
+                f"{' '.join(cmd)} exited {out.returncode}:\n{out.stderr}")
+        os.replace(tmp, path)
+    return path
+
+
+def load() -> ctypes.CDLL:
+    """The library, built and loaded once per process."""
+    global _lib
+    with _load_lock:
+        if _lib is not None:
+            return _lib
+        path = build()
+        try:
+            lib = ctypes.CDLL(path)
+        except OSError as e:
+            raise NativeLibraryError(f"cannot load {path}: {e}") from e
+        lib.df_abi_version.restype = ctypes.c_int32
+        got = lib.df_abi_version()
+        if got != ABI_VERSION:
+            raise NativeLibraryError(
+                f"{path} has ABI {got}, the bindings expect {ABI_VERSION}")
+        vp, u32 = ctypes.c_void_p, ctypes.c_uint32
+        lib.df_dict_new.restype = vp
+        lib.df_dict_free.argtypes = [vp]
+        lib.df_dict_len.argtypes = [vp]
+        lib.df_dict_len.restype = ctypes.c_uint64
+        lib.df_dict_encode_batch.argtypes = [vp, ctypes.c_char_p, vp, u32,
+                                             vp]
+        lib.df_dict_encode_arena.argtypes = [vp, vp, vp, vp, u32, vp]
+        lib.df_dict_encode_arena.restype = ctypes.c_uint64
+        lib.df_dict_lookup.argtypes = [vp, ctypes.c_char_p, u32]
+        lib.df_dict_lookup.restype = u32
+        lib.df_dict_get.argtypes = [vp, u32, ctypes.c_char_p, u32]
+        lib.df_dict_get.restype = ctypes.c_int32
+        lib.df_dict_load.argtypes = [vp, ctypes.c_char_p, vp, u32]
+        lib.df_decode_span_cols.argtypes = [vp, ctypes.c_uint64, vp]
+        lib.df_decode_span_cols.restype = ctypes.c_int64
+        lib.df_span_batch_counts.argtypes = [vp, ctypes.c_uint64, _U64P,
+                                             _U64P]
+        lib.df_span_batch_counts.restype = ctypes.c_int32
+        _lib = lib
+        return lib
+
+
+def _packed(values: list[bytes]) -> tuple[bytes, np.ndarray]:
+    """Strings joined, with the n + 1 offsets that bound them."""
+    offsets = np.zeros(len(values) + 1, dtype=np.uint32)
+    if values:
+        offsets[1:] = np.cumsum([len(b) for b in values])
+    return b"".join(values), offsets
+
+
+class NativeDict:
+    """A C++ string dictionary (dfnative.cpp DfDict): id 0 is "", new
+    strings take the next id. Strings cross as UTF-8 bytes. Not
+    thread-safe: the owner serialises calls."""
+
+    def __init__(self) -> None:
+        self._lib = load()
+        self._h = self._lib.df_dict_new()
+
+    def __del__(self) -> None:
+        h, self._h = getattr(self, "_h", None), None
+        if h:
+            self._lib.df_dict_free(h)
+
+    def __len__(self) -> int:
+        return self._lib.df_dict_len(self._h)
+
+    def encode_many(self, values: list[bytes]) -> np.ndarray:
+        data, offsets = _packed(values)
+        out = np.empty(len(values), dtype=np.uint32)
+        self._lib.df_dict_encode_batch(self._h, data, offsets.ctypes.data,
+                                       len(values), out.ctypes.data)
+        return out
+
+    def encode_arena(self, arena: np.ndarray, offs: np.ndarray,
+                     lens: np.ndarray, out: np.ndarray) -> int:
+        """Ids of the (off, len) cells of a byte arena into out; returns
+        the dictionary's length after them."""
+        n = len(offs)
+        if not (len(lens) == len(out) == n and offs.dtype == lens.dtype
+                == out.dtype == np.uint32 and arena.dtype == np.uint8
+                and all(a.flags.c_contiguous
+                        for a in (arena, offs, lens, out))):
+            raise ValueError("encode_arena takes contiguous uint32 "
+                             "offs/lens/out of one length over a uint8 "
+                             "arena")
+        if n and int((offs.astype(np.uint64) + lens).max()) > len(arena):
+            raise ValueError("a cell lies outside the arena")
+        return int(self._lib.df_dict_encode_arena(
+            self._h, arena.ctypes.data, offs.ctypes.data, lens.ctypes.data,
+            n, out.ctypes.data))
+
+    def lookup(self, value: bytes) -> int | None:
+        r = self._lib.df_dict_lookup(self._h, value, len(value))
+        return None if r == 0xFFFFFFFF else int(r)
+
+    def get(self, sid: int) -> bytes:
+        """Entry sid's bytes; IndexError past the end."""
+        buf = ctypes.create_string_buffer(256)
+        n = self._lib.df_dict_get(self._h, sid, buf, len(buf))
+        if n < 0:
+            raise IndexError(sid)
+        if n > len(buf):
+            buf = ctypes.create_string_buffer(n)
+            self._lib.df_dict_get(self._h, sid, buf, n)
+        return buf.raw[:n]
+
+    def load_entries(self, values: list[bytes]) -> None:
+        """Intern values in order (those already present keep their id)."""
+        data, offsets = _packed(values)
+        self._lib.df_dict_load(self._h, data, offsets.ctypes.data,
+                               len(values))
+
+
+class ArenaStrings:
+    """A string column not yet made into Python strings: (off, len) cells
+    of a byte arena, straight out of ``SpanColumnDecoder``. The store
+    interns it natively (``Dictionary.encode_arena``).
+
+    Unlike the reference's, it does not copy: it views the decoder's
+    reused buffers and is valid until that decoder's next ``decode``. The
+    store encodes it during the append, so the rows it writes own their
+    data."""
+
+    __slots__ = ("arena", "off", "lens")
+
+    def __init__(self, arena: np.ndarray, off: np.ndarray,
+                 lens: np.ndarray) -> None:
+        self.arena, self.off, self.lens = arena, off, lens
+
+    def __len__(self) -> int:
+        return len(self.off)
+
+
+# -- columnar TpuSpanBatch decode (must mirror DfSpanCols in ingest.cpp) ----
+
+# span string-column slot order; must match span_str_slot() in ingest.cpp
+SPAN_STRS = ("hlo_module", "hlo_op", "hlo_category", "collective",
+             "process_name")
+
+
+class _DfSpanCols(ctypes.Structure):
+    _pack_ = 1
+    _fields_ = (
+        [(n, ctypes.c_void_p) for n in (
+            "start_ns", "duration_ns", "flops", "bytes_accessed",
+            "bytes_transferred", "step",
+            "device_id", "chip_id", "core_id", "slice_id", "kind",
+            "program_id", "run_id", "replica_group_size", "pid")]
+        + [("str_off", ctypes.c_void_p * len(SPAN_STRS)),
+           ("str_len", ctypes.c_void_p * len(SPAN_STRS))]
+        + [(n, ctypes.c_void_p) for n in (
+            "m_timestamp_ns", "m_bytes_in_use", "m_peak_bytes_in_use",
+            "m_bytes_limit", "m_largest_free_block",
+            "m_device_id", "m_num_allocs", "m_pid",
+            "m_pname_off", "m_pname_len", "arena")]
+        + [("arena_cap", ctypes.c_uint32),
+           ("arena_used", ctypes.c_uint32),
+           ("cap", ctypes.c_uint32),
+           ("mem_cap", ctypes.c_uint32),
+           ("n_mem", ctypes.c_uint32)])
+
+
+_MALFORMED, _OVERFLOW = -1, -2
+_MAX_PAYLOAD = (1 << 32) - 1  # offsets into the arena are uint32
+
+
+class SpanColumnDecoder:
+    """Reusable buffers for df_decode_span_cols: TpuSpanBatch bytes ->
+    numpy column views for spans and memory samples (m_* columns).
+
+    ``decode()`` returns (n_spans, cols, n_mem, arena), views into the
+    buffers that the next call reuses, or None for a batch the pure
+    decoder would refuse too. The arena grows to the payload's size
+    before the call (a string cell is a substring of the payload), and a
+    batch with more rows than the buffers hold makes them grow to its
+    count and decodes again: a well-formed batch always decodes here.
+    One decoder per thread."""
+
+    U64 = ("start_ns", "duration_ns", "flops", "bytes_accessed",
+           "bytes_transferred", "step")
+    U32 = ("device_id", "chip_id", "core_id", "slice_id", "kind",
+           "program_id", "run_id", "replica_group_size", "pid")
+    M_U64 = ("m_timestamp_ns", "m_bytes_in_use", "m_peak_bytes_in_use",
+             "m_bytes_limit", "m_largest_free_block")
+    M_U32 = ("m_device_id", "m_num_allocs", "m_pid",
+             "m_pname_off", "m_pname_len")
+
+    def __init__(self, cap: int = 4096, mem_cap: int = 256,
+                 arena_cap: int = 1 << 20) -> None:
+        self._lib = load()
+        self._cols = _DfSpanCols()
+        self._alloc(cap, mem_cap, arena_cap)
+
+    def _alloc(self, cap: int, mem_cap: int, arena_cap: int) -> None:
+        self.arrays: dict[str, np.ndarray] = {}
+        for names, dt, rows in ((self.U64, np.uint64, cap),
+                                (self.U32, np.uint32, cap),
+                                (self.M_U64, np.uint64, mem_cap),
+                                (self.M_U32, np.uint32, mem_cap)):
+            for n in names:
+                self.arrays[n] = np.zeros(rows, dtype=dt)
+                setattr(self._cols, n, self.arrays[n].ctypes.data)
+        for i, s in enumerate(SPAN_STRS):
+            for part, field in (("off", self._cols.str_off),
+                                ("len", self._cols.str_len)):
+                a = self.arrays[f"{s}_{part}"] = np.zeros(cap, np.uint32)
+                field[i] = a.ctypes.data
+        self.arena = np.zeros(arena_cap, dtype=np.uint8)
+        self._cols.arena = self.arena.ctypes.data
+        self._cols.arena_cap = arena_cap
+        self._cols.cap = cap
+        self._cols.mem_cap = mem_cap
+
+    def decode(self, payload):
+        a = np.frombuffer(payload, dtype=np.uint8)
+        if len(a) > _MAX_PAYLOAD:
+            raise ValueError(f"a {len(a)}-byte batch is past 4 GiB")
+        if len(a) > self._cols.arena_cap:
+            self._alloc(self._cols.cap, self._cols.mem_cap, len(a))
+        n = self._lib.df_decode_span_cols(a.ctypes.data, len(a),
+                                          ctypes.byref(self._cols))
+        if n == _OVERFLOW:
+            spans, mem = ctypes.c_uint64(), ctypes.c_uint64()
+            if self._lib.df_span_batch_counts(
+                    a.ctypes.data, len(a), ctypes.byref(spans),
+                    ctypes.byref(mem)) != 0:
+                return None
+            self._alloc(max(self._cols.cap, 2 * spans.value),
+                        max(self._cols.mem_cap, 2 * mem.value),
+                        self._cols.arena_cap)
+            n = self._lib.df_decode_span_cols(a.ctypes.data, len(a),
+                                              ctypes.byref(self._cols))
+            if n == _OVERFLOW:
+                raise RuntimeError("span batch overflowed buffers sized "
+                                   "to its own counts")
+        if n == _MALFORMED:
+            return None
+        n, n_mem = int(n), int(self._cols.n_mem)
+        cols = {k: v[:n_mem] if k.startswith("m_") else v[:n]
+                for k, v in self.arrays.items()}
+        return n, cols, n_mem, self.arena[:self._cols.arena_used]

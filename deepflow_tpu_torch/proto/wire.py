@@ -8,7 +8,9 @@ are skipped, so ``TpuSpanBatch`` and ``ProfileBatch`` serialize to the
 same bytes as the generated classes. ``StatsMetric``'s two maps are
 written in their dicts' order, each entry with its key and value; map
 order on the wire is not fixed, so only the parsed messages compare.
-Unknown fields are skipped on decode.
+Decoding parses as protobuf does: unknown fields, and known ones of
+another wire type, are skipped, and a varint keeps the low bits its
+field's width holds.
 """
 
 from __future__ import annotations
@@ -211,21 +213,21 @@ def _iter_fields(buf: bytes):
 
 
 def _decode_msg(buf: bytes, cls, schema):
-    by_num = {num: (name, kind) for name, num, kind, _ in schema}
+    """As protobuf parses: a known field of another wire type is skipped
+    like an unknown one, and a varint keeps the low bits its field's
+    width holds; a string that is not UTF-8 raises."""
+    by_num = {num: (name, kind, vmax) for name, num, kind, vmax in schema}
     msg = cls()
     for num, wt, v in _iter_fields(buf):
         spec = by_num.get(num)
         if spec is None:
             continue
-        name, kind = spec
+        name, kind, vmax = spec
         if kind in "sb":
-            if wt != 2:
-                raise WireError(f"{name}: expected a string")
-            setattr(msg, name, v.decode("utf-8") if kind == "s" else v)
-        else:
-            if wt != 0:
-                raise WireError(f"{name}: expected a varint")
-            setattr(msg, name, v)
+            if wt == 2:
+                setattr(msg, name, v.decode("utf-8") if kind == "s" else v)
+        elif wt == 0:
+            setattr(msg, name, v & vmax)
     return msg
 
 

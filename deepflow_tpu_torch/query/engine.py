@@ -16,7 +16,7 @@ order; rows that tie on every ORDER BY key have no specified order.
 
 Left out: the native hash-group and filter kernels with their learned
 cost model, morsel-parallel scans, zone and bloom pruning (the port's
-table keeps no segments), the partial aggregates of federation, and the
+chunks keep no zone maps), the partial aggregates of federation, and the
 query-trace spans.
 """
 
@@ -30,7 +30,7 @@ import numpy as np
 
 from deepflow_tpu_torch.query import catalog
 from deepflow_tpu_torch.query import sql as S
-from deepflow_tpu_torch.store.table import ColumnarTable
+from deepflow_tpu_torch.store.table import ColumnarTable, TableView
 
 
 @dataclass
@@ -650,31 +650,39 @@ def _select_rows(cols: dict[str, np.ndarray], n: int,
     return np.arange(n) if idx is None else idx
 
 
-def _materialize(table: ColumnarTable,
+def _materialize(table: TableView,
                  query: S.Select) -> tuple[_Env, int]:
-    """WHERE-filter one snapshot of the table and materialize every
-    referenced column into one _Env. Rows appended while the query runs
-    are not in the snapshot."""
+    """WHERE-filter each chunk of the table's view, and materialize every
+    referenced column of the surviving rows, in chunk order, into one
+    _Env. Rows appended while the query runs are not in the view."""
     needed = _needed_cols(table, query)
-    chunks = table.snapshot()  # the table merges its chunks: one or none
-    if chunks:
-        cols = chunks[0]
-        n = len(next(iter(cols.values())))
-    else:
-        cols = {name: np.empty(0, dtype=table.columns[name].np_dtype)
-                for name in needed}
-        n = 0
-    if query.where is None:
-        return _Env(table, {name: cols[name] for name in needed}), n
-    prims = _filter_prims(table, query.where)
-    if prims is not None:
-        idx = _select_rows(cols, n, prims)
-    else:
-        m = _Env(table, cols).eval(query.where).arr
-        if m.ndim == 0:  # WHERE with no column refs: scalar condition
-            m = np.full(n, bool(m))
-        idx = np.flatnonzero(m.astype(bool))
-    return _Env(table, {name: cols[name][idx] for name in needed}), len(idx)
+    # no chunk: the WHERE still runs once, over empty columns, so a bad
+    # condition fails on an empty table too
+    chunks = table.chunks or [
+        {name: np.empty(0, dtype=table.columns[name].np_dtype)
+         for name in needed}]
+    prims = None if query.where is None else _filter_prims(table,
+                                                           query.where)
+    parts: dict[str, list[np.ndarray]] = {name: [] for name in needed}
+    n = 0
+    for cols in chunks:
+        m = len(next(iter(cols.values()), ()))
+        if query.where is None:
+            idx = slice(None)
+            n += m
+        else:
+            if prims is not None:
+                idx = _select_rows(cols, m, prims)
+            else:
+                mask = _Env(table, cols).eval(query.where).arr
+                if mask.ndim == 0:  # WHERE with no column refs
+                    mask = np.full(m, bool(mask))
+                idx = np.flatnonzero(mask.astype(bool))
+            n += len(idx)
+        for name in needed:
+            parts[name].append(cols[name][idx])
+    return _Env(table, {name: p[0] if len(p) == 1 else np.concatenate(p)
+                        for name, p in parts.items()}), n
 
 
 # -- grouping ---------------------------------------------------------------
@@ -819,6 +827,9 @@ def _finish_columnar(query: S.Select, names: list[str],
 # -- execution --------------------------------------------------------------
 
 def execute(table: ColumnarTable, query: S.Select | str) -> QueryResult:
+    """Run one query over one view of the table: its chunks and the
+    dictionaries that decode them, as of one moment."""
+    table = table.view()
     if isinstance(query, str):
         query = S.parse(query)
     query = _normalize(table, query)
@@ -851,7 +862,7 @@ def _having_mask(query: S.Select, env: _Env, order, bounds) -> np.ndarray:
     return mask.astype(bool)
 
 
-def _execute_encoded(table: ColumnarTable, query: S.Select) -> QueryResult:
+def _execute_encoded(table: TableView, query: S.Select) -> QueryResult:
     env, n_rows = _materialize(table, query)
     names = [i.alias or S.expr_name(i.expr) for i in query.items]
     outs, order, bounds = _outputs(query, env, n_rows)
@@ -861,7 +872,7 @@ def _execute_encoded(table: ColumnarTable, query: S.Select) -> QueryResult:
     return _finish_columnar(query, names, outs)
 
 
-def _execute_decoded(table: ColumnarTable, query: S.Select) -> QueryResult:
+def _execute_decoded(table: TableView, query: S.Select) -> QueryResult:
     """Decode-then-Python-sort tail (DF_QUERY_ENCODED=0). Kept as the
     parity reference the encoded path must match."""
     env, n_rows = _materialize(table, query)

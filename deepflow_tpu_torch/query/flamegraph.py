@@ -70,6 +70,7 @@ def profile_stack_values(table: ColumnarTable,
     grouped by the stack's dictionary id, and only the surviving ids are
     decoded. A None filter is no filter; an unknown app_service or
     profiler matches nothing; an unknown event_type raises ValueError."""
+    table = table.view()
     d = table.dicts["stack"]
     etype_code = None
     if event_type is not None:
@@ -84,8 +85,8 @@ def profile_stack_values(table: ColumnarTable,
         prof_code = table.dicts["profiler"].lookup(profiler)
         if prof_code is None:
             return [], []
-    agg: dict[int, int] = {}
-    for ch in table.snapshot():
+    sids, vals = [], []
+    for ch in table.chunks:
         mask = np.ones(len(ch["stack"]), dtype=bool)
         if time_start_ns is not None:
             mask &= ch["time"] >= time_start_ns
@@ -97,15 +98,14 @@ def profile_stack_values(table: ColumnarTable,
             mask &= ch["app_service"] == svc_code
         if prof_code is not None:
             mask &= ch["profiler"] == prof_code
-        sids = ch["stack"][mask]
-        if not len(sids):
-            continue
-        uniq, inv = np.unique(sids, return_inverse=True)
-        sums = np.bincount(inv, weights=ch["value"][mask]
-                           .astype(np.float64))
-        for sid, v in zip(uniq.tolist(), sums.tolist()):
-            agg[sid] = agg.get(sid, 0) + int(v)
-    return [d.decode(sid) for sid in agg], list(agg.values())
+        sids.append(ch["stack"][mask])
+        vals.append(ch["value"][mask])
+    if not sum(len(s) for s in sids):
+        return [], []
+    uniq, inv = np.unique(np.concatenate(sids), return_inverse=True)
+    sums = np.bincount(inv, weights=np.concatenate(vals).astype(np.float64))
+    return ([d.decode(sid) for sid in uniq.tolist()],
+            [int(v) for v in sums.tolist()])
 
 
 def merge_stack_values(parts: list[tuple[list, list]]) -> tuple[list, list]:

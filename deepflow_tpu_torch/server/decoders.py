@@ -3,11 +3,12 @@
 Own copy of the profile path of ``deepflow_tpu/server/decoders.py``: the
 ``DedupWindow`` that makes retransmitted frames into no second row, the
 ``Decoder`` base (one receiver queue, a worker thread, stats) and the
-PROFILE, TPU_SPAN, STEP_METRICS and DFSTATS decoders. Payloads decode
-with this package's ``proto/wire.py``; there is no native columnar
-decode here. Each decoder accounts its frames on a ``decoder.<TYPE>``
-hop (delivered, or dropped as a dup or a decode error) and its rows on
-the ``table_write`` hop, and its worker beats a heartbeat.
+PROFILE, TPU_SPAN, STEP_METRICS and DFSTATS decoders. TPU_SPAN payloads
+decode with the port's native columnar decoder (``native/ingest.cpp``),
+the others with this package's ``proto/wire.py``. Each decoder accounts
+its frames on a ``decoder.<TYPE>`` hop (delivered, or dropped as a dup
+or a decode error) and its rows on the ``table_write`` hop, and its
+worker beats a heartbeat.
 """
 
 from __future__ import annotations
@@ -20,7 +21,10 @@ import time
 
 import numpy as np
 
+from deepflow_tpu_torch import native
 from deepflow_tpu_torch.codec import FrameHeader, MessageType
+from deepflow_tpu_torch.native import (
+    SPAN_STRS, ArenaStrings, SpanColumnDecoder)
 from deepflow_tpu_torch.proto import wire
 from deepflow_tpu_torch.server.platform_info import PlatformInfoTable
 from deepflow_tpu_torch.store.db import Database
@@ -40,9 +44,10 @@ _MEM_COLS = ("device_id", "bytes_in_use", "peak_bytes_in_use",
              "process_name")
 
 
-def _shifted(times: list[int], off: int) -> np.ndarray:
-    """Absolute ns times moved by a clock offset, in int64 arithmetic
-    stored as uint64 (the reference's columnar path)."""
+def _shifted(times, off: int) -> np.ndarray:
+    """Absolute ns times (a list or a uint64 array) moved by a clock
+    offset, in int64 arithmetic stored as uint64 (the reference's
+    columnar path)."""
     t = np.asarray(times, dtype=np.uint64)
     if not off:
         return t
@@ -312,11 +317,76 @@ class StatsDecoder(Decoder):
 
 
 class TpuSpanDecoder(Decoder):
-    """TpuSpanBatch -> profile.tpu_hlo_span and profile.tpu_memory."""
+    """TpuSpanBatch -> profile.tpu_hlo_span and profile.tpu_memory.
+
+    Spans and memory samples decode natively (``native/ingest.cpp``
+    df_decode_span_cols): fields land in numpy arrays with the
+    interpreter lock released, and string cells stay (arena, off, len)
+    until the dictionary interns them in C++. A batch the native decoder
+    refuses is malformed: it takes the pure ``wire`` path, which raises
+    on it or writes the same rows. ``native_batches`` and
+    ``pure_batches`` in the stats count which path each batch took.
+    Constructing the decoder builds and loads the native library, or
+    raises."""
 
     MSG_TYPE = MessageType.TPU_SPAN
 
+    def __init__(self, *a, **kw) -> None:
+        super().__init__(*a, **kw)
+        native.load()
+        self.stats.update(native_batches=0, pure_batches=0)
+        # native decode buffers, one set per thread that handles frames
+        # (the worker, and stop()'s drain)
+        self._tl = threading.local()
+
+    def _columns(self) -> SpanColumnDecoder:
+        dec = getattr(self._tl, "dec", None)
+        if dec is None:
+            dec = self._tl.dec = SpanColumnDecoder()
+        return dec
+
     def handle(self, header: FrameHeader, payload: bytes) -> int:
+        res = self._columns().decode(payload)
+        with self._stats_lock:
+            self.stats["pure_batches" if res is None
+                       else "native_batches"] += 1
+        if res is None:
+            return self.handle_pure(header, payload)
+        return self._handle_cols(header, *res)
+
+    def _handle_cols(self, header: FrameHeader, n: int, cols: dict,
+                     n_mem: int, arena: np.ndarray) -> int:
+        tags = self._agent_tags(header)
+        off = self._clock_offset(header)
+
+        def strs(name: str):
+            lens = cols[f"{name}_len"]
+            if not lens.any():
+                return ""
+            return ArenaStrings(arena, cols[f"{name}_off"], lens)
+
+        if n:
+            out = {name: strs(name) if name in SPAN_STRS else cols[name]
+                   for name in _SPAN_COLS}
+            out["time"] = _shifted(cols["start_ns"], off)
+            out["app_service"] = out["process_name"]
+            out.update(tags)
+            sl = cols["slice_id"]  # as in handle_pure
+            out["slice_id"] = np.where(sl != 0, sl,
+                                       np.uint32(tags.get("slice_id", 0)))
+            self.write_columns("profile.tpu_hlo_span", out, n)
+        if n_mem:
+            mem = {name: cols[f"m_{name}"] for name in _MEM_COLS
+                   if name != "process_name"}
+            mem["process_name"] = strs("m_pname")
+            mem["time"] = _shifted(cols["m_timestamp_ns"], off)
+            mem.update(tags)
+            self.write_columns("profile.tpu_memory", mem, n_mem)
+        return n + n_mem
+
+    def handle_pure(self, header: FrameHeader, payload: bytes) -> int:
+        """The batch through the pure-Python ``wire`` decoder: the same
+        rows as the native path, or the decode error."""
         batch = wire.TpuSpanBatch.FromString(payload)
         tags = self._agent_tags(header)
         off = self._clock_offset(header)

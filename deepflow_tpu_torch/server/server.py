@@ -7,9 +7,12 @@ window, the receiver acks what was written, and the querier answers the
 profile queries over HTTP. One ``Telemetry("server")`` holds the
 receiver's and the decoders' hop ledgers and heartbeats, and a
 ``DeadmanDetector`` watches them; ``GET /v1/health`` shows both, and the
-agents' self-telemetry from their DFSTATS rows. ``selfmon=None`` honours
-DF_NO_SELFMON; DF_CHAOS reaches the receiver. The server touches no
-device.
+agents' self-telemetry from their DFSTATS rows. A ``Janitor`` trims the
+tables to their TTLs (``server/janitor.py``); its stats show there too.
+``selfmon=None`` honours DF_NO_SELFMON; DF_CHAOS reaches the receiver.
+The server touches no device and imports no torch; TPU_SPAN frames
+decode with the native library, which starting the server builds (or
+raises).
 
     python -m deepflow_tpu_torch.server [--host H] [--ingest-port P]
                                         [--query-port Q]
@@ -31,6 +34,7 @@ import time
 from deepflow_tpu_torch.server.decoders import (
     DedupWindow, ProfileDecoder, StatsDecoder, StepMetricsDecoder,
     TpuSpanDecoder)
+from deepflow_tpu_torch.server.janitor import Janitor
 from deepflow_tpu_torch.server.platform_info import PlatformInfoTable
 from deepflow_tpu_torch.server.querier import QuerierAPI, QuerierHTTP
 from deepflow_tpu_torch.server.receiver import Receiver
@@ -56,6 +60,7 @@ class Server:
         self.dedup = DedupWindow()
         self.receiver.dedup = self.dedup
         self.decoders = []
+        self.janitor = Janitor(self.db, telemetry=self.telemetry)
         self.api = QuerierAPI(self.db, stats_provider=self._stats,
                               telemetry=self.telemetry)
         self.http = QuerierHTTP(self.api, host=host, port=query_port)
@@ -66,6 +71,7 @@ class Server:
             "decoders": {d.MSG_TYPE.name: dict(d.stats)
                          for d in self.decoders},
             "dedup": dict(self.dedup.stats),
+            "janitor": dict(self.janitor.stats),
         }
 
     def start(self) -> "Server":
@@ -77,6 +83,7 @@ class Server:
                 q, self.db, self.platform, dedup=self.dedup,
                 seq_tracker=self.receiver.seq_tracker,
                 telemetry=self.telemetry).start())
+        self.janitor.start()
         self.deadman.start()
         self.receiver.start()
         self.http.start()
@@ -91,6 +98,7 @@ class Server:
         self.receiver.stop()
         for d in self.decoders:
             d.stop()
+        self.janitor.stop()
         self.http.stop()
 
     @property

@@ -15,7 +15,8 @@ from deepflow_tpu_torch.store.table import ColumnarTable, ColumnSpec
 class Database:
     """A set of named ColumnarTables, one per schema table."""
 
-    def __init__(self, shard_id: int = 0) -> None:
+    def __init__(self, shard_id: int = 0, chunk_rows: int = 1 << 16) -> None:
+        self.chunk_rows = chunk_rows
         # every ingested row with a shard_id column is stamped with the
         # receiving server's shard identity (0 = standalone)
         self.shard_id = shard_id
@@ -29,7 +30,7 @@ class Database:
         with self._lock:
             if name in self._tables:
                 return self._tables[name]
-            t = ColumnarTable(name, columns)
+            t = ColumnarTable(name, columns, self.chunk_rows)
             if self.shard_id and "shard_id" in t.columns:
                 t.fills["shard_id"] = self.shard_id
             self._tables[name] = t

@@ -1,9 +1,9 @@
 """String <-> small-int id dictionaries for string columns.
 
-Own copy of ``deepflow_tpu/store/dictionary.py::Dictionary`` (without the
-native mirror that serves the reference's C++ decode path), with the
-query side's ``match_ids`` and collation ranks. Id 0 is always the empty
-string.
+Own copy of ``deepflow_tpu/store/dictionary.py::Dictionary``, with its
+native mirror for ``encode_arena`` (the columnar span decoder's string
+cells interned in C++) and the query side's ``match_ids`` and collation
+ranks. Id 0 is always the empty string.
 """
 
 from __future__ import annotations
@@ -12,16 +12,28 @@ import threading
 
 import numpy as np
 
+from deepflow_tpu_torch.native import NativeDict
+
 
 class Dictionary:
     """Append-only string dictionary. Thread-safe encode; decode reads the
     append-only list without a lock."""
 
-    def __init__(self, name: str = "") -> None:
+    def __init__(self, name: str = "", strings: list[str] | None = None
+                 ) -> None:
+        """``strings``, when given, are the entries in id order, the first
+        of them ""."""
         self.name = name
         self._lock = threading.Lock()
-        self._str_to_id: dict[str, int] = {"": 0}
-        self._strings: list[str] = [""]
+        self._strings: list[str] = list(strings) if strings else [""]
+        self._str_to_id = {s: i for i, s in enumerate(self._strings)}
+        # C++ twin for encode_arena: entry i of the native table is the
+        # UTF-8 of _strings[i] for every i < _native_synced. Built at the
+        # first encode_arena; entries added in Python since then are
+        # loaded before each native batch, and the native batch's new
+        # strings are fetched back, all under _lock.
+        self._native: NativeDict | None = None
+        self._native_synced = 0
 
     def __len__(self) -> int:
         return len(self._strings)
@@ -55,6 +67,44 @@ class Dictionary:
                             self._str_to_id[s] = sid
                         out[i] = sid
         return np.fromiter(out, dtype=np.uint32, count=len(out))
+
+    def encode_arena(self, arena: np.ndarray, offs: np.ndarray,
+                     lens: np.ndarray) -> np.ndarray:
+        """uint32 ids of string cells given as (off, len) in a byte arena
+        of UTF-8, interned by the C++ mirror under one lock acquisition:
+        a cell becomes a Python string only when it is new to the
+        dictionary."""
+        out = np.empty(len(offs), dtype=np.uint32)
+        with self._lock:
+            try:
+                nd = self._native
+                if nd is None:
+                    nd = self._native = NativeDict()
+                    self._native_synced = 1  # "" is id 0 on both sides
+                if self._native_synced < len(self._strings):
+                    # surrogatepass: a str no UTF-8 arena cell can equal
+                    nd.load_entries(
+                        [s.encode("utf-8", "surrogatepass")
+                         for s in self._strings[self._native_synced:]])
+                    if len(nd) != len(self._strings):
+                        raise RuntimeError(
+                            f"{self.name}: native dictionary misaligned")
+                before = len(self._strings)
+                after = nd.encode_arena(arena, offs, lens, out)
+                for sid in range(before, after):
+                    s = nd.get(sid).decode("utf-8")
+                    if s in self._str_to_id:
+                        raise RuntimeError(
+                            f"{self.name}: native dictionary misaligned")
+                    self._str_to_id[s] = sid
+                    self._strings.append(s)
+                self._native_synced = after
+            except BaseException:
+                # the twin may hold entries Python never adopted: the
+                # next batch builds a fresh one
+                self._native = None
+                raise
+        return out
 
     def decode(self, sid: int) -> str:
         strings = self._strings

@@ -1,11 +1,13 @@
 """Columnar table with dictionary-encoded string columns, in memory.
 
 Own copy of the parts of ``deepflow_tpu/store/table.py`` that the
-profile tables use: ``ColumnSpec`` and a ``ColumnarTable`` that appends
-row batches or column batches as immutable chunks (dict column name ->
-np.ndarray) and hands readers a snapshot of the chunk list. Values are
-cast to the column's numpy dtype with ``astype``, so a value outside the
-column's width wraps, as the reference's columnar decode path does.
+profile tables use: ``ColumnSpec`` and a ``ColumnarTable`` that buffers
+appended row batches or column batches (dict column name -> np.ndarray)
+and seals them into an immutable chunk once ``chunk_rows`` rows or more
+are buffered, with the reference's retention (``trim_before``) and
+dictionary compaction (``compact_dictionaries``). Values are cast to the
+column's numpy dtype with ``astype``, so a value outside the column's
+width wraps, as the reference's columnar decode path does.
 """
 
 from __future__ import annotations
@@ -15,6 +17,7 @@ from dataclasses import dataclass
 
 import numpy as np
 
+from deepflow_tpu_torch.native import ArenaStrings
 from deepflow_tpu_torch.store.dictionary import Dictionary
 
 _DTYPES = {
@@ -57,18 +60,29 @@ class ColumnSpec:
 class ColumnarTable:
     """Append-only columnar table; one string dictionary per str column.
 
-    Appends and snapshots take one lock; a snapshot merges the chunks
-    appended since the last one, so readers scan one chunk per table."""
+    Appends go into an open buffer of segments, which is sealed into one
+    chunk when it holds ``chunk_rows`` rows or more: at batch
+    granularity, as the reference seals its stripes, so both seal at the
+    same rows. One lock guards the chunks, the buffer and the
+    dictionaries (the reference stripes its writers; the port's tables
+    have one writer each). A reader takes a ``view()``: the chunks and
+    the dictionaries that decode them, as of one moment."""
 
-    def __init__(self, name: str, columns: list[ColumnSpec]) -> None:
+    def __init__(self, name: str, columns: list[ColumnSpec],
+                 chunk_rows: int = 1 << 16) -> None:
         self.name = name
         self.columns = {c.name: c for c in columns}
+        self.chunk_rows = chunk_rows
         self.dicts: dict[str, Dictionary] = {
             c.name: Dictionary(f"{name}.{c.name}")
             for c in columns if c.kind == "str"}
-        self._chunks: list[dict[str, np.ndarray]] = []
+        self._chunks: list[dict[str, np.ndarray]] = []  # sealed
+        self._open: dict[str, list[np.ndarray]] = {n: [] for n in self.columns}
+        self._open_rows = 0
+        # the open buffer as one chunk, until the next append changes it
+        self._open_chunk: dict[str, np.ndarray] | None = None
         self._lock = threading.Lock()
-        self.rows_written = 0
+        self.rows_written = 0  # live rows: appended less trimmed
         # per-table fill overrides: the value a column takes when a write
         # omits it, instead of the schema default (Database stamps
         # shard_id through this)
@@ -80,9 +94,12 @@ class ColumnarTable:
 
     def _column(self, name: str, spec: ColumnSpec, v, n: int) -> np.ndarray:
         """One column's values (a sequence of n, or a scalar meaning "this
-        value in every row") in the column's stored form."""
+        value in every row") in the column's stored form, a new array:
+        callers such as the native decoder reuse their buffers."""
         if spec.kind == "str":
             d = self.dicts[name]
+            if isinstance(v, ArenaStrings):
+                return d.encode_arena(v.arena, v.off, v.lens)
             if isinstance(v, (list, np.ndarray)):
                 return d.encode_batch(v)
             return np.full(n, d.encode(v), dtype=np.uint32)
@@ -108,27 +125,58 @@ class ColumnarTable:
         if n is None:
             n = len(next(iter(cols.values())))
         for name, v in cols.items():
-            if isinstance(v, (list, np.ndarray)) and len(v) != n:
+            if isinstance(v, (list, np.ndarray, ArenaStrings)) \
+                    and len(v) != n:
                 raise ValueError(
                     f"{self.name}: column {name!r} has {len(v)} values, "
                     f"expected {n}")
         if n == 0:
             return
-        chunk = {name: self._column(name, spec,
-                                    cols.get(name, self._fill(name, spec)),
-                                    n)
-                 for name, spec in self.columns.items()}
-        with self._lock:
-            self._chunks.append(chunk)
+        with self._lock:  # encoding too: a compaction swaps dictionaries
+            segs = {name: self._column(name, spec,
+                                       cols.get(name, self._fill(name, spec)),
+                                       n)
+                    for name, spec in self.columns.items()}
+            for name, seg in segs.items():
+                self._open[name].append(seg)
+            self._open_rows += n
+            self._open_chunk = None
             self.rows_written += n
+            if self._open_rows >= self.chunk_rows:
+                self._chunks.append(self._merge_open())
+                self._open = {name: [] for name in self.columns}
+                self._open_rows = 0
+                self._open_chunk = None
+
+    def _merge_open(self) -> dict[str, np.ndarray]:
+        """The open buffer as one chunk; its segments collapse into that
+        chunk's arrays, so the next merge copies only later appends."""
+        chunk = {}
+        for name, segs in self._open.items():
+            chunk[name] = segs[0] if len(segs) == 1 else np.concatenate(segs)
+            self._open[name] = [chunk[name]]
+        return chunk
+
+    def _chunks_locked(self) -> list[dict[str, np.ndarray]]:
+        chunks = list(self._chunks)
+        if self._open_rows:
+            if self._open_chunk is None:
+                self._open_chunk = self._merge_open()
+            chunks.append(self._open_chunk)
+        return chunks
 
     def snapshot(self) -> list[dict[str, np.ndarray]]:
+        """The sealed chunks and the open buffer's rows, oldest first.
+        Readers must not write into the arrays."""
         with self._lock:
-            if len(self._chunks) > 1:
-                self._chunks = [{
-                    name: np.concatenate([ch[name] for ch in self._chunks])
-                    for name in self.columns}]
-            return list(self._chunks)
+            return self._chunks_locked()
+
+    def view(self) -> "TableView":
+        """The chunks and the dictionaries that decode them, taken
+        together under the lock."""
+        with self._lock:
+            return TableView(self.name, self.columns, dict(self.dicts),
+                             self._chunks_locked())
 
     def column_concat(self, names: list[str]) -> dict[str, np.ndarray]:
         """The named columns over every row, from one snapshot."""
@@ -139,3 +187,67 @@ class ColumnarTable:
 
     def __len__(self) -> int:
         return self.rows_written
+
+    # -- retention -----------------------------------------------------------
+
+    def trim_before(self, time_col: str, cutoff: int) -> int:
+        """Drop the sealed chunks whose every row is older than cutoff (the
+        open buffer stays). Returns the rows dropped."""
+        dropped = 0
+        with self._lock:
+            kept = []
+            for ch in self._chunks:
+                t = ch[time_col]
+                if len(t) and int(t.max()) < cutoff:
+                    dropped += len(t)
+                else:
+                    kept.append(ch)
+            self._chunks = kept
+            self.rows_written -= dropped
+        return dropped
+
+    def compact_dictionaries(self, min_entries: int = 4096,
+                             max_live_frac: float = 0.5) -> dict:
+        """Rebuild each string dictionary of ``min_entries`` entries or more
+        of which at most ``max_live_frac`` are still referenced, down to
+        the live ids. Dictionaries are append-only, so after TTL trims a
+        high-cardinality column would otherwise grow without bound.
+
+        New ids keep the old ids' order, so grouped and ordered answers
+        do not change. The remapped chunks and the new dictionary replace
+        the old ones under the lock; a view taken before keeps the old
+        pair. Returns {column: {"before": n, "after": n}}."""
+        stats: dict[str, dict] = {}
+        with self._lock:
+            for name, d in list(self.dicts.items()):
+                old_n = len(d)
+                if old_n < min_entries:
+                    continue
+                ids = [ch[name] for ch in self._chunks] + self._open[name]
+                used = np.unique(np.concatenate(ids)) if ids else \
+                    np.empty(0, dtype=np.uint32)
+                used = used[used != 0]
+                if len(used) + 1 > old_n * max_live_frac:
+                    continue
+                lut = np.zeros(old_n, dtype=np.uint32)
+                lut[used] = np.arange(1, len(used) + 1, dtype=np.uint32)
+                self._chunks = [{**ch, name: lut[ch[name]]}
+                                for ch in self._chunks]
+                self._open[name] = [lut[seg] for seg in self._open[name]]
+                self._open_chunk = None
+                self.dicts[name] = Dictionary(
+                    d.name, [""] + d.decode_many(used))
+                stats[name] = {"before": old_n, "after": len(used) + 1}
+        return stats
+
+
+@dataclass(frozen=True)
+class TableView:
+    """One moment of a ColumnarTable: its chunks, oldest first, and the
+    dictionaries that decode them. Readers must not write into the
+    arrays."""
+
+    name: str
+    columns: dict[str, ColumnSpec]
+    dicts: dict[str, Dictionary]
+    chunks: list[dict[str, np.ndarray]]

@@ -434,7 +434,7 @@ def collect_agent_selfmon(db, window_ns: int = 600_000_000_000) -> dict:
     the table the same way an operator would with PromQL.  Counters are
     cumulative; latest row per (metric, tags, value_name) wins."""
     try:
-        t = db.table("deepflow_system.deepflow_system")
+        t = db.table("deepflow_system.deepflow_system").view()
     except KeyError:
         return {"pipeline": {}, "heartbeats": {}, "wedges": []}
     # the metric-name set is closed, so resolve dictionary ids ONCE and
@@ -452,7 +452,7 @@ def collect_agent_selfmon(db, window_ns: int = 600_000_000_000) -> dict:
     cutoff = time.time_ns() - window_ns
     tag_dict = t.dicts["tag_json"]
     vname_dict = t.dicts["value_name"]
-    for chunk in t.snapshot():
+    for chunk in t.chunks:
         name_ids = chunk["metric_name"]
         times = chunk["time"]
         mask = np.isin(name_ids, list(wanted))

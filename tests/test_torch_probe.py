@@ -493,6 +493,26 @@ def test_port_import_leaves_jax_unloaded():
     assert out.stdout.strip() == "clean"
 
 
+@pytest.mark.parametrize("module", [
+    "deepflow_tpu_torch.server.server", "deepflow_tpu_torch.server.__main__",
+    "deepflow_tpu_torch.cli.dfctl"])
+def test_server_and_dfctl_import_leaves_torch_unloaded(module):
+    """The server and dfctl touch no device, so importing them in a fresh
+    interpreter loads no torch; the package still gives resolve_device,
+    which does."""
+    code = (
+        "import importlib, sys\n"
+        f"importlib.import_module({module!r})\n"
+        "assert 'torch' not in sys.modules, 'torch loaded'\n"
+        "from deepflow_tpu_torch import resolve_device\n"
+        "assert 'torch' in sys.modules\n"
+        "print(resolve_device('cpu'))\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "cpu"
+
+
 def test_entry_points_raise_without_cuda(monkeypatch):
     from deepflow_tpu_torch import resolve_device
     from deepflow_tpu_torch.models import llama as tl

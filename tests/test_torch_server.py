@@ -197,6 +197,9 @@ def _start_pair(offset_ns=None):
     ref = RefServer(host="127.0.0.1", ingest_port=0, query_port=0,
                     selfstats_interval_s=3600).start()
     port = Server(ingest_port=0, query_port=0).start()
+    # small chunks: the port's tables hold several sealed chunks each
+    for name in port.db.tables():
+        port.db.table(name).chunk_rows = 8
     if offset_ns is not None:
         for srv in (ref, port):
             srv.platform.set_clock_offset(0, offset_ns)

@@ -280,12 +280,15 @@ def _rows(table: str, n: int, seed: int) -> list[dict]:
     return rows
 
 
+CHUNK_ROWS = 30
+
+
 def _pair(table: str, rows: list[dict]):
     """A reference and a port table holding the same rows, appended in
-    two batches (the port merges its chunks, the reference keeps its
-    stripes)."""
-    ref = RefTable(table, ref_schema.TABLES[table])
-    port = ColumnarTable(table, schema.TABLES[table])
+    two batches into chunks of CHUNK_ROWS, so that 80 rows make two
+    sealed chunks on both sides."""
+    ref = RefTable(table, ref_schema.TABLES[table], chunk_rows=CHUNK_ROWS)
+    port = ColumnarTable(table, schema.TABLES[table], chunk_rows=CHUNK_ROWS)
     for t in (ref, port):
         t.append_rows(rows[:len(rows) // 2])
         t.append_rows(rows[len(rows) // 2:])
@@ -603,8 +606,11 @@ def select_queries(table, names, words, labels, big):
 
 
 def _prop_tables(rows):
-    ref = RefTable("t", [RefSpec(*c) for c in PROP_COLS])
-    port = ColumnarTable("t", [ColumnSpec(*c) for c in PROP_COLS])
+    """The rows in two batches, each of eight rows or more sealing a
+    chunk on both sides."""
+    ref = RefTable("t", [RefSpec(*c) for c in PROP_COLS], chunk_rows=8)
+    port = ColumnarTable("t", [ColumnSpec(*c) for c in PROP_COLS],
+                         chunk_rows=8)
     for t in (ref, port):
         t.append_rows(rows[:len(rows) // 2])
         t.append_rows(rows[len(rows) // 2:])
