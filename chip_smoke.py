@@ -30,8 +30,10 @@ Phases, each printing its own lines:
    records, and its memory view phase 4's largest sample. Then DF-SQL over POST
    /v1/query: the top ten ops by device time equal phase 4's per-op
    sums and flame graph, the spans per run_id less its module span
-   equal phase 4's kernels per step, SHOW TABLES lists the five tables,
-   and org_id 1 keeps every row, 2 none. Every query, the six profile
+   equal phase 4's kernels per step, SHOW TABLES lists the port's six
+   tables (the five above and deepflow_system.query_trace, as the
+   reference's server lists them), and org_id 1 keeps every row, 2
+   none. Every query, the six profile
    queries included, must answer in under 1,000 ms; their times print
    beside the columnar stand-in's (PERF.md). In this process the span
    frames then decode both ways, natively and through the pure wire
@@ -87,9 +89,28 @@ Phases, each printing its own lines:
    every span inside a step record, agent.guard at one degrade and one
    recovery, and a balanced sender hop with no wedge. Step ms during the
    outage, the replay and after it, the guard's readings at every check,
-   the peak spool bytes and the time to drain are printed.
+   the peak spool bytes and the time to drain are printed;
+8. query (run right after phase 5, while phase 3's frames are at hand):
+   DF-SQL at scale. Phase 3's span frames are replayed into a fresh
+   server process, each replay re-stamped (times moved by the replay's
+   index times the capture's span width, run_id and step by their
+   ranges), until its span table holds QUERY_ROWS rows or more; this
+   process builds the same rows through the port's span decoder. Three
+   dashboard queries (the top ten device-compute kernels by time, the
+   time per run_id, the top kernels of one name prefix in the last five
+   minutes) run here serially (one scan thread: the expected answer) and
+   morsel-parallel, then on the server: EXPLAIN ANALYZE with the cache
+   bypassed must name the parallel degree and the morsels and sum its
+   stages to within 20 % of its wall time; the cold answer (the cache's
+   bucket fill) and the warm one (a cache hit, under 1,000 ms) must equal
+   the serial answer; after one more replay, EXPLAIN ANALYZE must show
+   only the touched 60 s buckets scanned again, and the answer must
+   equal the serial one over the grown table. A native group or filter
+   kernel must have run in this process. The rows, chunks, ingest rows/s
+   at this size, the server's RSS, the cache's hit rate, each query's
+   ms every way and the kernel choices are printed.
 
-The servers of phases 5-7 run the server's entry point (its main(),
+The servers of phases 5-8 run the server's entry point (its main(),
 stopped by SIGTERM after its drain) in a process of their own
 (multiprocessing, spawn) that then hands the smoke their tables' rows.
 Every phase line carries the card's name and power limit.
@@ -114,6 +135,8 @@ import statistics
 import subprocess
 import sys
 import time
+
+import numpy as np
 
 BATCH, SEQ = 4, 1025
 N_LAYERS = 4            # llama7b() has 32; widths are unchanged
@@ -160,6 +183,9 @@ COLUMNAR_MS = {"flame": 32.0, "steps": 16.1, "critical_path": 4.5,
 # slice 2's run A and slice 5's call 1), printed beside this run's
 PURE_INGEST_ROWS_PER_S = {"slice2_run_a": 32021.6, "slice5_call1": 27987.9}
 RETENTION_CHUNKS = 8          # the retention check's chunks over phase 3
+QUERY_ROWS = 10_000_000       # query phase: span rows, ~39 min of a process
+QUERY_WINDOW_NS = 300 * 10**9  # its third query's "last 5 minutes"
+QUERY_STAGE_RTOL = 0.20       # EXPLAIN ANALYZE: stage sum against its wall
 ROOT = os.path.dirname(os.path.abspath(__file__))
 CARD = {"line": ""}           # nvidia-smi's name and power limit
 
@@ -188,8 +214,9 @@ def device_phase(torch) -> dict:
 
 
 def native_phase() -> dict:
-    """The port's native library (the server's span decoder), built from
-    the checkout's sources as the server's first use would build it."""
+    """The port's native library (the server's span decoder and the query
+    kernels), built from the checkout's sources as the server's first use
+    would build it."""
     from deepflow_tpu_torch import native
     path = native.library_path()
     prebuilt = os.path.exists(path)
@@ -198,7 +225,8 @@ def native_phase() -> dict:
     build_s = time.perf_counter() - t0
     version = subprocess.run([native.CXX, "--version"], capture_output=True,
                              text=True, timeout=60).stdout.splitlines()[0]
-    nums = {"compiler": json.dumps(" ".join((native.CXX,
+    nums = {"sources": json.dumps(",".join(native.SOURCES)),
+            "compiler": json.dumps(" ".join((native.CXX,
                                               *native.CXXFLAGS))),
             "compiler_version": json.dumps(version), "build_s": build_s,
             "prebuilt": prebuilt,
@@ -466,12 +494,34 @@ def _table_rows(srv, name: str, cols: list[str]) -> dict[str, list]:
             else data[c].tolist() for c in cols}
 
 
+def _env_control(ctl) -> None:
+    """Apply each {name: value or None} that comes up the control pipe to
+    this process's environment (the server reads its DF_QUERY_* knobs
+    live), answering each with "ok"."""
+    import threading
+
+    def loop() -> None:
+        while True:
+            try:
+                kv = ctl.recv()
+            except EOFError:
+                return
+            for k, v in kv.items():
+                if v is None:
+                    os.environ.pop(k, None)
+                else:
+                    os.environ[k] = v
+            ctl.send("ok")
+    threading.Thread(target=loop, name="smoke-env", daemon=True).start()
+
+
 def _server_child(conn, argv: list[str], log_path: str,
-                  dump: dict[str, list[str]]) -> None:
+                  dump: dict[str, list[str]], ctl=None) -> None:
     """The server's entry point (deepflow_tpu_torch.server's main, with
     its own SIGTERM handling and drain) in this process, its output into
     log_path. Its ports go up the pipe once it listens, and the rows of
-    the tables in ``dump`` once main has drained and returned."""
+    the tables in ``dump`` once main has drained and returned. ``ctl``,
+    when given, sets environment variables while it runs."""
     with open(log_path, "w") as log:
         sys.stdout = sys.stderr = log
         from deepflow_tpu_torch.server import server as server_mod
@@ -479,6 +529,8 @@ def _server_child(conn, argv: list[str], log_path: str,
 
         def on_start(srv) -> None:
             started.append(srv)
+            if ctl is not None:
+                _env_control(ctl)
             conn.send({"ingest_port": srv.ingest_port,
                        "query_port": srv.query_port})
         server_mod.main(argv, on_start=on_start)
@@ -492,15 +544,18 @@ class _ServerProcess:
     stop hands back the rows of the tables in ``dump`` (name: columns)."""
 
     def __init__(self, log_path: str, ingest_port: int = 0,
-                 dump: dict[str, list[str]] | None = None) -> None:
+                 dump: dict[str, list[str]] | None = None,
+                 env_control: bool = False) -> None:
         self.log_path = log_path
         self.dump = dump or {}
         self._stopped = False
         ctx = multiprocessing.get_context("spawn")
         self._conn, child = ctx.Pipe()
+        self._ctl, child_ctl = ctx.Pipe() if env_control else (None, None)
         argv = ["--ingest-port", str(ingest_port), "--query-port", "0"]
         self._proc = ctx.Process(target=_server_child,
-                                 args=(child, argv, log_path, self.dump),
+                                 args=(child, argv, log_path, self.dump,
+                                       child_ctl),
                                  name="df-smoke-server", daemon=True)
         t0 = time.perf_counter()
         self._proc.start()
@@ -520,6 +575,14 @@ class _ServerProcess:
         self.start_s = time.perf_counter() - t0
         self.ingest_port = ports["ingest_port"]
         self.query_port = ports["query_port"]
+        self.pid = self._proc.pid
+
+    def setenv(self, **kv) -> None:
+        """Set (a str) or unset (None) environment variables of the
+        running server: its DF_QUERY_* knobs are read live."""
+        self._ctl.send(kv)
+        check(self._ctl.poll(30) and self._ctl.recv() == "ok",
+              f"the server took the environment {kv}")
 
     def stop(self) -> dict[str, dict[str, list]]:
         """SIGTERM: the server drains its decoders, hands over its rows
@@ -540,6 +603,8 @@ class _ServerProcess:
             self._proc.kill()
             self._proc.join()
         self._conn.close()
+        if self._ctl is not None:
+            self._ctl.close()
         with open(self.log_path) as f:
             log_text = f.read()
         check(self._proc.exitcode == 0,
@@ -576,6 +641,8 @@ def server_phase(sink, probe, seen) -> dict:
     os.makedirs(OUT_DIR, exist_ok=True)
     log_path = os.path.join(OUT_DIR, "server.log")
     want = {"deepflow_system.deepflow_system": 0,
+            # the querier's own spans: no query has run yet
+            "deepflow_system.query_trace": 0,
             "profile.in_process_profile": 0,
             "profile.tpu_hlo_span": probe.stats["spans_sent"],
             "profile.tpu_memory": probe.stats["mem_samples_sent"],
@@ -783,7 +850,9 @@ def _sql_checks(qport: int, seen: dict, want: dict) -> dict:
     """DF-SQL over POST /v1/query on phase 4's rows: the top kernels by
     device time equal phase 4's flame graph, the spans per run_id less
     its module spans equal phase 4's kernels per step, SHOW TABLES lists
-    the five tables, and org 1 scoping keeps every row, org 2 none.
+    the port's six tables (the reference server's list cut to the
+    port's: the five of phase 4's rows and deepflow_system.query_trace),
+    and org 1 scoping keeps every row, org 2 none.
     Returns each query's wall ms and its table's rows."""
     from deepflow_tpu_torch.store.schema import TPU_SPAN_KINDS
     kinds = ", ".join(f"'{k}'" for k in TPU_SPAN_KINDS
@@ -827,11 +896,403 @@ def _sql_checks(qport: int, seen: dict, want: dict) -> dict:
           == statistics.mode(seen["kernels_per_step"].values()),
           "the most common SQL count equals phase 4's kernels per step")
     check(sorted(r[0] for r in res["sql_show_tables"]) == sorted(want),
-          f"SHOW tables lists the five tables ({res['sql_show_tables']})")
+          f"SHOW tables lists the port's tables ({res['sql_show_tables']})")
     check(res["sql_per_step_org1"] == res["sql_per_step"]
           and res["sql_per_step_org2"] == [],
           "org_id 1 keeps every row, org_id 2 none")
     return out
+
+# -- phase 8: DF-SQL at scale ----------------------------------------------
+
+# TpuSpan field numbers (proto/wire.py declares fields in number order)
+_START_F, _RUN_F, _STEP_F = 1, 14, 18
+_RESTAMP_BASE = 1 << 14   # run_id and step move into 3-byte varints
+_RESTAMP_LIMIT = 1 << 21  # ... and must stay there
+
+
+def _varint_at(buf: bytes, i: int) -> tuple[int, int]:
+    """(value, end) of the varint at i."""
+    v = shift = 0
+    while True:
+        b = buf[i]
+        i += 1
+        v |= (b & 0x7F) << shift
+        if b < 0x80:
+            return v, i
+        shift += 7
+
+
+def _span_varints(data: bytes) -> dict[int, tuple[list, list, list]]:
+    """Per re-stamped field number: the (offset, length, value) of its
+    varint in every span of a serialized TpuSpanBatch, in span order."""
+    out = {f: ([], [], []) for f in (_START_F, _RUN_F, _STEP_F)}
+    i, n = 0, len(data)
+    while i < n:
+        tag, i = _varint_at(data, i)
+        ln, i = _varint_at(data, i)
+        end = i + ln
+        if tag != (1 << 3 | 2):  # only spans: memory samples were dropped
+            raise ValueError(f"unexpected batch field tag {tag}")
+        seen = set()
+        while i < end:
+            tag, i = _varint_at(data, i)
+            num, wt = tag >> 3, tag & 7
+            if wt == 0:
+                j = i
+                v, i = _varint_at(data, i)
+                if num in out:
+                    seen.add(num)
+                    for lst, x in zip(out[num], (j, i - j, v)):
+                        lst.append(x)
+            elif wt == 2:
+                ln, i = _varint_at(data, i)
+                i += ln
+            else:
+                raise ValueError(f"unexpected wire type {wt}")
+        check(seen == set(out), "every re-stamped span carries start_ns, "
+              "run_id and step")
+    return out
+
+
+def _put_varints(buf: np.ndarray, offs: np.ndarray, vals: np.ndarray,
+                 width: int) -> None:
+    """Write each value as a varint of exactly ``width`` bytes at its
+    offset (the value must need no more)."""
+    for k in range(width):
+        byte = ((vals >> np.uint64(7 * k)) & np.uint64(0x7F)).astype(np.uint8)
+        if k < width - 1:
+            byte |= np.uint8(0x80)
+        buf[offs + k] = byte
+
+
+class _Replays:
+    """Phase 3's span frames, re-stamped per replay without re-encoding:
+    replay r moves every span's start by r times the capture's span
+    width, and its run_id and step by r times their own range, in place
+    in fixed-width varints (start_ns takes 9 bytes; run_id and step are
+    first moved up by 2**14 into 3 bytes). Memory samples are left out."""
+
+    def __init__(self, items: list) -> None:
+        from deepflow_tpu_torch.proto import wire
+        self.headers, self.bases, self.fields = [], [], []
+        end_ns = 0
+        for h, p in items:
+            batch = wire.TpuSpanBatch.FromString(p)
+            if not batch.spans:
+                continue
+            for sp in batch.spans:
+                sp.run_id += _RESTAMP_BASE
+                sp.step += _RESTAMP_BASE
+                end_ns = max(end_ns, sp.start_ns + sp.duration_ns)
+            batch.memory = []
+            data = batch.SerializeToString()
+            found = _span_varints(data)
+            self.headers.append(h)
+            self.bases.append(np.frombuffer(data, dtype=np.uint8))
+            self.fields.append({f: tuple(np.asarray(x, dtype=dt) for x, dt
+                                         in zip(v, (np.int64, np.int64,
+                                                    np.uint64)))
+                                for f, v in found.items()})
+        starts = np.concatenate([f[_START_F][2] for f in self.fields])
+        runs = np.concatenate([f[_RUN_F][2] for f in self.fields])
+        steps = np.concatenate([f[_STEP_F][2] for f in self.fields])
+        self.rows = len(starts)
+        self.width_ns = end_ns - int(starts.min()) + 10**6
+        self.run_stride = int(runs.max() - runs.min()) + 1
+        self.step_stride = int(steps.max() - steps.min()) + 1
+        self._top = (int(starts.max()), int(runs.max()), int(steps.max()))
+        for f in self.fields:
+            check(bool((f[_START_F][1] == 9).all()
+                       and (f[_RUN_F][1] == 3).all()
+                       and (f[_STEP_F][1] == 3).all()),
+                  "start_ns in 9-byte varints, run_id and step in 3")
+
+    def check_room(self, replays: int) -> None:
+        top_t, top_run, top_step = self._top
+        check(top_t + replays * self.width_ns < 1 << 63
+              and top_t >= 1 << 56
+              and top_run + replays * self.run_stride < _RESTAMP_LIMIT
+              and top_step + replays * self.step_stride < _RESTAMP_LIMIT,
+              f"{replays} replays keep every re-stamped varint's width")
+
+    def payloads(self, r: int):
+        """(header, payload) of replay r's batches."""
+        shift = {_START_F: r * self.width_ns, _RUN_F: r * self.run_stride,
+                 _STEP_F: r * self.step_stride}
+        for h, base, fields in zip(self.headers, self.bases, self.fields):
+            buf = base.copy()
+            for f, (offs, lens, vals) in fields.items():
+                _put_varints(buf, offs, vals + np.uint64(shift[f]),
+                             int(lens[0]))
+            yield h, buf.tobytes()
+
+
+def _query_sqls(table, kinds_label: str, top_op: str) -> dict[str, str]:
+    """The three dashboard queries over the span table: the top kernels,
+    the time per step, and the top kernels of one name prefix in the
+    last five minutes."""
+    t_max = int(table.column_concat(["time"])["time"].max())
+    pat = top_op[:5].replace("%", "_") + "%"
+    span = "profile.tpu_hlo_span"
+    return {
+        "top_kernels":
+            "SELECT hlo_op, Sum(duration_ns) AS d, Count() AS n FROM "
+            f"{span} WHERE kind = '{kinds_label}' GROUP BY hlo_op "
+            "ORDER BY d DESC LIMIT 10",
+        "per_step":
+            f"SELECT run_id, Sum(duration_ns) AS d, Count() AS n FROM "
+            f"{span} GROUP BY run_id",
+        "recent_prefix":
+            "SELECT hlo_op, Sum(duration_ns) AS d, Count() AS n FROM "
+            f"{span} WHERE time >= {t_max - QUERY_WINDOW_NS} AND hlo_op "
+            f"LIKE '{pat}' GROUP BY hlo_op ORDER BY d DESC LIMIT 10"}
+
+
+def _count_kernels(engine) -> dict:
+    """Count, in this process, each cost model's observations per kernel
+    choice (one per kernel call): {"group.native": n, ...}."""
+    counts: dict[str, int] = {}
+    for name, model in (("group", engine._COST), ("filter", engine._FILT),
+                        ("degree", engine._DEGREE)):
+        def observe(kernel, n, ns, _orig=model.observe, _name=name):
+            key = f"{_name}.{kernel}"
+            counts[key] = counts.get(key, 0) + 1
+            _orig(kernel, n, ns)
+        model.observe = observe
+    return counts
+
+
+def _timed_local(engine, table, sql: str, env: dict) -> tuple:
+    """(answer, ms) of one query in this process under env."""
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        t0 = time.perf_counter()
+        res = engine.execute(table, sql)
+        return res.to_dict(), (time.perf_counter() - t0) * 1000.0
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def _server_query(qport: int, sql: str) -> tuple[dict, float]:
+    code, ans, ms = _http(qport, "/v1/query", {"sql": sql})
+    check(code == 200, f"/v1/query answers 200 ({ans})")
+    return ans, ms
+
+
+def _send_frames(port: int, frames: list[bytes]) -> "threading.Thread":
+    import socket
+    import threading
+
+    def run() -> None:
+        with socket.create_connection(("127.0.0.1", port),
+                                      timeout=60) as conn:
+            for fr in frames:
+                conn.sendall(fr)
+    th = threading.Thread(target=run, name="smoke-replay", daemon=True)
+    th.start()
+    return th
+
+
+def _wait_rows(srv, table: str, n: int, t0: float) -> float:
+    """Seconds from t0 to the server holding n rows of the table."""
+    while True:
+        _, health, _ = _http(srv.query_port, "/v1/health")
+        if health["tables"][table] >= n:
+            check(health["tables"][table] == n,
+                  f"the server holds {n} {table} rows "
+                  f"({health['tables'][table]})")
+            return time.perf_counter() - t0
+        check(time.perf_counter() - t0 < SERVER_INGEST_S,
+              f"{n} rows reach the server")
+        time.sleep(0.05)
+
+
+def query_phase(sink) -> dict:
+    """Phase 3's span frames replayed, re-stamped, into a fresh server
+    until its span table holds QUERY_ROWS rows or more, and built the same
+    way in this process; then three dashboard queries, each timed
+    serially and morsel-parallel in this process (the serial answer is
+    the expected one), as the server's cold EXPLAIN ANALYZE with the
+    cache bypassed, its cold answer, its warm answer (a cache hit) and,
+    after one more replay, its answer with only the touched 60 s buckets
+    scanned again."""
+    from deepflow_tpu_torch.codec import FrameHeader, MessageType, \
+        encode_frame
+    from deepflow_tpu_torch.query import engine
+    from deepflow_tpu_torch.server.decoders import TpuSpanDecoder
+    from deepflow_tpu_torch.server.platform_info import PlatformInfoTable
+    from deepflow_tpu_torch.store.db import Database
+    from deepflow_tpu_torch.store.schema import TPU_SPAN_KINDS
+    span_t = "profile.tpu_hlo_span"
+    t_setup = time.perf_counter()
+    rep = _Replays(_span_frames(b"".join(sink.frames)))
+    n_rep = -(-QUERY_ROWS // rep.rows)
+    rep.check_room(n_rep + 1)
+
+    def frames_of(r: int) -> list[bytes]:
+        return [encode_frame(FrameHeader(MessageType.TPU_SPAN), p)
+                for _, p in rep.payloads(r)]
+    frames = [fr for r in range(n_rep) for fr in frames_of(r)]
+    setup_s = time.perf_counter() - t_setup
+    db = Database()
+    local = db.table(span_t)
+    dec = TpuSpanDecoder(None, db, PlatformInfoTable())
+    os.makedirs(OUT_DIR, exist_ok=True)
+    srv = _ServerProcess(os.path.join(OUT_DIR, "query_server.log"),
+                         env_control=True)
+    nums: dict = {}
+    try:
+        t0 = time.perf_counter()
+        sender = _send_frames(srv.ingest_port, frames)
+        t_local = time.perf_counter()
+        for r in range(n_rep):
+            for h, p in rep.payloads(r):
+                dec.handle(h, p)
+        local_build_s = time.perf_counter() - t_local
+        rows = len(local)
+        ingest_s = _wait_rows(srv, span_t, rows, t0)
+        sender.join(60)
+        del frames
+        snap = local.snapshot()
+        sizes = [len(ch["time"]) for ch in snap]
+        chunks = len(sizes)
+        table_bytes = sum(a.nbytes for ch in snap for a in ch.values())
+        del snap
+        # chunks seal at batch granularity: each sealed one holds
+        # chunk_rows rows or more (the last may be the open buffer)
+        check(rows >= QUERY_ROWS and min(sizes[:-1]) >= local.chunk_rows,
+              f"{rows} span rows in {chunks} chunks of {local.chunk_rows} "
+              f"rows or more")
+        nums.update(rows=rows, chunks=chunks,
+                    chunk_rows_max=max(sizes), table_bytes=table_bytes,
+                    replays=n_rep,
+                    rows_per_replay=rep.rows, replay_width_s=rep.width_ns
+                    / 1e9, setup_s=setup_s, local_build_s=local_build_s,
+                    ingest_s=ingest_s, ingest_rows_per_s=rows / ingest_s,
+                    cpu_count=os.cpu_count(), host_cpu=_cpu_model())
+        phase("query build", **nums)
+
+        counts = _count_kernels(engine)
+        top = engine.execute(local, "SELECT hlo_op, Sum(duration_ns) AS d "
+                             f"FROM t WHERE kind = '{TPU_SPAN_KINDS[1]}' "
+                             "AND hlo_op != '' GROUP BY hlo_op ORDER BY d "
+                             "DESC LIMIT 1").values
+        check(bool(top), "a device-compute kernel to filter on")
+        sqls = _query_sqls(local, TPU_SPAN_KINDS[1], top[0][0])
+        serial = {}
+        for name, sql in sqls.items():
+            want, s_ms = _timed_local(engine, local, sql,
+                                      {"DF_QUERY_THREADS": "1"})
+            got, p_ms = _timed_local(engine, local, sql,
+                                     {"DF_QUERY_PARALLEL": "1"})
+            check(got == want, f"{name}: the morsel-parallel answer in "
+                  "this process equals the serial one")
+            check(bool(want["values"]), f"{name} answers rows")
+            serial[name] = want
+            nums[name] = {"serial_ms": s_ms, "parallel_ms": p_ms,
+                          "speedup": s_ms / p_ms,
+                          "answer_rows": len(want["values"])}
+        for name, sql in sqls.items():
+            q = nums[name]
+            # cold, cache bypassed: the morsel-parallel scan, traced
+            srv.setenv(DF_QUERY_CACHE="0", DF_QUERY_PARALLEL="1")
+            code, ex, q["explain_ms"] = _http(
+                srv.query_port, "/v1/query",
+                {"sql": f"EXPLAIN ANALYZE {sql}"})
+            srv.setenv(DF_QUERY_CACHE=None, DF_QUERY_PARALLEL=None)
+            check(code == 200, f"EXPLAIN ANALYZE {name} answers ({ex})")
+            ex = ex["explain"]
+            plan = ex["plan"]
+            stage_ms = sum(st["wall_ms"] for st in ex["stages"])
+            q.update(morsel_degree=plan.get("morsel_degree"),
+                     morsels=plan.get("morsels"),
+                     scan_mode=plan.get("scan_mode"),
+                     explain_total_ms=ex["total_ms"],
+                     explain_stage_ms=stage_ms)
+            check(plan.get("scan_mode") == "parallel"
+                  and plan.get("morsel_degree", 0) > 1
+                  and plan.get("morsels", 0) >= chunks,
+                  f"{name}: EXPLAIN ANALYZE names the parallel degree and "
+                  f"the morsels ({plan})")
+            check(abs(stage_ms - ex["total_ms"]) <= QUERY_STAGE_RTOL
+                  * ex["total_ms"], f"{name}: stages sum to {stage_ms} ms "
+                  f"of {ex['total_ms']} ms")
+            check(ex["rows_returned"] == len(serial[name]["values"]),
+                  f"{name}: EXPLAIN ANALYZE returned the serial rows")
+            ans, q["cold_ms"] = _server_query(srv.query_port, sql)
+            check(ans["result"] == serial[name],
+                  f"{name}: the server's cold answer equals the serial one")
+            ans, q["warm_ms"] = _server_query(srv.query_port, sql)
+            check(ans["result"] == serial[name],
+                  f"{name}: the server's warm answer equals the serial one")
+        _, h_warm, _ = _http(srv.query_port, "/v1/health")
+        check(h_warm["query_cache"]["hits"] == len(sqls),
+              f"each warm answer was a cache hit ({h_warm['query_cache']})")
+
+        # one more replay: a few buckets change
+        before = local.bucket_marks()[1]
+        t1 = time.perf_counter()
+        _send_frames(srv.ingest_port, frames_of(n_rep)).join(60)
+        for h, p in rep.payloads(n_rep):
+            dec.handle(h, p)
+        after = local.bucket_marks()[1]
+        touched = sorted(b for b, m in after.items() if before.get(b) != m)
+        _wait_rows(srv, span_t, len(local), t1)
+        for name, sql in sqls.items():
+            q = nums[name]
+            want, _ = _timed_local(engine, local, sql,
+                                   {"DF_QUERY_THREADS": "1"})
+            code, ex, q["append_ms"] = _http(
+                srv.query_port, "/v1/query",
+                {"sql": f"EXPLAIN ANALYZE {sql}"})
+            check(code == 200, f"EXPLAIN ANALYZE {name} answers ({ex})")
+            ex = ex["explain"]
+            detail = next(st["detail"] for st in ex["stages"]
+                          if st["stage"] == "execute")
+            q.update(buckets=detail.get("buckets"),
+                     buckets_rescanned=detail.get("bucket_stale"),
+                     append_cache=ex["plan"].get("cache_outcome"))
+            check(ex["plan"].get("cache_outcome") == "stale"
+                  and detail.get("buckets") == len(after)
+                  and detail.get("bucket_stale") == len(touched),
+                  f"{name}: after the append only the {len(touched)} "
+                  f"touched buckets were scanned again ({detail})")
+            ans, q["after_append_hit_ms"] = _server_query(srv.query_port,
+                                                          sql)
+            check(ans["result"] == want, f"{name}: the server's answer "
+                  "over the grown table equals the serial one")
+            phase(f"query {name}", **q)
+        _, health, _ = _http(srv.query_port, "/v1/health")
+        qc = health["query_cache"]
+        lookups = qc["hits"] + qc["misses"] + qc["stale"] + qc["bypass"]
+        sample = _proc_sample(srv.pid)
+        nums.update(
+            rows_after_append=len(local), touched_buckets=len(touched),
+            buckets=len(after), cache_hits=qc["hits"],
+            cache_lookups=lookups, cache_hit_rate=qc["hits"] / lookups,
+            bucket_hits=qc["bucket_hits"], bucket_misses=qc["bucket_misses"],
+            server_rss_bytes=sample[1] if sample else 0,
+            server_degree=health["query"]["degree"],
+            server_pool=[health["query"]["pool_threads"],
+                         health["query"]["pool_dispatched"]],
+            kernels=dict(counts))
+    finally:
+        srv.stop()
+    check(counts.get("group.native", 0) + counts.get("filter.native", 0)
+          > 0, f"a native group or filter kernel ran ({counts})")
+    slow = {k: v["warm_ms"] for k, v in nums.items()
+            if isinstance(v, dict) and "warm_ms" in v
+            and v["warm_ms"] >= QUERY_LIMIT_MS}
+    check(not slow, f"every warm answer under {QUERY_LIMIT_MS} ms ({slow})")
+    phase("query", **{k: v for k, v in nums.items()
+                      if not isinstance(v, dict)}, kernels=json.dumps(counts))
+    return nums
+
 
 def _proc_sample(pid: int) -> tuple[float, int] | None:
     """(CPU seconds, resident bytes) of a live process, from /proc; None
@@ -1493,6 +1954,8 @@ def main() -> int:
         result["frames"], seen = frames_phase(sink, probe, window)
         seen["max_bytes_in_use"] = result["frames"]["max_bytes_in_use"]
         result["server"] = server_phase(sink, probe, seen)
+        result["query"] = query_phase(sink)
+        gc.collect()
         # the card's memory to the children
         del model, tokens, sink, probe, seen
         gc.collect()

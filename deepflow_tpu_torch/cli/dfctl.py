@@ -8,6 +8,7 @@ output for the same answers:
 
     health [--json]
     query "SELECT ..." [--db profile] [--org N]
+    explain "SELECT ..." [--db profile] [--no-analyze] [--json]
     flame [--service my-svc] [--event-type on-cpu]
     tpu-flame [--device 0] [--include-host]
     tpu-memory [--device 0] [--start NS] [--end NS] [--top N]
@@ -260,6 +261,30 @@ def _steps(server: str, args) -> None:
                  f"(+{top['delta_ns']:,}ns)" if top else ""))
 
 
+def _explain(server: str, args) -> None:
+    sql = args.sql.strip()
+    if sql[:7].upper() != "EXPLAIN":
+        kw = "EXPLAIN" if args.no_analyze else "EXPLAIN ANALYZE"
+        sql = f"{kw} {sql}"
+    out = _api(server, "/v1/query/", {"db": args.db, "sql": sql})
+    ex = out.get("explain")
+    if ex is None:
+        raise SystemExit("server returned no explain block "
+                         "(old server?)")
+    if args.json:
+        print(json.dumps(ex, indent=2))
+        return
+    plan = ex.get("plan", {})
+    print(f"trace_id: {ex.get('trace_id', '')}")
+    for k in sorted(plan):
+        print(f"  {k}: {plan[k]}")
+    r = out["result"]
+    print_table(r["columns"], r["values"])
+    if ex.get("analyze"):
+        print(f"total: {ex.get('total_ms', 0):.3f}ms over "
+              f"{ex.get('spans', 0)} spans")
+
+
 def main(argv: list[str] | None = None) -> int:
     parser = argparse.ArgumentParser(prog="dfctl")
     parser.add_argument("--server", default="127.0.0.1:20416",
@@ -277,6 +302,17 @@ def main(argv: list[str] | None = None) -> int:
     p_query.add_argument("--db", default="")
     p_query.add_argument("--org", type=int, default=None,
                          help="scope results to this org id")
+
+    p_explain = sub.add_parser(
+        "explain", help="EXPLAIN ANALYZE a DF-SQL statement: plan "
+                        "(scan mode, morsel degree, cache layer) + "
+                        "observed per-stage wall/CPU time")
+    p_explain.add_argument("sql")
+    p_explain.add_argument("--db", default="")
+    p_explain.add_argument("--no-analyze", action="store_true",
+                           help="plan only, don't execute")
+    p_explain.add_argument("--json", action="store_true",
+                           help="raw explain JSON")
 
     p_flame = sub.add_parser("flame")
     p_flame.add_argument("--service", default=None)
@@ -328,6 +364,8 @@ def main(argv: list[str] | None = None) -> int:
             body["org_id"] = args.org
         r = _api(server, "/v1/query/", body)["result"]
         print_table(r["columns"], r["values"])
+    elif args.cmd == "explain":
+        _explain(server, args)
     elif args.cmd == "flame":
         body = {"event_type": args.event_type}
         if args.service:

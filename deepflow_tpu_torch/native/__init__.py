@@ -1,10 +1,12 @@
 """The port's native library: the span decoder and string dictionary of
-``dfnative.cpp`` and ``ingest.cpp``, built at first use and bound with
-ctypes.
+``dfnative.cpp`` and ``ingest.cpp`` and the query kernels of
+``qexec.cpp``, built at first use and bound with ctypes.
 
 Own copy of the parts of ``deepflow_tpu/native/__init__.py`` that the
 server's span path uses (``NativeDict``, ``ArenaStrings``,
-``SpanColumnDecoder``), and of its build. ``load()`` compiles the
+``SpanColumnDecoder``), of the query kernels' bindings (``qx_group``,
+``qx_agg_f64``, ``qx_sel_range``, ``qx_sel_isin``, ``qx_gather``,
+``qx_isin_u32``), and of its build. ``load()`` compiles the
 sources with ``g++ -O3 -std=c++17 -fPIC -shared`` into ``_build/`` beside
 them, the first time a process needs the library. The library's name
 carries a hash of its sources and flags, so a stale one is never
@@ -28,10 +30,10 @@ import numpy as np
 
 _DIR = os.path.dirname(os.path.abspath(__file__))
 BUILD_DIR = os.path.join(_DIR, "_build")
-SOURCES = ("dfnative.cpp", "ingest.cpp")
+SOURCES = ("dfnative.cpp", "ingest.cpp", "qexec.cpp")
 CXX = "g++"
 CXXFLAGS = ("-O3", "-std=c++17", "-fPIC", "-shared")
-ABI_VERSION = 1  # must match df_abi_version() in dfnative.cpp
+ABI_VERSION = 2  # must match df_abi_version() in dfnative.cpp
 
 _U64P = ctypes.POINTER(ctypes.c_uint64)
 _lib = None
@@ -113,6 +115,23 @@ def load() -> ctypes.CDLL:
         lib.df_span_batch_counts.argtypes = [vp, ctypes.c_uint64, _U64P,
                                              _U64P]
         lib.df_span_batch_counts.restype = ctypes.c_int32
+        u64, nd = ctypes.c_uint64, np.ctypeslib.ndpointer
+        lib.df_qx_group.restype = ctypes.c_int64
+        lib.df_qx_group.argtypes = [ctypes.POINTER(vp), u32, u64,
+                                    nd(np.uint64), nd(np.uint64)]
+        lib.df_qx_isin_u32.argtypes = [nd(np.uint32), u64, nd(np.uint32),
+                                       u64, nd(np.uint8)]
+        lib.df_qx_agg_f64.argtypes = [nd(np.float64), nd(np.uint64),
+                                      nd(np.uint64), u64, ctypes.c_int32,
+                                      nd(np.float64)]
+        lib.df_qx_sel_cmp.restype = ctypes.c_int64
+        lib.df_qx_sel_cmp.argtypes = [vp, u32, u32, u64, u64, u64,
+                                      nd(np.uint64)]
+        lib.df_qx_sel_isin_u32.restype = ctypes.c_int64
+        lib.df_qx_sel_isin_u32.argtypes = [nd(np.uint32), u64,
+                                           nd(np.uint32), u64, nd(np.uint64)]
+        lib.df_qx_gather.restype = ctypes.c_int32
+        lib.df_qx_gather.argtypes = [vp, u32, nd(np.uint64), u64, vp]
         _lib = lib
         return lib
 
@@ -317,3 +336,111 @@ class SpanColumnDecoder:
         cols = {k: v[:n_mem] if k.startswith("m_") else v[:n]
                 for k, v in self.arrays.items()}
         return n, cols, n_mem, self.arena[:self._cols.arena_used]
+
+
+# -- encoded query execution kernels (qexec.cpp) ----------------------------
+#
+# Each takes numpy arrays and returns numpy arrays; the library builds at
+# the first call. The engine's numpy paths compute the same answers, and
+# its cost models choose between the two per call (query/engine.py).
+
+def qx_group(key_cols: list[np.ndarray]) -> tuple[np.ndarray, np.ndarray,
+                                                   int]:
+    """Hash-group rows over key columns (cast to int64) in one O(n) pass:
+    (order, bounds, n_groups), rows ``order[bounds[g]:bounds[g+1]]``
+    forming group g, groups in FIRST-OCCURRENCE order, rows within a
+    group in their original order."""
+    lib = load()
+    if not key_cols:
+        raise ValueError("qx_group needs at least one key column")
+    n = len(key_cols[0])
+    order = np.empty(n, dtype=np.uint64)
+    bounds = np.empty(n + 1, dtype=np.uint64)
+    cast = [np.ascontiguousarray(k, dtype=np.int64) for k in key_cols]
+    if any(len(k) != n for k in cast):
+        raise ValueError("qx_group key columns differ in length")
+    ptrs = (ctypes.c_void_p * len(cast))(*[k.ctypes.data for k in cast])
+    ng = lib.df_qx_group(ptrs, len(cast), n, order, bounds)
+    if ng < 0:
+        raise ValueError("df_qx_group refused its arguments")
+    return order.astype(np.int64), bounds[:ng + 1].astype(np.int64), int(ng)
+
+
+def _u64_view(a: np.ndarray) -> np.ndarray:
+    if a.dtype == np.int64 and a.flags.c_contiguous:
+        return a.view(np.uint64)
+    return np.ascontiguousarray(a, dtype=np.uint64)
+
+
+def qx_agg_f64(vals: np.ndarray, order: np.ndarray, bounds: np.ndarray,
+               op: int) -> np.ndarray:
+    """Fused gather + segmented reduce: out[g] = op over
+    vals[order[i]] for i in [bounds[g], bounds[g+1]); op 0 sum, 1 min,
+    2 max. Accumulates in row order within each group, as ufunc.reduceat
+    over the gathered array does, so the two give the same bits."""
+    lib = load()
+    n_groups = len(bounds) - 1
+    if n_groups < 0 or op not in (0, 1, 2):
+        raise ValueError("qx_agg_f64 needs n_groups + 1 bounds and op 0-2")
+    vals = np.ascontiguousarray(vals, dtype=np.float64)
+    order64, bounds64 = _u64_view(order), _u64_view(bounds)
+    if n_groups and (int(bounds64.max()) > len(order64)
+                     or (len(order64) and int(order64.max()) >= len(vals))):
+        raise ValueError("qx_agg_f64 bounds or order out of range")
+    out = np.empty(n_groups, dtype=np.float64)
+    lib.df_qx_agg_f64(vals, order64, bounds64, n_groups, op, out)
+    return out
+
+
+def qx_sel_range(col: np.ndarray, lo, hi) -> np.ndarray:
+    """Ascending uint64 positions of the rows with lo <= col[i] <= hi
+    (both inclusive, both representable in col's integer dtype)."""
+    lib = load()
+    if col.dtype.kind not in "iu" or col.itemsize not in (1, 2, 4, 8):
+        raise ValueError(f"qx_sel_range over a {col.dtype} column")
+    col = np.ascontiguousarray(col)
+    udt = np.dtype(f"u{col.itemsize}")
+    lo_bits = int(np.asarray(lo, dtype=col.dtype).view(udt))
+    hi_bits = int(np.asarray(hi, dtype=col.dtype).view(udt))
+    out = np.empty(len(col), dtype=np.uint64)
+    m = lib.df_qx_sel_cmp(col.ctypes.data, col.itemsize,
+                          1 if col.dtype.kind == "i" else 0, len(col),
+                          lo_bits, hi_bits, out)
+    return out[:m]
+
+
+def qx_sel_isin(col: np.ndarray, ids: np.ndarray) -> np.ndarray:
+    """Ascending uint64 positions of the rows whose id is in ids (a
+    native hash set): the dictionary-id IN / LIKE filter as positions."""
+    lib = load()
+    col = np.ascontiguousarray(col, dtype=np.uint32)
+    ids = np.ascontiguousarray(ids, dtype=np.uint32)
+    out = np.empty(len(col), dtype=np.uint64)
+    m = lib.df_qx_sel_isin_u32(col, len(col), ids, len(ids), out)
+    return out[:m]
+
+
+def qx_gather(src: np.ndarray, idx: np.ndarray) -> np.ndarray:
+    """out[j] = src[idx[j]] for a 1/2/4/8-byte dtype."""
+    lib = load()
+    if src.itemsize not in (1, 2, 4, 8) or src.dtype.hasobject:
+        raise ValueError(f"qx_gather over a {src.dtype} column")
+    src = np.ascontiguousarray(src)
+    idx = np.ascontiguousarray(idx, dtype=np.uint64)
+    if len(idx) and int(idx.max()) >= len(src):
+        raise IndexError("qx_gather index out of range")
+    out = np.empty(len(idx), dtype=src.dtype)
+    lib.df_qx_gather(src.ctypes.data, src.itemsize, idx, len(idx),
+                     out.ctypes.data)
+    return out
+
+
+def qx_isin_u32(col: np.ndarray, ids: np.ndarray) -> np.ndarray:
+    """Bool mask of col[i] in ids through a native hash set (O(n), where
+    np.isin sorts): the encoded-predicate filter of the mask path."""
+    lib = load()
+    col = np.ascontiguousarray(col, dtype=np.uint32)
+    ids = np.ascontiguousarray(ids, dtype=np.uint32)
+    mask = np.empty(len(col), dtype=np.uint8)
+    lib.df_qx_isin_u32(col, len(col), ids, len(ids), mask)
+    return mask.astype(bool)

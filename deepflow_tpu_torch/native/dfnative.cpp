@@ -14,10 +14,10 @@
 extern "C" {
 
 // ABI contract between this library and the ctypes bindings in
-// native/__init__.py. Bump on ANY change to an exported signature or to
-// the DfSpanCols layout in ingest.cpp; load() refuses a library whose
-// version differs.
-int32_t df_abi_version() { return 1; }
+// native/__init__.py. Bump on ANY change to an exported signature (the
+// qexec.cpp kernels' included) or to the DfSpanCols layout in ingest.cpp;
+// load() refuses a library whose version differs.
+int32_t df_abi_version() { return 2; }
 
 // ---------------------------------------------------------------------------
 // Dictionary: string <-> uint32 id, id 0 reserved for ""

@@ -1,36 +1,83 @@
 """Vectorized DF-SQL executor over ColumnarTables.
 
-Own copy of the serial path of ``deepflow_tpu/query/engine.py``: the AST
-compiles to numpy ops over the table's columns, with LIKE, IN and
-string comparisons resolved over the (small) dictionaries rather than
-the rows. Execution stays dictionary-ENCODED end to end: the WHERE
-filters ids, grouping, HAVING, ORDER BY and LIMIT run on int columns
-(ORDER BY over a str column through the dictionary's collation ranks),
-and only the final rows are decoded to strings. DF_QUERY_ENCODED=0
-selects the decode-then-Python-sort path the reference keeps for parity
-checks.
+Own copy of ``deepflow_tpu/query/engine.py`` over the port's store: the
+AST compiles to numpy ops over one view of the table (its chunks and the
+dictionaries that decode them), with LIKE, IN and string comparisons
+resolved over the (small) dictionaries rather than the rows. Execution
+stays dictionary-ENCODED end to end: the WHERE filters ids, grouping,
+HAVING, ORDER BY and LIMIT run on int columns (ORDER BY over a str
+column through the dictionary's collation ranks), and only the final
+rows are decoded to strings. DF_QUERY_ENCODED=0 selects the
+decode-then-Python-sort path the reference keeps for parity checks.
+
+The native kernels of ``native/qexec.cpp`` do the filter (index lists),
+the GROUP BY (one hash pass) and the aggregates (a fused gather and
+segmented reduce), each chosen per call against its numpy path by a
+learned cost model (``query/costmodel.py``); both give the same bytes.
+Aggregate queries over two morsels or more may run morsel-parallel on
+the scan pool (``query/pool.py``; DF_QUERY_PARALLEL, DF_QUERY_THREADS,
+DF_QUERY_MORSEL_ROWS), each morsel folding into an encoded partial
+(``execute_partial`` / ``combine_partials`` / ``merge_partials``), with
+the serial scan's bytes. Every scan reports its spans to the active
+query trace (``query/qtrace.py``).
 
 Aggregates add in float64, as the reference's do: a Sum of integers is
 exact while it stays below 2**53. Groups come out in ascending key
 order; rows that tie on every ORDER BY key have no specified order.
 
-Left out: the native hash-group and filter kernels with their learned
-cost model, morsel-parallel scans, zone and bloom pruning (the port's
-chunks keep no zone maps), the partial aggregates of federation, and the
-query-trace spans.
+Left out: zone and bloom pruning (the port's chunks keep no zone maps,
+so every scan reads every live chunk; the ``prune`` span reports zero
+candidates), and federation's use of the partials (the distributed
+partial cache and the wire context of a query trace).
 """
 
 from __future__ import annotations
 
 import os
 import re
+import time
 from dataclasses import dataclass
 
 import numpy as np
 
+from deepflow_tpu_torch import native
 from deepflow_tpu_torch.query import catalog
+from deepflow_tpu_torch.query import pool as qpool
+from deepflow_tpu_torch.query import qtrace
 from deepflow_tpu_torch.query import sql as S
+from deepflow_tpu_torch.query.costmodel import KernelCostModel
+from deepflow_tpu_torch.query.sketch import HistogramSketch
 from deepflow_tpu_torch.store.table import ColumnarTable, TableView
+
+# Shared group-kernel cost model: native hash-group vs numpy lexsort.
+# Initial overheads seed the choice before observations exist (ctypes
+# marshalling makes the native call more expensive per invocation).
+_COST = KernelCostModel(overhead_ns={"native": 15_000.0, "numpy": 2_000.0})
+
+# Index-list filtering: native kernels vs numpy masks. The native kernels
+# win on selective predicates (survivors come back as positions, later
+# conjuncts touch only them); numpy wins on tiny chunks where ctypes
+# dispatch dominates.
+_FILT = KernelCostModel(overhead_ns={"native": 15_000.0, "numpy": 1_000.0})
+
+# Serial vs morsel-parallel scan degree. The parallel kernel pays pool
+# dispatch plus a partial-combine pass, seeded here as fixed overhead so
+# small queries keep choosing the serial plan before any observation
+# exists; the coefficients are then learned per machine like _COST's.
+_DEGREE = KernelCostModel(kernels=("serial", "parallel"),
+                          overhead_ns={"parallel": 500_000.0})
+
+_MORSEL_ROWS = 1 << 16  # fixed-row morsel size: one sealed chunk
+
+
+def _morsel_rows() -> int:
+    env = os.environ.get("DF_QUERY_MORSEL_ROWS", "").strip()
+    if env:
+        try:
+            return max(256, int(env))
+        except ValueError:
+            pass
+    return _MORSEL_ROWS
 
 
 @dataclass
@@ -113,6 +160,19 @@ def _like_to_pred(pattern: str):
             parts.append(re.escape(ch))
     rx = re.compile("^" + "".join(parts) + "$", re.DOTALL)
     return lambda s: rx.match(s) is not None
+
+
+def _isin(arr: np.ndarray, vals) -> np.ndarray:
+    """np.isin, routed through the native hash-set kernel when the column
+    is dictionary-id shaped (uint32) and the literal set is pure ints:
+    the encoded-predicate path for IN / LIKE pushdown."""
+    if arr.dtype == np.uint32 and len(arr):
+        vl = np.asarray(vals)
+        if (vl.ndim == 1 and vl.dtype.kind in "iu" and len(vl)
+                and int(vl.min()) >= 0
+                and int(vl.max()) <= 0xFFFFFFFF):
+            return native.qx_isin_u32(arr, vl.astype(np.uint32))
+    return np.isin(arr, vals)
 
 
 def _case_select(conds, vals, default, shape) -> _Val:
@@ -203,12 +263,12 @@ class _Env:
         if op == "IN":
             lv = self.eval(e.left)
             vals = [self._coerce_lit(lv, lit.value) for lit in e.right]
-            return _Val(np.isin(lv.arr, vals), "bool")
+            return _Val(_isin(lv.arr, vals), "bool")
         if op == "LIKE":
             lv = self.eval(e.left)
             if lv.kind == "str":
                 ids = lv.dict_.match_ids(_like_to_pred(e.right.value))
-                return _Val(np.isin(lv.arr, ids), "bool")
+                return _Val(_isin(lv.arr, ids), "bool")
             if lv.kind == "enum":
                 pred = _like_to_pred(e.right.value)
                 ids = [i for i, s in enumerate(lv.labels) if pred(s)]
@@ -226,7 +286,7 @@ class _Env:
                     pred = _ORD_PREDS[op](rv_raw.value)
                     if lv.kind == "str":
                         ids = lv.dict_.match_ids(pred)
-                        return _Val(np.isin(lv.arr, ids), "bool")
+                        return _Val(_isin(lv.arr, ids), "bool")
                     if lv.kind == "enum":
                         ids = [i for i, s in enumerate(lv.labels)
                                if pred(s)]
@@ -314,15 +374,19 @@ _ORD_PREDS = {
 
 # -- aggregation ------------------------------------------------------------
 
+_SEG_OPS = {"SUM": 0, "MIN": 1, "MAX": 2}
+
+
 def _group_reduce(name: str, af: np.ndarray, order: np.ndarray,
                   bounds_full: np.ndarray) -> np.ndarray:
-    """Gather + segmented reduce over float64 values: each group's values
-    accumulate in row order."""
+    """Fused gather + segmented reduce over float64 values (native
+    df_qx_agg_f64). It accumulates in row order within each group, as
+    ufunc.reduceat over the gathered array does, so the two give the
+    same bits; it runs outside the interpreter lock, which is where the
+    morsel pool's parallelism comes from."""
     if len(bounds_full) <= 1:
         return np.empty(0, dtype=np.float64)
-    g = af.astype(np.float64)[order]
-    ufn = {"SUM": np.add, "MIN": np.minimum, "MAX": np.maximum}[name]
-    return ufn.reduceat(g, bounds_full[:-1])
+    return native.qx_agg_f64(af, order, bounds_full, _SEG_OPS[name])
 
 
 def _agg_eval(e, env: _Env, order: np.ndarray, bounds: np.ndarray) -> _Val:
@@ -490,10 +554,12 @@ def _split_conjuncts(e) -> list:
     return [e]
 
 
-def _needed_cols(table: ColumnarTable, query: S.Select) -> set[str]:
+def _needed_cols(table: ColumnarTable, query: S.Select,
+                 extra_cols: set[str] | None = None) -> set[str]:
     """Every store column the query references, validated against the
-    schema."""
-    needed: set[str] = set()
+    schema. extra_cols: more columns the caller needs (a partial's LAST
+    wants `time` beside the value)."""
+    needed: set[str] = set(extra_cols or ())
     for item in query.items:
         _collect_cols(item.expr, needed)
     for g in query.group_by:
@@ -630,35 +696,80 @@ def _filter_prims(table: ColumnarTable, where) -> list[tuple] | None:
     return prims
 
 
-def _select_rows(cols: dict[str, np.ndarray], n: int,
-                 prims: list[tuple]) -> np.ndarray:
-    """Ascending survivor positions for an all-primitive WHERE. The
-    first primitive selects over the full column; each later one gathers
-    only the current survivors and refines (`idx = idx[sub_idx]`), so a
-    selective leading conjunct makes the rest near-free. Ascending
-    positions make `arr[idx]` equal `arr[mask]` on the generic path."""
+def _select_rows(get_col, sz: int, prims: list[tuple]) -> np.ndarray:
+    """Ascending survivor positions (uint64) for an all-primitive WHERE.
+    The first primitive selects over the full column; each later one
+    gathers only the current survivors and refines (`idx = idx[sub]`),
+    so a selective leading conjunct makes the rest near-free. Ascending
+    positions make `arr[idx]` equal `arr[mask]` on the generic path. The
+    native index kernels or numpy's nonzero, chosen per size by _FILT."""
     idx = None  # None = every row still alive
     for kind, col, a, b in prims:
         if kind == "never":
-            return np.empty(0, dtype=np.int64)
+            return np.empty(0, dtype=np.uint64)
         if idx is not None and not len(idx):
             return idx
-        sub = cols[col] if idx is None else cols[col][idx]
-        m = np.isin(sub, a) if kind == "isin" else (sub >= a) & (sub <= b)
-        out = np.flatnonzero(m)
+        arr = get_col(col)
+        n = sz if idx is None else len(idx)
+        kern = _FILT.choose(n)
+        t0 = time.perf_counter_ns()
+        if kern == "native":
+            sub = arr if idx is None else native.qx_gather(arr, idx)
+            out = (native.qx_sel_range(sub, a, b) if kind == "range"
+                   else native.qx_sel_isin(sub, a))
+        else:
+            sub = arr if idx is None else arr[idx]
+            m = (_isin(sub, a) if kind == "isin"
+                 else (sub >= a) & (sub <= b))
+            out = np.nonzero(m)[0].astype(np.uint64)
+        _FILT.observe(kern, n, time.perf_counter_ns() - t0)
         idx = out if idx is None else idx[out]
-    return np.arange(n) if idx is None else idx
+    if idx is None:
+        idx = np.arange(sz, dtype=np.uint64)
+    return idx
 
 
-def _materialize(table: TableView,
-                 query: S.Select) -> tuple[_Env, int]:
+# -- scan accounting -----------------------------------------------------------
+#
+# The reference prunes scan units by zone maps and skip indexes before a
+# scan, and accounts the decision to its query.scan hop ledger, to
+# /v1/health's scan counters and to the trace's prune span. The port's
+# chunks keep no zone maps, so every scan reads every live chunk: no
+# chunk is a pruning candidate, the counters stay 0, and the prune span
+# reports zero candidates.
+
+_SCAN_STATS = {"scanned_segments": 0, "pruned_segments": 0,
+               "bloom_checked": 0, "bloom_pruned": 0}
+
+
+def scan_stats() -> dict:
+    """The reference's segment-pruning counters (all 0 here)."""
+    return dict(_SCAN_STATS)
+
+
+def _scan_plan(table: TableView) -> list[dict]:
+    """One scan's chunk list, traced as the reference's prune span:
+    shared by the serial and morsel-parallel paths."""
+    chunks = list(table.chunks)
+    qtrace.span(f"prune {table.name}", candidates=0, zone_pruned=0,
+                bloom_checked=0, bloom_pruned=0,
+                scanned=len(chunks)).finish()
+    return chunks
+
+
+def _chunk_rows(ch: dict) -> int:
+    return len(next(iter(ch.values()))) if ch else 0
+
+
+def _materialize(table: TableView, query: S.Select,
+                 extra_cols: set[str] | None = None) -> tuple[_Env, int]:
     """WHERE-filter each chunk of the table's view, and materialize every
     referenced column of the surviving rows, in chunk order, into one
     _Env. Rows appended while the query runs are not in the view."""
-    needed = _needed_cols(table, query)
+    needed = _needed_cols(table, query, extra_cols)
     # no chunk: the WHERE still runs once, over empty columns, so a bad
     # condition fails on an empty table too
-    chunks = table.chunks or [
+    chunks = _scan_plan(table) or [
         {name: np.empty(0, dtype=table.columns[name].np_dtype)
          for name in needed}]
     prims = None if query.where is None else _filter_prims(table,
@@ -666,13 +777,13 @@ def _materialize(table: TableView,
     parts: dict[str, list[np.ndarray]] = {name: [] for name in needed}
     n = 0
     for cols in chunks:
-        m = len(next(iter(cols.values()), ()))
+        m = _chunk_rows(cols)
         if query.where is None:
             idx = slice(None)
             n += m
         else:
             if prims is not None:
-                idx = _select_rows(cols, m, prims)
+                idx = _select_rows(cols.__getitem__, m, prims)
             else:
                 mask = _Env(table, cols).eval(query.where).arr
                 if mask.ndim == 0:  # WHERE with no column refs
@@ -703,21 +814,62 @@ def _sort_ranks(a: np.ndarray) -> np.ndarray:
     return inv.astype(np.int64)
 
 
-def _group_rows(arrs: list[np.ndarray]) -> tuple[np.ndarray, np.ndarray]:
-    """Group rows by the composite key over `arrs` (at least one row).
+def _group_rows(arrs: list[np.ndarray], first_occurrence: bool):
+    """Group rows by the composite key over `arrs`.
 
-    -> (order, starts): order is a row permutation with groups contiguous
-    in ascending-lexicographic key order and original row order within
-    each group; starts are the groups' first positions in order."""
+    -> (order, bounds_full, n_groups): order is a row permutation with
+    groups contiguous and original row order within each group;
+    bounds_full has n_groups+1 entries. Group order is first-occurrence
+    when `first_occurrence` else ascending-lexicographic over the keys.
+
+    The native O(n) hash-group kernel or numpy's lexsort, chosen by the
+    learned cost model; both are reshaped to the requested group order,
+    so callers see one deterministic layout."""
     ranks = [_sort_ranks(np.ascontiguousarray(a)) for a in arrs]
-    n = len(ranks[0])
+    n = len(ranks[0]) if ranks else 0
+    if n == 0:
+        return (np.empty(0, dtype=np.int64), np.zeros(1, dtype=np.int64), 0)
+    kernel = _COST.choose(n)
+    t0 = time.perf_counter_ns()
+    if kernel == "native":
+        order, bounds_full, ng = native.qx_group(ranks)
+        if not first_occurrence:
+            # reorder first-occurrence groups to ascending key order:
+            # lexsort the (one-per-group) representatives, then gather
+            reps = order[bounds_full[:-1]]
+            perm = np.lexsort([r[reps] for r in ranks][::-1])
+            order, bounds_full = _apply_group_perm(order, bounds_full, perm)
+        _COST.observe("native", n, time.perf_counter_ns() - t0)
+        return order, bounds_full, ng
     order = np.lexsort(ranks[::-1]).astype(np.int64)
     changed = np.zeros(n, dtype=bool)
     changed[0] = True
     for r in ranks:
         sr = r[order]
         changed[1:] |= sr[1:] != sr[:-1]
-    return order, np.flatnonzero(changed).astype(np.int64)
+    starts = np.flatnonzero(changed)
+    bounds_full = np.append(starts, n).astype(np.int64)
+    ng = len(starts)
+    if first_occurrence:
+        # stable argsort over each group's earliest row restores
+        # first-occurrence discovery order
+        perm = np.argsort(order[starts], kind="stable")
+        order, bounds_full = _apply_group_perm(order, bounds_full, perm)
+    _COST.observe("numpy", n, time.perf_counter_ns() - t0)
+    return order, bounds_full, ng
+
+
+def _apply_group_perm(order: np.ndarray, bounds_full: np.ndarray,
+                      perm: np.ndarray):
+    """Permute whole groups of `order` by `perm` without a Python loop:
+    gather each group's segment to its new contiguous position."""
+    starts = bounds_full[:-1]
+    lengths = (bounds_full[1:] - starts)[perm]
+    new_bounds = np.concatenate(
+        ([0], np.cumsum(lengths))).astype(np.int64)
+    offsets = starts[perm] - new_bounds[:-1]
+    idx = np.repeat(offsets, lengths) + np.arange(len(order))
+    return order[idx], new_bounds
 
 
 def _group_order(env: _Env, query: S.Select,
@@ -736,7 +888,8 @@ def _group_order(env: _Env, query: S.Select,
             if a.ndim == 0:  # GROUP BY a literal: one group
                 a = np.broadcast_to(a, (n_rows,))
             arrs.append(a)
-        return _group_rows(arrs)
+        order, bounds_full, _ = _group_rows(arrs, first_occurrence=False)
+        return order, bounds_full[:-1]
     # one group over all rows; zero rows -> zero groups
     return (np.arange(n_rows),
             np.zeros(1 if n_rows else 0, dtype=np.int64))
@@ -826,16 +979,180 @@ def _finish_columnar(query: S.Select, names: list[str],
 
 # -- execution --------------------------------------------------------------
 
-def execute(table: ColumnarTable, query: S.Select | str) -> QueryResult:
+# -- morsel-parallel scan ----------------------------------------------------
+
+def _int_exact(table: TableView, e) -> bool:
+    """True when the expression is guaranteed integer-valued, so
+    re-adding per-morsel float64 partial sums is bit-exact regardless
+    of the split."""
+    if isinstance(e, S.Lit):
+        return isinstance(e.value, (bool, int))
+    if isinstance(e, S.Col):
+        spec = table.columns.get(e.name)
+        return spec is not None and spec.kind[0] in "iu"
+    if isinstance(e, S.Func) and e.name == "TIME":
+        return True
+    if isinstance(e, S.BinOp) and e.op in ("+", "-", "*"):
+        return (not isinstance(e.right, tuple)
+                and _int_exact(table, e.left)
+                and _int_exact(table, e.right))
+    return False
+
+
+def _parallel_sites_ok(table: TableView, query: S.Select,
+                       sites: list) -> bool:
+    """Aggregates whose morsel split is provably byte-identical to the
+    serial scan. LAST is out (cross-morsel timestamp ties), PERCENTILE
+    is out (the combine folds sketches, the serial path np.percentile),
+    SUM/AVG over float-valued expressions are out (re-association)."""
+    for s in sites:
+        if s.name == "COUNT" and s.distinct:
+            if len(s.args) != 1 or not isinstance(s.args[0], S.Col):
+                return False
+            spec = table.columns.get(s.args[0].name)
+            if spec is None or spec.kind != "str":
+                return False  # only dict-id sets union encoded-exactly
+            continue
+        if s.name in ("COUNT", "MIN", "MAX"):
+            continue
+        if s.name in ("SUM", "AVG"):
+            if (s.args and not isinstance(s.args[0], S.Star)
+                    and not _int_exact(table, s.args[0])):
+                return False
+            continue
+        return False
+    return True
+
+
+def _plan_parallel(table: TableView, query: S.Select):
+    """-> (kernel, sites, est_rows) when the morsel path applies to this
+    query, else None. DF_QUERY_PARALLEL=1/0 forces the choice; otherwise
+    the learned degree model decides, behind a hard floor so queries
+    smaller than two morsels never pay pool dispatch."""
+    if qpool.in_worker():
+        return None
+    force = os.environ.get("DF_QUERY_PARALLEL", "").strip()
+    if force == "0" or qpool.configured_threads() <= 1:
+        return None
+    if not _is_agg_query(query):
+        return None
+    try:
+        sites = _agg_sites(query)
+    except QueryError:
+        return None
+    if not _parallel_sites_ok(table, query, sites):
+        return None
+    est = len(table)
+    if force != "1":
+        if est < 2 * _morsel_rows():
+            return None
+        kernel = _DEGREE.choose(est)
+    else:
+        kernel = "parallel"
+    return kernel, sites, est
+
+
+def _execute_parallel(table: TableView, query: S.Select,
+                      sites: list) -> QueryResult | None:
+    """Morsel-parallel aggregate scan. Fixed-row morsels over the view's
+    chunks fan out on the shared pool; each worker filters, groups and
+    reduces its slice into an encoded partial (the native kernels run
+    concurrently, outside the interpreter lock), and the partials fold
+    through the exact combine machinery.
+
+    Byte-identity: morsels preserve row order, so the per-group state
+    each one emits starts from the same row order the serial scan sees;
+    combine_partials(ascending=True) yields ONE partial whose groups
+    are ascending-unique — re-grouping that in merge_partials is a
+    fixed point, its per-site folds run over single-element groups
+    (identity), and ascending group order is exactly the serial
+    executor's _group_order contract. Returns None to fall back when
+    the pool is unavailable.
+
+    The reference also returns None when a dictionary was compacted
+    mid-scan, since its morsels encode against the table's live
+    dictionaries. Every partial here encodes against the view's
+    dictionaries, which a compaction never changes (it swaps in new
+    ones and new chunks together), so that check has nothing to catch."""
+    p = qpool.get_pool()
+    if p is None:
+        return None
+    needed = _needed_cols(table, query)
+    chunks = _scan_plan(table)
+    mrows = _morsel_rows()
+    morsels: list[tuple[dict, int, int]] = []
+    for ch in chunks:
+        sz = _chunk_rows(ch)
+        for lo in range(0, sz, mrows):
+            morsels.append((ch, lo, min(lo + mrows, sz)))
+    dict_names = {id(d): cn for cn, d in table.dicts.items()}
+    qtrace.annotate(morsels=len(morsels), degree=p.threads)
+    where = query.where
+    prims = _filter_prims(table, where) if where is not None else None
+
+    def scan_one(m):
+        ch, lo, hi = m
+        n = hi - lo
+        if prims is not None:
+            idx = _select_rows(lambda c: ch[c][lo:hi], n, prims)
+            cols = {name: ch[name][lo:hi][idx] for name in needed}
+            n = len(idx)
+        elif where is not None:
+            cols = {name: ch[name][lo:hi] for name in needed}
+            mask = _Env(table, cols).eval(where).arr
+            if mask.ndim == 0:  # no column refs: scalar condition
+                mask = np.full(n, bool(mask))
+            mask = mask.astype(bool)
+            cols = {k: v[mask] for k, v in cols.items()}
+            n = int(mask.sum())
+        else:
+            cols = {name: ch[name][lo:hi] for name in needed}
+        return _partial_from_env(table, query, sites, _Env(table, cols),
+                                 n, encoded=True, dict_names=dict_names,
+                                 used={})
+
+    parts = p.map(scan_one, morsels) if morsels else []
+    combined = combine_partials(table, query, parts, ascending=True)
+    return merge_partials(table, query, [combined])
+
+
+# -- execution --------------------------------------------------------------
+
+def execute(table: ColumnarTable | TableView,
+            query: S.Select | str) -> QueryResult:
     """Run one query over one view of the table: its chunks and the
     dictionaries that decode them, as of one moment."""
     table = table.view()
     if isinstance(query, str):
         query = S.parse(query)
     query = _normalize(table, query)
+    with qtrace.span(f"scan {table.name}") as tsp:
+        return _execute_traced(table, query, tsp)
+
+
+def _execute_traced(table: TableView, query: S.Select,
+                    tsp) -> QueryResult:
     if os.environ.get("DF_QUERY_ENCODED", "1") == "0":
+        tsp.annotate(mode="decoded")
         return _execute_decoded(table, query)
-    return _execute_encoded(table, query)
+    plan = _plan_parallel(table, query)
+    t0 = time.perf_counter_ns() if plan is not None else 0
+    if plan is not None and plan[0] == "parallel":
+        try:
+            res = _execute_parallel(table, query, plan[1])
+        except _FastUnsupported:
+            res = None
+        if res is not None:
+            _DEGREE.observe("parallel", plan[2],
+                            time.perf_counter_ns() - t0)
+            tsp.annotate(mode="parallel", est_rows=plan[2])
+            return res
+        plan = None  # fell back; don't skew the serial coefficient
+    tsp.annotate(mode="serial")
+    res = _execute_encoded(table, query)
+    if plan is not None:
+        _DEGREE.observe("serial", plan[2], time.perf_counter_ns() - t0)
+    return res
 
 
 def _outputs(query: S.Select, env: _Env, n_rows: int):
@@ -898,3 +1215,978 @@ def _order_limit(query: S.Select, names: list[str],
     if query.limit is not None:
         rows = rows[:query.limit]
     return rows
+
+
+# -- partial aggregates + merge reduce --------------------------------------
+#
+# execute_partial() runs a query's aggregates over one set of rows into
+# per-group mergeable states; combine_partials() folds partials of
+# disjoint row sets into one; merge_partials() applies HAVING / ORDER BY
+# / LIMIT over them. Every side derives the partial's layout from the
+# same _normalize()d query, so a partial carries no schema. The morsel-
+# parallel scan (one partial per morsel) and the query cache (one per
+# 60 s bucket) are built on them; the reference's federation is too.
+# Distributive aggregates (SUM/COUNT/MIN/MAX) fold exactly, AVG travels
+# as (sum, count), COUNT(DISTINCT) as per-group distinct values, LAST as
+# (value, time) pairs resolved by max time, PERCENTILE as a mergeable
+# histogram sketch (the one approximate merge).
+#
+# execute_partial(encoded=True) keeps dictionary/enum columns as INT id
+# arrays plus a {"dicts": {col: [gen, len]}} manifest, valid against the
+# dictionaries of the view it scanned; encoded=False keys groups by
+# DECODED values. _inflate_partial() lowers any mix of the two forms to
+# decoded values, and the generic merge reduces them.
+
+def _agg_sites(query: S.Select) -> list[S.Func]:
+    """Unique aggregate call sites (by display name) across SELECT items
+    and HAVING, in discovery order."""
+    sites: list[S.Func] = []
+    seen: set[str] = set()
+
+    def walk(e) -> None:
+        if isinstance(e, S.Func):
+            if e.name in S.AGG_FUNCS:
+                k = S.expr_name(e)
+                if k not in seen:
+                    seen.add(k)
+                    sites.append(e)
+                return
+            for a in e.args:
+                walk(a)
+        elif isinstance(e, S.BinOp):
+            walk(e.left)
+            if not isinstance(e.right, tuple):
+                walk(e.right)
+        elif isinstance(e, S.Not):
+            walk(e.expr)
+        elif isinstance(e, S.Case):
+            for c, v in e.whens:
+                walk(c)
+                walk(v)
+            if e.default is not None:
+                walk(e.default)
+
+    for item in query.items:
+        walk(item.expr)
+    if query.having is not None:
+        walk(query.having)
+    return sites
+
+
+def _decode_slice(v: _Val, arr: np.ndarray) -> list:
+    w = _Val(arr, v.kind, labels=v.labels)
+    w.dict_ = v.dict_
+    return w.decoded()
+
+
+def _partial_state(site: S.Func, env: _Env, order: np.ndarray,
+                   starts: np.ndarray, ends: np.ndarray) -> list:
+    """Per-group mergeable state for one aggregate site (JSON-able,
+    decoded — the cross-version compat form)."""
+    n_groups = len(starts)
+    if n_groups == 0:
+        return []
+    name = site.name
+    if name == "COUNT" and site.distinct:
+        if len(site.args) != 1 or isinstance(site.args[0], S.Star):
+            raise QueryError("COUNT(DISTINCT) takes exactly one column")
+        v = env.eval(site.args[0])
+        a = v.arr[order]
+        return [_decode_slice(v, np.unique(a[s0:e0]))
+                for s0, e0 in zip(starts, ends)]
+    if site.distinct:
+        raise QueryError(
+            f"DISTINCT is only supported in Count(), not {name}")
+    if name == "COUNT" or not site.args or isinstance(site.args[0], S.Star):
+        return (ends - starts).astype(np.float64).tolist()
+    v = env.eval(site.args[0])
+    if name == "LAST":
+        idx = order[ends - 1]
+        vals = _decode_slice(v, v.arr[idx])
+        # pair with the row's timestamp so the merge picks the globally
+        # newest candidate; without a time column the pick is arbitrary
+        t = (env.cols["time"][idx].astype(np.int64).tolist()
+             if "time" in env.cols else [0] * n_groups)
+        return [[val, int(tt)] for val, tt in zip(vals, t)]
+    if v.kind in ("str", "enum", "obj"):
+        raise QueryError(
+            f"{name} over string column {S.expr_name(site.args[0])!r}")
+    a = v.arr.astype(np.float64)[order]
+    if name == "SUM":
+        return np.add.reduceat(a, starts).tolist()
+    if name == "AVG":
+        s = np.add.reduceat(a, starts)
+        return [[float(x), int(c)] for x, c in zip(s, ends - starts)]
+    if name == "MIN":
+        return np.minimum.reduceat(a, starts).tolist()
+    if name == "MAX":
+        return np.maximum.reduceat(a, starts).tolist()
+    if name == "PERCENTILE":
+        out = []
+        for s0, e0 in zip(starts, ends):
+            sk = HistogramSketch()
+            sk.add_many(a[s0:e0])
+            out.append(sk.to_dict())
+        return out
+    raise QueryError(f"unknown aggregate {name}")
+
+
+def _partial_state_enc(site: S.Func, env: _Env, order: np.ndarray,
+                       starts: np.ndarray, ends: np.ndarray,
+                       dict_names: dict, used: dict):
+    """Encoded per-site state: float64 arrays for the distributive
+    aggregates, dictionary-id sets for COUNT(DISTINCT str). LAST and
+    PERCENTILE keep their decoded forms (value+timestamp pairs and
+    sketches merge on decoded/abstract state anyway)."""
+    n_groups = len(starts)
+    if n_groups == 0:
+        return []
+    name = site.name
+    if name == "COUNT" and site.distinct:
+        if len(site.args) != 1 or isinstance(site.args[0], S.Star):
+            raise QueryError("COUNT(DISTINCT) takes exactly one column")
+        v = env.eval(site.args[0])
+        key = dict_names.get(id(v.dict_)) if v.kind == "str" else None
+        if key is not None:
+            used[key] = v.dict_
+            a = v.arr[order]
+            return {"ed": key,
+                    "sets": [np.unique(a[s0:e0]).astype(np.int64).tolist()
+                             for s0, e0 in zip(starts, ends)]}
+        return _partial_state(site, env, order, starts, ends)
+    if site.distinct:
+        raise QueryError(
+            f"DISTINCT is only supported in Count(), not {name}")
+    if name == "COUNT" or not site.args or isinstance(site.args[0], S.Star):
+        return {"a": (ends - starts).astype(np.float64)}
+    if name in ("LAST", "PERCENTILE"):
+        return _partial_state(site, env, order, starts, ends)
+    v = env.eval(site.args[0])
+    if v.kind in ("str", "enum", "obj"):
+        raise QueryError(
+            f"{name} over string column {S.expr_name(site.args[0])!r}")
+    af = v.arr.astype(np.float64)
+    bounds_full = np.append(starts, len(order))
+    if name == "SUM":
+        return {"a": _group_reduce("SUM", af, order, bounds_full)}
+    if name == "AVG":
+        return {"avg": [_group_reduce("SUM", af, order, bounds_full),
+                        (ends - starts).astype(np.float64)]}
+    if name == "MIN":
+        return {"a": _group_reduce("MIN", af, order, bounds_full)}
+    if name == "MAX":
+        return {"a": _group_reduce("MAX", af, order, bounds_full)}
+    raise QueryError(f"unknown aggregate {name}")
+
+
+def _enc_col(v: _Val, arr: np.ndarray, dict_names: dict, used: dict):
+    """Self-describing encoded column form for a group-key/item slice, or
+    None when only the decoded list form can represent it ('obj')."""
+    if v.kind == "str" and v.dict_ is not None:
+        key = dict_names.get(id(v.dict_))
+        if key is not None:
+            used[key] = v.dict_
+            return {"e": key,
+                    "ids": np.ascontiguousarray(arr, dtype=np.uint32)}
+        return None
+    if v.kind == "enum":
+        return {"n": arr.astype(np.int64), "labels": list(v.labels)}
+    if v.kind == "bool":
+        return {"a": arr.astype(np.uint8), "k": "bool"}
+    if v.kind == "num":
+        return {"a": np.ascontiguousarray(arr)}
+    return None
+
+
+def _partial_from_env(table: TableView, query: S.Select, sites: list,
+                      env: _Env, n_rows: int, *, encoded: bool,
+                      dict_names: dict, used: dict) -> dict:
+    """Group one materialized scope (a whole table scan or a single
+    morsel) and build its per-group partial states. The dicts manifest
+    is NOT attached here — the caller reads gen/len once after every
+    scope it built is done (see execute_partial)."""
+    order, bounds = _group_order(env, query, n_rows)
+    starts = bounds
+    ends = np.append(bounds[1:], len(order))
+    n_groups = len(bounds)
+    keys = []
+    for g in query.group_by:
+        v = env.eval(g)
+        arr = v.arr[order][bounds] if n_groups else v.arr[:0]
+        col = _enc_col(v, arr, dict_names, used) if encoded else None
+        keys.append(col if col is not None else _decode_slice(v, arr))
+    items: dict[str, object] = {}
+    for idx, item in enumerate(query.items):
+        if S.contains_agg(item.expr):
+            continue
+        v = env.eval(item.expr)
+        if v.arr.ndim == 0:   # bare literal: broadcast over groups
+            if encoded and v.kind == "num":
+                items[str(idx)] = {"a": np.full(n_groups, v.arr.item())}
+            else:
+                items[str(idx)] = [v.arr.item()] * n_groups
+            continue
+        arr = v.arr[order][bounds] if n_groups else v.arr[:0]
+        col = _enc_col(v, arr, dict_names, used) if encoded else None
+        items[str(idx)] = col if col is not None else _decode_slice(v, arr)
+    if encoded:
+        site_states = {S.expr_name(s): _partial_state_enc(
+            s, env, order, starts, ends, dict_names, used) for s in sites}
+    else:
+        site_states = {S.expr_name(s): _partial_state(s, env, order,
+                                                      starts, ends)
+                       for s in sites}
+    return {"kind": "agg", "n_groups": n_groups, "keys": keys,
+            "items": items, "sites": site_states}
+
+
+def execute_partial(table: ColumnarTable | TableView, query: S.Select | str,
+                    *, encoded: bool = False) -> dict:
+    """One row set's half of a partial-aggregate query, over one view of
+    the table. Row queries run fully (ORDER/LIMIT pushed down: a top-k of
+    one row set is a superset of its share of the global top-k);
+    aggregate queries return per-group partial states.
+
+    encoded=False keys groups by DECODED values. encoded=True keeps
+    dictionary ids plus a {"dicts": {col: [gen, len]}} manifest instead,
+    valid against the dictionaries of the view it scanned."""
+    table = table.view()
+    if isinstance(query, str):
+        query = S.parse(query)
+    if not _is_agg_query(_normalize(table, query)):
+        res = execute(table, query)
+        return {"kind": "rows", "columns": res.columns,
+                "values": res.values}
+    query = _normalize(table, query)
+    if encoded and os.environ.get("DF_QUERY_ENCODED", "1") == "0":
+        encoded = False
+    sites = _agg_sites(query)
+    needs_time = (any(s.name == "LAST" for s in sites)
+                  and "time" in table.columns)
+    with qtrace.span(f"scan.partial {table.name}", encoded=encoded) as sp:
+        return _execute_partial_traced(table, query, sites, needs_time,
+                                       encoded, sp)
+
+
+def _execute_partial_traced(table: TableView, query: S.Select,
+                            sites, needs_time: bool, encoded: bool,
+                            sp) -> dict:
+    env, n_rows = _materialize(
+        table, query, extra_cols={"time"} if needs_time else None)
+    sp.annotate(rows=n_rows)
+    dict_names = ({id(d): cn for cn, d in table.dicts.items()}
+                  if encoded else {})
+    used: dict = {}  # dict-columns actually shipped as ids
+    out = _partial_from_env(table, query, sites, env, n_rows,
+                            encoded=encoded, dict_names=dict_names,
+                            used=used)
+    if used:
+        # The reference re-reads the table's dictionaries here and redoes
+        # the partial decoded when a compaction swapped one mid-build. A
+        # view pins its dictionaries with its chunks, so the ids above
+        # are the view's; gen/len are read AFTER building, and len covers
+        # every id shipped (dictionaries only grow within a gen).
+        out["dicts"] = {key: list(d.sync_state()[:2])
+                        for key, d in used.items()}
+    return out
+
+
+def _merge_site(site: S.Func, states: list) -> object:
+    """Combine one aggregate site's per-partial states into the final
+    scalar for one group."""
+    name = site.name
+    if name == "COUNT" and site.distinct:
+        u: set = set()
+        for s in states:
+            u.update(s)
+        return float(len(u))
+    if name in ("COUNT", "SUM"):
+        return float(sum(states))
+    if name == "MIN":
+        return float(min(states))
+    if name == "MAX":
+        return float(max(states))
+    if name == "AVG":
+        tot = sum(s for s, _ in states)
+        n = sum(c for _, c in states)
+        return float(tot) / max(n, 1)
+    if name == "LAST":
+        return max(states, key=lambda vt: vt[1])[0]
+    if name == "PERCENTILE":
+        merged = HistogramSketch()
+        for d in states:
+            merged.merge(HistogramSketch.from_dict(d))
+        p_arg = site.args[1] if len(site.args) == 2 else None
+        if not isinstance(p_arg, S.Lit):
+            raise QueryError(
+                "Percentile(col, p) needs a literal p to federate")
+        return merged.percentile(float(p_arg.value))
+    raise QueryError(f"unknown aggregate {name}")
+
+
+_CMP = {"=": lambda l, r: l == r, "!=": lambda l, r: l != r,
+        "<": lambda l, r: l < r, "<=": lambda l, r: l <= r,
+        ">": lambda l, r: l > r, ">=": lambda l, r: l >= r}
+
+
+def _scalar_eval(e, agg_vals: dict, named: dict):
+    """Evaluate one merged group's output expression: aggregate sites
+    resolve to their merged values, everything else must be a group key
+    (or shipped non-agg item) looked up by display name."""
+    if isinstance(e, S.Lit):
+        return e.value
+    if isinstance(e, S.Func) and e.name in S.AGG_FUNCS:
+        return agg_vals[S.expr_name(e)]
+    if not S.contains_agg(e):
+        key = S.expr_name(e)
+        if key in named:
+            return named[key]
+        if isinstance(e, (S.Col, S.Func)):
+            raise QueryError(
+                f"federated merge cannot evaluate {key!r}: "
+                "not a group key or aggregate")
+    if isinstance(e, S.Not):
+        return not _scalar_eval(e.expr, agg_vals, named)
+    if isinstance(e, S.Case):
+        for c, v in e.whens:
+            if _scalar_eval(c, agg_vals, named):
+                return _scalar_eval(v, agg_vals, named)
+        return (_scalar_eval(e.default, agg_vals, named)
+                if e.default is not None else None)
+    if isinstance(e, S.BinOp):
+        op = e.op
+        if op == "AND":
+            return bool(_scalar_eval(e.left, agg_vals, named)) and \
+                bool(_scalar_eval(e.right, agg_vals, named))
+        if op == "OR":
+            return bool(_scalar_eval(e.left, agg_vals, named)) or \
+                bool(_scalar_eval(e.right, agg_vals, named))
+        if op == "IN":
+            lv = _scalar_eval(e.left, agg_vals, named)
+            return lv in tuple(lit.value for lit in e.right)
+        if op == "LIKE":
+            lv = _scalar_eval(e.left, agg_vals, named)
+            return _like_to_pred(e.right.value)(str(lv))
+        left = _scalar_eval(e.left, agg_vals, named)
+        right = _scalar_eval(e.right, agg_vals, named)
+        if op in _CMP:
+            return _CMP[op](left, right)
+        lf, rf = float(left), float(right)
+        if op == "+":
+            return lf + rf
+        if op == "-":
+            return lf - rf
+        if op == "*":
+            return lf * rf
+        if op == "/":
+            return lf / rf if rf else 0.0
+        raise QueryError(f"unknown op {op}")
+    raise QueryError(f"cannot merge-evaluate {e!r}")
+
+
+# -- encoded merge: vectorized fast path with decoded fallback --------------
+
+class _FastUnsupported(Exception):
+    """Internal: the vectorized merge/combine can't represent this query
+    or partial form exactly — fall back to the decoded generic path."""
+
+
+def _table_dict(table: ColumnarTable | TableView, key: str):
+    d = table.dicts.get(key)
+    if d is None:
+        raise QueryError(f"unknown dictionary column {key!r} in partial")
+    return d
+
+
+def _col_form(c, size: int):
+    """-> (values_arr, int64_key_arr, meta) for an encoded partial column;
+    raises _FastUnsupported for decoded lists / float keys / unknown
+    forms (those take the generic merge)."""
+    if isinstance(c, dict):
+        if "e" in c:
+            a = np.asarray(c["ids"])
+            if len(a) != size:
+                raise _FastUnsupported
+            return a, a.astype(np.int64), ("e", c["e"])
+        if "n" in c:
+            a = np.asarray(c["n"])
+            if len(a) != size:
+                raise _FastUnsupported
+            return a, a.astype(np.int64), ("n", tuple(c["labels"]))
+        if "a" in c:
+            a = np.asarray(c["a"])
+            if len(a) != size or a.dtype.kind not in "iub":
+                raise _FastUnsupported
+            return a, a.astype(np.int64), ("a", c.get("k", "num"))
+    raise _FastUnsupported
+
+
+def _form_val(cat: np.ndarray, meta: tuple, sel, decoder) -> _Val:
+    """Rebuild a _Val from a concatenated encoded column at `sel`."""
+    kindm, info = meta
+    a = cat[sel]
+    if kindm == "e":
+        v = _Val(a.astype(np.uint32), "str")
+        v.dict_ = decoder(info)
+        return v
+    if kindm == "n":
+        return _Val(a, "enum", labels=tuple(info))
+    if info == "bool":
+        return _Val(a, "bool")
+    return _Val(a)
+
+
+def _as_bool(a: np.ndarray, n: int) -> np.ndarray:
+    a = np.asarray(a)
+    if a.ndim == 0:
+        return np.full(n, bool(a))
+    return a.astype(bool)
+
+
+def _vec_eval(e, aggs: dict, named: dict, n: int) -> _Val:
+    """Vectorized mirror of _scalar_eval over merged group columns.
+    Raises _FastUnsupported wherever array semantics could diverge from
+    the scalar path (CASE without vectorizable shape, cross-dictionary
+    string compares, LIKE over non-strings) so exactness is preserved by
+    falling back rather than approximating."""
+    if isinstance(e, S.Lit):
+        if isinstance(e.value, str):
+            raise _FastUnsupported
+        return _Val(np.asarray(e.value, dtype=np.float64))
+    if isinstance(e, S.Func) and e.name in S.AGG_FUNCS:
+        k = S.expr_name(e)
+        if k not in aggs:
+            raise _FastUnsupported
+        return _Val(aggs[k])
+    if not S.contains_agg(e):
+        k = S.expr_name(e)
+        if k in named:
+            return named[k]
+        if isinstance(e, (S.Col, S.Func)):
+            raise QueryError(
+                f"federated merge cannot evaluate {k!r}: "
+                "not a group key or aggregate")
+    if isinstance(e, S.Not):
+        v = _vec_eval(e.expr, aggs, named, n)
+        return _Val(~_as_bool(v.arr, n), "bool")
+    if isinstance(e, S.BinOp):
+        op = e.op
+        if op in ("AND", "OR"):
+            l = _as_bool(_vec_eval(e.left, aggs, named, n).arr, n)
+            r = _as_bool(_vec_eval(e.right, aggs, named, n).arr, n)
+            return _Val(l & r if op == "AND" else l | r, "bool")
+        if op == "IN":
+            lv = _vec_eval(e.left, aggs, named, n)
+            vals = tuple(lit.value for lit in e.right)
+            if lv.kind == "str":
+                ids = [lv.dict_.lookup(s) for s in vals
+                       if isinstance(s, str)]
+                ids = np.asarray([i for i in ids if i is not None],
+                                 dtype=np.uint32)
+                return _Val(_isin(lv.arr, ids), "bool")
+            if lv.kind == "enum":
+                ids = [i for i, s in enumerate(lv.labels) if s in vals]
+                return _Val(np.isin(lv.arr, ids), "bool")
+            if lv.kind == "obj":
+                raise _FastUnsupported
+            return _Val(np.isin(lv.arr, vals), "bool")
+        if op == "LIKE":
+            lv = _vec_eval(e.left, aggs, named, n)
+            pred = _like_to_pred(e.right.value)
+            if lv.kind == "str":
+                return _Val(_isin(lv.arr, lv.dict_.match_ids(pred)),
+                            "bool")
+            if lv.kind == "enum":
+                ids = [i for i, s in enumerate(lv.labels) if pred(s)]
+                return _Val(np.isin(lv.arr, ids), "bool")
+            raise _FastUnsupported
+        if op in _CMP:
+            rv_raw = e.right
+            if isinstance(rv_raw, S.Lit) and isinstance(rv_raw.value, str):
+                if op not in ("=", "!="):
+                    raise _FastUnsupported
+                lv = _vec_eval(e.left, aggs, named, n)
+                if lv.kind == "str":
+                    sid = lv.dict_.lookup(rv_raw.value)
+                    code = (np.uint32(sid) if sid is not None
+                            else np.uint32(0xFFFFFFFF))
+                elif lv.kind == "enum":
+                    try:
+                        code = lv.labels.index(rv_raw.value)
+                    except ValueError:
+                        code = -1
+                else:
+                    raise _FastUnsupported
+                res = lv.arr == code if op == "=" else lv.arr != code
+                return _Val(np.asarray(res), "bool")
+            lv = _vec_eval(e.left, aggs, named, n)
+            rv = _vec_eval(rv_raw, aggs, named, n)
+            if (lv.kind in ("str", "enum", "obj")
+                    or rv.kind in ("str", "enum", "obj")):
+                if (lv.kind == "str" and rv.kind == "str"
+                        and lv.dict_ is rv.dict_ and op in ("=", "!=")):
+                    res = (lv.arr == rv.arr if op == "="
+                           else lv.arr != rv.arr)
+                    return _Val(res, "bool")
+                raise _FastUnsupported
+            return _Val(np.asarray(_CMP[op](lv.arr, rv.arr)), "bool")
+        lv = _vec_eval(e.left, aggs, named, n)
+        rv = _vec_eval(e.right, aggs, named, n)
+        if lv.kind not in ("num", "bool") or rv.kind not in ("num", "bool"):
+            raise _FastUnsupported
+        l = lv.arr.astype(np.float64)
+        r = rv.arr.astype(np.float64)
+        if op == "+":
+            return _Val(l + r)
+        if op == "-":
+            return _Val(l - r)
+        if op == "*":
+            return _Val(l * r)
+        if op == "/":
+            with np.errstate(divide="ignore", invalid="ignore"):
+                return _Val(np.where(r != 0, l / np.where(r == 0, 1, r),
+                                     0.0))
+        raise _FastUnsupported
+    raise _FastUnsupported
+
+
+def _merge_fast(table: TableView, query: S.Select, names: list[str],
+                sites: list, site_keys: list[str], parts: list[dict],
+                decoder) -> QueryResult:
+    """Vectorized merge over fully-encoded partials: concatenate group-key
+    int columns, one hash-group pass, reduceat the site arrays. Any form
+    it can't fold exactly raises _FastUnsupported (caller falls back)."""
+    live = [p for p in parts if int(p.get("n_groups", 0)) > 0]
+    if not live:
+        return QueryResult(columns=names, values=[])
+    sizes = [int(p["n_groups"]) for p in live]
+    K = len(query.group_by)
+    # group-key columns, concatenated across partials
+    key_vals: list[tuple[np.ndarray, tuple]] = []
+    key_ints: list[np.ndarray] = []
+    for ki in range(K):
+        vals, ints, metas = [], [], set()
+        for p, sz in zip(live, sizes):
+            cols = p.get("keys", [])
+            if ki >= len(cols):
+                raise _FastUnsupported
+            a, ia, m = _col_form(cols[ki], sz)
+            vals.append(a)
+            ints.append(ia)
+            metas.add(m)
+        if len(metas) != 1:
+            raise _FastUnsupported  # mixed encoded and decoded forms
+        key_vals.append((np.concatenate(vals), metas.pop()))
+        key_ints.append(np.concatenate(ints))
+    # shipped non-aggregate item columns
+    item_cols: dict[str, tuple[np.ndarray, tuple]] = {}
+    for idx, item in enumerate(query.items):
+        if S.contains_agg(item.expr):
+            continue
+        si = str(idx)
+        vals, metas = [], set()
+        for p, sz in zip(live, sizes):
+            c = p.get("items", {}).get(si)
+            if c is None:
+                raise _FastUnsupported
+            a, _ia, m = _col_form(c, sz)
+            vals.append(a)
+            metas.add(m)
+        if len(metas) != 1:
+            raise _FastUnsupported
+        item_cols[si] = (np.concatenate(vals), metas.pop())
+    # site states: only plain-array and (sum,count) forms vectorize
+    site_states: dict[str, tuple[str, list]] = {}
+    for s, sk in zip(sites, site_keys):
+        form = None
+        acc = []
+        for p, sz in zip(live, sizes):
+            st = p.get("sites", {}).get(sk)
+            if not isinstance(st, dict):
+                raise _FastUnsupported
+            if "a" in st:
+                f = "a"
+                a = np.asarray(st["a"], dtype=np.float64)
+                if len(a) != sz:
+                    raise _FastUnsupported
+                acc.append((a,))
+            elif "avg" in st:
+                f = "avg"
+                ss = np.asarray(st["avg"][0], dtype=np.float64)
+                cc = np.asarray(st["avg"][1], dtype=np.float64)
+                if len(ss) != sz or len(cc) != sz:
+                    raise _FastUnsupported
+                acc.append((ss, cc))
+            else:
+                raise _FastUnsupported
+            if form is None:
+                form = f
+            elif form != f:
+                raise _FastUnsupported
+        site_states[sk] = (form, acc)
+
+    total = sum(sizes)
+    if K == 0:
+        order = np.arange(total, dtype=np.int64)
+        bounds_full = np.array([0, total], dtype=np.int64)
+        ng = 1
+    else:
+        # first-occurrence order == the generic merge's discovery order
+        order, bounds_full, ng = _group_rows(key_ints,
+                                             first_occurrence=True)
+    starts = bounds_full[:-1]
+    rep = order[starts]
+
+    aggs: dict[str, np.ndarray] = {}
+    for s, sk in zip(sites, site_keys):
+        form, acc = site_states[sk]
+        if form == "a":
+            cat = np.concatenate([a for (a,) in acc])[order]
+            if s.name in ("COUNT", "SUM"):
+                aggs[sk] = np.add.reduceat(cat, starts)
+            elif s.name == "MIN":
+                aggs[sk] = np.minimum.reduceat(cat, starts)
+            elif s.name == "MAX":
+                aggs[sk] = np.maximum.reduceat(cat, starts)
+            else:
+                raise _FastUnsupported
+        else:
+            if s.name != "AVG":
+                raise _FastUnsupported
+            ssum = np.concatenate([x for x, _c in acc])[order]
+            scnt = np.concatenate([c for _x, c in acc])[order]
+            ms = np.add.reduceat(ssum, starts)
+            mc = np.add.reduceat(scnt, starts)
+            aggs[sk] = ms / np.maximum(mc, 1)
+
+    named: dict[str, _Val] = {}
+    for gexpr, (cat, meta) in zip(query.group_by, key_vals):
+        named[S.expr_name(gexpr)] = _form_val(cat, meta, rep, decoder)
+    item_vals: dict[str, _Val] = {}
+    for idx, item in enumerate(query.items):
+        si = str(idx)
+        if si in item_cols:
+            cat, meta = item_cols[si]
+            v = _form_val(cat, meta, rep, decoder)
+            item_vals[si] = v
+            named[S.expr_name(item.expr)] = v
+            if item.alias:
+                named[item.alias] = v
+    n_cur = ng
+    if query.having is not None:
+        hv = _vec_eval(query.having, aggs, named, n_cur)
+        mask = _as_bool(hv.arr, n_cur)
+        aggs = {k: v[mask] for k, v in aggs.items()}
+        named = {k: _slice_val(v, mask) for k, v in named.items()}
+        item_vals = {k: _slice_val(v, mask) for k, v in item_vals.items()}
+        n_cur = int(mask.sum())
+    outs = []
+    for idx, item in enumerate(query.items):
+        if not S.contains_agg(item.expr):
+            outs.append(item_vals[str(idx)])
+            continue
+        v = _vec_eval(item.expr, aggs, named, n_cur)
+        if v.arr.ndim == 0:
+            v = _Val(np.full(n_cur, v.arr.item()), v.kind)
+        outs.append(v)
+    return _finish_columnar(query, names, outs)
+
+
+def _col_decoded(c, decoder) -> list:
+    """Lower any partial column form to the decoded list form."""
+    if isinstance(c, list):
+        return c
+    if isinstance(c, dict):
+        if "e" in c:
+            ids = np.asarray(c["ids"], dtype=np.uint32)
+            return decoder(c["e"]).decode_many(ids)
+        if "n" in c:
+            lab = list(c["labels"])
+            return [lab[int(i)] for i in np.asarray(c["n"]).tolist()]
+        if "a" in c:
+            a = np.asarray(c["a"])
+            if c.get("k") == "bool":
+                return a.astype(bool).tolist()
+            return a.tolist()
+    raise QueryError("unrecognized partial column form")
+
+
+def _inflate_partial(p: dict, decoder) -> dict:
+    """Lower an encoded partial to the decoded form so the generic merge
+    can join it against decoded partials."""
+    if not p or p.get("kind") != "agg":
+        return p
+    q = dict(p)
+    q["keys"] = [_col_decoded(c, decoder) for c in p.get("keys", [])]
+    q["items"] = {k: _col_decoded(v, decoder)
+                  for k, v in p.get("items", {}).items()}
+    sites = {}
+    for sk, st in p.get("sites", {}).items():
+        if isinstance(st, dict):
+            if "a" in st:
+                sites[sk] = np.asarray(st["a"], dtype=np.float64).tolist()
+            elif "avg" in st:
+                s_arr = np.asarray(st["avg"][0], dtype=np.float64)
+                c_arr = np.asarray(st["avg"][1], dtype=np.float64)
+                sites[sk] = [[float(x), int(c)]
+                             for x, c in zip(s_arr.tolist(),
+                                             c_arr.tolist())]
+            elif "ed" in st:
+                d = decoder(st["ed"])
+                sites[sk] = [d.decode_many(np.asarray(g, dtype=np.uint32))
+                             for g in st["sets"]]
+            else:
+                raise QueryError("unrecognized partial site form")
+        else:
+            sites[sk] = st
+    q["sites"] = sites
+    return q
+
+
+def merge_partials(table: ColumnarTable | TableView,
+                   query: S.Select | str, partials: list[dict], *,
+                   decoder=None) -> QueryResult:
+    """Reduce step over execute_partial() results. HAVING / ORDER BY /
+    LIMIT apply only here, at the top.
+
+    Fully-encoded partials (ids in the decoder's dictionaries) merge on
+    the vectorized int-key fast path; anything else is lowered to
+    decoded values and joins on the generic per-group path. decoder maps
+    a dict column name to a Dictionary; it defaults to the dictionaries
+    of ``table`` (pass the view the partials scanned)."""
+    with qtrace.span("merge.partials", partials=len(partials)):
+        return _merge_partials_impl(table, query, partials,
+                                    decoder=decoder)
+
+
+def _merge_partials_impl(table: ColumnarTable | TableView,
+                         query: S.Select | str,
+                         partials: list[dict], *,
+                         decoder=None) -> QueryResult:
+    if isinstance(query, str):
+        query = S.parse(query)
+    query = _normalize(table, query)
+    names = [i.alias or S.expr_name(i.expr) for i in query.items]
+    parts = [p for p in partials if p]
+    if not _is_agg_query(query):
+        rows = []
+        for p in parts:
+            if p.get("kind") != "rows":
+                raise QueryError("shard returned mismatched partial kind")
+            rows.extend(list(r) for r in p.get("values", []))
+        return QueryResult(columns=names,
+                           values=_order_limit(query, names, rows))
+    for p in parts:
+        if p.get("kind") != "agg":
+            raise QueryError("shard returned mismatched partial kind")
+    sites = _agg_sites(query)
+    site_keys = [S.expr_name(s) for s in sites]
+    if decoder is None:
+        decoder = lambda key: _table_dict(table, key)  # noqa: E731
+    if os.environ.get("DF_QUERY_ENCODED", "1") != "0":
+        try:
+            return _merge_fast(table, query, names, sites, site_keys,
+                               parts, decoder)
+        except _FastUnsupported:
+            pass
+    parts = [_inflate_partial(p, decoder) for p in parts]
+    groups: dict[tuple, dict] = {}
+    group_seq: list[tuple] = []
+    for p in parts:
+        keys = p.get("keys", [])
+        for gi in range(int(p.get("n_groups", 0))):
+            kt = tuple(col[gi] for col in keys)
+            g = groups.get(kt)
+            if g is None:
+                g = groups[kt] = {
+                    "items": {k: v[gi]
+                              for k, v in p.get("items", {}).items()},
+                    "sites": {sk: [] for sk in site_keys}}
+                group_seq.append(kt)
+            for sk in site_keys:
+                g["sites"][sk].append(p["sites"][sk][gi])
+    rows = []
+    for kt in group_seq:
+        g = groups[kt]
+        merged = {sk: _merge_site(s, g["sites"][sk])
+                  for s, sk in zip(sites, site_keys)}
+        named: dict[str, object] = {}
+        for gexpr, kv in zip(query.group_by, kt):
+            named[S.expr_name(gexpr)] = kv
+        for idx, item in enumerate(query.items):
+            if not S.contains_agg(item.expr):
+                v = g["items"].get(str(idx))
+                named[S.expr_name(item.expr)] = v
+                if item.alias:
+                    named[item.alias] = v
+        if query.having is not None and \
+                not _scalar_eval(query.having, merged, named):
+            continue
+        rows.append([
+            (g["items"].get(str(idx))
+             if not S.contains_agg(item.expr)
+             else _scalar_eval(item.expr, merged, named))
+            for idx, item in enumerate(query.items)])
+    return QueryResult(columns=names,
+                       values=_order_limit(query, names, rows))
+
+
+def combine_partials(table: ColumnarTable | TableView,
+                     query: S.Select | str,
+                     parts: list[dict], *, ascending: bool = False) -> dict:
+    """Fold several ENCODED partials over disjoint row sets (per-time-
+    bucket cache slices, per-morsel scan results) into ONE partial equal
+    to a single scan of their union. Exact for every supported site form
+    — including PERCENTILE, whose histogram-sketch merge is bin-exact
+    (only the percentile() readout approximates). LAST is excluded:
+    cross-bucket timestamp ties could resolve differently than a single
+    scan. Raises _FastUnsupported for anything it can't fold exactly.
+
+    ascending=True emits groups in ascending key order instead of
+    first-occurrence — the morsel-parallel path needs the combined
+    partial to match the serial executor's _group_order layout so the
+    final merge is byte-identical."""
+    if isinstance(query, str):
+        query = S.parse(query)
+    query = _normalize(table, query)
+    if not _is_agg_query(query):
+        raise _FastUnsupported
+    sites = _agg_sites(query)
+    site_keys = [S.expr_name(s) for s in sites]
+    if any(s.name == "LAST" for s in sites):
+        raise _FastUnsupported
+    for p in parts:
+        if not p or p.get("kind") != "agg":
+            raise _FastUnsupported
+    live = [p for p in parts if int(p.get("n_groups", 0)) > 0]
+    K = len(query.group_by)
+    item_ids = [str(i) for i, it in enumerate(query.items)
+                if not S.contains_agg(it.expr)]
+    if not live:
+        return {"kind": "agg", "n_groups": 0,
+                "keys": [[] for _ in range(K)],
+                "items": {si: [] for si in item_ids},
+                "sites": {sk: [] for sk in site_keys}}
+    sizes = [int(p["n_groups"]) for p in live]
+    key_vals, key_ints = [], []
+    for ki in range(K):
+        vals, ints, metas = [], [], set()
+        for p, sz in zip(live, sizes):
+            a, ia, m = _col_form(p.get("keys", [])[ki], sz)
+            vals.append(a)
+            ints.append(ia)
+            metas.add(m)
+        if len(metas) != 1:
+            raise _FastUnsupported
+        key_vals.append((np.concatenate(vals), metas.pop()))
+        key_ints.append(np.concatenate(ints))
+    item_cols = {}
+    for si in item_ids:
+        vals, metas = [], set()
+        for p, sz in zip(live, sizes):
+            c = p.get("items", {}).get(si)
+            if c is None:
+                raise _FastUnsupported
+            a, _ia, m = _col_form(c, sz)
+            vals.append(a)
+            metas.add(m)
+        if len(metas) != 1:
+            raise _FastUnsupported
+        item_cols[si] = (np.concatenate(vals), metas.pop())
+
+    total = sum(sizes)
+    if K == 0:
+        order = np.arange(total, dtype=np.int64)
+        bounds_full = np.array([0, total], dtype=np.int64)
+        ng = 1
+    else:
+        order, bounds_full, ng = _group_rows(
+            key_ints, first_occurrence=not ascending)
+    starts = bounds_full[:-1]
+    ends = bounds_full[1:]
+    rep = order[starts]
+
+    def rebuild(cat, meta):
+        kindm, info = meta
+        a = cat[rep]
+        if kindm == "e":
+            return {"e": info, "ids": a.astype(np.uint32)}
+        if kindm == "n":
+            return {"n": a.astype(np.int64), "labels": list(info)}
+        if info == "bool":
+            return {"a": a, "k": "bool"}
+        return {"a": a}
+
+    out_keys = [rebuild(cat, meta) for cat, meta in key_vals]
+    out_items = {si: rebuild(cat, meta)
+                 for si, (cat, meta) in item_cols.items()}
+    out_sites = {}
+    for s, sk in zip(sites, site_keys):
+        states = [p["sites"].get(sk) for p in live]
+        if s.name == "PERCENTILE":
+            if not all(isinstance(st, list) for st in states):
+                raise _FastUnsupported
+            cat = [d for st in states for d in st]
+            merged = []
+            for s0, e0 in zip(starts.tolist(), ends.tolist()):
+                hs = HistogramSketch()
+                for m in order[s0:e0].tolist():
+                    hs.merge(HistogramSketch.from_dict(cat[m]))
+                merged.append(hs.to_dict())
+            out_sites[sk] = merged
+            continue
+        if all(isinstance(st, dict) and "a" in st for st in states):
+            cat = np.concatenate(
+                [np.asarray(st["a"], dtype=np.float64)
+                 for st in states])[order]
+            if s.name in ("COUNT", "SUM"):
+                out_sites[sk] = {"a": np.add.reduceat(cat, starts)}
+            elif s.name == "MIN":
+                out_sites[sk] = {"a": np.minimum.reduceat(cat, starts)}
+            elif s.name == "MAX":
+                out_sites[sk] = {"a": np.maximum.reduceat(cat, starts)}
+            else:
+                raise _FastUnsupported
+            continue
+        if all(isinstance(st, dict) and "avg" in st for st in states):
+            if s.name != "AVG":
+                raise _FastUnsupported
+            ssum = np.concatenate(
+                [np.asarray(st["avg"][0], dtype=np.float64)
+                 for st in states])[order]
+            scnt = np.concatenate(
+                [np.asarray(st["avg"][1], dtype=np.float64)
+                 for st in states])[order]
+            out_sites[sk] = {"avg": [np.add.reduceat(ssum, starts),
+                                     np.add.reduceat(scnt, starts)]}
+            continue
+        if all(isinstance(st, dict) and "ed" in st for st in states):
+            ed_keys = {st["ed"] for st in states}
+            if len(ed_keys) != 1:
+                raise _FastUnsupported
+            cat = [g for st in states for g in st["sets"]]
+            merged = []
+            for s0, e0 in zip(starts.tolist(), ends.tolist()):
+                u: set = set()
+                for m in order[s0:e0].tolist():
+                    u.update(int(x) for x in cat[m])
+                merged.append(sorted(u))
+            out_sites[sk] = {"ed": ed_keys.pop(), "sets": merged}
+            continue
+        raise _FastUnsupported
+
+    out = {"kind": "agg", "n_groups": int(ng), "keys": out_keys,
+           "items": out_items, "sites": out_sites}
+    dicts: dict[str, list] = {}
+    for p in live:
+        for key, (g, ln) in (p.get("dicts") or {}).items():
+            cur = dicts.get(key)
+            if cur is None:
+                dicts[key] = [int(g), int(ln)]
+            elif cur[0] != int(g):
+                raise _FastUnsupported  # gen flip between slices
+            else:
+                cur[1] = max(cur[1], int(ln))
+    if dicts:
+        out["dicts"] = dicts
+    return out

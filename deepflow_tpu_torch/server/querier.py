@@ -10,9 +10,14 @@ Own copy of the local path of ``deepflow_tpu/server/querier.py``:
 ``tpu_steps``, ``tpu_step_critical_path``) build the reference's SQL
 text and run it through the engine; ``profile_tracing`` folds the CPU
 flame graph (``query/flamegraph.py``). Each has its POST route, with the
-reference's request bodies and answers. No federation, no rollup
-datasource, no query cache; EXPLAIN answers 400 (the query-trace spans
-it reports are not ported). ``GET /v1/health`` carries the server's own
+reference's request bodies and answers. A SELECT runs under a query
+trace (``query/qtrace.py``: parse, plan and execute spans, written into
+``deepflow_system.query_trace``) through the result and bucket-partial
+cache (``query/cache.py``); ``EXPLAIN`` answers with the plan,
+``EXPLAIN ANALYZE`` runs the query under a captured trace and answers
+with its stages. No federation and no rollup datasource. ``GET
+/v1/health`` carries the cache's, the scan pool's and the tracer's stats
+(``query_cache``, ``query``, ``query_trace``), the server's own
 self-telemetry (``selfmon``, ``stages``, ``pipeline``,
 ``ledger_imbalance``, ``wedges``) and the agents', read back from
 ``deepflow_system`` (``agents_selfmon``); a current wedge makes its
@@ -24,10 +29,14 @@ from __future__ import annotations
 import json
 import logging
 import threading
+import time
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
-from deepflow_tpu_torch.query import catalog, engine
+from deepflow_tpu_torch.query import catalog, engine, qtrace
+from deepflow_tpu_torch.query import pool as qpool
 from deepflow_tpu_torch.query import sql as S
+from deepflow_tpu_torch.query.cache import QueryCache
+from deepflow_tpu_torch.query.costmodel import KernelCostModel
 from deepflow_tpu_torch.query.engine import QueryError
 from deepflow_tpu_torch.query.flamegraph import (
     build_flame_tree, profile_flame_tree)
@@ -63,6 +72,20 @@ class QuerierAPI:
         self.db = db
         self.stats_provider = stats_provider or (lambda: {})
         self.telemetry = telemetry
+        # result + partial-aggregate cache behind POST /v1/query
+        self.query_cache = QueryCache(telemetry=telemetry)
+        # dogfooded query tracing: every served query writes its span
+        # tree into deepflow_system.query_trace through this tracer
+        self.qtracer = qtrace.QueryTracer(
+            telemetry, service=f"deepflow-querier-{db.shard_id}",
+            sink=self._qtrace_sink)
+        # per-stage costs observed by EXPLAIN ANALYZE runs feed the same
+        # EWMA cost-model machinery the kernel and degree choosers use
+        self.stage_cost = KernelCostModel(("plan", "execute"))
+
+    def _qtrace_sink(self, spans: list[dict]) -> None:
+        self.db.table("deepflow_system.query_trace") \
+            .append_rows(qtrace.rows_from_spans(spans))
 
     def health(self) -> dict:
         out = {
@@ -71,6 +94,18 @@ class QuerierAPI:
                        for name in self.db.tables()},
             "stats": self.stats_provider(),
         }
+        out["query_cache"] = self.query_cache.snapshot()
+        pool_stats = qpool.stats()
+        out["query"] = {
+            **engine.scan_stats(),  # the reference's pruning counters
+            "pool_busy": pool_stats["busy"],
+            "pool_threads": pool_stats["threads"],
+            "pool_dispatched": pool_stats["dispatched"],
+            "degree": engine._DEGREE.snapshot(),
+        }
+        # span counters + the query.trace hop ledger (emitted ==
+        # delivered + dropped + pending, as for every frame hop)
+        out["query_trace"] = self.qtracer.snapshot()
         wedged_stages: list[str] = []
         if self.telemetry is not None:
             selfmon = self.telemetry.snapshot()
@@ -129,9 +164,16 @@ class QuerierAPI:
 
     def query(self, body: dict) -> dict:
         """One DF-SQL statement: body {"sql", "db", "org_id"}; the answer
-        {"result": {"columns", "values"}, "debug": {"table"}}, or for SHOW
-        the catalog's table with {"debug": {"show"}}."""
-        stmt = S.parse_statement(body.get("sql", ""))
+        {"result": {"columns", "values"}, "debug": {"table"}}, for SHOW
+        the catalog's table with {"debug": {"show"}}, and for EXPLAIN
+        [ANALYZE] the plan and stages (``_explain``)."""
+        sql_text = body.get("sql", "")
+        # parse before the trace opens: it decides WHICH trace to open
+        # (EXPLAIN runs captured; SHOW is catalog introspection, never
+        # traced). The parse cost is re-attributed as a span below.
+        t0, c0 = time.time_ns(), time.thread_time_ns()
+        stmt = S.parse_statement(sql_text)
+        parse_t1, parse_c1 = time.time_ns(), time.thread_time_ns()
         if isinstance(stmt, S.Show):
             try:
                 result = catalog.show(stmt.what, stmt.table)
@@ -139,16 +181,126 @@ class QuerierAPI:
                 raise QueryError(
                     f"no such table {e.args[0]!r} for SHOW") from None
             return {"result": result, "debug": {"show": stmt.what}}
+        db_name = body.get("db", "")
         if isinstance(stmt, S.Explain):
-            raise QueryError(
-                "EXPLAIN is not supported by this server: it reports the "
-                "query-trace spans (query/qtrace.py), which are not ported")
-        table = self._resolve_table(stmt.table, body.get("db", ""))
+            return self._explain(body, stmt, db_name)
+        with self.qtracer.start_trace("query", kind="sql",
+                                      sql=sql_text[:200]):
+            self._parse_span(t0, c0, parse_t1, parse_c1)
+            return self._run_select(body, stmt, sql_text, db_name)
+
+    @staticmethod
+    def _parse_span(t0: int, c0: int, t1: int, c1: int) -> None:
+        """Re-attribute a parse that happened just before the trace
+        opened (statement routing needs the AST first)."""
+        sp = qtrace.span("parse")
+        if isinstance(sp, qtrace.Span):
+            sp.start_ns, sp.cpu_start_ns = t0, c0
+            sp.end_ns = t1
+            sp.cpu_ns = c1 - c0
+            sp._buf.add(sp)
+
+    def _plan(self, body: dict, select: S.Select, db_name: str):
+        """The plan span: resolve the table and scope it to the org."""
+        with qtrace.span("plan") as pl:
+            table = self._resolve_table(select.table, db_name)
+            org = body.get("org_id")
+            if org is not None:
+                self._org_scope(select, table, org)
+            pl.annotate(table=table.name, federated=False)
+        return table
+
+    def _run_select(self, body: dict, select: S.Select, sql_text: str,
+                    db_name: str) -> dict:
+        """Plan + execute one SELECT (the body of ``query()``, shared
+        with the EXPLAIN ANALYZE path, under whatever trace is open)."""
+        table = self._plan(body, select, db_name)
         org = body.get("org_id")
-        if org is not None:
-            self._org_scope(stmt, table, org)
-        result = engine.execute(table, stmt)
+        # org scoping rewrote the AST, not the text — fold it into the
+        # cache key so scoped variants of one SQL string don't collide
+        with qtrace.span("execute", path="local") as ex:
+            result = self.query_cache.execute(
+                table, sql_text, select=select,
+                extra_key=None if org is None else ("org", org))
+            ex.annotate(rows=len(result.values))
         return {"result": result.to_dict(), "debug": {"table": table.name}}
+
+    def _explain(self, body: dict, stmt: S.Explain, db_name: str) -> dict:
+        """EXPLAIN: plan only. EXPLAIN ANALYZE: run the query under a
+        CAPTURED trace and annotate the plan with observed wall/CPU per
+        stage; the observed stage costs feed the stage cost model."""
+        root = self.qtracer.start_trace(
+            "query", kind="explain", sql=stmt.sql[:200], capture=True)
+        with root:
+            if stmt.analyze:
+                self._run_select(body, stmt.select, stmt.sql, db_name)
+            else:
+                self._plan(body, stmt.select, db_name)
+        # E2E = the root span's wall (query work only; excludes the
+        # trace's own sink flush) — the number stage walls must sum to
+        total_ns = root.duration_ns
+        spans = root.trace_spans()
+        root_id = root.span_id
+        stages = []
+        for d in spans:
+            if d["parent_span_id"] != root_id:
+                continue
+            stages.append({"stage": d["name"],
+                           "wall_ms": round(d["duration_ns"] / 1e6, 3),
+                           "cpu_ms": round(d["cpu_ns"] / 1e6, 3),
+                           "status": d["status"],
+                           "detail": d["attrs"]})
+        stages.sort(key=lambda s: -s["wall_ms"])
+        plan: dict = {"analyze": stmt.analyze}
+        rows_out = 0
+        for d in spans:
+            a = d["attrs"]
+            nm = d["name"]
+            if nm == "plan":
+                plan.update({k: a[k] for k in
+                             ("table", "federated", "datasource")
+                             if k in a})
+            elif nm == "execute":
+                plan["path"] = a.get("path", "")
+                rows_out = int(a.get("rows", 0) or 0)
+            elif nm.startswith("prune"):
+                pr = plan.setdefault("prune", {"candidates": 0,
+                                               "zone_pruned": 0,
+                                               "bloom_checked": 0,
+                                               "bloom_pruned": 0,
+                                               "scanned": 0})
+                for k in pr:
+                    pr[k] += int(a.get(k, 0) or 0)
+            elif nm.startswith("scan"):
+                if "mode" in a:
+                    plan["scan_mode"] = a["mode"]
+                if "degree" in a:
+                    plan["morsel_degree"] = a["degree"]
+                if "morsels" in a:
+                    plan["morsels"] = a["morsels"]
+            elif nm == "cache.lookup":
+                plan["cache_layer"] = a.get("layer", "")
+                if "outcome" in a:
+                    plan["cache_outcome"] = a["outcome"]
+        if stmt.analyze:
+            for s in stages:
+                self.stage_cost.observe(s["stage"], max(rows_out, 1),
+                                        s["wall_ms"] * 1e6)
+        result_rows = [[s["stage"], s["wall_ms"], s["cpu_ms"],
+                        json.dumps(s["detail"], sort_keys=True,
+                                   default=str)]
+                       for s in stages]
+        explain = {"analyze": stmt.analyze, "trace_id": root.trace_id,
+                   "plan": plan, "stages": stages,
+                   "total_ms": round(total_ns / 1e6, 3),
+                   "spans": len(spans)}
+        if stmt.analyze:
+            explain["rows_returned"] = rows_out
+        return {"result": {"columns": ["stage", "wall_ms", "cpu_ms",
+                                       "detail"],
+                           "values": result_rows},
+                "explain": explain,
+                "debug": {"explain": True, "table": plan.get("table", "")}}
 
     def profile_tracing(self, body: dict) -> dict:
         """CPU flame graph of the sampled stacks; each of time_start,

@@ -4,8 +4,11 @@ Own copy of the profile path of ``deepflow_tpu/server/server.py::Server``:
 PROFILE, TPU_SPAN, STEP_METRICS and DFSTATS frames arrive over TCP,
 decode into the profile and self-stats tables through one shared dedup
 window, the receiver acks what was written, and the querier answers the
-profile queries over HTTP. One ``Telemetry("server")`` holds the
-receiver's and the decoders' hop ledgers and heartbeats, and a
+profile queries over HTTP, each server with its own query cache and
+query tracer, whose spans land in ``deepflow_system.query_trace`` (the
+database makes every schema table at start, that one included). One
+``Telemetry("server")`` holds the receiver's, the decoders' and the
+querier's hop ledgers and heartbeats, and a
 ``DeadmanDetector`` watches them; ``GET /v1/health`` shows both, and the
 agents' self-telemetry from their DFSTATS rows. A ``Janitor`` trims the
 tables to their TTLs (``server/janitor.py``); its stats show there too.

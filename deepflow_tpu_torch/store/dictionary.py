@@ -2,8 +2,9 @@
 
 Own copy of ``deepflow_tpu/store/dictionary.py::Dictionary``, with its
 native mirror for ``encode_arena`` (the columnar span decoder's string
-cells interned in C++) and the query side's ``match_ids`` and collation
-ranks. Id 0 is always the empty string.
+cells interned in C++), the query side's ``match_ids`` and collation
+ranks, and the change counters of ``sync_state`` that the query cache
+validates against. Id 0 is always the empty string.
 """
 
 from __future__ import annotations
@@ -34,6 +35,14 @@ class Dictionary:
         # strings are fetched back, all under _lock.
         self._native: NativeDict | None = None
         self._native_synced = 0
+        # change counters for exact cache invalidation (query/cache.py):
+        #   version — bumped on every insert; equal versions => equal content
+        #   gen     — bumped when id->string bindings are REPLACED (the
+        #             table's compaction builds the next gen). Same gen and
+        #             a longer dictionary is a pure append: ids handed out
+        #             before stay valid.
+        self.version = 0
+        self.gen = 0
 
     def __len__(self) -> int:
         return len(self._strings)
@@ -48,6 +57,7 @@ class Dictionary:
                 sid = len(self._strings)
                 self._strings.append(s)
                 self._str_to_id[s] = sid
+                self.version += 1
             return sid
 
     def encode_batch(self, values) -> np.ndarray:
@@ -65,6 +75,7 @@ class Dictionary:
                             sid = len(self._strings)
                             self._strings.append(s)
                             self._str_to_id[s] = sid
+                            self.version += 1
                         out[i] = sid
         return np.fromiter(out, dtype=np.uint32, count=len(out))
 
@@ -98,6 +109,7 @@ class Dictionary:
                             f"{self.name}: native dictionary misaligned")
                     self._str_to_id[s] = sid
                     self._strings.append(s)
+                    self.version += 1
                 self._native_synced = after
             except BaseException:
                 # the twin may hold entries Python never adopted: the
@@ -118,6 +130,12 @@ class Dictionary:
     def lookup(self, s: str) -> int | None:
         """The id of s without inserting it (query side)."""
         return self._str_to_id.get(s)
+
+    def sync_state(self) -> tuple[int, int, int]:
+        """(gen, len, version): the id-validity token the query cache and
+        the encoded partials carry."""
+        with self._lock:
+            return (self.gen, len(self._strings), self.version)
 
     def _snapshot(self) -> list[str]:
         with self._lock:

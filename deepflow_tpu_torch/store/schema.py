@@ -1,6 +1,7 @@
-"""Schemas of the tables the agent's frames land in.
+"""Schemas of the port's tables, where the agents' frames and the
+querier's own query traces land.
 
-Own copy of the profile and self-telemetry parts of
+Own copy of the profile, self-telemetry and query-trace parts of
 ``deepflow_tpu/store/schema.py``: the same table names, columns, kinds and
 defaults, so rows and queries mean the same in both packages. Times are
 u64 nanoseconds.
@@ -124,5 +125,20 @@ _table("deepflow_system.deepflow_system", [
     C("tag_json", "str"),
     C("value_name", "str"),
     C("value", "f64"),
+    *UNIVERSAL_TAGS,
+])
+
+# the querier's own query traces (query/qtrace.py): one row per span
+_table("deepflow_system.query_trace", [
+    C("time", "u64"),               # span start, epoch ns
+    C("trace_id", "str"),
+    C("span_id", "str"),
+    C("parent_span_id", "str"),
+    C("name", "str"),               # operation: query/plan/scan/prune...
+    C("service", "str"),            # deepflow-querier-<shard>
+    C("duration_ns", "u64"),
+    C("cpu_ns", "u64"),
+    C("status", "str"),             # ok | error
+    C("attr_json", "str"),          # prune counts, cache layer, degree...
     *UNIVERSAL_TAGS,
 ])

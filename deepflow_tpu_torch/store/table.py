@@ -5,9 +5,11 @@ profile tables use: ``ColumnSpec`` and a ``ColumnarTable`` that buffers
 appended row batches or column batches (dict column name -> np.ndarray)
 and seals them into an immutable chunk once ``chunk_rows`` rows or more
 are buffered, with the reference's retention (``trim_before``) and
-dictionary compaction (``compact_dictionaries``). Values are cast to the
-column's numpy dtype with ``astype``, so a value outside the column's
-width wraps, as the reference's columnar decode path does.
+dictionary compaction (``compact_dictionaries``), and its change tokens
+(``sync_state``, ``bucket_marks``), which the query cache validates
+against. Values are cast to the column's numpy dtype with ``astype``, so
+a value outside the column's width wraps, as the reference's columnar
+decode path does.
 """
 
 from __future__ import annotations
@@ -87,6 +89,24 @@ class ColumnarTable:
         # omits it, instead of the schema default (Database stamps
         # shard_id through this)
         self.fills: dict[str, object] = {}
+        # Write watermark: bumped on every mutation that can change a
+        # query answer (append, trim). The query cache keys on it for
+        # exact invalidation (query/cache.py). Beside it, per TIME BUCKET,
+        # the watermark of the last write into that bucket, so the
+        # partial-aggregate cache re-scans only the buckets that changed;
+        # _wide_mark stands for writes spanning too many buckets to mark
+        # one by one (a bucket's mark is max(its mark, _wide_mark)).
+        self.watermark = 0
+        self._bucket_marks: dict[int, int] = {}
+        self._wide_mark = 0
+        self._time_col = "time" if "time" in self.columns else None
+        # bucket width in the time column's unit (ns for u64, else s):
+        # 60 s buckets match a dashboard's refresh
+        if self._time_col is not None:
+            ns = self.columns[self._time_col].kind == "u64"
+            self._bucket_div = 60 * 1_000_000_000 if ns else 60
+        else:
+            self._bucket_div = 0
 
     def _fill(self, name: str, spec: ColumnSpec):
         return self.fills.get(name, "" if spec.kind == "str"
@@ -108,6 +128,42 @@ class ColumnarTable:
         if isinstance(v, list):
             return _cast(v, spec.np_dtype)
         return np.full(n, _cast([v], spec.np_dtype)[0])
+
+    # -- change tracking (query-cache invalidation) --------------------------
+
+    def _note_span(self, tmin: int, tmax: int) -> None:
+        """Mark the time buckets of [tmin, tmax] with the current
+        watermark. Caller holds self._lock (watermark already bumped)."""
+        if not self._bucket_div:
+            return
+        b0, b1 = int(tmin) // self._bucket_div, int(tmax) // self._bucket_div
+        if b1 - b0 >= 512:  # absurd span (poisoned clock): invalidate all
+            self._wide_mark = self.watermark
+            return
+        for b in range(b0, b1 + 1):
+            self._bucket_marks[b] = self.watermark
+
+    def _note_segment(self, seg: np.ndarray | None) -> None:
+        """Watermark bump + bucket marking for one appended time segment.
+        Caller holds self._lock."""
+        self.watermark += 1
+        if self._bucket_div and seg is not None and len(seg):
+            self._note_span(int(seg.min()), int(seg.max()))
+
+    def bucket_marks(self) -> tuple[int, dict[int, int], int, int]:
+        """(watermark, {bucket: mark}, wide_mark, bucket_div) snapshot."""
+        with self._lock:
+            return (self.watermark, dict(self._bucket_marks),
+                    self._wide_mark, self._bucket_div)
+
+    def sync_state(self) -> list:
+        """JSON-able change token: [watermark, [[dict name, gen, len], ...]].
+        Two equal tokens guarantee the same query answers and that
+        dictionary ids handed out before are still valid."""
+        with self._lock:
+            dicts = sorted((n, *d.sync_state()[:2])
+                           for n, d in self.dicts.items())
+            return [self.watermark, [list(t) for t in dicts]]
 
     def append_rows(self, rows: list[dict]) -> None:
         """Append a batch of row dicts. Missing columns take the fill."""
@@ -142,6 +198,7 @@ class ColumnarTable:
             self._open_rows += n
             self._open_chunk = None
             self.rows_written += n
+            self._note_segment(segs.get(self._time_col))
             if self._open_rows >= self.chunk_rows:
                 self._chunks.append(self._merge_open())
                 self._open = {name: [] for name in self.columns}
@@ -204,6 +261,17 @@ class ColumnarTable:
                     kept.append(ch)
             self._chunks = kept
             self.rows_written -= dropped
+            if dropped:
+                self.watermark += 1
+                if self._bucket_div and time_col == self._time_col:
+                    # a cached partial of a bucket the trim reached must
+                    # not keep serving the rows it dropped
+                    cut_b = int(cutoff) // self._bucket_div
+                    for b in self._bucket_marks:
+                        if b <= cut_b:
+                            self._bucket_marks[b] = self.watermark
+                else:
+                    self._wide_mark = self.watermark
         return dropped
 
     def compact_dictionaries(self, min_entries: int = 4096,
@@ -214,9 +282,12 @@ class ColumnarTable:
         high-cardinality column would otherwise grow without bound.
 
         New ids keep the old ids' order, so grouped and ordered answers
-        do not change. The remapped chunks and the new dictionary replace
-        the old ones under the lock; a view taken before keeps the old
-        pair. Returns {column: {"before": n, "after": n}}."""
+        do not change, and the table's watermark stays; the new
+        dictionary's gen is the old one's plus one, so cached encoded
+        partials and change tokens over the old ids go stale. The
+        remapped chunks and the new dictionary replace the old ones under
+        the lock; a view taken before keeps the old pair. Returns
+        {column: {"before": n, "after": n}}."""
         stats: dict[str, dict] = {}
         with self._lock:
             for name, d in list(self.dicts.items()):
@@ -235,8 +306,9 @@ class ColumnarTable:
                                 for ch in self._chunks]
                 self._open[name] = [lut[seg] for seg in self._open[name]]
                 self._open_chunk = None
-                self.dicts[name] = Dictionary(
-                    d.name, [""] + d.decode_many(used))
+                nd = Dictionary(d.name, [""] + d.decode_many(used))
+                nd.gen, nd.version = d.gen + 1, d.version + 1
+                self.dicts[name] = nd
                 stats[name] = {"before": old_n, "after": len(used) + 1}
         return stats
 
@@ -251,3 +323,9 @@ class TableView:
     columns: dict[str, ColumnSpec]
     dicts: dict[str, Dictionary]
     chunks: list[dict[str, np.ndarray]]
+
+    def view(self) -> "TableView":
+        return self
+
+    def __len__(self) -> int:
+        return sum(len(next(iter(ch.values()), ())) for ch in self.chunks)

@@ -424,9 +424,12 @@ _BROKEN_CHILD = textwrap.dedent("""
 """)
 
 
+_ABI_LINE = f"return {native.ABI_VERSION}; }}"
+
+
 @pytest.mark.parametrize("edit,expect", [
-    (("return 1; }", "return 1 }"), "error"),
-    (("return 1; }", "return 99; }"), "has ABI 99"),
+    ((_ABI_LINE, _ABI_LINE.replace(";", "")), "error"),
+    ((_ABI_LINE, "return 99; }"), "has ABI 99"),
 ])
 def test_failed_build_or_wrong_abi_raises(tmp_path, edit, expect):
     """Sources that do not compile raise with the compiler's stderr; a

@@ -459,7 +459,8 @@ def test_port_imports_no_jax_and_no_reference():
     files = _port_files()
     assert len(files) >= 15
     for mod in ("query/sql.py", "query/catalog.py", "query/engine.py",
-                "cli/dfctl.py"):
+                "query/qtrace.py", "query/pool.py", "query/cache.py",
+                "query/costmodel.py", "query/sketch.py", "cli/dfctl.py"):
         assert os.path.join(ROOT, "deepflow_tpu_torch", mod) in files, mod
     for path in files:
         with open(path) as f:

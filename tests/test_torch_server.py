@@ -43,6 +43,8 @@ STEP_PS = 10_000_000_000  # 10 ms a step
 TABLES = ("profile.tpu_hlo_span", "profile.tpu_memory",
           "profile.tpu_step_metrics", "profile.in_process_profile",
           "deepflow_system.deepflow_system")
+# and the querier's own spans: the port's tables, as the reference names
+SCHEMA_TABLES = TABLES + ("deepflow_system.query_trace",)
 QUERIES = ("tpu_flame", "tpu_memory", "tpu_collectives", "tpu_step_trace",
            "tpu_steps", "tpu_step_critical_path", "profile_tracing")
 
@@ -173,6 +175,8 @@ def _frames():
     counts = {"profile.tpu_hlo_span": probe.stats["spans_sent"] + 3,
               "profile.tpu_memory": probe.stats["mem_samples_sent"] + 2,
               "profile.tpu_step_metrics": probe.stats["steps_sent"],
+              # the querier's own spans: no query has run yet
+              "deepflow_system.query_trace": 0,
               **more_counts}
     return frames, counts
 
@@ -290,10 +294,10 @@ def _answer(api, method, body):
 # -- the tests ---------------------------------------------------------------
 
 def test_schema_matches_reference_and_wire():
-    """The five tables have the reference's columns, kinds, labels and
+    """The six tables have the reference's columns, kinds, labels and
     defaults, and TPU_SPAN_KINDS / PROFILE_EVENT_TYPES are the wire
     enums' order (ingest stores the int; queries filter on labels)."""
-    for name in TABLES:
+    for name in SCHEMA_TABLES:
         mine = [(c.name, c.kind, c.enum_values, c.default)
                 for c in schema.TABLES[name]]
         ref = [(c.name, c.kind, c.enum_values, c.default)
@@ -479,7 +483,8 @@ def test_http_routes_and_errors(pair):
     assert call("/v1/nope", {})[0] == 404
     code, health = call("/v1/health", method="GET")
     assert code == 200 and health["status"] == "ok"
-    assert health["tables"] == {t: len(port.db.table(t)) for t in TABLES}
+    assert health["tables"] == {t: len(port.db.table(t))
+                                for t in SCHEMA_TABLES}
     assert health["stats"]["receiver"]["bad_frames"] == 0
     assert set(health["stats"]["decoders"]) == {
         "PROFILE", "TPU_SPAN", "STEP_METRICS", "DFSTATS"}
@@ -660,7 +665,7 @@ def test_sql_route_answers_hold_rows(pair):
 
 
 def test_show_databases_and_tables_over_http(pair):
-    """SHOW DATABASES / TABLES list the port's five tables: the
+    """SHOW DATABASES / TABLES list the port's six tables: the
     reference's answer cut to them."""
     ref, port = pair
     for what in ("databases", "tables"):
@@ -670,15 +675,17 @@ def test_show_databases_and_tables_over_http(pair):
                         {"sql": f"SHOW {what}"})
         assert code == 200 and got["debug"] == {"show": what}
         names = [r[0] for r in got["result"]["values"]]
-        mine = ({t.split(".")[0] for t in TABLES} if what == "databases"
-                else set(TABLES))
+        mine = ({t.split(".")[0] for t in SCHEMA_TABLES}
+                if what == "databases" else set(SCHEMA_TABLES))
         assert names == sorted(mine)
         assert got["result"]["values"] == [
             r for r in want["result"]["values"] if r[0] in mine]
 
 
-# the engine tests' corpus, each query on the servers' own table
-SERVER_CORPUS = [re.sub(r"\bFROM t\b", f"FROM {t}", q) for t, q in tsql.CORPUS]
+# the engine tests' corpus, each query on the servers' own table; the
+# query_trace table holds each server's own spans, not the frames' rows
+SERVER_CORPUS = [re.sub(r"\bFROM t\b", f"FROM {t}", q) for t, q in tsql.CORPUS
+                 if t in TABLES]
 # the property grammar over the span table's columns and the fixture's ops
 _SPAN_GRAMMAR = ("profile.tpu_hlo_span",
                  ("device_id", "hlo_op", "kind", "duration_ns"),
@@ -765,13 +772,55 @@ def test_sql_route_errors_like_reference(pair, body, names):
     assert _post(ref.query_port, "/v1/query", body)[0] == 400
 
 
-@pytest.mark.parametrize("sql", ["EXPLAIN SELECT hlo_op FROM t",
-                                 "EXPLAIN ANALYZE SELECT Count() FROM t"])
-def test_explain_answers_400_naming_the_missing_port(pair, sql):
-    _, port = pair
-    code, got = _post(port.query_port, "/v1/query",
-                      {"sql": sql, "db": "profile"})
-    assert code == 400 and "query/qtrace.py" in got["error"]
+def _explain_shape(ans: dict, srv) -> dict:
+    """An EXPLAIN answer less its times and trace id: what two servers
+    over the same rows must agree on. The chunks each scan read are the
+    server's own (the port's are smaller): each stale bucket's scan reads
+    all of the table's chunks."""
+    ex = dict(ans["explain"])
+    for k in ("trace_id", "total_ms"):
+        assert ex.pop(k)
+    ex["plan"] = plan = dict(ex["plan"])
+    if "prune" in plan:
+        plan["prune"] = prune = dict(plan["prune"])
+        stale = next(st["detail"]["bucket_stale"] for st in ex["stages"]
+                     if st["stage"] == "execute")
+        chunks = len(srv.db.table(plan["table"]).snapshot())
+        assert prune.pop("scanned") == stale * chunks > 0
+    ex["stages"] = sorted(
+        (st["stage"], st["status"], json.dumps(st["detail"], sort_keys=True))
+        for st in ex["stages"])
+    return {"explain": ex, "debug": ans["debug"],
+            "columns": ans["result"]["columns"],
+            "stages": sorted(r[0] for r in ans["result"]["values"])}
+
+
+@pytest.mark.parametrize("table", ["tpu_hlo_span", "t"])
+@pytest.mark.parametrize("sql", ["EXPLAIN SELECT hlo_op FROM {}",
+                                 "EXPLAIN ANALYZE SELECT Count() FROM {}"])
+def test_explain_answers_like_reference(pair, sql, table):
+    """EXPLAIN is the plan only, EXPLAIN ANALYZE the plan and the stages
+    of a run under a captured trace: the reference server's answer on
+    the same rows, but for the times and the trace id; an unknown table
+    is the same 400."""
+    ref, port = pair
+    body = {"sql": sql.format(table), "db": "profile"}
+    code, got = _post(port.query_port, "/v1/query", body)
+    ref_code, want = _post(ref.query_port, "/v1/query", body)
+    assert code == ref_code, (got, want)
+    if table == "t":
+        # the message goes on to list each server's own tables
+        assert code == 400 and got["error"].split(";")[0] \
+            == want["error"].split(";")[0] == "no such table 't'"
+        return
+    assert code == 200 and set(got) == set(want)
+    assert _explain_shape(got, port) == _explain_shape(want, ref)
+    ex = got["explain"]
+    assert ex["plan"]["table"] == "profile.tpu_hlo_span"
+    assert ("rows_returned" in ex) == ex["analyze"] == ("ANALYZE" in sql)
+    if ex["analyze"]:
+        assert ex["rows_returned"] == 1
+        assert {st["stage"] for st in ex["stages"]} == {"plan", "execute"}
 
 
 def test_org_scope_refuses_a_table_without_org_id():

@@ -3,7 +3,7 @@
 The parser must build the reference's tree for every statement of a
 corpus and refuse the same bad ones with the same message. The engine
 gets the same seeded rows in a reference ``ColumnarTable`` and a port
-one, for each of the port's five table schemas, and every query of a
+one, for each of the port's six table schemas, and every query of a
 corpus must give the same columns and values: integers and strings
 exactly, float64 results (Avg, Percentile, ratios) to a relative 1e-12.
 The port's encoded path must equal its decoded one, random queries from
@@ -169,7 +169,7 @@ def test_bad_sql_raises_like_reference(sql):
     assert str(err.value) == str(ref_err.value)
 
 
-# -- engine over the five tables --------------------------------------------
+# -- engine over the six tables ---------------------------------------------
 
 # per table: a str column, a second str column, an enum column (or None),
 # a small int tag, and a metric
@@ -184,6 +184,8 @@ ROLES = {
                            "bytes_in_use"),
     "deepflow_system.deepflow_system": ("metric_name", "value_name", None,
                                         "agent_id", "value"),
+    "deepflow_system.query_trace": ("name", "service", None, "agent_id",
+                                    "duration_ns"),
 }
 TABLES = tuple(ROLES)
 
