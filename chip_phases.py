@@ -1,0 +1,52 @@
+#!/usr/bin/env python3
+"""Run some of chip_smoke.py's phases alone, for a shorter call.
+
+    python3 chip_phases.py resnet dp
+
+The device phase (the card's name and power limit) first, then each named
+phase (``resnet``: ResNet-50 trained with the probe in this process;
+``dp``: the data-parallel example under torch.distributed.run on every
+GPU, shipping into a server process) with the same checks as the smoke.
+The numbers land in results/chip_phases.json; a failed check raises.
+"""
+
+import json
+import os
+import sys
+import time
+
+import chip_smoke as cs
+
+
+def main(names: list[str]) -> int:
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_phases: CUDA is not available", file=sys.stderr)
+        return 2
+    phases = {"resnet": lambda res: cs.resnet_phase(torch),
+              "dp": lambda res: cs.dp_phase(torch, res)}
+    unknown = [n for n in names if n not in phases]
+    if unknown or not names:
+        print(f"chip_phases: name phases among {sorted(phases)}",
+              file=sys.stderr)
+        return 2
+    t0 = time.perf_counter()
+    result = {"device": cs.device_phase(torch)}
+    try:
+        for name in names:
+            result[name] = {}
+            got = phases[name](result[name])
+            if got is not None:
+                result[name] = got
+    finally:
+        result["seconds"] = time.perf_counter() - t0
+        os.makedirs(cs.OUT_DIR, exist_ok=True)
+        with open(os.path.join(cs.OUT_DIR, "chip_phases.json"), "w") as f:
+            json.dump(result, f, indent=1, default=str)
+    print(f"chip_phases: {' '.join(names)} passed in "
+          f"{result['seconds']:.1f} s")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1:]))

@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's main path once on one NVIDIA GPU.
+"""Drive the PyTorch port's main path once on the NVIDIA GPUs of one host
+(one is enough: the dp phase takes every GPU it sees).
 
     python3 chip_smoke.py
 
@@ -108,9 +109,31 @@ Phases, each printing its own lines:
    equal the serial one over the grown table. A native group or filter
    kernel must have run in this process. The rows, chunks, ingest rows/s
    at this size, the server's RSS, the cache's hit rate, each query's
-   ms every way and the kernel choices are printed.
+   ms every way and the kernel choices are printed;
+9. resnet: ResNet-50 (the reference's ResNetConfig(): stages (3, 4, 6,
+   3), width 64, 1000 classes) at full width, bf16, channels_last,
+   224 x 224, batch 128, SGD at the reference's lr 0.1, weights and
+   images from torch.Generator seeds. Its initial loss is checked
+   against ln(1000), its bf16 loss against a float32 forward of the same
+   weights, and the tiny float32 ResNet on the card against the CPU;
+   then phase 3's profiled steps (step ms without and with the probe,
+   coverage, captures) and phase 4's frames (kernels per step, spans/s,
+   top kernels, peak memory), whose per-kernel flame graph must equal
+   the per-op sums;
+10. dp: the example with --preset resnet50 (batch 128 per rank) under
+   python -m torch.distributed.run --nproc-per-node N (N = the GPUs
+   visible) and the zero-code runner, shipping live into a fresh server
+   process. Every rank must train DP_STEPS steps with the same mean loss
+   at each step, its span rows must land under agent id rank + 1 with
+   device_id = chip_id = rank, exactly as many as its probe sent, its
+   stats rows must carry its rank, and the server must see no dup. With
+   N >= 2, each all-reduce group of a step every rank captured must have
+   N participants, the groups per step must equal the step's all-reduce
+   calls the ranks print, and /v1/tpu/steps must name a rank as the
+   straggler; with N == 1 (NCCL runs a one-rank all-reduce without a
+   kernel) it prints world=1 and the checks that need two GPUs.
 
-The servers of phases 5-8 run the server's entry point (its main(),
+The servers of phases 5-8 and 10 run the server's entry point (its main(),
 stopped by SIGTERM after its drain) in a process of their own
 (multiprocessing, spawn) that then hands the smoke their tables' rows.
 Every phase line carries the card's name and power limit.
@@ -174,6 +197,11 @@ GUARD_PHASE_CPU_PCT = 1000.0
 PAUSE_S = 30.0
 DEGRADED_STEPS = 20           # steps trained while the guard has paused
 OUT_DIR = "results"
+RESNET_BATCH = 128            # images a step (a rank's in the dp phase)
+RESNET_IMAGE = 224
+RESNET_LR = 0.1               # the reference's make_pmap_train_step lr
+RESNET_BF16_VS_F32_RTOL = 2e-2  # bf16 rounding through 53 convolutions
+DP_STEPS = 300                # steps a rank in the dp phase: room for captures
 QUERY_LIMIT_MS = 1000.0       # PERF.md section 2: a person waits for it
 # the six TPU queries on the columnar stand-in the engine replaced
 # (PERF.md, slice 2's run A), printed beside this run's
@@ -278,23 +306,28 @@ def model_phase(torch, tl) -> tuple:
                            "tiny_cuda_vs_cpu_max_abs": tiny_err}
 
 
-def timed_step(torch, train_step, tokens) -> tuple[float, float]:
+def timed_step(torch, train_step, *batch) -> tuple[float, float]:
     t0 = time.perf_counter()
-    loss = float(train_step(tokens))  # reads the loss: waits for the step
+    loss = float(train_step(*batch))  # reads the loss: waits for the step
     torch.cuda.synchronize()
     return (time.perf_counter() - t0) * 1000.0, loss
 
 
-def training_phase(torch, tl, model, tokens) -> tuple:
+def training_phase(torch, train_step, batch: tuple,
+                   label: str = "training") -> tuple:
+    """Steps of ``train_step(*batch)`` without the probe, with TpuProbe
+    attached until CAPTURES captures, and without it again. The phase
+    lines are ``label``'s (the Llama's keep their names: training,
+    kineto, probe, capture)."""
     from deepflow_tpu_torch.agent.config import AgentConfig, TpuProbeConfig
     from deepflow_tpu_torch.agent.sink import FrameSink
     from deepflow_tpu_torch.tpuprobe.probe import TpuProbe
 
-    train_step, _opt = tl.make_train_step(model)
+    pre = "" if label == "training" else f"{label}_"
     for _ in range(3):  # warm-up: allocator, cuBLAS heuristics
-        timed_step(torch, train_step, tokens)
+        timed_step(torch, train_step, *batch)
     torch.cuda.reset_peak_memory_stats()
-    base = [timed_step(torch, train_step, tokens)[0]
+    base = [timed_step(torch, train_step, *batch)[0]
             for _ in range(BASE_STEPS)]
 
     sink = FrameSink(AgentConfig(tpuprobe=TpuProbeConfig(memory_poll_s=1.0)),
@@ -308,7 +341,7 @@ def training_phase(torch, tl, model, tokens) -> tuple:
     while (kineto.stats["captures"] < CAPTURES
            or memsrc.stats["samples"] < 1) \
             and time.perf_counter() - t0 < PROBE_CAP_S:
-        ms, loss = timed_step(torch, train_step, tokens)
+        ms, loss = timed_step(torch, train_step, *batch)
         with_probe.append(ms)
         losses.append(loss)
         if kineto.stats["captures"] > len(captures):  # one just ended
@@ -320,7 +353,7 @@ def training_phase(torch, tl, model, tokens) -> tuple:
     wall1 = time.time_ns()
     peak = torch.cuda.max_memory_allocated()
     # the probe-free steps again: their spread against the first set
-    after = [timed_step(torch, train_step, tokens)[0]
+    after = [timed_step(torch, train_step, *batch)[0]
              for _ in range(BASE_STEPS)]
     ks, mst = dict(kineto.stats), dict(memsrc.stats)
     base_ms = statistics.median(base + after)
@@ -348,13 +381,13 @@ def training_phase(torch, tl, model, tokens) -> tuple:
         "loss_last": losses[-1], "peak_memory_bytes": peak,
         "kineto": ks, "memory": mst, "probe": dict(probe.stats),
         "sink": dict(sink.stats)}
-    phase("training", **{k: v for k, v in nums.items()
-                         if not isinstance(v, (dict, list))})
-    phase("kineto", **ks)
-    phase("probe", **probe.stats, **{f"sink_{k}": v
-                                     for k, v in sink.stats.items()})
+    phase(label, **{k: v for k, v in nums.items()
+                    if not isinstance(v, (dict, list))})
+    phase(f"{pre}kineto", **ks)
+    phase(f"{pre}probe", **probe.stats, **{f"sink_{k}": v
+                                           for k, v in sink.stats.items()})
     for c in captures:
-        phase("capture", **c)
+        phase(f"{pre}capture", **c)
     check(ks["captures"] >= CAPTURES, f"at least {CAPTURES} captures")
     check(ks["errors"] == 0 and ks["contended"] == 0 and ks["skipped"] == 0,
           "no capture errors, contention or skips")
@@ -367,7 +400,7 @@ def training_phase(torch, tl, model, tokens) -> tuple:
     return sink, probe, nums, (wall0, wall1, wall_s)
 
 
-def frames_phase(sink, probe, window) -> tuple:
+def frames_phase(sink, probe, window, label: str = "frames") -> tuple:
     from deepflow_tpu_torch.codec import MessageType, StreamDecoder
     from deepflow_tpu_torch.proto import wire
     from deepflow_tpu_torch.query.flamegraph import DEVICE_KINDS, device_flame
@@ -424,7 +457,7 @@ def frames_phase(sink, probe, window) -> tuple:
             / max(1, sum(s.duration_ns for s in modules)),
             "max_bytes_in_use": max((m.bytes_in_use for m in mem), default=0),
             "flame_total_ms": flame.total_value / 1e6}
-    phase("frames", **nums)
+    phase(label, **nums)
     for ns, cat, name in leaves[:5]:
         print(f"  top kernel {ns / 1e6:10.3f} ms  {cat:10s} {name[:110]}",
               flush=True)
@@ -1932,6 +1965,218 @@ def resilience_phase(torch, tl, kernels_per_step_in_process: int,
     _check_sender_hop(sender_hop, steps_hop)
 
 
+def resnet_phase(torch) -> dict:
+    """ResNet-50 (the reference's ResNetConfig()) at full width, bf16,
+    channels_last, 224 x 224, batch RESNET_BATCH, SGD at the reference's
+    lr, weights and images from torch.Generator seeds: its initial loss
+    against ln(1000) and a float32 forward of the same weights, the tiny
+    float32 ResNet on the card against the CPU; then profiled steps as
+    phase 3's and the frames as phase 4's."""
+    from deepflow_tpu_torch.models import resnet as tr
+
+    cfg = tr.ResNetConfig()
+    dev = torch.device("cuda")
+    model = tr.ResNet(cfg, device=dev,
+                      generator=torch.Generator(device=dev).manual_seed(0))
+    images, labels = tr.synthetic_batch(
+        cfg, RESNET_BATCH, RESNET_IMAGE,
+        torch.Generator(device=dev).manual_seed(1), dev)
+    n_params = sum(p.numel() for p in model.parameters())
+    with torch.no_grad():
+        loss = float(tr.loss_fn(model, images, labels))
+        m32 = tr.ResNet(dataclasses.replace(cfg, dtype=torch.float32),
+                        device=dev)
+        m32.load_state_dict(model.state_dict())
+        loss32 = float(tr.loss_fn(m32, images, labels))
+        del m32
+        tiny = tr.ResNetConfig.tiny(dtype=torch.float32)
+        small_cpu = tr.ResNet(tiny, device="cpu",
+                              generator=torch.Generator().manual_seed(2))
+        small_gpu = tr.ResNet(tiny, device=dev)
+        small_gpu.load_state_dict(small_cpu.state_dict())
+        x, _ = tr.synthetic_batch(tiny, 4, 33, torch.Generator()
+                                  .manual_seed(3), torch.device("cpu"))
+        tiny_err = float((small_gpu(x.to(dev)).cpu() - small_cpu(x))
+                         .abs().max())
+    torch.cuda.empty_cache()
+    rel = abs(loss - loss32) / abs(loss32)
+    ln_classes = math.log(cfg.num_classes)
+    phase("resnet_model", params=n_params, batch=RESNET_BATCH,
+          image=RESNET_IMAGE, loss_bf16=loss, loss_f32=loss32,
+          rel_diff=rel, ln_classes=ln_classes,
+          tiny_cuda_vs_cpu_max_abs=tiny_err)
+    check(math.isfinite(loss), "ResNet-50 initial loss is finite")
+    check(abs(loss - ln_classes) <= 0.2 * ln_classes,
+          "ResNet-50 initial loss within 20% of ln(1000)")
+    check(rel <= RESNET_BF16_VS_F32_RTOL,
+          f"ResNet-50 bf16 vs f32 loss rel diff {rel} <= "
+          f"{RESNET_BF16_VS_F32_RTOL}")
+    check(tiny_err <= TINY_CUDA_VS_CPU_ATOL,
+          f"tiny f32 ResNet logits cuda vs cpu {tiny_err} <= "
+          f"{TINY_CUDA_VS_CPU_ATOL}")
+    opt = torch.optim.SGD(model.parameters(), lr=RESNET_LR)
+
+    def train_step(images, labels):
+        loss = tr.loss_fn(model, images, labels)
+        loss.backward()
+        opt.step()
+        opt.zero_grad(set_to_none=True)
+        return loss.detach()
+
+    sink, probe, nums, window = training_phase(
+        torch, train_step, (images, labels), label="resnet")
+    frames, seen = frames_phase(sink, probe, window, label="resnet_frames")
+    kernel_ns = {k: v for k, v in seen["op_ns"].items() if k}
+    check(seen["flame_ops"] == kernel_ns,
+          "the ResNet's per-kernel flame graph equals the per-op sums")
+    nums.update(params=n_params, loss_bf16=loss, loss_f32=loss32,
+                bf16_vs_f32_rel=rel, tiny_cuda_vs_cpu_max_abs=tiny_err,
+                frames=frames)
+    del model, opt, images, labels, sink, probe, seen
+    gc.collect()
+    torch.cuda.empty_cache()
+    return nums
+
+
+# the cross-rank checks the dp phase makes only with two GPUs or more
+DP_CROSS_RANK = (
+    "each stitched all-reduce group has every rank as a participant",
+    "groups per step equal the step's all-reduce calls",
+    "/v1/tpu/steps names a rank as straggler_device")
+
+
+def dp_phase(torch, nums: dict) -> None:
+    """The data-parallel example under python -m torch.distributed.run,
+    one rank per GPU, each under the zero-code runner shipping into a
+    fresh server process: every rank's rows exactly once under its own
+    agent id with device_id = rank, every rank's mean loss equal at each
+    step; with two GPUs or more, one stitched group per all-reduce call
+    with every rank in it and a straggler rank named."""
+    os.makedirs(OUT_DIR, exist_ok=True)
+    n = torch.cuda.device_count()
+    span_cols = ["agent_id", "device_id", "chip_id", "hlo_op", "program_id",
+                 "collective", "run_id", "time", "duration_ns", "core_id"]
+    srv = _ServerProcess(
+        os.path.join(OUT_DIR, "dp_server.log"),
+        dump={"profile.tpu_hlo_span": span_cols,
+              _SELFSTATS: ["agent_id", "metric_name", "tag_json", "time",
+                           "value_name", "value"]})
+    try:
+        run = _train_child(
+            ["-m", "torch.distributed.run", "--standalone",
+             "--nproc-per-node", str(n), *RUNNER,
+             "--server", f"127.0.0.1:{srv.ingest_port}",
+             "--service", "resnet-dp", "-m", EXAMPLE, "--preset", "resnet50",
+             "--image", str(RESNET_IMAGE), "--batch", str(RESNET_BATCH),
+             "--steps", str(DP_STEPS)], "dp")
+        health = _ingest_settled(srv.query_port)
+        _, groups, colls_ms = _http(srv.query_port,
+                                    "/v1/profile/TpuCollectives", {})
+        groups = groups["result"]
+        _, steps, _ = _http(srv.query_port, "/v1/tpu/steps",
+                            {"limit": DP_STEPS + 1})
+        steps = steps["result"]["steps"]
+    finally:
+        rows = srv.stop()
+    with open(os.path.join(OUT_DIR, "dp.out")) as f:
+        lines = [json.loads(x) for x in f if x.startswith("{")]
+    spans = rows["profile.tpu_hlo_span"]
+    with open(os.path.join(OUT_DIR, "dp_collectives.json"), "w") as f:
+        # the groups and the NCCL span rows they came from
+        json.dump({"groups": groups, "nccl_rows": [
+            dict(zip(span_cols, r)) for r in zip(*(spans[c]
+                                                   for c in span_cols))
+            if r[span_cols.index("collective")]]}, f)
+    by_rank: dict[int, list] = {}
+    for line in lines:
+        by_rank.setdefault(line["rank"], []).append(line)
+    pairs = set(zip(spans["agent_id"], spans["device_id"], spans["chip_id"]))
+    per_agent: dict[int, int] = {}
+    for a in spans["agent_id"]:
+        per_agent[a] = per_agent.get(a, 0) + 1
+    st = rows[_SELFSTATS]
+    sent: dict[int, tuple[int, float]] = {}   # agent -> latest spans_sent
+    rank_tags: dict[int, set] = {}
+    for a, m, tag, t, vn, v in zip(st["agent_id"], st["metric_name"],
+                                   st["tag_json"], st["time"],
+                                   st["value_name"], st["value"]):
+        rank_tags.setdefault(a, set()).add(json.loads(tag).get("rank"))
+        if m == "agent.tpuprobe" and vn == "spans_sent" and \
+                t >= sent.get(a, (-1, 0))[0]:
+            sent[a] = (t, v)
+    calls = {x["allreduce_calls"] for x in lines}
+    # the steps every rank captured: the module span of each rank
+    captured: dict[int, set] = {}
+    for d, op, rid in zip(spans["device_id"], spans["hlo_op"],
+                          spans["run_id"]):
+        if not op and rid:
+            captured.setdefault(rid, set()).add(d)
+    whole = {rid for rid, devs in captured.items() if len(devs) == n}
+    in_whole = [g for g in groups if g["run_id"] in whole]
+    per_step: dict[int, int] = {}
+    for g in in_whole:
+        per_step[g["run_id"]] = per_step.get(g["run_id"], 0) + 1
+    all_ranks = [s for s in steps if s["run_id"] in whole
+                 and s["device_count"] == n]
+    dec = health["stats"]["decoders"]
+    nums.update(
+        world=n, steps_per_rank={r: len(v) for r, v in by_rank.items()},
+        allreduce_calls_per_step=sorted(calls),
+        step_ms_median={r: statistics.median(x["ms"] for x in v[RUNNER_WARMUP:])
+                        for r, v in by_rank.items()},
+        step_ms_mean={r: statistics.mean(x["ms"] for x in v[RUNNER_WARMUP:])
+                      for r, v in by_rank.items()},
+        step_ms_max={r: max(x["ms"] for x in v[RUNNER_WARMUP:])
+                     for r, v in by_rank.items()},
+        loss_first=by_rank.get(0, [{}])[0].get("loss"),
+        loss_last=by_rank.get(0, [{}])[-1].get("loss"),
+        span_rows_per_agent=per_agent,
+        spans_sent_per_agent={a: v for a, (_, v) in sent.items()},
+        steps_captured_by_every_rank=len(whole), groups=len(groups),
+        groups_in_whole_steps=len(in_whole),
+        group_participants=sorted({g["n_participants"] for g in in_whole}),
+        groups_per_whole_step=sorted(set(per_step.values())),
+        straggler_devices=sorted({s["straggler_device"] for s in all_ranks}),
+        collectives_query_ms=colls_ms, wall_s=run["wall_s"],
+        dups=sum(d["dups"] for d in dec.values()),
+        decode_errors=sum(d["errors"] for d in dec.values()))
+    phase("dp", **{k: json.dumps(v) if isinstance(v, (dict, list)) else v
+                   for k, v in nums.items()})
+    check(sorted(by_rank) == list(range(n)), f"every rank of {n} printed")
+    check(all(len(v) == DP_STEPS for v in by_rank.values()),
+          f"every rank trained {DP_STEPS} steps")
+    check(len(calls) == 1, "one all-reduce count per step on every rank")
+    for i in range(DP_STEPS):
+        losses = {v[i]["loss"] for v in by_rank.values()}
+        check(len(losses) == 1 and all(map(math.isfinite, losses)),
+              f"every rank's mean loss equal at step {i} ({losses})")
+    check(pairs == {(r + 1, r, r) for r in range(n)},
+          f"span rows under agent rank+1 with device_id = chip_id = rank "
+          f"({sorted(pairs)})")
+    check(all(per_agent.get(r + 1, 0) == sent.get(r + 1, (0, -1))[1] > 0
+              for r in range(n)),
+          f"every rank's spans land exactly once ({per_agent} against "
+          f"{ {a: v for a, (_, v) in sent.items()} })")
+    check(all(rank_tags.get(r + 1) == {str(r)} for r in range(n)),
+          f"each agent's stats rows carry its rank ({rank_tags})")
+    check(nums["dups"] == 0 and nums["decode_errors"] == 0,
+          "no dup and no decode error in the server")
+    if n == 1:
+        print(f"[dp] world=1: one GPU; NCCL runs a one-rank all-reduce "
+              f"without a kernel, so these checks need two GPUs or more "
+              f"and did not run: {'; '.join(DP_CROSS_RANK)}", flush=True)
+        nums["not_run_with_one_gpu"] = list(DP_CROSS_RANK)
+        return
+    check(len(whole) >= 1, "a step that every rank captured")
+    check(nums["group_participants"] == [n],
+          f"every all-reduce group of a whole step has {n} participants")
+    check(nums["groups_per_whole_step"] == sorted(calls),
+          f"groups per step {nums['groups_per_whole_step']} == the step's "
+          f"all-reduce calls {sorted(calls)}")
+    check(all_ranks and all(0 <= d < n for d in nums["straggler_devices"]),
+          "/v1/tpu/steps names a rank as straggler_device")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1949,8 +2194,10 @@ def main() -> int:
         result["device"] = device_phase(torch)
         result["native"] = native_phase()
         model, tokens, result["model"] = model_phase(torch, tl)
+        train_step, _opt = tl.make_train_step(model)
         sink, probe, result["training"], window = training_phase(
-            torch, tl, model, tokens)
+            torch, train_step, (tokens,))
+        del train_step, _opt
         result["frames"], seen = frames_phase(sink, probe, window)
         seen["max_bytes_in_use"] = result["frames"]["max_bytes_in_use"]
         result["server"] = server_phase(sink, probe, seen)
@@ -1966,6 +2213,11 @@ def main() -> int:
         result["resilience"] = {}
         resilience_phase(torch, tl, result["frames"]["kernels_per_step_mode"],
                          result["resilience"])
+        gc.collect()
+        torch.cuda.empty_cache()
+        result["resnet"] = resnet_phase(torch)
+        result["dp"] = {}
+        dp_phase(torch, result["dp"])
     finally:
         # every number so far, also when a check failed
         result["seconds"] = time.perf_counter() - t0

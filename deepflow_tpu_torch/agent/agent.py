@@ -43,6 +43,7 @@ from deepflow_tpu_torch.device import resolve_device
 from deepflow_tpu_torch.proto import wire
 from deepflow_tpu_torch.telemetry import DeadmanDetector, Telemetry
 from deepflow_tpu_torch.tpuprobe.probe import TpuProbe
+from deepflow_tpu_torch.tpuprobe.ranks import global_rank
 from deepflow_tpu_torch.tpuprobe.sources import KinetoSource, StepHook
 
 log = logging.getLogger("df.agent")
@@ -64,6 +65,9 @@ class Agent:
         # read before a launcher rewrites sys.argv for its target
         self.process_name = os.path.basename(sys.argv[0]) or "python"
         self.app_service = self.config.app_service or self.process_name
+        # the launcher's rank (a workload may set up its process group
+        # later; the stats read it then)
+        self.rank = global_rank()
         sm = self.config.selfmon
         # config False forces it off; True still honours DF_NO_SELFMON
         self.telemetry = Telemetry(
@@ -285,9 +289,14 @@ class Agent:
         ts = time.time_ns()
         batch = wire.StatsBatch()
 
+        base_tags = {"process": self.process_name}
+        rank = self.rank if self.rank is not None else global_rank()
+        if rank is not None:
+            base_tags["rank"] = str(rank)  # one agent per rank
+
         def metric(name: str, values: dict,
                    extra_tags: dict | None = None) -> None:
-            tags = {"process": self.process_name}
+            tags = dict(base_tags)
             if extra_tags:
                 tags.update((k, str(v)) for k, v in extra_tags.items())
             batch.metrics.append(wire.StatsMetric(

@@ -9,13 +9,29 @@ spool (``SenderConfig``, ``SpoolConfig``), transport fault injection
 (``ChaosConfig``), the self-telemetry spine (``SelfmonConfig``) and the
 agent's identity and stats cadence (``AgentConfig``). The guard and
 self-telemetry are on by default, the spool and fault injection off.
+
+``AgentConfig.agent_id`` is 0, the reference's default, outside a
+launcher. In a process a launcher started (``RANK`` and ``WORLD_SIZE`` in
+its environment, as ``torchrun`` sets them) it defaults to the rank's own
+nonzero id (``tpuprobe/ranks.py::agent_id_for_rank``), so the ranks of one
+job ship under distinct ids into one server: with one shared id, each
+sender's sequence numbers start from its own boot epoch and the server's
+dedup window drops one rank's frames as duplicates of the other's. An
+explicit ``agent_id`` (the runner's ``--agent-id``) wins.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass, field
 
+from deepflow_tpu_torch.tpuprobe.ranks import MAX_AGENT_ID, launcher_agent_id
+
 DEFAULT_INGEST_PORT = 20033
+
+
+def default_agent_id() -> int:
+    """The launcher rank's agent id, or 0 outside a launcher."""
+    return launcher_agent_id() or 0
 
 
 @dataclass
@@ -103,7 +119,7 @@ class SelfmonConfig:
 
 @dataclass
 class AgentConfig:
-    agent_id: int = 0
+    agent_id: int = field(default_factory=default_agent_id)
     app_service: str = ""
     profiler: ProfilerConfig = field(default_factory=ProfilerConfig)
     tpuprobe: TpuProbeConfig = field(default_factory=TpuProbeConfig)
@@ -123,6 +139,10 @@ class AgentConfig:
             if hi is not None and v > hi:
                 raise ValueError(f"{name} must be <= {hi}, got {v}")
 
+        if isinstance(self.agent_id, bool) or not isinstance(
+                self.agent_id, int) or not 0 <= self.agent_id <= MAX_AGENT_ID:
+            raise ValueError(f"agent_id must be an int in 0..{MAX_AGENT_ID}, "
+                             f"got {self.agent_id!r}")
         num(self.profiler.sample_hz, "profiler.sample_hz", 0.1, 10_000)
         num(self.profiler.emit_interval_s, "profiler.emit_interval_s", 0.01)
         num(self.tpuprobe.trace_interval_s, "tpuprobe.trace_interval_s", 0.1)

@@ -158,7 +158,7 @@ def _collectives(server: str, args) -> None:
         body["time_end"] = args.end
     out = _api(server, "/v1/profile/TpuCollectives", body)
     rows = [[g["collective"], g["hlo_op"], g["run_id"],
-             g["n_participants"], g.get("transport", "ici"),
+             g["n_participants"], g.get("transport", "nvlink"),
              len(g.get("hosts", [])) or 1, g["latency_ns"],
              g["skew_ns"], g["algo_bw_gbyte_s"]] for g in out["result"]]
     print_table(["COLLECTIVE", "OP", "RUN", "DEVS", "TRANSPORT",

@@ -2,14 +2,20 @@
 its code.
 
     python -m deepflow_tpu_torch.cli.runner [--server H:P] [--service NAME]
-        [--device cuda|cpu] [-m] target [args...]
+        [--device cuda|cpu] [--agent-id N] [-m] target [args...]
+
+    # one agent per rank of a data-parallel job:
+    torchrun --nproc-per-node N -m deepflow_tpu_torch.cli.runner \
+        --server H:P -m deepflow_tpu_torch.examples.train_with_observability \
+        --preset resnet50
 
 Attaches the in-process agent (OnCPU sampler, device probe, self-stats,
 durable sender), then runs the target with ``runpy`` as a script path or,
 with ``-m``, as a module, and detaches when it ends. The runner itself
 never touches the device: the probe waits until the workload has
 initialised CUDA. Without CUDA it exits with status 2 unless ``--device
-cpu`` is given.
+cpu`` is given. Under a launcher each rank's agent takes its rank's own
+agent id (``agent/config.py``) unless ``--agent-id`` names one.
 """
 
 from __future__ import annotations
@@ -29,6 +35,9 @@ def main(argv: list[str] | None = None) -> int:
     parser.add_argument("--device", default="cuda",
                         help="cuda (default) or cpu: where the workload "
                              "runs; the device probe needs cuda")
+    parser.add_argument("--agent-id", type=int, default=None,
+                        help="the agent's id (default: 0, or under a "
+                             "launcher the rank's own nonzero id)")
     parser.add_argument("-m", dest="module", action="store_true",
                         help="run target as a module (python -m style)")
     parser.add_argument("target")
@@ -40,8 +49,9 @@ def main(argv: list[str] | None = None) -> int:
         print(f"deepflow-run: {e}", file=sys.stderr)
         return 2
 
+    ids = {} if opts.agent_id is None else {"agent_id": opts.agent_id}
     attach(app_service=opts.service or opts.target, servers=[opts.server],
-           device=opts.device)
+           device=opts.device, **ids)
     sys.argv = [opts.target] + opts.args
     try:
         if opts.module:

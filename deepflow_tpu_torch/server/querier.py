@@ -481,8 +481,8 @@ class QuerierAPI:
         res = engine.execute(
             self.db.table("profile.tpu_hlo_span"),
             "SELECT time, duration_ns, device_id, core_id, hlo_op, "
-            "collective, run_id, bytes_transferred, replica_group_size, "
-            "step, host, slice_id, tpu_pod FROM t "
+            "program_id, collective, run_id, bytes_transferred, "
+            "replica_group_size, step, host, slice_id, tpu_pod FROM t "
             f"WHERE {' AND '.join(where)}")
         return [dict(zip(res.columns, row)) for row in res.values]
 

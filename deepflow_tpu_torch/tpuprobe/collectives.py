@@ -1,13 +1,24 @@
 """Cross-device collective stitching.
 
-Own copy of ``deepflow_tpu/tpuprobe/collectives.py``, unchanged in
-behaviour. Every device of an SPMD step runs the same collective with the
-same run_id, so spans group by (job, run_id, op); a group's latency is
-first entry to last exit, and its skew (last start - first start) is the
-straggler signal. Participants carry (host, slice) from the universal
-tags the server injects: a group inside one slice is "ici", one spanning
-slices "dcn" (on GPUs: the in-node interconnect versus the network; the
-labels are the reference's, so both servers answer alike).
+Own copy of ``deepflow_tpu/tpuprobe/collectives.py`` with two changes
+for NCCL; everything else is the reference's behaviour. Every device of
+an SPMD step runs the same collective with the same run_id, so spans
+group by (job, run_id, op, call); a group's latency is first entry to
+last exit, and its skew (last start - first start) is the straggler
+signal. Participants carry (host, slice) from the universal tags the
+server injects and are host-qualified when a host tag is present.
+
+- The call: XLA names each collective HLO apart (``all-reduce.11``), but
+  every gradient bucket's all-reduce in a step runs an NCCL kernel of
+  one name. The Kineto parser puts the call's ordinal in its step into
+  ``program_id`` (``kineto.py``), equal on every rank for the same call,
+  and the key takes it. XLA spans carry their program's id there, the
+  same on every device of one program, so they group as the reference's.
+- The transport: a group whose participants sit on one host rides the
+  node's NVLink (``"nvlink"``, the reference's ``"ici"``), one across
+  hosts the network (``"network"``, the reference's ``"dcn"``). A node
+  whose GPUs talk over PCIe only still reads ``"nvlink"``: the span rows
+  carry no link type.
 """
 
 from __future__ import annotations
@@ -61,8 +72,8 @@ class CollectiveGroup:
 
     @property
     def transport(self) -> str:
-        """dcn when participants span slices; ici inside one slice."""
-        return "dcn" if len(self.slices) > 1 else "ici"
+        """network when participants span hosts; nvlink inside one."""
+        return "network" if len(self.hosts) > 1 else "nvlink"
 
     def algo_bw_gbyte_s(self) -> float:
         """Algorithmic bandwidth in gigaBYTES/s: payload / group wall time."""
@@ -97,18 +108,19 @@ class CollectiveGroup:
 
 def stitch(spans) -> list[CollectiveGroup]:
     """Group collective TpuSpanEvents (or row dicts) by
-    (job, run_id, hlo_op), where job = tpu_pod tag (multi-host merge of
-    span streams happens in the store; stitching must not merge two
-    jobs whose run_id counters collide — VERDICT r04 missing #2).
+    (job, run_id, hlo_op, program_id), where job = tpu_pod tag
+    (multi-host merge of span streams happens in the store; stitching
+    must not merge two jobs whose run_id counters collide).
 
     Accepts objects with attrs or dicts with keys: run_id, hlo_op,
+    program_id (the NCCL call's ordinal; 0 or the XLA program's id),
     collective, device_id, start_ns/time, duration_ns, bytes_transferred,
     step, and optionally host / slice_id / tpu_pod (ingest universal
     tags). Non-collective spans are ignored. Device identity is
     host-qualified when a host tag is present, so per-host device ids
     (TPU:0..3 on every worker) never collide across hosts.
     """
-    # pass 1: collect deduped member rows per (job, run_id, op)
+    # pass 1: collect deduped member rows per (job, run_id, op, call)
     collected: dict[tuple, list[dict]] = {}
     seen: dict[tuple, set] = {}       # group key -> exact-row dedup
     for s in spans:
@@ -120,6 +132,7 @@ def stitch(spans) -> list[CollectiveGroup]:
         m = {
             "run_id": int(get("run_id") or 0),
             "op": str(get("hlo_op") or ""),
+            "call": int(get("program_id") or 0),
             "coll": str(coll),
             "start": int(get("start_ns") or get("time") or 0),
             "dur": int(get("duration_ns") or 0),
@@ -132,7 +145,7 @@ def stitch(spans) -> list[CollectiveGroup]:
             "rgs": int(get("replica_group_size") or 0),
             "step": int(get("step") or 0),
         }
-        key = (m["job"], m["run_id"], m["op"])
+        key = (m["job"], m["run_id"], m["op"], m["call"])
         # drop only EXACT duplicate rows (re-ingested data); repeated
         # executions inside one run (lax.scan / grad accumulation) have
         # distinct starts and must all count
@@ -150,7 +163,7 @@ def stitch(spans) -> list[CollectiveGroup]:
     # same run_id, and merging those into a fake "dcn" group would
     # misread per-slice ICI traffic as cross-slice DCN
     groups: list[CollectiveGroup] = []
-    for (job, run_id, op), members in collected.items():
+    for (job, run_id, op, _call), members in collected.items():
         slices = {m["slice"] for m in members}
         rgs = max((m["rgs"] for m in members), default=0)
         n_parts = len({(m["host"], m["dev"], m["core"]) for m in members})

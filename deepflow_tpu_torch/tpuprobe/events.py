@@ -4,6 +4,11 @@ Own copy of ``deepflow_tpu/tpuprobe/events.py``: the same ``TpuSpanEvent``
 fields, so one span means the same on the wire whichever package sent it.
 ``classify`` keeps the reference's xprof categories and op names and adds
 CUDA's: NCCL kernel names and Kineto's ``gpu_memcpy`` / ``gpu_memset``.
+
+``program_id`` is XLA's program id in the reference. A CUDA capture has
+no programs; on an NCCL kernel's span it carries the call's ordinal in
+its step on its stream (``kineto.py``), which tells apart the calls of
+one step that run kernels of one name, and is 0 on every other span.
 """
 
 from __future__ import annotations
@@ -77,7 +82,7 @@ class TpuSpanEvent:
     kind: int = wire.DEVICE_COMPUTE
     flops: int = 0
     bytes_accessed: int = 0
-    program_id: int = 0
+    program_id: int = 0           # NCCL: the call's ordinal in its step
     run_id: int = 0
     collective: str = ""
     bytes_transferred: int = 0

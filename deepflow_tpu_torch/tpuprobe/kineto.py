@@ -9,7 +9,10 @@ XSpace device planes, this parses the JSON that ``torch.profiler``'s
     hlo_op               name (the CUDA kernel's name, or "Memcpy HtoD
                          (Pageable -> Device)" style names)
     hlo_category         cat: "kernel", "gpu_memcpy" or "gpu_memset"
-    device_id, chip_id   args.device (the CUDA ordinal)
+    device_id            the process's global rank when it has one (a
+                         launcher's RANK or the default process group;
+                         ``rank``), else args.device
+    chip_id              args.device (the CUDA ordinal)
     core_id              args.stream
     start_ns             baseTimeNanoseconds + ts (microseconds, relative
                          to the base): wall-clock (Unix) ns
@@ -20,6 +23,20 @@ XSpace device planes, this parses the JSON that ``torch.profiler``'s
     run_id, step         the optimizer step whose host window holds the
                          op's launch (see below); 0 without step signal
     hlo_module           "train_step" when the step is known, else ""
+    program_id           NCCL kernels only: the call's ordinal in its
+                         step on its stream, from 1, in launch order
+                         (see below); 0 for every other op
+
+NCCL calls: every gradient bucket's all-reduce in a step runs a kernel of
+the same name, so the op name cannot tell two calls apart the way an XLA
+collective's HLO name (``all-reduce.11``) does. All ranks of a
+communicator issue its collectives in the same order on its stream, and a
+capture holds whole steps, so the n-th NCCL kernel of step s on a rank's
+stream is the same call on every rank: ``program_id`` carries n, and the
+stitcher keys a collective on (run_id, hlo_op, program_id). A CUDA-only
+capture holds no message size for a kernel, so ``bytes_transferred`` of
+an NCCL span is 0 unless its args carry one (``In msg nelems`` and
+``dtype``, as a capture with CPU activity gives them).
 
 Steps: Kineto has no per-step module line like XLA's "XLA Modules". The
 capture source records (step number, host time) from a global optimizer
@@ -73,9 +90,29 @@ def step_of(launch_ns: int, hook_ns: list[int], hook_steps: list[int]
     return hook_steps[i] if i < len(hook_ns) else hook_steps[-1] + 1
 
 
-def extract_device_spans(trace: dict, steps=()) -> list[TpuSpanEvent]:
+# element sizes by c10d's dtype names ("BFloat16", "Float", ...), lowered
+_DTYPE_BYTES = {"bfloat16": 2, "half": 2, "float": 4, "double": 8,
+                "char": 1, "byte": 1, "bool": 1, "short": 2, "int": 4,
+                "long": 8}
+
+
+def _message_bytes(args: dict) -> int:
+    """An NCCL call's message size from its event's args, where the
+    capture recorded one; else 0."""
+    n = args.get("In msg nelems")
+    size = _DTYPE_BYTES.get(str(args.get("dtype", "")).lower())
+    try:
+        return int(n) * size if n is not None and size else 0
+    except (TypeError, ValueError):
+        return 0
+
+
+def extract_device_spans(trace: dict, steps=(), rank: int | None = None
+                         ) -> list[TpuSpanEvent]:
     """Per-op device spans (plus per-step module spans) from a parsed
-    chrome trace. ``steps``: [(step, hook wall-clock ns)]."""
+    chrome trace. ``steps``: [(step, hook wall-clock ns)]; ``rank``: the
+    process's global rank (every span's device_id), None for a lone
+    process (device_id is then the CUDA ordinal)."""
     base = int(trace.get("baseTimeNanoseconds", 0) or 0)
     events = trace.get("traceEvents", [])
     launches: dict = {}  # correlation -> the launch's ts
@@ -97,6 +134,8 @@ def extract_device_spans(trace: dict, steps=()) -> list[TpuSpanEvent]:
 
     out: list[TpuSpanEvent] = []
     bounds: dict[tuple[int, int], list[int]] = {}  # (device, step) -> [t0, t1]
+    nccl: list[tuple] = []  # (launch ns, correlation, span) of NCCL calls
+    chips: dict[int, int] = {}  # device_id -> its CUDA ordinal
     # one str object per kernel name: the names' hashes, which classify
     # and the encoder's caches take, are then computed once a capture
     names: dict[str, str] = {}
@@ -108,16 +147,19 @@ def extract_device_spans(trace: dict, steps=()) -> list[TpuSpanEvent]:
         launch_ts = launches.get(args.get("correlation"))
         launch = start if launch_ts is None else _ns(launch_ts, base)
         step = step_of(launch, hook_ns, hook_steps)
-        device = int(args.get("device", 0))
+        ordinal = int(args.get("device", 0))
+        device = ordinal if rank is None else rank
         name = str(e.get("name", ""))
         name = names.setdefault(name, name)
         kind, coll = classify(cat, name)
-        nbytes = int(args.get("bytes", 0) or 0)
-        out.append(TpuSpanEvent(
+        call = bool(coll) and cat == "kernel"  # an NCCL kernel
+        nbytes = (_message_bytes(args) if call
+                  else int(args.get("bytes", 0) or 0))
+        span = TpuSpanEvent(
             start_ns=start,
             duration_ns=dur,
             device_id=device,
-            chip_id=device,
+            chip_id=ordinal,
             core_id=int(args.get("stream", 0)),
             hlo_module=STEP_MODULE if step else "",
             hlo_op=name,
@@ -127,20 +169,30 @@ def extract_device_spans(trace: dict, steps=()) -> list[TpuSpanEvent]:
             run_id=step,
             collective=coll,
             bytes_transferred=nbytes if coll else 0,
-            step=step))
+            step=step)
+        out.append(span)
+        if call:
+            corr = args.get("correlation")
+            nccl.append((launch, corr if isinstance(corr, int) else 0, span))
         if step:
+            chips.setdefault(device, ordinal)
             b = bounds.get((device, step))
             if b is None:
                 bounds[(device, step)] = [start, start + dur]
             else:
                 b[0] = min(b[0], start)
                 b[1] = max(b[1], start + dur)
+    # each NCCL call's ordinal within its step on its stream
+    calls: dict[tuple[int, int, int], int] = {}
+    for _, _, span in sorted(nccl, key=lambda c: (c[0], c[1])):
+        key = (span.chip_id, span.run_id, span.core_id)
+        calls[key] = span.program_id = calls.get(key, 0) + 1
     for (device, step), (t0, t1) in sorted(bounds.items()):
         out.append(TpuSpanEvent(
             start_ns=t0,
             duration_ns=max(1, t1 - t0),
             device_id=device,
-            chip_id=device,
+            chip_id=chips[device],
             hlo_module=STEP_MODULE,
             hlo_op="",
             hlo_category="module",

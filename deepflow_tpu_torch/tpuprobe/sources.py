@@ -11,6 +11,7 @@ from __future__ import annotations
 import collections
 import contextlib
 import logging
+import math
 import os
 import shutil
 import tempfile
@@ -20,6 +21,7 @@ import time
 from deepflow_tpu_torch.telemetry import Telemetry
 from deepflow_tpu_torch.tpuprobe.events import TpuSpanEvent
 from deepflow_tpu_torch.tpuprobe.kineto import extract_device_spans, load_trace
+from deepflow_tpu_torch.tpuprobe.ranks import global_rank, world_size
 
 log = logging.getLogger("df.tpuprobe")
 
@@ -78,30 +80,36 @@ class StepHook:
             self._count += 1
             first = self._count == 1
             self._marks.append((self._count, now))
-            hold, self._hold = self._hold, None
+            hold = self._hold
+            if hold is not None and self._count % hold[2] == 0:
+                self._hold = None
+            else:
+                hold = None
         if first and self.on_first_step is not None:
             try:
                 self.on_first_step()
             except Exception:  # never break the workload's step
                 log.exception("first-step callback failed")
         if hold is not None:
-            parked, release = hold
+            parked, release, _ = hold
             parked.set()
             release.wait(self.MAX_HOLD_S)
 
     @contextlib.contextmanager
-    def held(self, timeout_s: float, cancel: threading.Event | None = None):
+    def held(self, timeout_s: float, cancel: threading.Event | None = None,
+             every: int = 1):
         """Hold the thread of the next optimizer step in its step hook for
-        the body of the with-block. Yields True once it is held: backward
-        has finished and the optimizer's work is launched, so no thread of
-        a plain training loop launches device work until the body ends.
-        Yields False when no step came within timeout_s or ``cancel`` was
-        set first; the body then runs beside the workload. The CPU time
-        this thread spends in a held body adds to ``held_cpu_s``, as it
-        goes."""
+        the body of the with-block (with ``every`` > 1, of the next step
+        whose number is a multiple of it). Yields True once it is held:
+        backward has finished and the optimizer's work is launched, so no
+        thread of a plain training loop launches device work until the
+        body ends. Yields False when no such step came within timeout_s
+        or ``cancel`` was set first; the body then runs beside the
+        workload. The CPU time this thread spends in a held body adds to
+        ``held_cpu_s``, as it goes."""
         parked, release = threading.Event(), threading.Event()
         with self._lock:
-            self._hold = (parked, release)
+            self._hold = (parked, release, max(1, int(every)))
         took, cpu0 = False, 0.0
         try:
             deadline = time.monotonic() + timeout_s
@@ -184,7 +192,26 @@ class KinetoSource:
     boundary it waits for them where a resource guard can see whose
     place they take (``StepHook.held_cpu_s``). A session opened or
     closed with no step to hold (none within three step times, or the
-    workload is done) is counted as `unheld`.
+    workload is done) is counted as `unheld`. The step held at a stop is
+    left out of the capture's spans: its kernels were launched just
+    before the stop and most still run, and a capture loses some of them
+    even after a synchronize (26 of 1,788 on one H100, nearly all on a
+    rank of four; PERF.md, slice 8), so a window ships the whole steps
+    before it.
+
+    Ranks of a data-parallel job (a launcher's WORLD_SIZE, or the default
+    process group's, above 1): a rank that holds its step stalls every
+    other rank at their next collective, so captures on their own clocks
+    stall the job once per rank, and the stalls push the ranks' windows
+    apart (on four H100s they settled on alternate windows, no step
+    captured by all). So the step count sets their cycle: a window is
+    `steps_per_capture` (W) steps, from a step numbered a multiple of
+    P = W * 2**ceil(log2(1 / target_coverage)) to the next multiple of
+    W (`period_steps` in the stats; P and W are the same on every rank,
+    and no measurement enters them), so ranks in lockstep hold together
+    and capture the same whole steps. A rank waits StepHook.MAX_HOLD_S
+    beyond P step times for its boundary step, which a peer's hold may
+    delay.
 
     Contention guard: a window that would collide with a user's own
     profiler session, or another source, is skipped and counted as
@@ -228,7 +255,8 @@ class KinetoSource:
         self.stats = {"captures": 0, "events": 0, "errors": 0, "skipped": 0,
                       "contended": 0, "steps_seen": 0,
                       "coverage_pct": 0.0, "est_step_ms": 0.0,
-                      "captured_s": 0.0, "dead_ms": 0.0, "unheld": 0}
+                      "captured_s": 0.0, "dead_ms": 0.0, "unheld": 0,
+                      "period_steps": 0}
 
     def available(self) -> bool:
         """Capture only once the workload has initialised CUDA itself (the
@@ -306,10 +334,21 @@ class KinetoSource:
             if self._stop.wait(self._next_gap_s()):
                 return
 
+    def _period_steps(self) -> int:
+        """P of a data-parallel rank's step-count cycle (the class's
+        note); 0 for a lone process."""
+        if world_size() <= 1:
+            return 0
+        return self.steps_per_capture * 2 ** math.ceil(
+            math.log2(1.0 / self.target_coverage))
+
     def _next_duration_s(self) -> float:
         """Window sized to cover `steps_per_capture` whole steps, and at
         least long enough that the per-cycle dead time plus the minimum
-        gap fit in the uncovered share (coverage = dur/(dur+dead+gap))."""
+        gap fit in the uncovered share (coverage = dur/(dur+dead+gap)).
+        A data-parallel rank's window is counted in steps instead."""
+        if self._period_steps():
+            return 0.0
         if self._step_time_s <= 0:
             return self.duration_ms / 1000.0
         want = self._step_time_s * self.steps_per_capture
@@ -321,7 +360,10 @@ class KinetoSource:
 
     def _next_gap_s(self) -> float:
         """Gap between windows for the target step coverage, net of the
-        measured dead time."""
+        measured dead time. A data-parallel rank's start waits for its
+        step instead."""
+        if self._period_steps():
+            return self.min_gap_ms / 1000.0
         if self._step_time_s <= 0:
             return self.interval_s  # cadence unknown: conservative fallback
         dur = self._next_duration_s()
@@ -347,18 +389,27 @@ class KinetoSource:
                 100.0 * self._captured_s / elapsed, 1)
 
     @contextlib.contextmanager
-    def _at_step_boundary(self):
+    def _at_step_boundary(self, opening: bool = True):
         """The body runs while the next step's thread is held in the step
-        hook, when there is step signal and the workload still steps."""
+        hook, when there is step signal and the workload still steps;
+        yields whether it is held. A data-parallel rank holds the step
+        that opens or closes its window in the step-count cycle."""
         if not self.step_hook.count or self._stop.is_set():
-            yield
+            yield False
             return
-        wait_s = (max(1.0, 3.0 * self._step_time_s) if self._step_time_s > 0
-                  else self.interval_s)
-        with self.step_hook.held(wait_s, cancel=self._stop) as held:
+        period = self._period_steps()
+        self.stats["period_steps"] = period
+        every = (period if opening else self.steps_per_capture) \
+            if period else 1
+        wait_s = (max(1.0, (2.0 + every) * self._step_time_s)
+                  if self._step_time_s > 0 else self.interval_s)
+        if period:  # a peer's hold delays this rank's steps
+            wait_s += StepHook.MAX_HOLD_S
+        with self.step_hook.held(wait_s, cancel=self._stop,
+                                 every=every) as held:
             if not held:
                 self.stats["unheld"] += 1
-            yield
+            yield held
 
     def capture_once(self) -> list[TpuSpanEvent]:
         if not _PROFILER_SESSION_LOCK.acquire(blocking=False):
@@ -379,9 +430,10 @@ class KinetoSource:
         t0 = time.monotonic()
         try:
             prof = profile(activities=[ProfilerActivity.CUDA])
-            with self._at_step_boundary():
+            with self._at_step_boundary(opening=True):
                 if self._stop.is_set():
                     return []
+                _use_workload_device()
                 prof.start()
             # the covered span is the open session's time: start setup,
             # stop, export and parse are dead time
@@ -389,8 +441,10 @@ class KinetoSource:
             window_wall_ns = time.time_ns()
             self._stop.wait(self._next_duration_s())
             path = os.path.join(tmpdir, "trace.json")
-            with self._at_step_boundary():
+            with self._at_step_boundary(opening=False) as held:
                 window_t1 = time.monotonic()
+                _use_workload_device()
+                last_step = self.step_hook.count if held else 0
                 prof.stop()
                 t_stopped = time.monotonic()
                 prof.export_chrome_trace(path)
@@ -399,14 +453,18 @@ class KinetoSource:
                 cpu0 = time.thread_time()
                 n_trace = len(trace.get("traceEvents", ()))
                 events = extract_device_spans(
-                    trace, self.step_hook.since(window_wall_ns))
+                    trace, self.step_hook.since(window_wall_ns),
+                    rank=global_rank())
                 del trace
                 t_parsed = time.monotonic()
                 cpu1 = time.thread_time()
             window_s = window_t1 - window_t0
             self._captured_s += window_s
+            # the step held at the stop is left out (the class's note)
+            kept = ([e for e in events if not e.run_id or e.run_id < last_step]
+                    if last_step else events)
             self.stats["captures"] += 1
-            self.stats["events"] += len(events)
+            self.stats["events"] += len(kept)
             # the last cycle's dead time by phase, and its EWMA
             self.stats.update(
                 last_start_ms=round((window_t0 - t0) * 1000, 1),
@@ -420,14 +478,34 @@ class KinetoSource:
                             else 0.5 * self._dead_s + 0.5 * dead)
             self.stats["dead_ms"] = round(self._dead_s * 1000, 1)
             self._observe(events, window_s)
-            if events:
-                self.sink(events)
+            if kept:
+                self.sink(kept)
             # this thread's CPU after the hold: its work the guard reads
             self.stats["last_unheld_cpu_ms"] = round(
                 (time.thread_time() - cpu1) * 1000, 1)
-            return events
+            return kept
         finally:
             shutil.rmtree(tmpdir, ignore_errors=True)
+
+
+def workload_devices() -> list[int]:
+    """The CUDA devices the caching allocator holds memory on: the
+    workload's. Allocator statistics only, so no device gets a context."""
+    import torch
+    return [i for i in range(torch.cuda.device_count())
+            if torch.cuda.memory_stats(i).get("reserved_bytes.all.current")]
+
+
+def _use_workload_device() -> None:
+    """Make the workload's (first) device the current one of this, the
+    probe's, thread. A session's stop synchronizes the calling thread's
+    current device, device 0 in a thread that never chose one: a rank on
+    cuda:2 waited for GPU 0 instead of its own and gave its process a
+    context on GPU 0."""
+    import torch
+    devices = workload_devices()
+    if devices and devices[0] != torch.cuda.current_device():
+        torch.cuda.set_device(devices[0])
 
 
 def memory_sample(timestamp_ns: int, device_id: int, stats: dict,
@@ -476,7 +554,9 @@ class MemorySource:
 
     Polls each CUDA device this process has reserved memory on, at a fixed
     cadence: statistics reads only, no device sync. A process that has
-    not initialised CUDA is never given a context by the probe."""
+    not initialised CUDA is never given a context by the probe. A sample's
+    device_id is its process's global rank when it has one, as its spans'
+    (``ranks.py``), else the CUDA ordinal."""
 
     def __init__(self, sink, poll_interval_s: float = 5.0,
                  telemetry: Telemetry | None = None) -> None:
@@ -498,10 +578,12 @@ class MemorySource:
                     if st.get("reserved_bytes.all.current", 0)]
             largest = (largest_inactive_blocks(torch.cuda.memory_snapshot())
                        if used else {})
+            rank = global_rank()
             for i, st in used:
                 free, _total = torch.cuda.mem_get_info(i)
-                samples.append(memory_sample(ts, i, st, free,
-                                             largest.get(i, 0)))
+                samples.append(memory_sample(
+                    ts, i if rank is None else rank, st, free,
+                    largest.get(i, 0)))
         self.stats["polls"] += 1
         self.stats["samples"] += len(samples)
         if samples:

@@ -73,9 +73,25 @@ def _run(main, port, args, capsys) -> tuple[str, str]:
     return capsys.readouterr().out, end
 
 
+def _port_transports(api):
+    """The reference dfctl's HTTP call with its answers' ici / dcn read
+    as the port's nvlink / network."""
+    def call(server, path, body=None, token=None):
+        out = api(server, path, body, token)
+        res = out.get("result") if isinstance(out, dict) else None
+        if path == "/v1/profile/TpuCollectives":
+            out = dict(out, result=ts.port_transport(res))
+        elif path == "/v1/profile/TpuStepTrace":
+            out = dict(out, result=dict(
+                res, collectives=ts.port_transport(res["collectives"])))
+        return out
+    return call
+
+
 @pytest.mark.parametrize("args", COMMANDS, ids=lambda a: " ".join(a)[:60])
-def test_subcommand_prints_like_reference(pair, args, capsys):
+def test_subcommand_prints_like_reference(pair, args, capsys, monkeypatch):
     ref, port = pair
+    monkeypatch.setattr(ref_dfctl, "_api", _port_transports(ref_dfctl._api))
     want = _run(ref_dfctl.main, ref.query_port, args, capsys)
     got = _run(dfctl.main, port.query_port, args, capsys)
     assert got == want

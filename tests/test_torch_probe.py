@@ -448,8 +448,9 @@ def test_memory_source_skips_without_cuda_context():
 # -- the port stands alone ---------------------------------------------------
 
 def _port_files():
-    files = [os.path.join(ROOT, n) for n in ("chip_smoke.py",
-                                             "probe_stall.py")]
+    files = [os.path.join(ROOT, n) for n in (
+        "chip_smoke.py", "probe_stall.py", "chip_phases.py",
+        "nccl_explore.py", "capture_tail.py")]
     for d, _, names in os.walk(os.path.join(ROOT, "deepflow_tpu_torch")):
         files += [os.path.join(d, n) for n in names if n.endswith(".py")]
     return files
@@ -460,7 +461,8 @@ def test_port_imports_no_jax_and_no_reference():
     assert len(files) >= 15
     for mod in ("query/sql.py", "query/catalog.py", "query/engine.py",
                 "query/qtrace.py", "query/pool.py", "query/cache.py",
-                "query/costmodel.py", "query/sketch.py", "cli/dfctl.py"):
+                "query/costmodel.py", "query/sketch.py", "cli/dfctl.py",
+                "models/resnet.py", "parallel/dp.py", "tpuprobe/ranks.py"):
         assert os.path.join(ROOT, "deepflow_tpu_torch", mod) in files, mod
     for path in files:
         with open(path) as f:

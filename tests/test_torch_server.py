@@ -238,9 +238,21 @@ def _sorted_dicts(rows):
     return sorted(rows, key=lambda r: json.dumps(r, sort_keys=True))
 
 
+# the reference's transport labels and the port's for the same groups
+TRANSPORT = {"ici": "nvlink", "dcn": "network"}
+
+
+def port_transport(groups: list) -> list:
+    """Collective groups with the reference's ici / dcn read as the
+    port's nvlink / network."""
+    return [dict(g, transport=TRANSPORT.get(g["transport"], g["transport"]))
+            for g in groups]
+
+
 def _canon(method, res):
     """Lists whose order the reference leaves unspecified (ties in its
-    ORDER BY, a group-by's output order) in a fixed order."""
+    ORDER BY, a group-by's output order) in a fixed order; transports as
+    the port names them."""
     r = res["result"]
     if method == "tpu_flame":
         return _canon_flame(r)
@@ -253,7 +265,9 @@ def _canon(method, res):
                 ops_near_peak=_sorted_dicts(r["forensics"]["ops_near_peak"]))
         return r
     if method == "tpu_collectives":
-        return _sorted_dicts(r)
+        return _sorted_dicts(port_transport(r))
+    if method == "tpu_step_trace":
+        return dict(r, collectives=port_transport(r["collectives"]))
     return r
 
 
