@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's main path once on the NVIDIA GPUs of one host
-(one is enough: the dp phase takes every GPU it sees).
+(one is enough: the dp, parallel and mp phases take every GPU they see).
 
     python3 chip_smoke.py
 
@@ -131,9 +131,31 @@ Phases, each printing its own lines:
    N participants, the groups per step must equal the step's all-reduce
    calls the ranks print, and /v1/tpu/steps must name a rank as the
    straggler; with N == 1 (NCCL runs a one-rank all-reduce without a
-   kernel) it prints world=1 and the checks that need two GPUs.
+   kernel) it prints world=1 and the checks that need two GPUs;
+11. parallel: chip_parallel.py under python -m torch.distributed.run on
+   the N GPUs: the tiny float32 Llama sharded on the mp phase's mesh
+   must give the unsharded port's losses and weights on the CPU after
+   two steps; ring attention (llama7b() heads, bf16, S = 8192 cut over
+   N), the pipeline (four llama7b() layers over N stages, 4
+   microbatches) and expert-parallel MoE (d_model 4096, d_ff 11008, 8
+   experts, 4096 tokens) must match their dense forms, each timed beside
+   them; with N >= 2 a Kineto capture of each, parsed by the port with
+   its call log, must classify its NCCL kernels as the collectives it
+   issued (send-recvs, all-reduces), one a call;
+12. mp: the example with --preset llama7b at MP_LAYERS layers, sharded
+   on the (data, fsdp, tensor) mesh (2, 1, N / 2) from four GPUs on,
+   else factor_devices(N), under python -m torch.distributed.run: plain,
+   then under the runner shipping into a fresh server process. Every
+   rank's loss must be equal at every step and its span rows land under
+   agent rank + 1 exactly as its probe sent them, with no dup; with N >=
+   2, in each step every rank captured each communicator's groups must
+   be the calls the ranks printed for it, each with every rank in it and
+   the communicator's size as replica_group_size, none mixing two
+   communicators. Step ms without and with the agent, the top kernels
+   and each rank's peak memory are printed. With N == 1 both phases
+   print world=1 and the checks that need two GPUs.
 
-The servers of phases 5-8 and 10 run the server's entry point (its main(),
+The servers of phases 5-8, 10 and 12 run the server's entry point (its main(),
 stopped by SIGTERM after its drain) in a process of their own
 (multiprocessing, spawn) that then hands the smoke their tables' rows.
 Every phase line carries the card's name and power limit.
@@ -2177,6 +2199,289 @@ def dp_phase(torch, nums: dict) -> None:
           "/v1/tpu/steps names a rank as straggler_device")
 
 
+# the cross-rank checks of the parallel and mp phases, which need two
+# GPUs or more (a one-rank group issues no NCCL kernel)
+PARALLEL_CROSS_RANK = (
+    "ring attention's K/V blocks rotate over NCCL send-recvs",
+    "the pipeline's activations pass stage to stage over NCCL send-recvs "
+    "and its final all-reduce replicates them",
+    "the MoE's experts are cut over ranks and an NCCL all-reduce combines "
+    "them",
+    "a Kineto capture of each classifies its NCCL kernels as collectives")
+MP_CROSS_RANK = (
+    "in every step each rank captured, each communicator's groups equal "
+    "the calls the ranks printed for it",
+    "each group has every rank as a participant and its communicator's "
+    "size as replica_group_size",
+    "no group mixes two communicators")
+MP_LAYERS = 4            # llama7b() has 32; widths are unchanged
+MP_BATCH = 4             # global, cut over data
+MP_PLAIN_STEPS = 40
+MP_STEPS = 200           # with the agent: room for windows at 40-59, ...
+MP_CHILD_S = 900.0
+
+
+def parallel_phase(torch, nums: dict) -> None:
+    """chip_parallel.py under python -m torch.distributed.run, one rank
+    per GPU: the tiny sharded Llama on the mp phase's mesh against the
+    unsharded port on the CPU, and ring attention, the pipeline and MoE
+    at llama7b() widths against their dense forms, each with a Kineto
+    capture whose NCCL kernels the port classifies as collectives."""
+    import chip_parallel as cp
+    os.makedirs(OUT_DIR, exist_ok=True)
+    n = torch.cuda.device_count()
+    for f in os.listdir(OUT_DIR):
+        if f.startswith("parallel_r"):
+            os.remove(os.path.join(OUT_DIR, f))
+    t0 = time.perf_counter()
+    with open(os.path.join(OUT_DIR, "parallel.out"), "w") as out, \
+            open(os.path.join(OUT_DIR, "parallel.err"), "w") as err:
+        rc = subprocess.run(
+            [sys.executable, "-m", "torch.distributed.run", "--standalone",
+             "--nproc-per-node", str(n), os.path.join(ROOT,
+                                                      "chip_parallel.py"),
+             OUT_DIR], cwd=ROOT, stdout=out, stderr=err,
+            timeout=MP_CHILD_S).returncode
+    ranks = {}
+    for r in range(n):
+        path = os.path.join(OUT_DIR, f"parallel_r{r}.json")
+        if os.path.exists(path):
+            with open(path) as f:
+                ranks[r] = json.load(f)
+    first = ranks.get(0, {})
+    nums.update(world=n, wall_s=time.perf_counter() - t0,
+                tiny=first.get("tiny"), peak_mb={
+                    r: v.get("peak_mb") for r, v in ranks.items()},
+                **{k: {r: {x: v[k].get(x) for x in (
+                    "max_abs_err", "ms", "dense_ms", "sequential_ms",
+                    "collectives", "calls", "kernels")
+                    if x in v[k]} for r, v in ranks.items() if k in v}
+                   for k in ("ring", "pipeline", "moe")})
+    phase("parallel", **{k: json.dumps(v) if isinstance(v, (dict, list))
+                         else v for k, v in nums.items()})
+    check(rc == 0, f"chip_parallel.py exit code {rc} (see "
+          f"{OUT_DIR}/parallel.err)")
+    check(sorted(ranks) == list(range(n)) and all(
+        all(k in v for k in ("tiny", "ring", "pipeline", "moe"))
+        for v in ranks.values()), "every rank ran every check")
+    check(all(v["tiny"]["losses"] == first["tiny"]["losses"]
+              for v in ranks.values()),
+          "every rank's tiny sharded loss equal")
+    if n == 1:
+        print(f"[parallel] world=1: one GPU; a one-rank group issues no "
+              f"NCCL kernel, so these checks need two GPUs or more and did "
+              f"not run: {'; '.join(PARALLEL_CROSS_RANK)}", flush=True)
+        nums["not_run_with_one_gpu"] = list(PARALLEL_CROSS_RANK)
+        return
+    ticks = cp.PIPE_MICRO + n - 1
+    for r, v in ranks.items():
+        check(v["ring"]["collectives"] == {"send-recv": n - 1},
+              f"rank {r}: the ring's send-recvs {v['ring']['collectives']}")
+        check(v["pipeline"]["collectives"] == {"send-recv": ticks,
+                                               "all-reduce": 1},
+              f"rank {r}: the pipeline's collectives "
+              f"{v['pipeline']['collectives']}")
+        check(v["moe"]["collectives"] == {"all-reduce": 1},
+              f"rank {r}: the MoE's all-reduce {v['moe']['collectives']}")
+
+
+def _mp_args(shape) -> list[str]:
+    return [EXAMPLE, "--preset", "llama7b", "--layers", str(MP_LAYERS),
+            "--mesh", ",".join(map(str, shape)), "--seq", str(SEQ),
+            "--batch", str(MP_BATCH)]
+
+
+def _by_rank(name: str) -> dict[int, list]:
+    with open(os.path.join(OUT_DIR, f"{name}.out")) as f:
+        lines = [json.loads(x) for x in f if x.startswith("{")]
+    out: dict[int, list] = {}
+    for line in lines:
+        out.setdefault(line["rank"], []).append(line)
+    return out
+
+
+def _step_stats(steps: list) -> dict:
+    ms = [x["ms"] for x in steps[RUNNER_WARMUP:]]
+    return {"median": statistics.median(ms), "mean": statistics.mean(ms),
+            "max": max(ms)}
+
+
+def mp_phase(torch, nums: dict) -> None:
+    """The example with --preset llama7b sharded on the mesh under python
+    -m torch.distributed.run, one rank per GPU: plain, then each rank
+    under the zero-code runner shipping into a fresh server process.
+    Every rank's loss equal at every step, its rows exactly once under
+    agent rank + 1, no dup; with two GPUs or more, each communicator's
+    calls stitched one group a call with every rank in it."""
+    import chip_parallel as cp
+    os.makedirs(OUT_DIR, exist_ok=True)
+    n = torch.cuda.device_count()
+    shape = cp.mp_shape(n)
+    sizes = dict(zip(("data", "fsdp", "tensor"), shape))
+    print(f"[mp] layers={MP_LAYERS} mesh={shape} world={n}", flush=True)
+    launch = ["-m", "torch.distributed.run", "--standalone",
+              "--nproc-per-node", str(n)]
+    plain = _train_child([*launch, "-m", *_mp_args(shape), "--steps",
+                          str(MP_PLAIN_STEPS)], "mp_plain")
+    span_cols = ["agent_id", "device_id", "hlo_op", "program_id",
+                 "collective", "run_id", "duration_ns",
+                 "replica_group_size"]
+    srv = _ServerProcess(
+        os.path.join(OUT_DIR, "mp_server.log"),
+        dump={"profile.tpu_hlo_span": span_cols,
+              _SELFSTATS: ["agent_id", "metric_name", "time", "value_name",
+                           "value"]})
+    try:
+        run = _train_child(
+            [*launch, *RUNNER, "--server", f"127.0.0.1:{srv.ingest_port}",
+             "--service", "llama-mp", "-m", *_mp_args(shape), "--steps",
+             str(MP_STEPS)], "mp")
+        health = _ingest_settled(srv.query_port)
+        _, groups, colls_ms = _http(srv.query_port,
+                                    "/v1/profile/TpuCollectives", {})
+        groups = groups["result"]
+    finally:
+        rows = srv.stop()
+    plain_by, by_rank = _by_rank("mp_plain"), _by_rank("mp")
+    spans = rows["profile.tpu_hlo_span"]
+    per_step: dict[int, dict] = {}   # run_id -> rank -> [spans, NCCL]
+    for d, op, coll, rid in zip(spans["device_id"], spans["hlo_op"],
+                                spans["collective"], spans["run_id"]):
+        if op and rid:
+            c = per_step.setdefault(rid, {}).setdefault(d, [0, 0])
+            c[0] += 1
+            c[1] += bool(coll)
+    with open(os.path.join(OUT_DIR, "mp_steps.json"), "w") as f:
+        json.dump(per_step, f)
+    per_agent: dict[int, int] = {}
+    for a in spans["agent_id"]:
+        per_agent[a] = per_agent.get(a, 0) + 1
+    st = rows[_SELFSTATS]
+    sent: dict[int, tuple[int, float]] = {}
+    for a, m, t, vn, v in zip(st["agent_id"], st["metric_name"], st["time"],
+                              st["value_name"], st["value"]):
+        if m == "agent.tpuprobe" and vn == "spans_sent" and \
+                t >= sent.get(a, (-1, 0))[0]:
+            sent[a] = (t, v)
+    kernel_ns: dict[str, int] = {}
+    for op, d in zip(spans["hlo_op"], spans["duration_ns"]):
+        if op:
+            kernel_ns[op] = kernel_ns.get(op, 0) + d
+    top = sorted(kernel_ns.items(), key=lambda kv: -kv[1])[:5]
+    whole, calls_of = _mp_calls(spans, n)
+    modules: dict[int, set] = {}   # run_id -> ranks with its module span
+    for d, op, rid in zip(spans["device_id"], spans["hlo_op"],
+                          spans["run_id"]):
+        if not op and rid:
+            modules.setdefault(rid, set()).add(d)
+    printed = {json.dumps(x["calls"], sort_keys=True)
+               for v in by_rank.values() for x in v}
+    in_whole = [g for g in groups if g["run_id"] in whole]
+    dec = health["stats"]["decoders"]
+    nums.update(
+        world=n, mesh=list(shape), layers=MP_LAYERS,
+        steps_per_rank={r: len(v) for r, v in by_rank.items()},
+        step_ms_plain={r: _step_stats(v) for r, v in plain_by.items()},
+        step_ms_agent={r: _step_stats(v) for r, v in by_rank.items()},
+        peak_mb={r: v[-1].get("peak_mb") for r, v in by_rank.items()},
+        calls_per_step=sorted(printed), loss_first=by_rank[0][0]["loss"],
+        loss_last=by_rank[0][-1]["loss"],
+        top_kernels_ms=[(op[:90], ns / 1e6) for op, ns in top],
+        span_rows_per_agent=per_agent,
+        spans_sent_per_agent={a: v for a, (_, v) in sent.items()},
+        steps_captured_by_every_rank=sum(len(v) == n
+                                         for v in modules.values()),
+        steps_with_collectives_from_every_rank=len(whole),
+        groups=len(groups),
+        groups_in_whole_steps=len(in_whole),
+        group_participants=sorted({g["n_participants"] for g in in_whole}),
+        group_spans=sorted({g["n_spans"] for g in in_whole}),
+        collectives_query_ms=colls_ms, plain_wall_s=plain["wall_s"],
+        wall_s=run["wall_s"], dups=sum(d["dups"] for d in dec.values()),
+        decode_errors=sum(d["errors"] for d in dec.values()))
+    phase("mp", **{k: json.dumps(v) if isinstance(v, (dict, list)) else v
+                   for k, v in nums.items()})
+    check(sorted(by_rank) == list(range(n)) and
+          all(len(v) == MP_STEPS for v in by_rank.values()),
+          f"every rank of {n} trained {MP_STEPS} steps")
+    check(len(printed) == 1, f"one set of calls a step on every rank "
+          f"({printed})")
+    for name, got in (("plain", plain_by), ("agent", by_rank)):
+        for i in range(len(got[0])):
+            losses = {v[i]["loss"] for v in got.values()}
+            check(len(losses) == 1 and all(map(math.isfinite, losses)),
+                  f"every rank's loss equal at step {i} ({name}: {losses})")
+    check(all(per_agent.get(r + 1, 0) == sent.get(r + 1, (0, -1))[1] > 0
+              for r in range(n)) and set(per_agent) == {
+                  r + 1 for r in range(n)},
+          f"every rank's spans land exactly once under agent rank + 1 "
+          f"({per_agent} against {({a: v for a, (_, v) in sent.items()})})")
+    check(nums["dups"] == 0 and nums["decode_errors"] == 0,
+          "no dup and no decode error in the server")
+    if n == 1:
+        print(f"[mp] world=1: one GPU; a one-rank group issues no NCCL "
+              f"kernel, so these checks need two GPUs or more and did not "
+              f"run: {'; '.join(MP_CROSS_RANK)}", flush=True)
+        nums["not_run_with_one_gpu"] = list(MP_CROSS_RANK)
+        return
+    mp_cross_rank_checks(whole, calls_of, in_whole,
+                         json.loads(printed.pop()), n, sizes)
+
+
+def _mp_calls(spans: dict, n: int) -> tuple[set, dict]:
+    """The steps every rank captured (NCCL spans from each of n ranks:
+    every step of the sharded step issues collectives, and the capture
+    that the runner's detach cuts may hold a step of a few trailing
+    kernels and none) and their NCCL span rows by the stitcher's key
+    (run_id, hlo_op, program_id): the ranks and replica_group_size of
+    each."""
+    captured: dict[int, set] = {}
+    for d, coll, rid in zip(spans["device_id"], spans["collective"],
+                            spans["run_id"]):
+        if coll and rid:
+            captured.setdefault(rid, set()).add(d)
+    whole = {rid for rid, devs in captured.items() if len(devs) == n}
+    calls_of: dict[tuple, dict] = {}
+    for d, op, pid, coll, rid, rgs in zip(
+            spans["device_id"], spans["hlo_op"], spans["program_id"],
+            spans["collective"], spans["run_id"],
+            spans["replica_group_size"]):
+        if coll and rid in whole:
+            g = calls_of.setdefault((rid, op, pid), {"ranks": [],
+                                                     "rgs": set()})
+            g["ranks"].append(d)
+            g["rgs"].add(rgs)
+    return whole, calls_of
+
+
+def mp_cross_rank_checks(whole: set, calls_of: dict, in_whole: list,
+                         calls: dict, n: int, sizes: dict) -> None:
+    """MP_CROSS_RANK on the span rows of the steps every rank captured
+    (``_mp_calls``) and the server's groups of those steps."""
+    from deepflow_tpu_torch.tpuprobe.comms import CALL_STRIDE, comm_axis
+    check(len(whole) >= 1, "a step that every rank captured")
+    per_comm: dict[tuple, int] = {}
+    for rid, _, pid in calls_of:
+        key = (rid, comm_axis(pid // CALL_STRIDE))
+        per_comm[key] = per_comm.get(key, 0) + 1
+    for rid in whole:
+        got = {a: k for (r, a), k in per_comm.items() if r == rid}
+        check(got == calls, f"step {rid}: groups per communicator {got} "
+              f"== the calls printed {calls}")
+    for (rid, op, pid), g in calls_of.items():
+        axis = comm_axis(pid // CALL_STRIDE)
+        check(sorted(g["ranks"]) == list(range(n)),
+              f"step {rid} call {pid}: every rank once ({g['ranks']})")
+        check(g["rgs"] == {sizes[axis]}, f"step {rid} call {pid}: "
+              f"replica_group_size {g['rgs']} == {axis} size {sizes[axis]}")
+    check(len(in_whole) == len(calls_of) and
+          {(g["n_participants"], g["n_spans"]) for g in in_whole}
+          == {(n, n)},
+          f"the server's groups in whole steps ({len(in_whole)}) are the "
+          f"calls ({len(calls_of)}), each of {n} spans from {n} ranks: no "
+          f"group mixes two communicators")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2218,6 +2523,10 @@ def main() -> int:
         result["resnet"] = resnet_phase(torch)
         result["dp"] = {}
         dp_phase(torch, result["dp"])
+        result["parallel"] = {}
+        parallel_phase(torch, result["parallel"])
+        result["mp"] = {}
+        mp_phase(torch, result["mp"])
     finally:
         # every number so far, also when a check failed
         result["seconds"] = time.perf_counter() - t0

@@ -16,6 +16,39 @@ reference op for op, so the same weights give the same logits:
   It is plain tensor code like the reference's ``_attention``, not
   ``scaled_dot_product_attention``;
 - the LM head is tied to the embedding and returns float32 logits.
+
+With a mesh (``Llama(..., mesh=...)``, ``parallel/mesh.py``) each rank
+holds its block of every parameter under ``param_specs``, the reference's
+PartitionSpecs over (data, fsdp, tensor), and the step issues the
+collectives that GSPMD inserts for the reference, written out as Megatron
+does (``parallel/collectives.py``):
+
+- ``wq``/``wk``/``wv``/``w_gate``/``w_up`` are cut over ``tensor`` by
+  columns (heads and the MLP's hidden units), ``wo``/``w_down`` by rows:
+  a column-parallel product's input is ``copy_to`` the tensor group and a
+  row-parallel product's partial sums are ``reduce_from`` it. Heads, KV
+  heads, ``d_ff`` and the vocabulary must divide by the tensor axis (the
+  reference's GSPMD cuts them unevenly; the port raises ValueError);
+- every weight's ``fsdp`` cut is ``gather_from`` the fsdp group before
+  use, layer by layer (autograd keeps the gathered weights for the
+  backward pass, which gathers nothing again); its gradient is
+  reduce-scattered back;
+- ``tok_embed`` is cut (``tensor``, ``fsdp``): the lookup is
+  vocab-parallel (each rank looks up the tokens of its rows, zeros
+  elsewhere, summed over ``tensor``), the tied LM head gives logits cut
+  over the vocabulary, and the cross-entropy is the full vocabulary's
+  ``log_softmax``: the maximum, the sum of exponentials and the target's
+  logit each reduced over ``tensor``;
+- the batch is cut over ``data`` (the reference's tokens are
+  ``P("data", None)``); gradients and the loss are averaged over it, as
+  ``parallel/dp.py`` does, in buckets.
+
+With ``sp_axis`` (the reference's long-context mode) the activations are
+cut along the sequence over that axis: each rank embeds and runs its
+block of positions, attention is ring attention
+(``parallel/ring_attention.py``), RoPE and the causal mask take global
+positions, and gradients and the loss are averaged over ``sp`` as over
+``data``.
 """
 
 from __future__ import annotations
@@ -29,6 +62,11 @@ import torch.nn.functional as F
 from torch import nn
 
 from deepflow_tpu_torch.device import resolve_device
+from deepflow_tpu_torch.parallel import collectives as pc
+from deepflow_tpu_torch.parallel.dp import average_, make_buckets
+from deepflow_tpu_torch.parallel.mesh import gather_of, shard_of
+from deepflow_tpu_torch.parallel.ring_attention import ring_local
+from deepflow_tpu_torch.tpuprobe.comms import CALLS
 
 LAYER_PARAMS = ("attn_norm", "wq", "wk", "wv", "wo", "mlp_norm",
                 "w_gate", "w_up", "w_down")
@@ -84,6 +122,73 @@ def param_shapes(cfg: LlamaConfig) -> dict:
     }
 
 
+def param_specs(cfg: LlamaConfig) -> dict:
+    """The reference's PartitionSpecs over ('data', 'fsdp', 'tensor'), as
+    tuples of axis names.
+
+    Megatron-style: attention heads and MLP hidden dim split on 'tensor';
+    the orthogonal dim sharded on 'fsdp' (ZeRO-3-ish weight sharding).
+    """
+    return {
+        "tok_embed": ("tensor", "fsdp"),
+        "layers": {
+            "attn_norm": (None, None),
+            "wq": (None, "fsdp", "tensor"),
+            "wk": (None, "fsdp", "tensor"),
+            "wv": (None, "fsdp", "tensor"),
+            "wo": (None, "tensor", "fsdp"),
+            "mlp_norm": (None, None),
+            "w_gate": (None, "fsdp", "tensor"),
+            "w_up": (None, "fsdp", "tensor"),
+            "w_down": (None, "tensor", "fsdp"),
+        },
+        "final_norm": (None,),
+    }
+
+
+_SPECS = param_specs(LlamaConfig())
+# each leaf's spec by its name in the state dict's last part
+_LEAF_SPECS = {**_SPECS["layers"], "tok_embed": _SPECS["tok_embed"],
+               "final_norm": _SPECS["final_norm"]}
+
+
+@dataclasses.dataclass(frozen=True)
+class _Axes:
+    """The rank's mesh axes a step uses; an axis the mesh lacks is a
+    one-rank axis, whose collectives are identities."""
+    data: pc.Axis
+    fsdp: pc.Axis
+    tensor: pc.Axis
+    sp: pc.Axis
+
+    @staticmethod
+    def of(mesh, sp_axis: str | None = None) -> "_Axes":
+        names = () if mesh is None else mesh.mesh_dim_names
+
+        def ax(name: str) -> pc.Axis:
+            return (pc.Axis.of(mesh, name) if name in names
+                    else pc.Axis(name, None, 1, 0))
+        return _Axes(ax("data"), ax("fsdp"), ax("tensor"),
+                     ax(sp_axis) if sp_axis else pc.Axis("sp", None, 1, 0))
+
+
+_SOLO = _Axes.of(None)
+
+
+def _check_divides(cfg: LlamaConfig, axes: _Axes) -> None:
+    t, f = axes.tensor.size, axes.fsdp.size
+    bad = [f"{name} = {n} does not divide by the {axis} axis of {k}"
+           for name, n, axis, k in (
+               ("n_heads", cfg.n_heads, "tensor", t),
+               ("n_kv_heads", cfg.n_kv_heads, "tensor", t),
+               ("d_ff", cfg.d_ff, "tensor", t),
+               ("vocab", cfg.vocab, "tensor", t),
+               ("d_model", cfg.d_model, "fsdp", f)) if n % k]
+    if bad:
+        raise ValueError("the sharded Llama needs whole heads, columns and "
+                         "rows on every rank: " + "; ".join(bad))
+
+
 def _rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
     x32 = x.float()
     rms = torch.rsqrt((x32 * x32).mean(dim=-1, keepdim=True) + eps)
@@ -126,22 +231,41 @@ def _attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def _layer(cfg: LlamaConfig, cos: torch.Tensor, sin: torch.Tensor,
-           x: torch.Tensor, lp: dict) -> torch.Tensor:
+           x: torch.Tensor, lp: dict, axes: _Axes = _SOLO) -> torch.Tensor:
+    """One block on this rank's heads and hidden units (all of them
+    without a mesh); ``lp`` holds the gathered weights."""
     B, S, _ = x.shape
-    hd, nh, nkv = cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
+    t = axes.tensor.size
+    hd, nh, nkv = cfg.head_dim, cfg.n_heads // t, cfg.n_kv_heads // t
 
-    h = _rms_norm(x, lp["attn_norm"], cfg.norm_eps)
+    h = pc.copy_to(_rms_norm(x, lp["attn_norm"], cfg.norm_eps), axes.tensor)
     q = (h @ lp["wq"]).reshape(B, S, nh, hd)
     k = (h @ lp["wk"]).reshape(B, S, nkv, hd)
     v = (h @ lp["wv"]).reshape(B, S, nkv, hd)
     q = _rope(q, cos, sin)
     k = _rope(k, cos, sin)
-    attn = _attention(q, k, v, cfg).reshape(B, S, nh * hd)
-    x = x + attn @ lp["wo"]
+    if axes.sp.group is not None:
+        attn = ring_local(q, k, v, axes.sp, causal=True)
+    else:
+        attn = _attention(q, k, v, cfg)
+    x = x + pc.reduce_from(attn.reshape(B, S, nh * hd) @ lp["wo"],
+                           axes.tensor)
 
-    h = _rms_norm(x, lp["mlp_norm"], cfg.norm_eps)
+    h = pc.copy_to(_rms_norm(x, lp["mlp_norm"], cfg.norm_eps), axes.tensor)
     gate = F.silu((h @ lp["w_gate"]).float()).to(x.dtype)
-    return x + (gate * (h @ lp["w_up"])) @ lp["w_down"]
+    return x + pc.reduce_from((gate * (h @ lp["w_up"])) @ lp["w_down"],
+                              axes.tensor)
+
+
+def _gathered(w: torch.Tensor, name: str, axes: _Axes) -> torch.Tensor:
+    """A weight's fsdp blocks put together (one layer's slice, whose
+    dims are the spec's less the stacked one)."""
+    spec = _LEAF_SPECS[name]
+    if name in LAYER_PARAMS:
+        spec = spec[1:]
+    if axes.fsdp.size == 1 or "fsdp" not in spec:
+        return w
+    return pc.gather_from(w, axes.fsdp, spec.index("fsdp"))
 
 
 class Llama(nn.Module):
@@ -151,13 +275,22 @@ class Llama(nn.Module):
     (normal * 1/sqrt(fan_in) in float32, cast to cfg.dtype; norms at one),
     from ``generator``; the numbers differ from jax.random's, so tests
     carry one set of weights across with ``params_from_numpy``.
+
+    With ``mesh`` each parameter is this rank's block under
+    ``param_specs`` (every rank draws the full tensor from the same seed
+    and keeps its block), and ``sp_axis`` names the mesh axis the
+    sequence is cut over (the module's note).
     """
 
     def __init__(self, cfg: LlamaConfig, device: str | torch.device = "cuda",
-                 generator: torch.Generator | None = None) -> None:
+                 generator: torch.Generator | None = None, mesh=None,
+                 sp_axis: str | None = None) -> None:
         super().__init__()
         dev = resolve_device(device)
         self.cfg = cfg
+        self.mesh = mesh
+        self.axes = _Axes.of(mesh, sp_axis)
+        _check_divides(cfg, self.axes)
         if generator is None:
             generator = torch.Generator(device=dev).manual_seed(0)
         shapes = param_shapes(cfg)
@@ -168,6 +301,8 @@ class Llama(nn.Module):
             else:
                 t = (torch.randn(shape, generator=generator, device=dev)
                      / math.sqrt(shape[-2])).to(cfg.dtype)
+            if mesh is not None:
+                t = shard_of(t, _LEAF_SPECS[name], mesh).clone()
             return nn.Parameter(t)
 
         self.tok_embed = init("tok_embed", shapes["tok_embed"])
@@ -176,24 +311,80 @@ class Llama(nn.Module):
         self.final_norm = init("final_norm", shapes["final_norm"])
 
     def forward(self, tokens: torch.Tensor) -> torch.Tensor:
-        """tokens (B, S) int -> logits (B, S, V) float32."""
-        cfg = self.cfg
-        cos, sin = rope_tables(cfg, tokens.shape[1], tokens.device)
-        x = self.tok_embed[tokens]
+        """tokens (B, S) int -> logits (B, S, V) float32.
+
+        With a mesh: ``tokens`` is this rank's block of the batch at the
+        whole sequence; the logits are its block of positions (all of
+        them unless ``sp_axis``) over its block of the vocabulary."""
+        cfg, axes = self.cfg, self.axes
+        S = tokens.shape[1]
+        cos, sin = rope_tables(cfg, S, tokens.device)
+        if axes.sp.size > 1:
+            if S % axes.sp.size:
+                raise ValueError(f"sequence {S} does not divide by the "
+                                 f"{axes.sp.name!r} axis of {axes.sp.size}")
+            n = S // axes.sp.size
+            lo = axes.sp.index * n  # global positions of this rank's block
+            tokens, cos, sin = (tokens[:, lo:lo + n], cos[lo:lo + n],
+                                sin[lo:lo + n])
+        embed = _gathered(self.tok_embed, "tok_embed", axes)
+        x = self._lookup(embed, tokens)
         for i in range(cfg.n_layers):
             x = _layer(cfg, cos, sin, x,
-                       {n: self.layers[n][i] for n in LAYER_PARAMS})
+                       {n: _gathered(self.layers[n][i], n, axes)
+                        for n in LAYER_PARAMS}, axes)
         x = _rms_norm(x, self.final_norm, cfg.norm_eps)
         # tied embeddings for the LM head
-        return torch.einsum("bsd,vd->bsv", x, self.tok_embed).float()
+        x = pc.copy_to(x, axes.tensor)
+        return torch.einsum("bsd,vd->bsv", x, embed).float()
+
+    def _lookup(self, embed: torch.Tensor, tokens: torch.Tensor
+                ) -> torch.Tensor:
+        """Embedding rows of the tokens; over a vocabulary cut on the
+        tensor axis, each rank's rows and zeros elsewhere, summed."""
+        tensor = self.axes.tensor
+        if tensor.size == 1:
+            return embed[tokens]
+        n = embed.shape[0]
+        local = tokens - tensor.index * n
+        mine = (local >= 0) & (local < n)
+        rows = embed[local.clamp(0, n - 1)]
+        rows = torch.where(mine[..., None], rows, rows.new_zeros(()))
+        return pc.reduce_from(rows, tensor)
+
+
+def _vocab_parallel_nll(logits: torch.Tensor, targets: torch.Tensor,
+                        tensor: pc.Axis) -> torch.Tensor:
+    """-log_softmax(logits)[target] over the full vocabulary, from this
+    rank's block of it: the maximum, the sum of exponentials and the
+    target's logit are reduced over the tensor axis."""
+    n = logits.shape[-1]
+    m = pc.all_reduce_max(logits.detach().amax(-1, keepdim=True), tensor)
+    z = logits - m
+    sumexp = pc.reduce_from(z.exp().sum(-1), tensor)
+    local = targets.long() - tensor.index * n
+    mine = (local >= 0) & (local < n)
+    tz = z.gather(-1, local.clamp(0, n - 1)[..., None])[..., 0]
+    tz = pc.reduce_from(torch.where(mine, tz, tz.new_zeros(())), tensor)
+    return torch.log(sumexp) - tz
 
 
 def loss_fn(model: Llama, tokens: torch.Tensor) -> torch.Tensor:
-    """Next-token cross-entropy over tokens[:, :-1] -> tokens[:, 1:]."""
+    """Next-token cross-entropy over tokens[:, :-1] -> tokens[:, 1:].
+
+    With a mesh: the mean over this rank's tokens (its block of the
+    batch and, with ``sp_axis``, of the positions); the step averages it
+    over ``data`` and ``sp``."""
     logits = model(tokens[:, :-1])
-    logp = torch.log_softmax(logits, dim=-1)
-    ll = logp.gather(-1, tokens[:, 1:, None].long())[..., 0]
-    return -ll.mean()
+    targets = tokens[:, 1:]
+    if model.mesh is None:
+        logp = torch.log_softmax(logits, dim=-1)
+        ll = logp.gather(-1, targets[:, :, None].long())[..., 0]
+        return -ll.mean()
+    sp = model.axes.sp
+    n = targets.shape[1] // sp.size
+    targets = targets[:, sp.index * n:(sp.index + 1) * n]
+    return _vocab_parallel_nll(logits, targets, model.axes.tensor).mean()
 
 
 def make_train_step(model: Llama, optimizer: torch.optim.Optimizer | None
@@ -201,10 +392,18 @@ def make_train_step(model: Llama, optimizer: torch.optim.Optimizer | None
     """Returns (train_step, optimizer). SGD with momentum 0.9 at lr 3e-4
     by default, as the reference's optax.sgd(3e-4, momentum=0.9).
     train_step(tokens) updates the model in place and returns the loss
-    computed before the update."""
+    computed before the update.
+
+    With a mesh, ``tokens`` is this rank's block of the batch (rows cut
+    over ``data``) at the whole sequence, the returned loss is the mean
+    over every rank's tokens (equal on every rank), and
+    ``train_step.calls`` holds the collective calls of the last step by
+    mesh axis."""
     if optimizer is None:
         optimizer = torch.optim.SGD(model.parameters(), lr=3e-4,
                                     momentum=0.9)
+    if model.mesh is not None:
+        return _ShardedStep(model, optimizer), optimizer
 
     def train_step(tokens: torch.Tensor) -> torch.Tensor:
         loss = loss_fn(model, tokens)
@@ -216,33 +415,76 @@ def make_train_step(model: Llama, optimizer: torch.optim.Optimizer | None
     return train_step, optimizer
 
 
-def params_from_numpy(tree: dict, device: str | torch.device = "cuda"
-                      ) -> dict[str, torch.Tensor]:
+class _ShardedStep:
+    """One sharded step: this rank's loss and gradients (with the
+    tensor and fsdp collectives inside them), then the gradients and the
+    loss averaged over ``data`` and ``sp`` in buckets, then the update
+    of this rank's blocks."""
+
+    BUCKET_CAP_BYTES = 25 << 20   # as DataParallelStep's default
+
+    def __init__(self, model: Llama, optimizer) -> None:
+        self.model = model
+        self.optimizer = optimizer
+        self.params = [p for p in model.parameters() if p.requires_grad]
+        self.buckets = make_buckets(self.params, self.BUCKET_CAP_BYTES)
+        self.calls: dict[str, int] = {}
+
+    def __call__(self, tokens: torch.Tensor) -> torch.Tensor:
+        axes = self.model.axes
+        before = CALLS.counts()
+        loss = loss_fn(self.model, tokens)
+        loss.backward()
+        replicas = [a for a in (axes.data, axes.sp) if a.size > 1]
+
+        def sum_(t: torch.Tensor) -> None:
+            for a in replicas:
+                pc.all_reduce_(t, a)
+        mean = average_(self.buckets, loss,
+                        math.prod(a.size for a in replicas), sum_)
+        self.optimizer.step()
+        self.optimizer.zero_grad(set_to_none=True)
+        after = CALLS.counts()
+        self.calls = {k: v - before.get(k, 0) for k, v in after.items()
+                      if v > before.get(k, 0)}
+        return mean
+
+
+def params_from_numpy(tree: dict, device: str | torch.device = "cuda",
+                      mesh=None) -> dict[str, torch.Tensor]:
     """The reference's nested numpy tree -> a state dict for
     ``Llama.load_state_dict``. bfloat16 leaves (ml_dtypes) widen exactly to
-    float32 on the way and come back as torch.bfloat16."""
+    float32 on the way and come back as torch.bfloat16. With a mesh, each
+    leaf is this rank's block under ``param_specs``."""
     dev = resolve_device(device)
 
-    def conv(a) -> torch.Tensor:
+    def conv(a, name: str) -> torch.Tensor:
         arr = np.asarray(a)
+        if mesh is not None:
+            arr = shard_of(arr, _LEAF_SPECS[name], mesh)
         bf16 = arr.dtype.name == "bfloat16"
         t = torch.from_numpy(np.array(arr, dtype=np.float32 if bf16
                                       else arr.dtype))
         return t.to(dev, torch.bfloat16 if bf16 else t.dtype)
 
-    out = {"tok_embed": conv(tree["tok_embed"]),
-           "final_norm": conv(tree["final_norm"])}
+    out = {"tok_embed": conv(tree["tok_embed"], "tok_embed"),
+           "final_norm": conv(tree["final_norm"], "final_norm")}
     for n in LAYER_PARAMS:
-        out[f"layers.{n}"] = conv(tree["layers"][n])
+        out[f"layers.{n}"] = conv(tree["layers"][n], n)
     return out
 
 
 def params_to_numpy(model: Llama) -> dict:
     """Model weights -> the reference's nested tree, as float32 numpy
-    (exact for bfloat16 weights; cast back with ``astype``)."""
-    def conv(p: torch.Tensor) -> np.ndarray:
-        return p.detach().float().cpu().numpy()
+    copies (exact for bfloat16 weights; cast back with ``astype``), which
+    later updates leave as they are. With a mesh, the full tensors
+    gathered from every rank's blocks (every rank must call it)."""
+    def conv(p: torch.Tensor, name: str) -> np.ndarray:
+        p = p.detach()
+        if model.mesh is not None:
+            p = gather_of(p, _LEAF_SPECS[name], model.mesh)
+        return np.array(p.float().cpu())
 
-    return {"tok_embed": conv(model.tok_embed),
-            "layers": {n: conv(model.layers[n]) for n in LAYER_PARAMS},
-            "final_norm": conv(model.final_norm)}
+    return {"tok_embed": conv(model.tok_embed, "tok_embed"),
+            "layers": {n: conv(model.layers[n], n) for n in LAYER_PARAMS},
+            "final_norm": conv(model.final_norm, "final_norm")}

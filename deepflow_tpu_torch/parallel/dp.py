@@ -57,23 +57,33 @@ class DataParallelStep:
         group (detached)."""
         loss = self.loss_fn(self.model, *batch)
         loss.backward()
-        with torch.no_grad():
-            for bucket in self.buckets:
-                grads = [p.grad if p.grad is not None
-                         else torch.zeros_like(p) for p in bucket]
-                flat = _flatten(grads)
-                dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=self.group)
-                flat.div_(self.world)
-                for p, g in zip(bucket, grads):
-                    if p.grad is None:
-                        p.grad = g
-                _unflatten_into(flat, [p.grad for p in bucket])
-            mean = loss.detach().clone()
-            dist.all_reduce(mean, op=dist.ReduceOp.SUM, group=self.group)
-            mean.div_(self.world)
+        def sum_(t: torch.Tensor) -> None:
+            dist.all_reduce(t, op=dist.ReduceOp.SUM, group=self.group)
+        mean = average_(self.buckets, loss, self.world, sum_)
         self.optimizer.step()
         self.optimizer.zero_grad(set_to_none=True)
         return mean
+
+
+def average_(buckets: list[list], loss: torch.Tensor, n: int, sum_
+             ) -> torch.Tensor:
+    """The buckets' gradients, in place, and the loss averaged over n
+    replicas: ``sum_(t)`` sums a flat buffer over them in place. Returns
+    the mean loss (detached)."""
+    with torch.no_grad():
+        for bucket in buckets:
+            grads = [p.grad if p.grad is not None
+                     else torch.zeros_like(p) for p in bucket]
+            flat = _flatten(grads)
+            sum_(flat)
+            flat.div_(n)
+            for p, g in zip(bucket, grads):
+                if p.grad is None:
+                    p.grad = g
+            _unflatten_into(flat, [p.grad for p in bucket])
+        mean = loss.detach().clone()
+        sum_(mean)
+        return mean.div_(n)
 
 
 def make_buckets(params: list, cap_bytes: int) -> list[list]:

@@ -10,10 +10,19 @@ server injects and are host-qualified when a host tag is present.
 
 - The call: XLA names each collective HLO apart (``all-reduce.11``), but
   every gradient bucket's all-reduce in a step runs an NCCL kernel of
-  one name. The Kineto parser puts the call's ordinal in its step into
-  ``program_id`` (``kineto.py``), equal on every rank for the same call,
-  and the key takes it. XLA spans carry their program's id there, the
-  same on every device of one program, so they group as the reference's.
+  one name, and so do the calls of several communicators on one rank
+  (a tensor-parallel and a data-parallel bf16 all-reduce). The Kineto
+  parser puts the call's communicator and its ordinal in the step into
+  ``program_id`` (``kineto.py``), equal on every rank of the mesh
+  dimension for the same call, and the key takes it: one group per call
+  of each communicator, whose participants are every rank that ran it,
+  as the reference's one group per HLO is every device that ran it. XLA
+  spans carry their program's id there, the same on every device of one
+  program, so they group as the reference's.
+- A group's ``replica_group_size`` is its members' (the communicator's
+  size on NCCL spans, the HLO's replica groups on XLA ones), which the
+  reference's per-slice split reads; ``to_dict`` keeps the reference's
+  keys.
 - The transport: a group whose participants sit on one host rides the
   node's NVLink (``"nvlink"``, the reference's ``"ici"``), one across
   hosts the network (``"network"``, the reference's ``"dcn"``). A node
@@ -60,6 +69,7 @@ class CollectiveGroup:
     bytes_transferred: int = 0  # per participant (same payload in SPMD)
     step: int = 0
     n_spans: int = 0  # > n_participants when the op repeats within a run
+    replica_group_size: int = 0  # devices per replica group (0 = all)
 
     @property
     def latency_ns(self) -> int:
@@ -201,7 +211,8 @@ def _build_group(job: str, run_id: int, op: str,
         min_duration_ns=min(m["dur"] for m in members),
         max_duration_ns=max(m["dur"] for m in members),
         bytes_transferred=first["bytes"],
-        step=first["step"], n_spans=len(members))
+        step=first["step"], n_spans=len(members),
+        replica_group_size=max(m["rgs"] for m in members))
     seen_parts: set = set()
     for m in members:
         ident = (m["host"], m["dev"], m["core"])

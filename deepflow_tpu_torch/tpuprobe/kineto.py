@@ -23,9 +23,13 @@ XSpace device planes, this parses the JSON that ``torch.profiler``'s
     run_id, step         the optimizer step whose host window holds the
                          op's launch (see below); 0 without step signal
     hlo_module           "train_step" when the step is known, else ""
-    program_id           NCCL kernels only: the call's ordinal in its
-                         step on its stream, from 1, in launch order
-                         (see below); 0 for every other op
+    program_id           NCCL kernels only: comm * CALL_STRIDE + the
+                         call's ordinal in its step for its communicator,
+                         from 1, in launch order (see below); 0 for every
+                         other op
+    replica_group_size   NCCL kernels only: the communicator's group size
+                         from the call log, or the world's for a call the
+                         log does not hold (0 when unknown)
 
 NCCL calls: every gradient bucket's all-reduce in a step runs a kernel of
 the same name, so the op name cannot tell two calls apart the way an XLA
@@ -37,6 +41,17 @@ stitcher keys a collective on (run_id, hlo_op, program_id). A CUDA-only
 capture holds no message size for a kernel, so ``bytes_transferred`` of
 an NCCL span is 0 unless its args carry one (``In msg nelems`` and
 ``dtype``, as a capture with CPU activity gives them).
+
+Communicators: a model-parallel rank issues calls on several (one per
+mesh axis), whose kernels share names, and a kernel names no process
+group. The port's collectives log each call's host window with its
+communicator (``comms.py``): ``calls`` [(t0 ns, t1 ns, comm)]. NCCL
+launches a call's kernel inside the call, so a kernel takes the
+communicator of the window that holds its launch (or the nearest one
+within ``CALL_SLACK_NS``), and its ordinal counts that communicator's
+calls in the step, the same on every rank of the mesh dimension. A
+kernel no logged call launched keeps comm 0 and the ordinal on its
+stream.
 
 Steps: Kineto has no per-step module line like XLA's "XLA Modules". The
 capture source records (step number, host time) from a global optimizer
@@ -67,11 +82,13 @@ import bisect
 import json
 
 from deepflow_tpu_torch.proto import wire
+from deepflow_tpu_torch.tpuprobe.comms import CALL_STRIDE
 from deepflow_tpu_torch.tpuprobe.events import TpuSpanEvent, classify
 
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 LAUNCH_CATS = ("cuda_runtime", "cuda_driver")
 STEP_MODULE = "train_step"
+CALL_SLACK_NS = 1_000   # a launch this far outside a call's window
 _DEVICE, _LAUNCH = "device", "launch"
 _ROLE = {**dict.fromkeys(DEVICE_CATS, _DEVICE),
          **dict.fromkeys(LAUNCH_CATS, _LAUNCH)}
@@ -107,12 +124,31 @@ def _message_bytes(args: dict) -> int:
         return 0
 
 
-def extract_device_spans(trace: dict, steps=(), rank: int | None = None
-                         ) -> list[TpuSpanEvent]:
+def comm_of(launch_ns: int, calls: list, starts: list[int]) -> int:
+    """The communicator of the logged call whose host window holds the
+    launch, or is nearest to it within CALL_SLACK_NS; 0 for none.
+    ``calls`` sorted by start, ``starts`` their starts."""
+    i = bisect.bisect_right(starts, launch_ns) - 1
+    best, gap = 0, CALL_SLACK_NS + 1
+    for j in (i, i + 1):
+        if 0 <= j < len(calls):
+            t0, t1, comm = calls[j]
+            d = max(t0 - launch_ns, launch_ns - t1, 0)
+            if d < gap:
+                best, gap = comm, d
+    return best
+
+
+def extract_device_spans(trace: dict, steps=(), rank: int | None = None,
+                         calls=(), comm_sizes: dict | None = None,
+                         world: int = 0) -> list[TpuSpanEvent]:
     """Per-op device spans (plus per-step module spans) from a parsed
     chrome trace. ``steps``: [(step, hook wall-clock ns)]; ``rank``: the
     process's global rank (every span's device_id), None for a lone
-    process (device_id is then the CUDA ordinal)."""
+    process (device_id is then the CUDA ordinal); ``calls``: the logged
+    collective calls [(t0 ns, t1 ns, comm)], ``comm_sizes`` their groups'
+    sizes, ``world`` the size of the group an unlogged call is taken to
+    run on (the default one)."""
     base = int(trace.get("baseTimeNanoseconds", 0) or 0)
     events = trace.get("traceEvents", [])
     launches: dict = {}  # correlation -> the launch's ts
@@ -182,11 +218,18 @@ def extract_device_spans(trace: dict, steps=(), rank: int | None = None
             else:
                 b[0] = min(b[0], start)
                 b[1] = max(b[1], start + dur)
-    # each NCCL call's ordinal within its step on its stream
-    calls: dict[tuple[int, int, int], int] = {}
-    for _, _, span in sorted(nccl, key=lambda c: (c[0], c[1])):
-        key = (span.chip_id, span.run_id, span.core_id)
-        calls[key] = span.program_id = calls.get(key, 0) + 1
+    # each NCCL call's ordinal within its step for its communicator
+    logged = sorted(calls)
+    starts = [c[0] for c in logged]
+    sizes = comm_sizes or {}
+    ordinals: dict[tuple, int] = {}
+    for launch, _, span in sorted(nccl, key=lambda c: (c[0], c[1])):
+        comm = comm_of(launch, logged, starts)
+        key = ((span.chip_id, span.run_id, comm) if comm
+               else (span.chip_id, span.run_id, 0, span.core_id))
+        ordinals[key] = n = ordinals.get(key, 0) + 1
+        span.program_id = comm * CALL_STRIDE + n
+        span.replica_group_size = sizes.get(comm, 0) if comm else world
     for (device, step), (t0, t1) in sorted(bounds.items()):
         out.append(TpuSpanEvent(
             start_ns=t0,

@@ -19,6 +19,7 @@ import threading
 import time
 
 from deepflow_tpu_torch.telemetry import Telemetry
+from deepflow_tpu_torch.tpuprobe.comms import CALLS
 from deepflow_tpu_torch.tpuprobe.events import TpuSpanEvent
 from deepflow_tpu_torch.tpuprobe.kineto import extract_device_spans, load_trace
 from deepflow_tpu_torch.tpuprobe.ranks import global_rank, world_size
@@ -434,6 +435,8 @@ class KinetoSource:
                 if self._stop.is_set():
                     return []
                 _use_workload_device()
+                # calls from here on may have kernels in the capture
+                calls_from_ns = time.time_ns()
                 prof.start()
             # the covered span is the open session's time: start setup,
             # stop, export and parse are dead time
@@ -454,7 +457,8 @@ class KinetoSource:
                 n_trace = len(trace.get("traceEvents", ()))
                 events = extract_device_spans(
                     trace, self.step_hook.since(window_wall_ns),
-                    rank=global_rank())
+                    rank=global_rank(), calls=CALLS.since(calls_from_ns),
+                    comm_sizes=CALLS.sizes(), world=world_size())
                 del trace
                 t_parsed = time.monotonic()
                 cpu1 = time.thread_time()

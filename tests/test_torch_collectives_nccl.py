@@ -11,10 +11,15 @@ repeated calls kept; ranks stay apart when each sees its GPU as ordinal 0;
 hosts tell NVLink from the network; the port's server merges several
 agents' rows through ``AgentInfo`` as the reference's does; the step
 health view names the straggler rank; and the ranks' agents, each under
-its own id, land every row exactly once.
+its own id, land every row exactly once. On a model-parallel mesh
+(``kineto_synth.synth_mesh_ranks``, each rank's call log beside its
+capture) the port's groups are the reference's of the ``xla_names``
+twins: one per call of each communicator, every rank a participant, the
+communicator's size as ``replica_group_size``.
 """
 
 import json
+import math
 import socket
 import time
 
@@ -661,3 +666,132 @@ def test_capture_stops_on_the_workloads_device(monkeypatch):
     assert kernel_steps == list(range(first + 1, held))
     assert src.stats["events"] == len(spans)
     assert S.workload_devices() == [2]
+
+
+# -- several communicators on one rank (a model-parallel mesh) ------------
+
+MESH_CASES = [((1, 2, 2), ("data", "fsdp", "tensor")),
+              ((2, 1, 2), ("data", "fsdp", "tensor")),
+              ((2, 2), ("data", "sp"))]
+# the port's name of each XLA collective (the reference's ppermute)
+PORT_COLLECTIVE = {"collective-permute": "send-recv"}
+
+
+def _mesh_port_spans(spec, shape, axes, calls=True):
+    """Each rank's capture parsed as its probe parses it, with its call
+    log (``calls``) or without one."""
+    from deepflow_tpu_torch.tpuprobe.comms import comm_id
+    sizes = {comm_id(a): n for a, n in zip(axes, shape)}
+    out = {}
+    for r, mods in spec.items():
+        trace, hooks = kineto_synth.build_trace({r: mods}, base_ns=BASE_NS)
+        out[r] = kineto.extract_device_spans(
+            trace, hooks, rank=r,
+            calls=kineto_synth.call_windows(mods, BASE_NS) if calls else (),
+            comm_sizes=sizes, world=len(spec))
+    return out
+
+
+def _mesh_ref_spans(shape, axes):
+    spec = _xla(kineto_synth.synth_mesh_ranks(shape, axes, xla_names=True))
+    return xplane.extract_device_spans(
+        xplane.parse_xspace(xplane_synth.build_xspace(spec)),
+        capture_start_ns=BASE_NS)
+
+
+@pytest.mark.parametrize("shape,axes", MESH_CASES, ids=str)
+def test_mesh_calls_stitch_per_communicator(shape, axes):
+    """One group per call of each communicator, with every rank of the
+    mesh as a participant and the communicator's size as its
+    replica_group_size: the reference's groups of the same calls, where
+    each collective HLO with replica groups runs on every device."""
+    port = tc.stitch(_flat(_mesh_port_spans(
+        kineto_synth.synth_mesh_ranks(shape, axes), shape, axes)))
+    ref_spans = _mesh_ref_spans(shape, axes)
+    ref = rc.stitch(ref_spans)
+    n = math.prod(shape)
+    assert len(port) == len(ref) > 0
+    ref_rgs = {s.hlo_op: s.replica_group_size for s in ref_spans
+               if s.collective}
+    sizes = dict(zip(axes, shape))
+    from deepflow_tpu_torch.tpuprobe.comms import CALL_STRIDE, comm_axis
+    program = {}
+    for s in _flat(_mesh_port_spans(
+            kineto_synth.synth_mesh_ranks(shape, axes), shape, axes)):
+        if s.collective:
+            program.setdefault((s.run_id, s.start_ns), s.program_id)
+    for g, w in zip(port, ref):
+        assert sorted(g.participants) == [str(r) for r in range(n)]
+        assert g.n_spans == n
+        assert g.replica_group_size == ref_rgs[w.hlo_op]
+        axis = comm_axis(program[(g.run_id, g.start_ns)] // CALL_STRIDE)
+        assert g.replica_group_size == sizes[axis]
+    assert [_same(g.to_dict()) for g in port] == [
+        _same(dict(g.to_dict(), collective=PORT_COLLECTIVE.get(
+            g.collective, g.collective))) for g in ref]
+
+
+def test_two_communicators_with_one_kernel_name_do_not_merge():
+    """On a (2, 1, 2) mesh each rank's first tensor all-reduce and its
+    first data all-reduce run one bf16 NCCL kernel name. Issued
+    asynchronously each runs on its communicator's own stream, as call
+    1 of that stream: keyed by the communicator they are two groups;
+    keyed by the ordinal on the stream (the key before communicators)
+    they merge into one "collective" of eight spans."""
+    from deepflow_tpu_torch.tpuprobe.comms import CALL_STRIDE
+    shape, axes = (2, 1, 2), ("data", "fsdp", "tensor")
+    spec = kineto_synth.synth_mesh_ranks(shape, axes, n_steps=1)
+    for mods in spec.values():   # each communicator's own stream
+        for m in mods:
+            for op in m.ops:
+                if op.comm:
+                    op.stream = 13 + 4 * len(op.comm)
+    spans = _flat(_mesh_port_spans(spec, shape, axes))
+    bf16 = kineto_synth.NCCL_ALLREDUCE["BFloat16"]
+    first = [s for s in spans if s.hlo_op == bf16
+             and s.program_id % CALL_STRIDE == 1]
+    assert {s.program_id // CALL_STRIDE for s in first} == {1, 3}
+    assert len({s.core_id for s in first}) == 2
+    groups = [g for g in tc.stitch(spans) if g.hlo_op == bf16]
+    assert all(g.n_spans == 4 and len(set(g.participants)) == 4
+               for g in groups)
+    old = tc.stitch([dict(
+        time=s.start_ns, duration_ns=s.duration_ns, device_id=s.device_id,
+        core_id=s.core_id, hlo_op=s.hlo_op, collective=s.collective,
+        run_id=s.run_id, program_id=s.program_id % CALL_STRIDE)
+        for s in spans])
+    merged = [g for g in old if g.hlo_op == bf16 and g.n_spans == 8]
+    assert merged and len(old) < len(tc.stitch(spans))
+
+
+def test_unlogged_calls_keep_the_stream_ordinal_and_the_world():
+    """A kernel no logged call launched (a user's own torch.distributed
+    call) keeps comm 0: its ordinal counts on its stream, its
+    replica_group_size is the world's; a launch within CALL_SLACK_NS of
+    a window takes that call's communicator, farther off none."""
+    from deepflow_tpu_torch.tpuprobe.comms import CALL_STRIDE, comm_id
+    shape, axes = (2, 1, 2), ("data", "fsdp", "tensor")
+    spec = kineto_synth.synth_mesh_ranks(shape, axes, n_steps=1)
+    bare = _mesh_port_spans(spec, shape, axes, calls=False)[0]
+    nccl = [s for s in bare if s.collective]
+    assert all(s.program_id < CALL_STRIDE and s.replica_group_size == 4
+               for s in nccl)
+    # the blocking calls of every communicator count on one stream
+    assert [(s.core_id, s.program_id) for s in nccl][:3] == [
+        (kineto_synth.STREAM, 1), (kineto_synth.STREAM, 2),
+        (kineto_synth.STREAM, 3)]
+    # one call: its window moved before its kernel's launch
+    op = kineto_synth.SynthOp(kineto_synth.NCCL_ALLREDUCE["BFloat16"],
+                              "all-reduce", 2_000_000, 100_000,
+                              stream=25, comm="tensor")
+    mods = [kineto_synth.SynthModule("jit_train_step(1)", 1000, 0,
+                                     3_000_000, [op])]
+    trace, hooks = kineto_synth.build_trace({0: mods}, base_ns=BASE_NS)
+    (t0, t1, comm), = kineto_synth.call_windows(mods, BASE_NS)
+    for shift, logged in ((kineto.CALL_SLACK_NS, True),
+                          (kineto.CALL_SLACK_NS + 1, False)):
+        got, = [s for s in kineto.extract_device_spans(
+            trace, hooks, rank=0, calls=[(t0 - shift - 2, t1 - shift, comm)],
+            comm_sizes={comm: 2}, world=4) if s.collective]
+        assert got.program_id == (comm * CALL_STRIDE + 1 if logged else 1)
+        assert got.replica_group_size == (2 if logged else 4)

@@ -450,7 +450,7 @@ def test_memory_source_skips_without_cuda_context():
 def _port_files():
     files = [os.path.join(ROOT, n) for n in (
         "chip_smoke.py", "probe_stall.py", "chip_phases.py",
-        "nccl_explore.py", "capture_tail.py")]
+        "nccl_explore.py", "capture_tail.py", "chip_parallel.py")]
     for d, _, names in os.walk(os.path.join(ROOT, "deepflow_tpu_torch")):
         files += [os.path.join(d, n) for n in names if n.endswith(".py")]
     return files
@@ -462,7 +462,10 @@ def test_port_imports_no_jax_and_no_reference():
     for mod in ("query/sql.py", "query/catalog.py", "query/engine.py",
                 "query/qtrace.py", "query/pool.py", "query/cache.py",
                 "query/costmodel.py", "query/sketch.py", "cli/dfctl.py",
-                "models/resnet.py", "parallel/dp.py", "tpuprobe/ranks.py"):
+                "models/resnet.py", "parallel/dp.py", "tpuprobe/ranks.py",
+                "parallel/mesh.py", "parallel/collectives.py",
+                "parallel/ring_attention.py", "parallel/pipeline.py",
+                "models/moe.py", "tpuprobe/comms.py"):
         assert os.path.join(ROOT, "deepflow_tpu_torch", mod) in files, mod
     for path in files:
         with open(path) as f:
