@@ -136,7 +136,8 @@ def tiny_check(torch, rank: int, dev) -> dict:
 
     mesh = pm.make_mesh(shape, dev)
     model = tl.Llama(cfg, device=dev, mesh=mesh)
-    model.load_state_dict(tl.params_from_numpy(tree, dev, mesh=mesh))
+    model.load_state_dict(tl.params_from_numpy(tree, dev, mesh=mesh,
+                                               cfg=model.cfg))
     step, _ = tl.make_train_step(model)
     n = 4 // shape[0]
     i = pm.axis_index(mesh, "data")

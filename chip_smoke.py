@@ -31,9 +31,10 @@ Phases, each printing its own lines:
    records, and its memory view phase 4's largest sample. Then DF-SQL over POST
    /v1/query: the top ten ops by device time equal phase 4's per-op
    sums and flame graph, the spans per run_id less its module span
-   equal phase 4's kernels per step, SHOW TABLES lists the port's six
-   tables (the five above and deepflow_system.query_trace, as the
-   reference's server lists them), and org_id 1 keeps every row, 2
+   equal phase 4's kernels per step, SHOW TABLES lists the port's ten
+   tables (the five above, deepflow_system.query_trace and the four flow
+   tables, as the reference's server lists them), and org_id 1 keeps
+   every row, 2
    none. Every query, the six profile
    queries included, must answer in under 1,000 ms; their times print
    beside the columnar stand-in's (PERF.md). In this process the span
@@ -153,9 +154,21 @@ Phases, each printing its own lines:
    the communicator's size as replica_group_size, none mixing two
    communicators. Step ms without and with the agent, the top kernels
    and each rank's peak memory are printed. With N == 1 both phases
-   print world=1 and the checks that need two GPUs.
+   print world=1 and the checks that need two GPUs;
+13. flows: the flow/L7 agent on the card's host (chip_flows.py): the 29
+   golden captures on both engines; the JAX package's bench traffic
+   shape (20,000 flows, 1,980,000 packets) through the native flow map
+   on one core, the Python map on a twentieth, and the dispatcher with
+   HTTP in its payload slots; that run's L4 logs, L7 logs and documents
+   into a server process (rows/s per table) and three DF-SQL queries
+   held to the in-process answers; then, where AF_PACKET opens (checked
+   first; else "flows live: not run (<errno>)"), the node agent
+   (python -m deepflow_tpu_torch.agent --flow --interface lo) beside a
+   stdlib HTTP server taking 2,000 requests, which must all land in
+   l7_flow_log, and the runner phase's child without and with it: the
+   flow-capture cost % and the Guard's readings of the node agent.
 
-The servers of phases 5-8, 10 and 12 run the server's entry point (its main(),
+The servers of phases 5-8, 10, 12 and 13 run the server's entry point (its main(),
 stopped by SIGTERM after its drain) in a process of their own
 (multiprocessing, spawn) that then hands the smoke their tables' rows.
 Every phase line carries the card's name and power limit.
@@ -698,6 +711,9 @@ def server_phase(sink, probe, seen) -> dict:
     want = {"deepflow_system.deepflow_system": 0,
             # the querier's own spans: no query has run yet
             "deepflow_system.query_trace": 0,
+            # the flow tables (the flows phase fills them)
+            "flow_log.l4_flow_log": 0, "flow_log.l7_flow_log": 0,
+            "flow_metrics.application.1s": 0, "flow_metrics.network.1s": 0,
             "profile.in_process_profile": 0,
             "profile.tpu_hlo_span": probe.stats["spans_sent"],
             "profile.tpu_memory": probe.stats["mem_samples_sent"],
@@ -905,9 +921,9 @@ def _sql_checks(qport: int, seen: dict, want: dict) -> dict:
     """DF-SQL over POST /v1/query on phase 4's rows: the top kernels by
     device time equal phase 4's flame graph, the spans per run_id less
     its module spans equal phase 4's kernels per step, SHOW TABLES lists
-    the port's six tables (the reference server's list cut to the
-    port's: the five of phase 4's rows and deepflow_system.query_trace),
-    and org 1 scoping keeps every row, org 2 none.
+    the port's ten tables (the reference server's list cut to the
+    port's: the five of phase 4's rows, deepflow_system.query_trace and
+    the four flow tables), and org 1 scoping keeps every row, org 2 none.
     Returns each query's wall ms and its table's rows."""
     from deepflow_tpu_torch.store.schema import TPU_SPAN_KINDS
     kinds = ", ".join(f"'{k}'" for k in TPU_SPAN_KINDS
@@ -2482,6 +2498,15 @@ def mp_cross_rank_checks(whole: set, calls_of: dict, in_whole: list,
           f"group mixes two communicators")
 
 
+def flows_phase(nums: dict) -> None:
+    """Phase 13 (chip_flows.py): the flow/L7 agent on the card's host."""
+    import chip_flows
+    # chip_flows imports this file as the module chip_smoke, a second
+    # copy when this file runs as __main__: its phase lines need the card
+    chip_flows.cs.CARD.update(CARD)
+    chip_flows.flows_phase(nums)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2527,6 +2552,8 @@ def main() -> int:
         parallel_phase(torch, result["parallel"])
         result["mp"] = {}
         mp_phase(torch, result["mp"])
+        result["flows"] = {}
+        flows_phase(result["flows"])
     finally:
         # every number so far, also when a check failed
         result["seconds"] = time.perf_counter() - t0

@@ -1,32 +1,42 @@
-"""Agent runtime: the OnCPU sampler, the device probe, the resource
-guard, self-telemetry and self-stats over the durable sender.
+"""Agent runtime: the OnCPU sampler, the device probe, the flow path, the
+resource guard, self-telemetry and self-stats over the durable sender.
 
 Own copy of the in-process parts of ``deepflow_tpu/agent/agent.py``:
-``Agent`` wires ``OnCpuSampler`` (PROFILE frames), ``TpuProbe`` (TPU_SPAN
-and STEP_METRICS frames) and a stats thread (DFSTATS frames every
+``Agent`` wires ``OnCpuSampler`` (PROFILE frames), ``TpuProbe``
+(TPU_SPAN and STEP_METRICS frames), the flow path (``Dispatcher`` and
+``LiveCapture``: L4_LOG, L7_LOG and METRICS frames, with
+``flow.enabled``) and a stats thread (DFSTATS frames every
 ``stats_interval_s``) into one ``UniformSender``, with its spool and
 fault injection when configured. The ``Guard`` pauses the profilers
 while the agent costs too much; the ``Telemetry`` registry (hop ledgers,
 heartbeats) and its ``DeadmanDetector`` ride in every DFSTATS batch, and
 a wedge ships one at once. ``attach`` / ``detach`` start and stop one
-agent inside the current process; that is how
-``python -m deepflow_tpu_torch.cli.runner`` profiles a script with no
-change to its code.
+agent inside the current process; that is how ``python -m
+deepflow_tpu_torch.cli.runner`` profiles a script with no change to its
+code.
 
 The agent runs beside a workload on the card: ``device`` defaults to
 "cuda" and a missing CUDA device is an error. With ``device="cpu"`` the
 device probe (its Kineto and memory sources read CUDA only) is left out
-and the startup log line says so.
+and the startup log line says so. With ``device=None`` the agent does no
+device work at all and loads no torch: a node agent that only captures.
+Live capture that cannot open (no CAP_NET_RAW, no such interface) raises
+and names the cause; the agent does not run on without it.
 
     python -m deepflow_tpu_torch.agent [--server H:P] [--device cuda|cpu]
+                                       [--agent-id N]
+    python -m deepflow_tpu_torch.agent --server H:P --flow \
+        [--interface IFACE] [--capture-mode local|mirror|analyzer]
 """
 
 from __future__ import annotations
 
 import argparse
 import atexit
+import errno
 import logging
 import os
+import signal
 import sys
 import tempfile
 import threading
@@ -39,7 +49,6 @@ from deepflow_tpu_torch.agent.sender import UniformSender
 from deepflow_tpu_torch.agent.spool import Spool
 from deepflow_tpu_torch.chaos import ChaosConfig, ChaosInjector, chaos_from_env
 from deepflow_tpu_torch.codec import MessageType
-from deepflow_tpu_torch.device import resolve_device
 from deepflow_tpu_torch.proto import wire
 from deepflow_tpu_torch.telemetry import DeadmanDetector, Telemetry
 from deepflow_tpu_torch.tpuprobe.probe import TpuProbe
@@ -57,10 +66,18 @@ _EVENT_TYPES = {
 }
 
 
+class CaptureError(RuntimeError):
+    """Live capture asked for with ``flow.enabled`` cannot open."""
+
+
 class Agent:
     def __init__(self, config: AgentConfig | None = None,
-                 device: str = "cuda") -> None:
-        self.device = resolve_device(device)
+                 device: str | None = "cuda") -> None:
+        if device is None:
+            self.device = None  # no device work: torch stays unloaded
+        else:
+            from deepflow_tpu_torch.device import resolve_device
+            self.device = resolve_device(device)
         self.config = (config or AgentConfig()).validate()
         # read before a launcher rewrites sys.argv for its target
         self.process_name = os.path.basename(sys.argv[0]) or "python"
@@ -84,6 +101,8 @@ class Agent:
             chaos=self._build_chaos())
         self.sampler: OnCpuSampler | None = None
         self.tpuprobe = None
+        self.dispatcher = None
+        self.live_capture = None
         self.guard: Guard | None = None
         # the probe's step hook is the agent's: installed with the first
         # probe, it counts on while the guard has the probe paused, so the
@@ -93,7 +112,7 @@ class Agent:
         # parked training thread's place.
         self.step_hook = (StepHook(on_first_step=self.note_first_step)
                           if self.config.tpuprobe.enabled
-                          and self.device.type == "cuda" else None)
+                          and self.device_type == "cuda" else None)
         self.first_step_rss: int | None = None
         self._stats_thread: threading.Thread | None = None
         self._stop = threading.Event()
@@ -101,6 +120,12 @@ class Agent:
         # serializes the sampler's and the probe's lifecycle across the
         # guard's thread and the caller's
         self._profiler_lock = threading.RLock()
+
+    @property
+    def device_type(self) -> str:
+        """"cuda", "cpu", or "none" for an agent that does no device
+        work."""
+        return self.device.type if self.device is not None else "none"
 
     def _build_spool(self) -> Spool | None:
         sc = self.config.sender.spool
@@ -139,7 +164,7 @@ class Agent:
 
     def start_tpuprobe(self) -> None:
         with self._profiler_lock:
-            if self.tpuprobe is not None or self.device.type != "cuda":
+            if self.tpuprobe is not None or self.device_type != "cuda":
                 return
             if self.guard is not None and self.guard.degraded:
                 return
@@ -188,6 +213,10 @@ class Agent:
             threads.append(sampler._thread)
         if tpuprobe is not None:
             threads += [src._thread for src in tpuprobe.sources]
+        if self.dispatcher is not None:
+            threads.append(self.dispatcher._thread)
+        if self.live_capture is not None:
+            threads += self.live_capture.threads
         return [t for t in threads if t is not None]
 
     def start(self) -> "Agent":
@@ -199,12 +228,18 @@ class Agent:
             self._components.append("oncpu-sampler")
         left_out = ""
         if self.config.tpuprobe.enabled:
-            if self.device.type == "cuda":
+            if self.device_type == "cuda":
                 self.start_tpuprobe()
                 self._components.append("tpuprobe")
             else:
-                left_out = (f"; left out on {self.device.type}: tpuprobe "
+                left_out = (f"; left out on {self.device_type}: tpuprobe "
                             "(its Kineto and memory sources read CUDA only)")
+        if self.config.flow.enabled:
+            try:
+                self.start_flow()
+            except CaptureError:
+                self._abort_start()
+                raise
         if self.config.guard.enabled:
             g = self.config.guard
             self.guard = Guard(
@@ -219,6 +254,50 @@ class Agent:
                  left_out)
         return self
 
+    def start_flow(self) -> None:
+        """The dispatcher (native engine) and live capture on
+        ``flow.interface``. The agent's own sender ports are always
+        excluded from capture, beside ``flow.exclude_ports`` (the
+        analyzer mode keeps no exclusion). A capture that cannot open
+        raises ``CaptureError`` naming the cause."""
+        from deepflow_tpu_torch.agent.dispatcher import Dispatcher
+        from deepflow_tpu_torch.agent.live_capture import LiveCapture
+        fc = self.config.flow
+        self.dispatcher = Dispatcher(
+            sender=self.sender, agent_id=self.config.agent_id,
+            telemetry=self.telemetry).start()
+        self._components.append("dispatcher")
+        exclude = set(fc.exclude_ports)
+        exclude.update(p for _, p in self.sender.servers)
+        try:
+            self.live_capture = LiveCapture(
+                self.dispatcher, interface=fc.interface,
+                exclude_ports=tuple(sorted(exclude)),
+                capture_mode=fc.capture_mode).start()
+        except (OSError, AttributeError) as e:
+            self.dispatcher.stop()
+            where = fc.interface or "all interfaces"
+            if isinstance(e, AttributeError):
+                cause = "this OS has no AF_PACKET"
+            elif e.errno in (errno.EPERM, errno.EACCES):
+                cause = (f"{errno.errorcode[e.errno]}: live capture needs "
+                         "CAP_NET_RAW")
+            elif e.errno == errno.ENODEV:
+                cause = f"ENODEV: no interface {fc.interface!r}"
+            else:
+                cause = f"{errno.errorcode.get(e.errno, e.errno)}: {e}"
+            raise CaptureError(
+                f"live capture on {where} cannot open ({cause})") from e
+        self._components.append(f"live-capture ({self.live_capture.mode})")
+
+    def _abort_start(self) -> None:
+        """Undo a start that failed part way: the sources, the deadman
+        and the sender stop, with no final stats."""
+        self._stop.set()
+        self.pause_profilers()
+        self.deadman.stop()
+        self.sender.flush_and_stop(0.5)
+
     def stop(self) -> None:
         """Stop the guard and the sources, flush the sender, ship a last
         stats batch and flush that too, within 5 s (and at least 0.5 s
@@ -228,6 +307,10 @@ class Agent:
         self.deadman.stop()
         if self.guard:
             self.guard.stop()
+        if self.live_capture is not None:
+            self.live_capture.stop()
+        if self.dispatcher is not None:
+            self.dispatcher.stop()  # closes every flow and ships it
         with self._profiler_lock:  # after a pause or resume in progress
             if self.sampler:
                 self.sampler.stop()
@@ -318,6 +401,13 @@ class Agent:
                     metric("agent.tpuprobe.kineto", {
                         k: v for k, v in src.stats.items()
                         if isinstance(v, (int, float))})
+        if self.dispatcher is not None:
+            metric("agent.dispatcher", self.dispatcher.stats)
+        if self.live_capture is not None:
+            metric("agent.live_capture", {
+                k: v for k, v in self.live_capture.stats.items()
+                if isinstance(v, (int, float))},
+                extra_tags={"mode": self.live_capture.mode})
         guard = self.guard
         if guard is not None:
             metric("agent.guard", guard.snapshot())
@@ -337,7 +427,7 @@ class _Attached:
 
 
 def attach(app_service: str = "", servers: list | None = None,
-           device: str = "cuda", **overrides) -> Agent:
+           device: str | None = "cuda", **overrides) -> Agent:
     """Start an agent inside the current process, once; later calls
     return the running one. ``overrides`` set AgentConfig fields."""
     if _Attached.agent is not None:
@@ -370,7 +460,18 @@ def main(argv: list[str] | None = None) -> None:
     parser.add_argument("--server", default=None,
                         help="host:port of the ingester")
     parser.add_argument("--device", default="cuda",
-                        help="cuda (default) or cpu")
+                        help="cuda (default) or cpu; ignored with --flow")
+    parser.add_argument("--flow", action="store_true",
+                        help="a node agent: live capture into flow logs "
+                             "and metrics, no device work (needs "
+                             "CAP_NET_RAW)")
+    parser.add_argument("--interface", default="",
+                        help="capture interface with --flow; empty = all")
+    parser.add_argument("--capture-mode", default="local",
+                        choices=("local", "mirror", "analyzer"))
+    parser.add_argument("--agent-id", type=int, default=None,
+                        help="this agent's id (default: the launcher "
+                             "rank's, else 0)")
     parser.add_argument("-v", "--verbose", action="store_true")
     args = parser.parse_args(argv)
     logging.basicConfig(
@@ -379,9 +480,27 @@ def main(argv: list[str] | None = None) -> None:
     cfg = AgentConfig()
     if args.server is not None:
         cfg.sender.servers = [parse_addr(args.server)]
-    agent = Agent(cfg, device=args.device).start()
+    if args.agent_id is not None:
+        cfg.agent_id = args.agent_id
+    device = args.device
+    if args.flow:
+        # a node agent profiles no process and touches no device
+        cfg.flow.enabled = True
+        cfg.flow.interface = args.interface
+        cfg.flow.capture_mode = args.capture_mode
+        cfg.profiler.enabled = False
+        cfg.tpuprobe.enabled = False
+        device = None
+    agent = Agent(cfg, device=device).start()
+    # SIGTERM stops the agent as ^C does: the flows still open are
+    # closed and shipped
+    signal.signal(signal.SIGTERM, lambda *_: _raise_interrupt())
     try:
         while True:
             time.sleep(3600)
     except KeyboardInterrupt:
         agent.stop()
+
+
+def _raise_interrupt() -> None:
+    raise KeyboardInterrupt

@@ -1,14 +1,16 @@
 """Agent configuration: the sampler, the probe, the guard, the sender,
-fault injection, self-telemetry and self-stats.
+fault injection, self-telemetry, self-stats and flow capture.
 
 A subset of ``deepflow_tpu/agent/config.py`` with the reference's field
 names, defaults and validation ranges for the fields kept: the OnCPU
 sampler (``ProfilerConfig``), the device probe (``TpuProbeConfig``), the
 resource guard (``GuardConfig``), the durable sender and its on-disk
 spool (``SenderConfig``, ``SpoolConfig``), transport fault injection
-(``ChaosConfig``), the self-telemetry spine (``SelfmonConfig``) and the
-agent's identity and stats cadence (``AgentConfig``). The guard and
-self-telemetry are on by default, the spool and fault injection off.
+(``ChaosConfig``), the self-telemetry spine (``SelfmonConfig``), live
+packet capture into the flow path (``FlowConfig``) and the agent's
+identity and stats cadence (``AgentConfig``). The guard and
+self-telemetry are on by default, the spool, fault injection and flow
+capture off.
 
 ``AgentConfig.agent_id`` is 0, the reference's default, outside a
 launcher. In a process a launcher started (``RANK`` and ``WORLD_SIZE`` in
@@ -118,6 +120,20 @@ class SelfmonConfig:
 
 
 @dataclass
+class FlowConfig:
+    enabled: bool = False           # needs CAP_NET_RAW
+    interface: str = ""             # "" = all interfaces
+    # local: this host's own traffic (self-ports excluded to break the
+    # telemetry feedback loop); mirror: a SPAN/mirror port carrying OTHER
+    # hosts' traffic (promiscuous, exclusions kept); analyzer: a dedicated
+    # analyzer NIC (promiscuous, no exclusions). Tunnels are decapsulated
+    # either way.
+    capture_mode: str = "local"     # local | mirror | analyzer
+    exclude_ports: list = field(
+        default_factory=lambda: [20033, 20035, 20416])
+
+
+@dataclass
 class AgentConfig:
     agent_id: int = field(default_factory=default_agent_id)
     app_service: str = ""
@@ -127,6 +143,7 @@ class AgentConfig:
     sender: SenderConfig = field(default_factory=SenderConfig)
     chaos: ChaosConfig = field(default_factory=ChaosConfig)
     selfmon: SelfmonConfig = field(default_factory=SelfmonConfig)
+    flow: FlowConfig = field(default_factory=FlowConfig)
     stats_interval_s: float = 10.0
 
     def validate(self) -> "AgentConfig":
@@ -169,13 +186,25 @@ class AgentConfig:
         num(self.guard.max_cpu_pct, "guard.max_cpu_pct", 1)
         num(self.guard.max_mem_mb, "guard.max_mem_mb", 16)
         num(self.guard.check_interval_s, "guard.check_interval_s", 0.1)
+        if self.flow.capture_mode not in ("local", "mirror", "analyzer"):
+            raise ValueError(
+                f"flow.capture_mode must be local|mirror|analyzer, "
+                f"got {self.flow.capture_mode!r}")
+        if self.flow.capture_mode in ("mirror", "analyzer") and \
+                not self.flow.interface:
+            raise ValueError(
+                f"flow.capture_mode={self.flow.capture_mode} needs "
+                "flow.interface: promiscuous mode is per-NIC, and an "
+                "analyzer NIC must be named (capturing 'all' would "
+                "include this host's own telemetry with exclusions off)")
         for b, name in ((self.profiler.enabled, "profiler.enabled"),
                         (self.tpuprobe.enabled, "tpuprobe.enabled"),
                         (self.tpuprobe.step_metrics,
                          "tpuprobe.step_metrics"),
                         (self.sender.spool.enabled, "sender.spool.enabled"),
                         (self.chaos.enabled, "chaos.enabled"),
-                        (self.selfmon.enabled, "selfmon.enabled")):
+                        (self.selfmon.enabled, "selfmon.enabled"),
+                        (self.flow.enabled, "flow.enabled")):
             if not isinstance(b, bool):
                 raise ValueError(f"{name} must be a bool, got {b!r}")
         return self

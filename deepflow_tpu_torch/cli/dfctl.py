@@ -15,9 +15,13 @@ output for the same answers:
     collectives [--start NS] [--end NS]
     step-trace [--run-id N]
     steps [--job J] [--run-id N] [--limit N] [--critical-path STEP] [--json]
+    replay CAPTURE.pcap [--ingest HOST:PORT]
 
-An HTTP error or an unreachable server exits non-zero with the server's
-message.
+``replay`` runs a pcap through the agent's flow path (the dispatcher's
+native flow map, the L7 parsers, the collector) and ships its L4_LOG,
+L7_LOG and METRICS frames over the durable sender to an ingester; it
+loads no torch. An HTTP error or an unreachable server exits non-zero
+with the server's message.
 """
 
 from __future__ import annotations
@@ -354,6 +358,10 @@ def main(argv: list[str] | None = None) -> int:
     p_steps.add_argument("--json", action="store_true",
                          help="raw endpoint JSON instead of the waterfall")
 
+    p_replay = sub.add_parser("replay")
+    p_replay.add_argument("pcap")
+    p_replay.add_argument("--ingest", default="127.0.0.1:20033")
+
     args = parser.parse_args(argv)
     server = args.server
     if args.cmd == "health":
@@ -387,6 +395,14 @@ def main(argv: list[str] | None = None) -> int:
         _step_trace(server, args)
     elif args.cmd == "steps":
         _steps(server, args)
+    elif args.cmd == "replay":
+        from deepflow_tpu_torch.agent.dispatcher import Dispatcher
+        from deepflow_tpu_torch.agent.sender import UniformSender
+        sender = UniformSender([args.ingest]).start()
+        disp = Dispatcher(sender=sender)
+        n = disp.replay_pcap(args.pcap)
+        sender.flush_and_stop()
+        print(f"replayed {n} packets: {disp.stats}")
     return 0
 
 

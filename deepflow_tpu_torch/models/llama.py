@@ -26,9 +26,14 @@ does (``parallel/collectives.py``):
 - ``wq``/``wk``/``wv``/``w_gate``/``w_up`` are cut over ``tensor`` by
   columns (heads and the MLP's hidden units), ``wo``/``w_down`` by rows:
   a column-parallel product's input is ``copy_to`` the tensor group and a
-  row-parallel product's partial sums are ``reduce_from`` it. Heads, KV
-  heads, ``d_ff`` and the vocabulary must divide by the tensor axis (the
-  reference's GSPMD cuts them unevenly; the port raises ValueError);
+  row-parallel product's partial sums are ``reduce_from`` it. Heads,
+  ``d_ff`` and the vocabulary must divide by the tensor axis (the
+  reference's GSPMD cuts them unevenly; the port raises ValueError).
+  Fewer KV heads than tensor ranks, when they divide the axis, are
+  replicated as Megatron does for grouped-query attention: each KV head
+  lives on the ``tensor / n_kv_heads`` ranks whose query heads use it,
+  and its ``wk``/``wv`` gradient is summed over those ranks after the
+  backward pass (``_sum_kv_replicas_``);
 - every weight's ``fsdp`` cut is ``gather_from`` the fsdp group before
   use, layer by layer (autograd keeps the gathered weights for the
   backward pass, which gathers nothing again); its gradient is
@@ -175,18 +180,67 @@ class _Axes:
 _SOLO = _Axes.of(None)
 
 
+def _kv_replicas(cfg: LlamaConfig, axes: _Axes) -> int:
+    """Tensor ranks that hold each KV head: 1 when the KV heads divide
+    over the tensor axis, ``tensor / n_kv_heads`` when they are fewer
+    and divide it (Megatron's replication for grouped-query attention)."""
+    t, nkv = axes.tensor.size, cfg.n_kv_heads
+    return t // nkv if nkv < t and t % nkv == 0 else 1
+
+
 def _check_divides(cfg: LlamaConfig, axes: _Axes) -> None:
     t, f = axes.tensor.size, axes.fsdp.size
     bad = [f"{name} = {n} does not divide by the {axis} axis of {k}"
            for name, n, axis, k in (
                ("n_heads", cfg.n_heads, "tensor", t),
-               ("n_kv_heads", cfg.n_kv_heads, "tensor", t),
                ("d_ff", cfg.d_ff, "tensor", t),
                ("vocab", cfg.vocab, "tensor", t),
                ("d_model", cfg.d_model, "fsdp", f)) if n % k]
+    if cfg.n_kv_heads % t and _kv_replicas(cfg, axes) == 1:
+        bad.insert(1, f"n_kv_heads = {cfg.n_kv_heads} neither divides by "
+                   f"nor divides the tensor axis of {t}")
     if bad:
         raise ValueError("the sharded Llama needs whole heads, columns and "
                          "rows on every rank: " + "; ".join(bad))
+
+
+def _shard_leaf(t, name: str, cfg: LlamaConfig, axes: _Axes, mesh):
+    """This rank's block of a full leaf under its spec; a replicated KV
+    weight's block is all the columns of the KV head its query heads
+    use, cut over fsdp only."""
+    spec = _LEAF_SPECS[name]
+    r = _kv_replicas(cfg, axes)
+    if name in ("wk", "wv") and r > 1:
+        hd, j = cfg.head_dim, axes.tensor.index // r
+        t = t[..., j * hd:(j + 1) * hd]
+        spec = tuple(None if a == "tensor" else a for a in spec)
+    return shard_of(t, spec, mesh)
+
+
+def _gather_leaf(p: torch.Tensor, name: str, cfg: LlamaConfig, axes: _Axes,
+                 mesh) -> torch.Tensor:
+    """The full leaf from every rank's block (every rank must call it);
+    of a replicated KV weight, one copy of each head."""
+    full = gather_of(p, _LEAF_SPECS[name], mesh)
+    r = _kv_replicas(cfg, axes)
+    if name in ("wk", "wv") and r > 1:
+        *lead, cols = full.shape
+        full = full.reshape(*lead, cols // (r * cfg.head_dim), r,
+                            cfg.head_dim)[..., 0, :].reshape(*lead, -1)
+    return full
+
+
+def _sum_kv_replicas_(g: torch.Tensor, cfg: LlamaConfig,
+                      axes: _Axes) -> None:
+    """A replicated KV block's gradient summed over the tensor ranks
+    that share it, in place: each rank puts its partial gradient at its
+    KV head's slot of a zero buffer, one all-reduce over the tensor
+    axis adds the slots, and each rank takes its head's slot back."""
+    j = axes.tensor.index // _kv_replicas(cfg, axes)
+    buf = g.new_zeros((cfg.n_kv_heads, *g.shape))
+    buf[j] = g
+    pc.all_reduce_(buf, axes.tensor)
+    g.copy_(buf[j])
 
 
 def _rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
@@ -219,7 +273,7 @@ def _attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                cfg: LlamaConfig) -> torch.Tensor:
     """Causal GQA attention. q: (B,S,H,hd) k,v: (B,S,KV,hd)."""
     S, hd = q.shape[1], q.shape[3]
-    groups = cfg.n_heads // cfg.n_kv_heads
+    groups = q.shape[2] // k.shape[2]  # this rank's query heads per KV
     k = k.repeat_interleave(groups, dim=2)
     v = v.repeat_interleave(groups, dim=2)
     scores = torch.einsum("bqhd,bkhd->bhqk", q, k).float() / math.sqrt(hd)
@@ -236,7 +290,8 @@ def _layer(cfg: LlamaConfig, cos: torch.Tensor, sin: torch.Tensor,
     without a mesh); ``lp`` holds the gathered weights."""
     B, S, _ = x.shape
     t = axes.tensor.size
-    hd, nh, nkv = cfg.head_dim, cfg.n_heads // t, cfg.n_kv_heads // t
+    hd, nh = cfg.head_dim, cfg.n_heads // t
+    nkv = max(1, cfg.n_kv_heads // t)  # one replicated head when fewer
 
     h = pc.copy_to(_rms_norm(x, lp["attn_norm"], cfg.norm_eps), axes.tensor)
     q = (h @ lp["wq"]).reshape(B, S, nh, hd)
@@ -302,7 +357,7 @@ class Llama(nn.Module):
                 t = (torch.randn(shape, generator=generator, device=dev)
                      / math.sqrt(shape[-2])).to(cfg.dtype)
             if mesh is not None:
-                t = shard_of(t, _LEAF_SPECS[name], mesh).clone()
+                t = _shard_leaf(t, name, cfg, self.axes, mesh).clone()
             return nn.Parameter(t)
 
         self.tok_embed = init("tok_embed", shapes["tok_embed"])
@@ -435,6 +490,10 @@ class _ShardedStep:
         before = CALLS.counts()
         loss = loss_fn(self.model, tokens)
         loss.backward()
+        if _kv_replicas(self.model.cfg, axes) > 1:
+            for name in ("wk", "wv"):
+                _sum_kv_replicas_(self.model.layers[name].grad,
+                                  self.model.cfg, axes)
         replicas = [a for a in (axes.data, axes.sp) if a.size > 1]
 
         def sum_(t: torch.Tensor) -> None:
@@ -451,17 +510,22 @@ class _ShardedStep:
 
 
 def params_from_numpy(tree: dict, device: str | torch.device = "cuda",
-                      mesh=None) -> dict[str, torch.Tensor]:
+                      mesh=None, cfg: LlamaConfig | None = None
+                      ) -> dict[str, torch.Tensor]:
     """The reference's nested numpy tree -> a state dict for
     ``Llama.load_state_dict``. bfloat16 leaves (ml_dtypes) widen exactly to
     float32 on the way and come back as torch.bfloat16. With a mesh, each
-    leaf is this rank's block under ``param_specs``."""
+    leaf is this rank's block under ``param_specs``; with ``cfg`` too,
+    KV heads fewer than the tensor ranks are replicated as the model
+    holds them (the tree's shapes do not give the head size)."""
     dev = resolve_device(device)
+    axes = _Axes.of(mesh)
 
     def conv(a, name: str) -> torch.Tensor:
         arr = np.asarray(a)
         if mesh is not None:
-            arr = shard_of(arr, _LEAF_SPECS[name], mesh)
+            arr = (_shard_leaf(arr, name, cfg, axes, mesh) if cfg
+                   else shard_of(arr, _LEAF_SPECS[name], mesh))
         bf16 = arr.dtype.name == "bfloat16"
         t = torch.from_numpy(np.array(arr, dtype=np.float32 if bf16
                                       else arr.dtype))
@@ -482,7 +546,7 @@ def params_to_numpy(model: Llama) -> dict:
     def conv(p: torch.Tensor, name: str) -> np.ndarray:
         p = p.detach()
         if model.mesh is not None:
-            p = gather_of(p, _LEAF_SPECS[name], model.mesh)
+            p = _gather_leaf(p, name, model.cfg, model.axes, model.mesh)
         return np.array(p.float().cpu())
 
     return {"tok_embed": conv(model.tok_embed, "tok_embed"),

@@ -1,12 +1,17 @@
 """The port's native library: the span decoder and string dictionary of
-``dfnative.cpp`` and ``ingest.cpp`` and the query kernels of
-``qexec.cpp``, built at first use and bound with ctypes.
+``dfnative.cpp`` and ``ingest.cpp``, the query kernels of ``qexec.cpp``,
+and the packet decode and flow map of ``dfnative.cpp`` and
+``flowmap.cpp``, built at first use and bound with ctypes.
 
 Own copy of the parts of ``deepflow_tpu/native/__init__.py`` that the
 server's span path uses (``NativeDict``, ``ArenaStrings``,
 ``SpanColumnDecoder``), of the query kernels' bindings (``qx_group``,
 ``qx_agg_f64``, ``qx_sel_range``, ``qx_sel_isin``, ``qx_gather``,
-``qx_isin_u32``), and of its build. ``load()`` compiles the
+``qx_isin_u32``), of the flow path's (``decode_eth_batch``, the
+``df_fm_*`` flow map and the ``df_ring_*`` TPACKET_V3 ring, with the
+packed record dtypes ``PACKET_DTYPE``, ``FLOW_RECORD_DTYPE``,
+``L7_EVENT_DTYPE`` and ``SLOW_EVENT_DTYPE``), and of its build.
+``load()`` compiles the
 sources with ``g++ -O3 -std=c++17 -fPIC -shared`` into ``_build/`` beside
 them, the first time a process needs the library. The library's name
 carries a hash of its sources and flags, so a stale one is never
@@ -30,10 +35,11 @@ import numpy as np
 
 _DIR = os.path.dirname(os.path.abspath(__file__))
 BUILD_DIR = os.path.join(_DIR, "_build")
-SOURCES = ("dfnative.cpp", "ingest.cpp", "qexec.cpp")
+SOURCES = ("dfnative.cpp", "ingest.cpp", "qexec.cpp", "flowmap.cpp")
+HEADERS = ("dfpacket.h",)
 CXX = "g++"
 CXXFLAGS = ("-O3", "-std=c++17", "-fPIC", "-shared")
-ABI_VERSION = 2  # must match df_abi_version() in dfnative.cpp
+ABI_VERSION = 3  # must match df_abi_version() in dfnative.cpp
 
 _U64P = ctypes.POINTER(ctypes.c_uint64)
 _lib = None
@@ -47,7 +53,7 @@ class NativeLibraryError(RuntimeError):
 def library_path() -> str:
     """Where the library of the current sources and flags lives."""
     h = hashlib.sha256(" ".join((CXX,) + CXXFLAGS).encode())
-    for name in SOURCES:
+    for name in SOURCES + HEADERS:
         with open(os.path.join(_DIR, name), "rb") as f:
             h.update(name.encode() + b"\0" + f.read())
     return os.path.join(BUILD_DIR, f"libdfnative-{h.hexdigest()[:16]}.so")
@@ -132,8 +138,115 @@ def load() -> ctypes.CDLL:
                                            nd(np.uint32), u64, nd(np.uint64)]
         lib.df_qx_gather.restype = ctypes.c_int32
         lib.df_qx_gather.argtypes = [vp, u32, nd(np.uint64), u64, vp]
+        _bind_flow(lib)
         _lib = lib
         return lib
+
+
+def _bind_flow(lib: ctypes.CDLL) -> None:
+    """Signatures of the packet decode, the flow map and the ring."""
+    vp, u8, u16, u32, u64 = (ctypes.c_void_p, ctypes.c_uint8,
+                             ctypes.c_uint16, ctypes.c_uint32,
+                             ctypes.c_uint64)
+    i32, nd, u32p = ctypes.c_int32, np.ctypeslib.ndpointer, \
+        ctypes.POINTER(ctypes.c_uint32)
+    lib.df_decode_eth.argtypes = [ctypes.c_char_p, u32, vp]
+    lib.df_decode_eth.restype = i32
+    lib.df_decode_eth_batch.argtypes = [ctypes.c_char_p, nd(np.uint32), u32,
+                                        vp, nd(np.uint8)]
+    lib.df_fm_new.restype = vp
+    lib.df_fm_new.argtypes = [u32]
+    lib.df_fm_free.argtypes = [vp]
+    lib.df_fm_inject_batch.restype = u64
+    lib.df_fm_inject_batch.argtypes = [
+        vp, ctypes.c_char_p, nd(np.uint32), nd(np.uint64), u32,
+        vp, u32,            # l7 payload buffer
+        vp, u32, u32p,      # l7 events, their count
+        nd(np.uint32), u32, u32p]  # slow-path frame indices, their count
+    lib.df_fm_set_l7.argtypes = [vp, u32, u32, u16, u16, u8, u8, u32, i32]
+    lib.df_fm_tick.argtypes = [vp, u64]
+    lib.df_fm_poll_closed.restype = u32
+    lib.df_fm_poll_closed.argtypes = [vp, vp, u32]
+    lib.df_fm_export_active.restype = u32
+    lib.df_fm_export_active.argtypes = [vp, vp, u32]
+    lib.df_fm_flush_all.argtypes = [vp]
+    lib.df_fm_active_count.restype = u32
+    lib.df_fm_active_count.argtypes = [vp]
+    lib.df_fm_closed_count.restype = u32
+    lib.df_fm_closed_count.argtypes = [vp]
+    lib.df_fm_stats.argtypes = [vp, nd(np.uint64)]
+    lib.df_fm_exclude_port.argtypes = [vp, u16, i32]
+    lib.df_ring_open.restype = vp
+    lib.df_ring_open.argtypes = [ctypes.c_char_p, u32, u32,
+                                 ctypes.POINTER(i32)]
+    lib.df_ring_close.argtypes = [vp]
+    lib.df_ring_rx_batch.restype = ctypes.c_int64
+    lib.df_ring_rx_batch.argtypes = [
+        vp, vp, i32,
+        vp, u32,            # l7 payload buffer
+        vp, u32, u32p,      # l7 events, their count
+        u32, i32,           # max blocks, skip outgoing copies
+        vp, u32,            # slow-path frame buffer
+        vp, u32, u32p]      # slow-path events, their count
+    lib.df_ring_drops.restype = u64
+    lib.df_ring_drops.argtypes = [vp]
+    lib.df_ring_promisc.restype = i32
+    lib.df_ring_promisc.argtypes = [vp, ctypes.c_char_p, i32]
+
+
+# must match #pragma pack(1) struct FlowRecord in flowmap.cpp
+FLOW_RECORD_DTYPE = np.dtype([
+    ("flow_id", np.uint64),
+    ("ip_src", np.uint32), ("ip_dst", np.uint32),
+    ("port_src", np.uint16), ("port_dst", np.uint16),
+    ("protocol", np.uint8), ("state", np.uint8),
+    ("close_type", np.uint8), ("closed", np.uint8),
+    ("start_ns", np.uint64), ("end_ns", np.uint64),
+    ("tx_packets", np.uint64), ("rx_packets", np.uint64),
+    ("tx_bytes", np.uint64), ("rx_bytes", np.uint64),
+    ("tx_retrans", np.uint32), ("rx_retrans", np.uint32),
+    ("tx_zero_window", np.uint32), ("rx_zero_window", np.uint32),
+    ("tx_flags_bits", np.uint8), ("rx_flags_bits", np.uint8),
+    ("syn_count", np.uint16), ("synack_count", np.uint16),
+    ("rtt_us", np.uint32),
+    ("tunnel_type", np.uint8), ("tunnel_id", np.uint32)])
+
+# must match #pragma pack(1) struct SlowEvent in flowmap.cpp
+SLOW_EVENT_DTYPE = np.dtype([
+    ("ts_ns", np.uint64), ("off", np.uint32), ("len", np.uint32)])
+
+# must match #pragma pack(1) struct L7Event in flowmap.cpp
+L7_EVENT_DTYPE = np.dtype([
+    ("flow_id", np.uint64), ("ts_ns", np.uint64),
+    ("payload_off", np.uint32), ("payload_len", np.uint32),
+    ("is_tx", np.uint8), ("protocol", np.uint8),
+    ("ip_src", np.uint32), ("ip_dst", np.uint32),
+    ("port_src", np.uint16), ("port_dst", np.uint16),
+    ("tunnel_type", np.uint8), ("tunnel_id", np.uint32)])
+
+# must match struct DfPacketOut in dfpacket.h (natural alignment)
+PACKET_DTYPE = np.dtype([
+    ("ip_src", np.uint32), ("ip_dst", np.uint32),
+    ("port_src", np.uint16), ("port_dst", np.uint16),
+    ("protocol", np.uint8), ("tcp_flags", np.uint8),
+    ("window", np.uint16), ("seq", np.uint32), ("ack", np.uint32),
+    ("payload_off", np.uint32), ("payload_len", np.uint32),
+    ("tunnel_type", np.uint8), ("_pad", np.uint8, (3,)),
+    ("tunnel_id", np.uint32)], align=True)
+
+
+def decode_eth_batch(frames: list[bytes]) -> tuple[np.ndarray, np.ndarray]:
+    """Ethernet frames decoded natively: (records of PACKET_DTYPE, a bool
+    array that is True where the IPv4 fast path decoded the frame)."""
+    lib = load()
+    n = len(frames)
+    offsets = np.zeros(n + 1, dtype=np.uint32)
+    np.cumsum([len(f) for f in frames], out=offsets[1:])
+    outs = np.zeros(n, dtype=PACKET_DTYPE)
+    ok = np.zeros(n, dtype=np.uint8)
+    lib.df_decode_eth_batch(b"".join(frames), offsets, n,
+                            outs.ctypes.data_as(ctypes.c_void_p), ok)
+    return outs, ok.astype(bool)
 
 
 def _packed(values: list[bytes]) -> tuple[bytes, np.ndarray]:

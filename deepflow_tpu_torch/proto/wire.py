@@ -2,7 +2,11 @@
 
 Encodes and decodes ``TpuSpan``, ``TpuMemorySample``, ``TpuSpanBatch``,
 ``Profile``, ``ProfileBatch``, ``StatsMetric`` and ``StatsBatch`` of
-``deepflow_tpu/proto/messages.proto`` without the protobuf package: the
+``deepflow_tpu/proto/messages.proto``, and its flow messages (``FlowKey``,
+``L4FlowLog``, ``L7FlowLog``, ``FlowLogBatch``, ``MetricTag``,
+``FlowMeter``, ``AppMeter``, ``Document``, ``DocumentBatch``, on
+``PbMessage`` below, with the ``L4Protocol``, ``L7Protocol`` and
+``ResponseStatus`` enums), without the protobuf package: the
 fields are written in field-number order and proto3 defaults (0, "", b"")
 are skipped, so ``TpuSpanBatch`` and ``ProfileBatch`` serialize to the
 same bytes as the generated classes. ``StatsMetric``'s two maps are
@@ -357,3 +361,340 @@ class StatsBatch:
         return cls([StatsMetric.decode(v)
                     for num, wt, v in _iter_fields(bytes(data))
                     if num == 1 and wt == 2])
+
+
+# -- flow logs and metric documents ------------------------------------------
+# messages.proto:147-297. The agent's flow path fills these field by field,
+# as it fills protobuf's generated classes, so they follow protobuf's
+# rules: reading a submessage creates it empty, setting any field of it
+# (a zero too) makes it present in its parent, and a present submessage is
+# written even when empty. Fields go out in field-number order with proto3
+# defaults skipped, so the bytes are protobuf's.
+
+
+class L4Protocol(IntEnum):
+    L4_UNKNOWN = 0
+    TCP = 1
+    UDP = 2
+    ICMP = 3
+
+
+class L7Protocol(IntEnum):
+    L7_UNKNOWN = 0
+    HTTP1 = 1
+    HTTP2 = 2
+    GRPC = 3
+    DNS = 4
+    MYSQL = 5
+    REDIS = 6
+    KAFKA = 7
+    POSTGRESQL = 8
+    MONGODB = 9
+    MEMCACHED = 10
+    MQTT = 11
+    AMQP = 12
+    NATS = 13
+    DUBBO = 14
+    FASTCGI = 15
+    TLS = 16
+    PING = 17
+    ROCKETMQ = 18
+    SOFARPC = 19
+    ZMTP = 20
+    OPENWIRE = 21
+    TARS = 22
+    BRPC = 23
+    ORACLE = 24
+    DAMENG = 25
+    ISO8583 = 26
+    NETSIGN = 27
+    WEBSPHEREMQ = 28
+    SOMEIP = 29
+    PULSAR = 30
+
+
+class ResponseStatus(IntEnum):
+    STATUS_UNKNOWN = 0
+    OK = 1
+    CLIENT_ERROR = 2
+    SERVER_ERROR = 3
+    TIMEOUT = 4
+
+
+# the enums' values as module constants, as protobuf's generated module
+# has them (the parsers write ``pb.HTTP1``, ``pb.L7_UNKNOWN``)
+globals().update({e.name: int(e) for enum in
+                  (L4Protocol, L7Protocol, ResponseStatus) for e in enum})
+
+_I32_MIN, _I32_MAX = -(1 << 31), (1 << 31) - 1
+_SCALAR_DEFAULTS = {"s": "", "b": b"", "u32": 0, "u64": 0, "i32": 0,
+                    "enum": 0}
+
+
+class _SubMessage:
+    """A singular message field: created empty on first read; assigning
+    to it is an error, as in protobuf."""
+
+    def __init__(self, name: str, cls) -> None:
+        self.name, self.key, self.cls = name, "_m_" + name, cls
+
+    def __get__(self, obj, owner=None):
+        if obj is None:
+            return self
+        d = obj.__dict__
+        m = d.get(self.key)
+        if m is None:
+            m = d[self.key] = self.cls()
+            m.__dict__["_up"] = (obj, self.name)
+        return m
+
+    def __set__(self, obj, value) -> None:
+        raise AttributeError(
+            f"assignment to submessage field {self.name!r} is not allowed")
+
+
+class PbMessage:
+    """Base of the flow messages. ``FIELDS`` lists (name, number, kind)
+    or (name, number, "msg" | "rep", class) in number order; kinds are
+    "u32", "u64", "i32", "enum" (int32 on the wire), "s" and "b"."""
+
+    FIELDS: tuple = ()
+
+    def __init_subclass__(cls) -> None:
+        cls._scalars = {}
+        cls._reps = []
+        cls._plan = []
+        for f in cls.FIELDS:
+            name, num, kind = f[:3]
+            if kind == "msg":
+                setattr(cls, name, _SubMessage(name, f[3]))
+                cls._plan.append((name, kind, _varint(num << 3 | 2), f[3]))
+                continue
+            if kind == "rep":
+                cls._reps.append(name)
+                cls._plan.append((name, kind, _varint(num << 3 | 2), f[3]))
+                continue
+            cls._scalars[name] = _SCALAR_DEFAULTS[kind]
+            wt = 2 if kind in "sb" else 0
+            cls._plan.append((name, kind, _varint(num << 3 | wt), None))
+        cls._by_num = {f[1]: (f[0], f[2], f[3] if len(f) > 3 else None)
+                       for f in cls.FIELDS}
+
+    def __init__(self, **fields) -> None:
+        d = self.__dict__
+        d.update(self._scalars)
+        d["_up"] = None
+        d["_present"] = set()
+        for name in self._reps:
+            d[name] = []
+        for k, v in fields.items():
+            setattr(self, k, v)
+
+    def __setattr__(self, name: str, value) -> None:
+        d = self.__dict__
+        if name in self._reps:
+            d[name] = list(value)
+        elif name in self._scalars:
+            d[name] = value
+        else:
+            raise AttributeError(
+                f"{type(self).__name__} has no field {name!r}")
+        up = d["_up"]
+        if up is not None:
+            d["_up"] = None
+            up[0]._mark(up[1])
+
+    def _mark(self, name: str) -> None:
+        """A submessage got a field: it and this message's own chain of
+        parents are present from now on."""
+        d = self.__dict__
+        d["_present"].add(name)
+        up = d["_up"]
+        if up is not None:
+            d["_up"] = None
+            up[0]._mark(up[1])
+
+    def HasField(self, name: str) -> bool:  # noqa: N802 (protobuf's name)
+        if not isinstance(type(self).__dict__.get(name), _SubMessage):
+            raise ValueError(f"{name!r} is not a singular message field")
+        return name in self.__dict__["_present"]
+
+    def _encode(self, out: bytearray) -> None:
+        d = self.__dict__
+        for name, kind, tag, _ in self._plan:
+            if kind == "msg":
+                if name in d["_present"]:
+                    body = bytearray()
+                    d["_m_" + name]._encode(body)
+                    out += tag
+                    out += _varint(len(body))
+                    out += body
+            elif kind == "rep":
+                for m in d[name]:
+                    body = bytearray()
+                    m._encode(body)
+                    out += tag
+                    out += _varint(len(body))
+                    out += body
+            else:
+                v = d[name]
+                if not v:
+                    continue
+                out += tag
+                if kind == "s":
+                    b = v.encode()
+                    out += _varint(len(b))
+                    out += b
+                elif kind == "b":
+                    out += _varint(len(v))
+                    out += v
+                else:
+                    v = int(v)
+                    if kind == "u32" and not 0 <= v <= _U32 or \
+                            kind == "u64" and not 0 <= v <= _U64 or \
+                            kind in ("i32", "enum") and \
+                            not _I32_MIN <= v <= _I32_MAX:
+                        raise WireError(f"{name}={v} out of range")
+                    out += _varint(v & _U64)
+
+    def SerializeToString(self) -> bytes:  # noqa: N802
+        out = bytearray()
+        self._encode(out)
+        return bytes(out)
+
+    @classmethod
+    def FromString(cls, data) -> "PbMessage":  # noqa: N802
+        """As protobuf parses: unknown fields and known ones of another
+        wire type are skipped, a uint32 keeps its low 32 bits and an
+        int32 or enum its low 32 bits as a signed value; a repeated
+        submessage appends, a singular one merges."""
+        msg = cls()
+        msg._merge(bytes(data))
+        return msg
+
+    def _merge(self, buf: bytes) -> None:
+        d = self.__dict__
+        by_num = self._by_num
+        for num, wt, v in _iter_fields(buf):
+            spec = by_num.get(num)
+            if spec is None:
+                continue
+            name, kind, sub = spec
+            if kind in "sb" or kind in ("msg", "rep"):
+                if wt != 2:
+                    continue
+                if kind == "s":
+                    d[name] = v.decode("utf-8")
+                elif kind == "b":
+                    d[name] = v
+                elif kind == "msg":
+                    d["_present"].add(name)
+                    getattr(self, name)._merge(v)
+                else:
+                    m = sub()
+                    m._merge(v)
+                    d[name].append(m)
+            elif wt == 0:
+                if kind == "u32":
+                    v &= _U32
+                elif kind in ("i32", "enum"):
+                    v &= _U32
+                    if v > _I32_MAX:
+                        v -= 1 << 32
+                d[name] = v
+
+    def __eq__(self, other) -> bool:
+        return type(other) is type(self) and \
+            self.SerializeToString() == other.SerializeToString()
+
+    def __repr__(self) -> str:
+        d = self.__dict__
+        parts = [f"{n}={d[n]!r}" for n in self._scalars if d[n]]
+        parts += [f"{f[0]}={getattr(self, f[0])!r}" for f in self.FIELDS
+                  if f[2] == "msg" and f[0] in d["_present"]]
+        parts += [f"{n}=[{len(d[n])}]" for n in self._reps if d[n]]
+        return f"{type(self).__name__}({', '.join(parts)})"
+
+
+class FlowKey(PbMessage):
+    FIELDS = (("ip_src", 1, "b"), ("ip_dst", 2, "b"),
+              ("port_src", 3, "u32"), ("port_dst", 4, "u32"),
+              ("proto", 5, "enum"), ("tap_port", 6, "u32"),
+              ("tunnel_type", 7, "u32"), ("tunnel_id", 8, "u32"))
+
+
+class L4FlowLog(PbMessage):
+    FIELDS = (("flow_id", 1, "u64"), ("key", 2, "msg", FlowKey),
+              ("start_time_ns", 3, "u64"), ("end_time_ns", 4, "u64"),
+              ("packet_tx", 5, "u64"), ("packet_rx", 6, "u64"),
+              ("byte_tx", 7, "u64"), ("byte_rx", 8, "u64"),
+              ("l7_request", 9, "u64"), ("l7_response", 10, "u64"),
+              ("rtt_us", 11, "u32"), ("art_us", 12, "u32"),
+              ("retrans_tx", 13, "u32"), ("retrans_rx", 14, "u32"),
+              ("zero_win_tx", 15, "u32"), ("zero_win_rx", 16, "u32"),
+              ("close_type", 17, "s"), ("tcp_flags_bit_tx", 18, "u32"),
+              ("tcp_flags_bit_rx", 19, "u32"), ("syn_count", 20, "u32"),
+              ("synack_count", 21, "u32"), ("agent_id", 22, "u32"),
+              ("gpid_0", 23, "u32"), ("gpid_1", 24, "u32"),
+              ("pod_0", 25, "s"), ("pod_1", 26, "s"))
+
+
+class L7FlowLog(PbMessage):
+    FIELDS = (("flow_id", 1, "u64"), ("key", 2, "msg", FlowKey),
+              ("l7_protocol", 3, "enum"), ("version", 4, "s"),
+              ("request_type", 5, "s"), ("request_domain", 6, "s"),
+              ("request_resource", 7, "s"), ("endpoint", 8, "s"),
+              ("request_id", 9, "u32"), ("response_status", 10, "enum"),
+              ("response_code", 11, "i32"), ("response_exception", 12, "s"),
+              ("response_result", 13, "s"), ("start_time_ns", 14, "u64"),
+              ("end_time_ns", 15, "u64"), ("trace_id", 16, "s"),
+              ("span_id", 17, "s"), ("parent_span_id", 18, "s"),
+              ("x_request_id", 19, "s"),
+              ("syscall_trace_id_request", 20, "u64"),
+              ("syscall_trace_id_response", 21, "u64"),
+              ("syscall_thread_0", 22, "u32"),
+              ("syscall_thread_1", 23, "u32"),
+              ("captured_request_byte", 24, "u64"),
+              ("captured_response_byte", 25, "u64"),
+              ("agent_id", 26, "u32"), ("gpid_0", 27, "u32"),
+              ("gpid_1", 28, "u32"), ("process_kname_0", 29, "s"),
+              ("process_kname_1", 30, "s"), ("attrs_json", 31, "s"),
+              ("pod_0", 32, "s"), ("pod_1", 33, "s"))
+
+
+class FlowLogBatch(PbMessage):
+    FIELDS = (("l4", 1, "rep", L4FlowLog), ("l7", 2, "rep", L7FlowLog))
+
+
+class MetricTag(PbMessage):
+    FIELDS = (("ip_src", 1, "b"), ("ip_dst", 2, "b"), ("port", 3, "u32"),
+              ("proto", 4, "enum"), ("l7_protocol", 5, "enum"),
+              ("agent_id", 6, "u32"), ("app_service", 7, "s"),
+              ("gpid_0", 8, "u32"), ("gpid_1", 9, "u32"),
+              ("direction", 10, "u32"))
+
+
+class FlowMeter(PbMessage):
+    FIELDS = (("packet_tx", 1, "u64"), ("packet_rx", 2, "u64"),
+              ("byte_tx", 3, "u64"), ("byte_rx", 4, "u64"),
+              ("flow_count", 5, "u64"), ("new_flow", 6, "u64"),
+              ("closed_flow", 7, "u64"), ("rtt_sum_us", 8, "u32"),
+              ("rtt_count", 9, "u32"), ("retrans", 10, "u32"),
+              ("syn_count", 11, "u32"), ("synack_count", 12, "u32"))
+
+
+class AppMeter(PbMessage):
+    FIELDS = (("request", 1, "u64"), ("response", 2, "u64"),
+              ("rrt_sum_us", 3, "u64"), ("rrt_count", 4, "u64"),
+              ("rrt_max_us", 5, "u64"), ("error_client", 6, "u64"),
+              ("error_server", 7, "u64"), ("timeout", 8, "u64"))
+
+
+class Document(PbMessage):
+    FIELDS = (("timestamp_s", 1, "u64"), ("tag", 2, "msg", MetricTag),
+              ("flow_meter", 3, "msg", FlowMeter),
+              ("app_meter", 4, "msg", AppMeter), ("interval_s", 5, "u32"))
+
+
+class DocumentBatch(PbMessage):
+    FIELDS = (("docs", 1, "rep", Document),)

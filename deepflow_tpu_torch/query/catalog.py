@@ -3,10 +3,10 @@
 Own copy of ``deepflow_tpu/query/catalog.py`` over the port's
 ``store/schema.py::TABLES``: ``show`` answers SHOW DATABASES, TABLES,
 TAGS and METRICS from the live schema, and ``rewrite_derived`` turns an
-aggregate of a derived metric into its definition over real columns.
-The reference's derived metrics belong to its flow tables, which the
-port does not have yet, so ``DERIVED`` holds no rule; the rules arrive
-with those tables.
+aggregate of a derived metric into its definition over real columns: the
+reference's rules over the flow-metric tables (``rtt`` of
+``flow_metrics.network``, ``rrt`` and ``error`` of
+``flow_metrics.application``).
 """
 
 from __future__ import annotations
@@ -29,7 +29,16 @@ _NUMERIC_TAGS = {
 #   ("ratio", num, den): Avg(m) = Sum(num)/Sum(den)
 #   ("col", c):          Agg(m) = Agg(c)
 #   ("sum2", a, b):      Sum(m) = Sum(a)+Sum(b)
-DERIVED: dict[str, dict[str, dict[str, tuple]]] = {}
+DERIVED: dict[str, dict[str, dict[str, tuple]]] = {
+    "flow_metrics.network": {
+        "rtt": {"AVG": ("ratio", "rtt_sum", "rtt_count")},
+    },
+    "flow_metrics.application": {
+        "rrt": {"AVG": ("ratio", "rrt_sum", "rrt_count"),
+                "MAX": ("col", "rrt_max")},
+        "error": {"SUM": ("sum2", "error_client", "error_server")},
+    },
+}
 
 
 def derived_for(table_name: str) -> dict:

@@ -1,11 +1,14 @@
 """Per-message-type decoders: frame payloads -> tag-injected store rows.
 
-Own copy of the profile path of ``deepflow_tpu/server/decoders.py``: the
-``DedupWindow`` that makes retransmitted frames into no second row, the
-``Decoder`` base (one receiver queue, a worker thread, stats) and the
-PROFILE, TPU_SPAN, STEP_METRICS and DFSTATS decoders. TPU_SPAN payloads
-decode with the port's native columnar decoder (``native/ingest.cpp``),
-the others with this package's ``proto/wire.py``. Each decoder accounts
+Own copy of the profile and flow paths of ``deepflow_tpu/server/
+decoders.py``: the ``DedupWindow`` that makes retransmitted frames into no
+second row, the ``Decoder`` base (one receiver queue, a worker thread,
+stats) and the PROFILE, TPU_SPAN, STEP_METRICS, DFSTATS, L4_LOG / L7_LOG
+(``FlowLogDecoder``) and METRICS (``MetricsDecoder``) decoders. TPU_SPAN
+payloads decode with the port's native columnar decoder
+(``native/ingest.cpp``), the others with this package's ``proto/wire.py``:
+the flow decoders take the reference's protobuf path (its native columnar
+flow and document decode is not ported yet). Each decoder accounts
 its frames on a ``decoder.<TYPE>`` hop (delivered, or dropped as a dup
 or a decode error) and its rows on the ``table_write`` hop, and its
 worker beats a heartbeat.
@@ -13,6 +16,7 @@ worker beats a heartbeat.
 
 from __future__ import annotations
 
+import ipaddress
 import json
 import logging
 import queue
@@ -28,6 +32,7 @@ from deepflow_tpu_torch.native import (
 from deepflow_tpu_torch.proto import wire
 from deepflow_tpu_torch.server.platform_info import PlatformInfoTable
 from deepflow_tpu_torch.store.db import Database
+from deepflow_tpu_torch.store.schema import CLOSE_TYPES
 from deepflow_tpu_torch.telemetry import Telemetry
 from deepflow_tpu_torch.tpuprobe.stepmetrics import decode_step_payload
 
@@ -130,7 +135,10 @@ class Decoder:
 
     def __init__(self, q: queue.Queue, db: Database,
                  platform: PlatformInfoTable, dedup: DedupWindow | None = None,
-                 seq_tracker=None, telemetry: Telemetry | None = None) -> None:
+                 seq_tracker=None, telemetry: Telemetry | None = None,
+                 msg_type: MessageType | None = None) -> None:
+        if msg_type is not None:  # a decoder that serves several types
+            self.MSG_TYPE = msg_type
         self.q = q
         self.db = db
         self.platform = platform
@@ -447,3 +455,226 @@ class StepMetricsDecoder(Decoder):
             })
         self.write("profile.tpu_step_metrics", rows)
         return len(rows)
+
+
+class FlowLogDecoder(Decoder):
+    """FlowLogBatch -> flow_log.l4_flow_log and flow_log.l7_flow_log.
+    Registered for both L4_LOG and L7_LOG (``msg_type``), one instance
+    each. The reference's protobuf path (its ``_handle_pb`` and
+    ``_handle_l7_list``), columnar: one list per column. The endpoint
+    columns take the agent's gpid and pod values; the reference resolves
+    the rest (process names, per-side resource tags) from its socket scan
+    and resource index, which the port does not have yet, so they stay
+    empty."""
+
+    MSG_TYPE = MessageType.L4_LOG
+
+    def handle(self, header: FrameHeader, payload: bytes) -> int:
+        batch = wire.FlowLogBatch.FromString(payload)
+        tags = self._agent_tags(header)
+        # ingest-side clock correction of this agent's absolute times
+        off = self._clock_offset(header)
+        n = 0
+        if batch.l4:
+            l4 = batch.l4
+            keys = [f.key for f in l4]
+            src_d = [_ip_decode(k.ip_src) for k in keys]
+            dst_d = [_ip_decode(k.ip_dst) for k in keys]
+            cols = {
+                "time": [f.end_time_ns + off for f in l4],
+                "flow_id": [f.flow_id for f in l4],
+                "ip_src": [t[0] for t in src_d],
+                "ip_dst": [t[0] for t in dst_d],
+                "ip4_src": [t[1] for t in src_d],
+                "ip4_dst": [t[1] for t in dst_d],
+                "port_src": [k.port_src for k in keys],
+                "port_dst": [k.port_dst for k in keys],
+                "protocol": [int(k.proto) for k in keys],
+                "tap_port": [k.tap_port for k in keys],
+                "start_time": [f.start_time_ns + off for f in l4],
+                "end_time": [f.end_time_ns + off for f in l4],
+                "packet_tx": [f.packet_tx for f in l4],
+                "packet_rx": [f.packet_rx for f in l4],
+                "byte_tx": [f.byte_tx for f in l4],
+                "byte_rx": [f.byte_rx for f in l4],
+                "l7_request": [f.l7_request for f in l4],
+                "l7_response": [f.l7_response for f in l4],
+                "rtt": [f.rtt_us for f in l4],
+                "art": [f.art_us for f in l4],
+                "retrans_tx": [f.retrans_tx for f in l4],
+                "retrans_rx": [f.retrans_rx for f in l4],
+                "zero_win_tx": [f.zero_win_tx for f in l4],
+                "zero_win_rx": [f.zero_win_rx for f in l4],
+                "close_type": [_close_type_idx(f.close_type) for f in l4],
+                "syn_count": [f.syn_count for f in l4],
+                "synack_count": [f.synack_count for f in l4],
+                "tunnel_type": [min(int(k.tunnel_type), 4) for k in keys],
+                "tunnel_id": [k.tunnel_id for k in keys],
+                **_endpoint_cols(l4),
+            }
+            cols.update(tags)  # constant per batch: scalar broadcast
+            self.write_columns("flow_log.l4_flow_log", cols, len(l4))
+            n += len(l4)
+        if batch.l7:
+            n += self._handle_l7_list(batch.l7, tags, off)
+        return n
+
+    def _handle_l7_list(self, l7: list, tags: dict, off: int) -> int:
+        keys = [f.key for f in l7]
+        cols = {
+            "time": [f.start_time_ns + off for f in l7],
+            "flow_id": [f.flow_id for f in l7],
+            "ip_src": [_ip_decode(k.ip_src)[0] for k in keys],
+            "ip_dst": [_ip_decode(k.ip_dst)[0] for k in keys],
+            "port_src": [k.port_src for k in keys],
+            "port_dst": [k.port_dst for k in keys],
+            "tunnel_type": [min(int(k.tunnel_type), 4) for k in keys],
+            "tunnel_id": [k.tunnel_id for k in keys],
+            "l7_protocol": [int(f.l7_protocol) for f in l7],
+            "version": [f.version for f in l7],
+            "request_type": [f.request_type for f in l7],
+            "request_domain": [f.request_domain for f in l7],
+            "request_resource": [f.request_resource for f in l7],
+            "endpoint": [f.endpoint for f in l7],
+            "request_id": [f.request_id for f in l7],
+            "response_status": [int(f.response_status) for f in l7],
+            "response_code": [f.response_code for f in l7],
+            "response_exception": [f.response_exception for f in l7],
+            "response_result": [f.response_result for f in l7],
+            "response_duration": [
+                max(0, f.end_time_ns - f.start_time_ns) for f in l7],
+            "trace_id": [f.trace_id for f in l7],
+            "span_id": [f.span_id for f in l7],
+            "parent_span_id": [f.parent_span_id for f in l7],
+            "x_request_id": [f.x_request_id for f in l7],
+            "syscall_trace_id_request": [
+                f.syscall_trace_id_request for f in l7],
+            "syscall_trace_id_response": [
+                f.syscall_trace_id_response for f in l7],
+            "syscall_thread_0": [f.syscall_thread_0 for f in l7],
+            "syscall_thread_1": [f.syscall_thread_1 for f in l7],
+            "captured_request_byte": [
+                f.captured_request_byte for f in l7],
+            "captured_response_byte": [
+                f.captured_response_byte for f in l7],
+            **_endpoint_cols(l7),
+            # the agent-observed kernel thread name (the reference's
+            # sslprobe path); its socket-scan join fills the rest
+            "process_kname_0": [f.process_kname_0 for f in l7],
+            "process_kname_1": [f.process_kname_1 for f in l7],
+            "attrs": [f.attrs_json for f in l7],
+        }
+        cols.update(tags)  # constant per batch: scalar broadcast
+        self.write_columns("flow_log.l7_flow_log", cols, len(l7))
+        return len(l7)
+
+
+def _endpoint_cols(items: list) -> dict:
+    """The reference's endpoint ladder with nothing to resolve from: the
+    agent's gpids and pods, no process names."""
+    return {"gprocess_id_0": [f.gpid_0 for f in items],
+            "gprocess_id_1": [f.gpid_1 for f in items],
+            "process_kname_0": "", "process_kname_1": "",
+            "pod_0": [f.pod_0 for f in items],
+            "pod_1": [f.pod_1 for f in items]}
+
+
+class MetricsDecoder(Decoder):
+    """DocumentBatch -> flow_metrics.network.1s (documents with a flow
+    meter) and flow_metrics.application.1s (with an app meter): the
+    reference's protobuf path. Its 1m rollups come from a rollup job that
+    is not ported yet."""
+
+    MSG_TYPE = MessageType.METRICS
+
+    def handle(self, header: FrameHeader, payload: bytes) -> int:
+        batch = wire.DocumentBatch.FromString(payload)
+        tags = self._agent_tags(header)
+        off_s = round(self._clock_offset(header) / 1e9)  # 1 s grain
+        n = 0
+
+        def base_cols(docs):
+            cols = {
+                "time": [d.timestamp_s + off_s for d in docs],
+                "ip_src": [_ip_decode(d.tag.ip_src)[0] for d in docs],
+                "ip_dst": [_ip_decode(d.tag.ip_dst)[0] for d in docs],
+                "server_port": [d.tag.port for d in docs],
+            }
+            cols.update(tags)  # constant per batch: scalar broadcast
+            return cols
+
+        net = [d for d in batch.docs if d.HasField("flow_meter")]
+        if net:
+            ms = [d.flow_meter for d in net]
+            cols = base_cols(net)
+            cols.update({
+                "protocol": [int(d.tag.proto) for d in net],
+                "direction": [d.tag.direction for d in net],
+                "packet_tx": [m.packet_tx for m in ms],
+                "packet_rx": [m.packet_rx for m in ms],
+                "byte_tx": [m.byte_tx for m in ms],
+                "byte_rx": [m.byte_rx for m in ms],
+                "flow_count": [m.flow_count for m in ms],
+                "new_flow": [m.new_flow for m in ms],
+                "closed_flow": [m.closed_flow for m in ms],
+                "rtt_sum": [m.rtt_sum_us for m in ms],
+                "rtt_count": [m.rtt_count for m in ms],
+                "retrans": [m.retrans for m in ms],
+                "syn_count": [m.syn_count for m in ms],
+                "synack_count": [m.synack_count for m in ms],
+            })
+            self.write_columns("flow_metrics.network.1s", cols, len(net))
+            n += len(net)
+        app = [d for d in batch.docs if d.HasField("app_meter")]
+        if app:
+            ms = [d.app_meter for d in app]
+            cols = base_cols(app)
+            cols.update({
+                "l7_protocol": [int(d.tag.l7_protocol) for d in app],
+                "app_service": [d.tag.app_service for d in app],
+                "request": [m.request for m in ms],
+                "response": [m.response for m in ms],
+                "rrt_sum": [m.rrt_sum_us for m in ms],
+                "rrt_count": [m.rrt_count for m in ms],
+                "rrt_max": [m.rrt_max_us for m in ms],
+                "error_client": [m.error_client for m in ms],
+                "error_server": [m.error_server for m in ms],
+                "timeout": [m.timeout for m in ms],
+            })
+            self.write_columns("flow_metrics.application.1s", cols,
+                               len(app))
+            n += len(app)
+        return n
+
+
+_IP_CACHE: dict[bytes, tuple[str, int]] = {}
+_IP_CACHE_MAX = 1 << 16
+
+
+def _ip_decode(raw: bytes) -> tuple[str, int]:
+    """Raw address bytes -> (printable string, u32 for IPv4 else 0).
+    Memoized: real traffic repeats a bounded host set."""
+    hit = _IP_CACHE.get(raw)
+    if hit is not None:
+        return hit
+    if len(raw) == 4:
+        val = ("%d.%d.%d.%d" % (raw[0], raw[1], raw[2], raw[3]),
+               int.from_bytes(raw, "big"))
+    elif not raw:
+        val = ("", 0)
+    else:
+        try:
+            val = (str(ipaddress.ip_address(raw)), 0)
+        except ValueError:
+            val = (raw.hex(), 0)
+    if len(_IP_CACHE) >= _IP_CACHE_MAX:
+        _IP_CACHE.clear()  # a coarse reset beats per-entry LRU upkeep
+    _IP_CACHE[bytes(raw)] = val
+    return val
+
+
+def _close_type_idx(name: str) -> int:
+    try:
+        return CLOSE_TYPES.index(name or "unknown")
+    except ValueError:
+        return 0

@@ -22,8 +22,12 @@ log = logging.getLogger("df.janitor")
 # absent here are never trimmed (the reference has no entry for
 # profile.tpu_memory or profile.tpu_step_metrics either).
 DEFAULT_TTL_S = {
+    "flow_log.l4_flow_log": 3 * 86400,
+    "flow_log.l7_flow_log": 3 * 86400,
     "profile.in_process_profile": 3 * 86400,
     "profile.tpu_hlo_span": 3 * 86400,
+    "flow_metrics.network.1s": 1 * 86400,
+    "flow_metrics.application.1s": 1 * 86400,
     "deepflow_system.deepflow_system": 7 * 86400,
 }
 

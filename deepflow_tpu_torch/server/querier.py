@@ -231,11 +231,16 @@ class QuerierAPI:
         stage; the observed stage costs feed the stage cost model."""
         root = self.qtracer.start_trace(
             "query", kind="explain", sql=stmt.sql[:200], capture=True)
+        answer = None
         with root:
             if stmt.analyze:
-                self._run_select(body, stmt.select, stmt.sql, db_name)
+                # held past the root's end: freeing a large answer is
+                # work of no stage, and would count in total_ms alone
+                answer = self._run_select(body, stmt.select, stmt.sql,
+                                          db_name)
             else:
                 self._plan(body, stmt.select, db_name)
+        del answer
         # E2E = the root span's wall (query work only; excludes the
         # trace's own sink flush) — the number stage walls must sum to
         total_ns = root.duration_ns

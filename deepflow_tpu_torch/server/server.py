@@ -1,10 +1,11 @@
 """The port's server: receiver + decoders + store + querier in one process.
 
-Own copy of the profile path of ``deepflow_tpu/server/server.py::Server``:
-PROFILE, TPU_SPAN, STEP_METRICS and DFSTATS frames arrive over TCP,
-decode into the profile and self-stats tables through one shared dedup
-window, the receiver acks what was written, and the querier answers the
-profile queries over HTTP, each server with its own query cache and
+Own copy of the profile and flow paths of
+``deepflow_tpu/server/server.py::Server``: PROFILE, TPU_SPAN,
+STEP_METRICS, L4_LOG, L7_LOG, METRICS and DFSTATS frames arrive over TCP,
+decode into the profile, flow-log, flow-metric and self-stats tables
+through one shared dedup window, the receiver acks what was written, and
+the querier answers DF-SQL and the profile queries over HTTP, each server with its own query cache and
 query tracer, whose spans land in ``deepflow_system.query_trace`` (the
 database makes every schema table at start, that one included). One
 ``Telemetry("server")`` holds the receiver's, the decoders' and the
@@ -34,9 +35,10 @@ import signal
 import threading
 import time
 
+from deepflow_tpu_torch.codec import MessageType
 from deepflow_tpu_torch.server.decoders import (
-    DedupWindow, ProfileDecoder, StatsDecoder, StepMetricsDecoder,
-    TpuSpanDecoder)
+    DedupWindow, FlowLogDecoder, MetricsDecoder, ProfileDecoder,
+    StatsDecoder, StepMetricsDecoder, TpuSpanDecoder)
 from deepflow_tpu_torch.server.janitor import Janitor
 from deepflow_tpu_torch.server.platform_info import PlatformInfoTable
 from deepflow_tpu_torch.server.querier import QuerierAPI, QuerierHTTP
@@ -79,13 +81,18 @@ class Server:
 
     def start(self) -> "Server":
         # register every queue before listening: no frame finds none
-        for cls in (ProfileDecoder, TpuSpanDecoder, StepMetricsDecoder,
-                    StatsDecoder):
-            q = self.receiver.register(cls.MSG_TYPE)
+        for cls, mtype in ((ProfileDecoder, MessageType.PROFILE),
+                           (TpuSpanDecoder, MessageType.TPU_SPAN),
+                           (StepMetricsDecoder, MessageType.STEP_METRICS),
+                           (FlowLogDecoder, MessageType.L4_LOG),
+                           (FlowLogDecoder, MessageType.L7_LOG),
+                           (MetricsDecoder, MessageType.METRICS),
+                           (StatsDecoder, MessageType.DFSTATS)):
+            q = self.receiver.register(mtype)
             self.decoders.append(cls(
                 q, self.db, self.platform, dedup=self.dedup,
                 seq_tracker=self.receiver.seq_tracker,
-                telemetry=self.telemetry).start())
+                telemetry=self.telemetry, msg_type=mtype).start())
         self.janitor.start()
         self.deadman.start()
         self.receiver.start()

@@ -1,16 +1,29 @@
 """Schemas of the port's tables, where the agents' frames and the
 querier's own query traces land.
 
-Own copy of the profile, self-telemetry and query-trace parts of
-``deepflow_tpu/store/schema.py``: the same table names, columns, kinds and
-defaults, so rows and queries mean the same in both packages. Times are
-u64 nanoseconds.
+Own copy of the profile, flow-log, 1 s flow-metric, self-telemetry and
+query-trace parts of ``deepflow_tpu/store/schema.py``: the same table
+names, columns, kinds and defaults, so rows and queries mean the same in
+both packages. Times are u64 nanoseconds, but for the flow-metric tables'
+u32 epoch seconds. The 1m, 1h and 1d rollups, ``flow_log.trace_tree`` and
+the ``event`` tables are not ported yet.
 """
 
 from __future__ import annotations
 
 from deepflow_tpu_torch.store.table import ColumnSpec as C
 
+L4_PROTOS = ("unknown", "tcp", "udp", "icmp")
+# labels of wire.L7Protocol, in its order: ingest stores the int
+L7_PROTOS = (
+    "unknown", "http1", "http2", "grpc", "dns", "mysql", "redis", "kafka",
+    "postgresql", "mongodb", "memcached", "mqtt", "amqp", "nats", "dubbo",
+    "fastcgi", "tls", "ping", "rocketmq", "sofarpc", "zmtp",
+    "openwire", "tars", "brpc", "oracle", "dameng", "iso8583", "netsign",
+    "websphere_mq", "someip", "pulsar")
+RESPONSE_STATUS = ("unknown", "ok", "client_error", "server_error", "timeout")
+CLOSE_TYPES = ("unknown", "fin", "rst", "timeout", "forced")
+TUNNEL_TYPES = ("none", "vxlan", "geneve", "erspan", "gre")
 # labels of wire.ProfileEventType, in its order: ingest stores the int
 PROFILE_EVENT_TYPES = (
     "unknown", "on-cpu", "off-cpu", "mem-alloc", "tpu-device", "tpu-host")
@@ -34,6 +47,23 @@ UNIVERSAL_TAGS = [
     C("tpu_worker", "u16"),
     C("slice_id", "u16"),
 ]
+
+
+# Per-side resource tags (side 0 = ip_src, side 1 = ip_dst), resolved by
+# IP at ingest in the reference; the port has no resource index yet, so
+# they stay empty but keep the rows' shape and the queries' names.
+def _side_tags(side: str) -> list[C]:
+    return [
+        C(f"pod_ns_{side}", "str"),
+        C(f"workload_{side}", "str"),     # pod_group analog
+        C(f"service_{side}", "str"),
+        C(f"node_{side}", "str"),
+        C(f"az_{side}", "str"),
+        C(f"subnet_{side}", "str"),
+    ]
+
+
+PER_SIDE_TAGS = _side_tags("0") + _side_tags("1")
 
 TABLES: dict[str, list[C]] = {}
 
@@ -115,6 +145,139 @@ _table("profile.tpu_memory", [
     C("num_allocs", "u32"),
     C("pid", "u32"),
     C("process_name", "str"),
+    *UNIVERSAL_TAGS,
+])
+
+# -- flow logs (reference: server/ingester/flow_log/log_data) -------------
+# one row per closed (or force-flushed) flow
+_table("flow_log.l4_flow_log", [
+    C("time", "u64"),                   # flow end ns
+    C("flow_id", "u64"),
+    C("ip4_src", "u32"),
+    C("ip4_dst", "u32"),
+    C("ip_src", "str"),                 # printable (v4/v6)
+    C("ip_dst", "str"),
+    C("port_src", "u16"),
+    C("port_dst", "u16"),
+    C("protocol", "enum", L4_PROTOS),
+    C("tap_port", "u32"),
+    C("start_time", "u64"),
+    C("end_time", "u64"),
+    C("packet_tx", "u64"),
+    C("packet_rx", "u64"),
+    C("byte_tx", "u64"),
+    C("byte_rx", "u64"),
+    C("l7_request", "u64"),
+    C("l7_response", "u64"),
+    C("rtt", "u32"),                    # us
+    C("art", "u32"),                    # us
+    C("retrans_tx", "u32"),
+    C("retrans_rx", "u32"),
+    C("zero_win_tx", "u32"),
+    C("zero_win_rx", "u32"),
+    C("close_type", "enum", CLOSE_TYPES),
+    C("syn_count", "u32"),
+    C("synack_count", "u32"),
+    C("tunnel_type", "enum", TUNNEL_TYPES),
+    C("tunnel_id", "u32"),
+    C("gprocess_id_0", "u32"),
+    C("gprocess_id_1", "u32"),
+    C("process_kname_0", "str"),    # socket-inode scan: comm at ip:port
+    C("process_kname_1", "str"),
+    C("pod_0", "str"),              # resource at ip_src
+    C("pod_1", "str"),              # resource at ip_dst
+    *PER_SIDE_TAGS,
+    *UNIVERSAL_TAGS,
+])
+
+# one row per matched request/response (or lone request or response)
+_table("flow_log.l7_flow_log", [
+    C("time", "u64"),                   # request start ns
+    C("flow_id", "u64"),
+    C("app_service", "str"),            # set for app-instrumented spans
+    C("ip_src", "str"),
+    C("ip_dst", "str"),
+    C("port_src", "u16"),
+    C("port_dst", "u16"),
+    C("tunnel_type", "enum", TUNNEL_TYPES),
+    C("tunnel_id", "u32"),
+    C("l7_protocol", "enum", L7_PROTOS),
+    C("version", "str"),
+    C("request_type", "str"),
+    C("request_domain", "str"),
+    C("request_resource", "str"),
+    C("endpoint", "str"),
+    C("request_id", "u32"),
+    C("response_status", "enum", RESPONSE_STATUS),
+    C("response_code", "i32"),
+    C("response_exception", "str"),
+    C("response_result", "str"),
+    C("response_duration", "u64"),      # ns
+    C("trace_id", "str"),
+    C("span_id", "str"),
+    C("parent_span_id", "str"),
+    C("x_request_id", "str"),
+    C("syscall_trace_id_request", "u64"),
+    C("syscall_trace_id_response", "u64"),
+    C("syscall_thread_0", "u32"),
+    C("syscall_thread_1", "u32"),
+    C("pod_0", "str"),
+    C("pod_1", "str"),
+    *PER_SIDE_TAGS,
+    C("captured_request_byte", "u64"),
+    C("captured_response_byte", "u64"),
+    C("gprocess_id_0", "u32"),
+    C("gprocess_id_1", "u32"),
+    C("process_kname_0", "str"),
+    C("process_kname_1", "str"),
+    C("attrs", "str"),                  # json: parser extras (sql, alpn...)
+    *UNIVERSAL_TAGS,
+])
+
+# -- flow metrics, 1 s (reference: server/libs/flow-metrics) ---------------
+_table("flow_metrics.network.1s", [
+    C("time", "u32"),                   # epoch seconds
+    C("ip_src", "str"),
+    C("ip_dst", "str"),
+    C("server_port", "u16"),
+    C("protocol", "enum", L4_PROTOS),
+    C("direction", "u8"),
+    C("packet_tx", "u64"),
+    C("packet_rx", "u64"),
+    C("byte_tx", "u64"),
+    C("byte_rx", "u64"),
+    C("flow_count", "u64"),
+    C("new_flow", "u64"),
+    C("closed_flow", "u64"),
+    C("rtt_sum", "u64"),                # us
+    C("rtt_count", "u64"),
+    C("retrans", "u64"),
+    C("syn_count", "u64"),
+    C("synack_count", "u64"),
+    C("pod_0", "str"),
+    C("pod_1", "str"),
+    *PER_SIDE_TAGS,
+    *UNIVERSAL_TAGS,
+])
+
+_table("flow_metrics.application.1s", [
+    C("time", "u32"),
+    C("ip_src", "str"),
+    C("ip_dst", "str"),
+    C("server_port", "u16"),
+    C("l7_protocol", "enum", L7_PROTOS),
+    C("app_service", "str"),
+    C("request", "u64"),
+    C("response", "u64"),
+    C("rrt_sum", "u64"),                # us
+    C("rrt_count", "u64"),
+    C("rrt_max", "u64"),
+    C("error_client", "u64"),
+    C("error_server", "u64"),
+    C("timeout", "u64"),
+    C("pod_0", "str"),
+    C("pod_1", "str"),
+    *PER_SIDE_TAGS,
     *UNIVERSAL_TAGS,
 ])
 

@@ -20,6 +20,7 @@ The probe and the agent read them here:
 from __future__ import annotations
 
 import os
+import sys
 
 MAX_AGENT_ID = 0xFFFF  # the frame header's agent_id is a u16
 
@@ -41,15 +42,27 @@ def launcher_env() -> tuple[int, int, int] | None:
     return rank, world, local
 
 
-def global_rank() -> int | None:
-    """The process's rank in the default process group once the workload
-    has initialised one, else the launcher's RANK, else None."""
+def _default_group():
+    """torch.distributed when the workload has initialised its default
+    process group, else None. A process that has not imported torch has
+    none, and asking loads no torch (a node agent never does)."""
+    if "torch" not in sys.modules:
+        return None
     try:
         import torch.distributed as dist
         if dist.is_available() and dist.is_initialized():
-            return int(dist.get_rank())
+            return dist
     except (ImportError, RuntimeError):
         pass
+    return None
+
+
+def global_rank() -> int | None:
+    """The process's rank in the default process group once the workload
+    has initialised one, else the launcher's RANK, else None."""
+    dist = _default_group()
+    if dist is not None:
+        return int(dist.get_rank())
     env = launcher_env()
     return None if env is None else env[0]
 
@@ -57,12 +70,9 @@ def global_rank() -> int | None:
 def world_size() -> int:
     """The default process group's size once initialised, else the
     launcher's WORLD_SIZE, else 1."""
-    try:
-        import torch.distributed as dist
-        if dist.is_available() and dist.is_initialized():
-            return int(dist.get_world_size())
-    except (ImportError, RuntimeError):
-        pass
+    dist = _default_group()
+    if dist is not None:
+        return int(dist.get_world_size())
     env = launcher_env()
     return 1 if env is None else env[1]
 

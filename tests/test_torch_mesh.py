@@ -50,9 +50,9 @@ def _jax_mesh(shape):
     return Mesh(np.asarray(jax.devices()[:4]).reshape(shape), jm.AXES)
 
 
-def _reference(shape, jdtype, steps, seed=0):
+def _reference(shape, jdtype, steps, seed=0, kw=TINY):
     """(numpy weights, tokens, the sharded step's losses and weights)."""
-    cfg = jl.LlamaConfig.tiny(dtype=jdtype, **TINY)
+    cfg = jl.LlamaConfig.tiny(dtype=jdtype, **kw)
     params = jl.init_params(cfg, jax.random.key(seed))
     tree = jax.tree.map(np.asarray, params)
     tokens = np.random.default_rng(seed + 1).integers(
@@ -142,12 +142,34 @@ def test_bf16_loss_matches_reference(world):
         np.testing.assert_allclose(losses, want, rtol=BF16_LOSS_RTOL)
 
 
+def test_tiny_replicates_kv_heads_over_the_tensor_axis(world):
+    """tiny() has 2 KV heads on 4 tensor ranks: each KV head lives on the
+    two ranks whose query heads use it, and its wk/wv gradient is summed
+    over them. Two float32 steps match the reference's sharded step (the
+    dividing shapes' tolerances), and the sums are one tensor all-reduce
+    each for wk and wv beside the dividing shapes' calls."""
+    shape = (1, 1, 4)
+    tree, tokens, want, want_params = _reference(shape, jnp.float32, 2,
+                                                 kw={})
+    got = world.run("train", shape, "float32", {}, tree, tokens, 2)
+    for losses, _, calls in got:
+        np.testing.assert_allclose(losses, want, rtol=F32_LOSS_RTOL)
+        assert losses == got[0][0]
+        assert calls == {"tensor": 4 * 2 + 1 + 1 + 3 + 2}
+    torch_world.assert_updates_close(
+        jax.tree.leaves(got[0][1]), jax.tree.leaves(want_params),
+        jax.tree.leaves(tree), F32_UPDATE_RTOL)
+
+
 def test_heads_that_do_not_divide_raise(world):
-    """tiny() has 2 KV heads: the reference's GSPMD cuts them over 4
-    tensor ranks unevenly; the port refuses and names the constraint."""
-    got = world.run("construct", (1, 1, 4), "float32", {})
-    assert all("n_kv_heads = 2 does not divide by the tensor axis of 4"
+    """Query heads that do not divide over the tensor axis (6 on 4): the
+    reference's GSPMD cuts them unevenly; the port refuses and names the
+    constraint. KV heads fewer than the tensor ranks are replicated
+    (above), so tiny() builds on (1, 1, 4) as on (1, 2, 2)."""
+    got = world.run("construct", (1, 1, 4), "float32", {"n_heads": 6})
+    assert all("n_heads = 6 does not divide by the tensor axis of 4"
                in msg for msg in got), got
+    assert world.run("construct", (1, 1, 4), "float32", {}) == ["ok"] * 4
     assert world.run("construct", (1, 2, 2), "float32", {}) == ["ok"] * 4
     with pytest.raises(ValueError, match="d_model = 64 does not divide"):
         tl._check_divides(tl.LlamaConfig.tiny(), tl._Axes(

@@ -434,7 +434,7 @@ _ABI_LINE = f"return {native.ABI_VERSION}; }}"
 def test_failed_build_or_wrong_abi_raises(tmp_path, edit, expect):
     """Sources that do not compile raise with the compiler's stderr; a
     library of another ABI version raises on load. Neither returns."""
-    for name in native.SOURCES:
+    for name in native.SOURCES + native.HEADERS:
         with open(os.path.join(ROOT, "deepflow_tpu_torch", "native",
                                name)) as f:
             text = f.read()

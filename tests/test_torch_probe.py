@@ -465,7 +465,11 @@ def test_port_imports_no_jax_and_no_reference():
                 "models/resnet.py", "parallel/dp.py", "tpuprobe/ranks.py",
                 "parallel/mesh.py", "parallel/collectives.py",
                 "parallel/ring_attention.py", "parallel/pipeline.py",
-                "models/moe.py", "tpuprobe/comms.py"):
+                "models/moe.py", "tpuprobe/comms.py", "agent/packet.py",
+                "agent/flow_map.py", "agent/collector.py",
+                "agent/dispatcher.py", "agent/native_flow.py",
+                "agent/live_capture.py", "agent/protocol_logs/base.py",
+                "proto/pbwire.py"):
         assert os.path.join(ROOT, "deepflow_tpu_torch", mod) in files, mod
     for path in files:
         with open(path) as f:
@@ -501,11 +505,20 @@ def test_port_import_leaves_jax_unloaded():
 
 @pytest.mark.parametrize("module", [
     "deepflow_tpu_torch.server.server", "deepflow_tpu_torch.server.__main__",
-    "deepflow_tpu_torch.cli.dfctl"])
+    "deepflow_tpu_torch.cli.dfctl",
+    # the flow path: a node agent that only captures has no use for the
+    # card's runtime (dfctl replay: test_torch_flow_ingest.py)
+    "deepflow_tpu_torch.agent.packet",
+    "deepflow_tpu_torch.agent.protocol_logs",
+    "deepflow_tpu_torch.agent.flow_map", "deepflow_tpu_torch.agent.collector",
+    "deepflow_tpu_torch.agent.dispatcher",
+    "deepflow_tpu_torch.agent.native_flow",
+    "deepflow_tpu_torch.agent.live_capture",
+    "deepflow_tpu_torch.agent.agent", "deepflow_tpu_torch.agent.__main__"])
 def test_server_and_dfctl_import_leaves_torch_unloaded(module):
-    """The server and dfctl touch no device, so importing them in a fresh
-    interpreter loads no torch; the package still gives resolve_device,
-    which does."""
+    """The server, dfctl and the flow path touch no device, so importing
+    them in a fresh interpreter loads no torch; the package still gives
+    resolve_device, which does."""
     code = (
         "import importlib, sys\n"
         f"importlib.import_module({module!r})\n"

@@ -271,18 +271,32 @@ def test_explain_is_the_plan_only(apis, sql):
     assert got["result"]["columns"] == want["result"]["columns"]
 
 
+# EXPLAIN ANALYZE runs of each scanning step whose median is gated: a
+# query here takes 0.4-20 ms, and one scheduler pause of a busy test
+# worker (4.3 ms was seen) can fall between two stages of one run
+STAGE_RUNS = 5
+
+
 @pytest.mark.parametrize("sql", EXPLAIN_SQL)
 def test_explain_analyze_sums_its_stages(apis, sql, monkeypatch):
     """Cold (cache bypassed) and then through the cache's miss and hit:
     rows_returned is the answer's, and the plan has the reference
-    querier's keys and cache outcome; a run that scans sums its stages
-    to within 20 % of its wall time; the observed stage costs feed the
-    stage cost model."""
+    querier's keys and cache outcome; the runs that scan sum their
+    stages to within 20 % of their wall time, at the median of five
+    runs of each step (every miss but the last stores nothing, so each
+    is a miss); the observed stage costs feed the stage cost model."""
     ref, port = apis
     answer = engine.execute(port.db.table(SPAN), sql.replace(
         "tpu_hlo_span", "t"))
-    monkeypatch.setenv("DF_QUERY_CACHE", "0")
-    for step in ("bypass", "miss", "hit"):
+    runs = [("bypass", {"DF_QUERY_CACHE": "0"})] * STAGE_RUNS \
+        + [("miss", {"DF_QUERY_CACHE_MIN_NS": "1e30"})] * (STAGE_RUNS - 1) \
+        + [("miss", {}), ("hit", {})]
+    gaps: dict[str, list] = {}
+    for step, env in runs:
+        for k in ("DF_QUERY_CACHE", "DF_QUERY_CACHE_MIN_NS"):
+            monkeypatch.delenv(k, raising=False)
+        for k, v in env.items():
+            monkeypatch.setenv(k, v)
         got = _explain(port, sql, True)
         want = _explain(ref, sql, True)
         ex = got["explain"]
@@ -294,10 +308,11 @@ def test_explain_analyze_sums_its_stages(apis, sql, monkeypatch):
         assert {st["stage"] for st in ex["stages"]} == {"plan", "execute"}
         stage_sum = sum(st["wall_ms"] for st in ex["stages"])
         assert 0 < stage_sum <= ex["total_ms"]
-        if step != "hit":
-            assert ex["total_ms"] - stage_sum <= \
-                STAGE_RTOL * ex["total_ms"], (stage_sum, ex)
-        monkeypatch.delenv("DF_QUERY_CACHE", raising=False)
+        gaps.setdefault(step, []).append(
+            (ex["total_ms"] - stage_sum) / ex["total_ms"])
+    for step in ("bypass", "miss"):
+        assert len(gaps[step]) == STAGE_RUNS
+        assert np.median(gaps[step]) <= STAGE_RTOL, (step, gaps[step])
     snap = port.stage_cost.snapshot()
     assert snap["ns_per_row"]["plan"] and snap["ns_per_row"]["execute"]
 

@@ -48,6 +48,13 @@ PROFILE_DECODERS = ("ProfileDecoder", "TpuSpanDecoder",
                     "StepMetricsDecoder", "StatsDecoder")
 
 
+def _per_unit(table: str) -> int:
+    """ns per unit of a table's time column, as the janitor reads it:
+    u64 nanoseconds, u32 epoch seconds (the flow-metric tables)."""
+    kind = next(c.kind for c in schema.TABLES[table] if c.name == "time")
+    return 1 if kind == "u64" else 10**9
+
+
 def _dated_rows(table: str, n: int, seed: int, days: float = 10.0,
                 unique_from: int | None = None) -> list[dict]:
     """tsql's seeded rows of a table, their times rising evenly over the
@@ -56,7 +63,8 @@ def _dated_rows(table: str, n: int, seed: int, days: float = 10.0,
     rows = tsql._rows(table, n, seed)
     step = int(days * DAY_NS) // max(1, n)
     for i, r in enumerate(rows):
-        r["time"] = NOW_NS - int(days * DAY_NS) + i * step
+        r["time"] = (NOW_NS - int(days * DAY_NS) + i * step) \
+            // _per_unit(table)
         if unique_from is not None and i < unique_from:
             for spec in schema.TABLES[table]:
                 if spec.kind == "str":
@@ -100,7 +108,7 @@ def test_trim_before_drops_what_reference_drops(table, chunk_rows):
     ref, port = _pair(table, rows, chunk_rows, seed=chunk_rows)
     assert len(port.snapshot()) > 1
     for days_ago in (11, 9.5, 7, 7, 3.2, 0.5, 0):
-        cutoff = NOW_NS - int(days_ago * DAY_NS)
+        cutoff = (NOW_NS - int(days_ago * DAY_NS)) // _per_unit(table)
         dropped = port.trim_before("time", cutoff)
         assert dropped == ref.trim_before("time", cutoff), days_ago
         assert len(port) == len(ref) == sum(
@@ -157,7 +165,7 @@ def test_compaction_after_trim_changes_no_answer(table):
     compaction."""
     rows = _dated_rows(table, 400, seed=5, unique_from=200)
     ref, port = _pair(table, rows, 40, seed=5)
-    cutoff = NOW_NS - 4 * DAY_NS
+    cutoff = (NOW_NS - 4 * DAY_NS) // _per_unit(table)
     assert port.trim_before("time", cutoff) == \
         ref.trim_before("time", cutoff) > 150
     queries = tsql._queries(table)

@@ -43,8 +43,11 @@ STEP_PS = 10_000_000_000  # 10 ms a step
 TABLES = ("profile.tpu_hlo_span", "profile.tpu_memory",
           "profile.tpu_step_metrics", "profile.in_process_profile",
           "deepflow_system.deepflow_system")
-# and the querier's own spans: the port's tables, as the reference names
-SCHEMA_TABLES = TABLES + ("deepflow_system.query_trace",)
+# and the querier's own spans and the flow tables: the port's tables, as
+# the reference names them
+FLOW_TABLES = ("flow_log.l4_flow_log", "flow_log.l7_flow_log",
+               "flow_metrics.network.1s", "flow_metrics.application.1s")
+SCHEMA_TABLES = TABLES + ("deepflow_system.query_trace",) + FLOW_TABLES
 QUERIES = ("tpu_flame", "tpu_memory", "tpu_collectives", "tpu_step_trace",
            "tpu_steps", "tpu_step_critical_path", "profile_tracing")
 
@@ -177,6 +180,8 @@ def _frames():
               "profile.tpu_step_metrics": probe.stats["steps_sent"],
               # the querier's own spans: no query has run yet
               "deepflow_system.query_trace": 0,
+              # no flow frames (test_torch_flow_ingest.py sends those)
+              **dict.fromkeys(FLOW_TABLES, 0),
               **more_counts}
     return frames, counts
 
@@ -308,13 +313,14 @@ def _answer(api, method, body):
 # -- the tests ---------------------------------------------------------------
 
 def test_schema_matches_reference_and_wire():
-    """The six tables have the reference's columns, kinds, labels and
-    defaults, and TPU_SPAN_KINDS / PROFILE_EVENT_TYPES are the wire
-    enums' order (ingest stores the int; queries filter on labels)."""
+    """The ten tables have the reference's columns, kinds, labels and
+    defaults (labels as tuples: the reference keeps some in lists), and
+    TPU_SPAN_KINDS / PROFILE_EVENT_TYPES are the wire enums' order
+    (ingest stores the int; queries filter on labels)."""
     for name in SCHEMA_TABLES:
-        mine = [(c.name, c.kind, c.enum_values, c.default)
+        mine = [(c.name, c.kind, tuple(c.enum_values), c.default)
                 for c in schema.TABLES[name]]
-        ref = [(c.name, c.kind, c.enum_values, c.default)
+        ref = [(c.name, c.kind, tuple(c.enum_values), c.default)
                for c in ref_schema.TABLES[name]]
         assert mine == ref, name
     assert schema.TPU_SPAN_KINDS == ref_schema.TPU_SPAN_KINDS
@@ -441,7 +447,8 @@ def test_undecodable_payload_counts_as_decode_error():
                 time.sleep(0.02)
         errs = {d.MSG_TYPE.name: d.stats["errors"] for d in port.decoders}
         assert errs == {"TPU_SPAN": 1, "STEP_METRICS": 1, "PROFILE": 0,
-                        "DFSTATS": 0}
+                        "DFSTATS": 0, "L4_LOG": 0, "L7_LOG": 0,
+                        "METRICS": 0}
         assert {d.MSG_TYPE.name: d.stats["errors"] for d in ref.decoders
                 if d.MSG_TYPE.name in errs} == errs
     finally:
@@ -501,7 +508,8 @@ def test_http_routes_and_errors(pair):
                                 for t in SCHEMA_TABLES}
     assert health["stats"]["receiver"]["bad_frames"] == 0
     assert set(health["stats"]["decoders"]) == {
-        "PROFILE", "TPU_SPAN", "STEP_METRICS", "DFSTATS"}
+        "PROFILE", "TPU_SPAN", "STEP_METRICS", "DFSTATS", "L4_LOG",
+        "L7_LOG", "METRICS"}
     assert health["stats"]["receiver"]["acks_sent"] == 0  # v1 frames only
 
 
@@ -679,7 +687,7 @@ def test_sql_route_answers_hold_rows(pair):
 
 
 def test_show_databases_and_tables_over_http(pair):
-    """SHOW DATABASES / TABLES list the port's six tables: the
+    """SHOW DATABASES / TABLES list the port's ten tables: the
     reference's answer cut to them."""
     ref, port = pair
     for what in ("databases", "tables"):

@@ -95,6 +95,26 @@ PARSE_CORPUS = [
 # the querier's own SQL (deepflow_tpu/server/querier.py:529-771), by the
 # table it runs on
 QUERIER_SQL = {
+    # the smoke's flow dashboards (chip_flows.py FLOW_QUERIES)
+    "flow_log.l4_flow_log": [
+        "SELECT ip_src, ip_dst, Sum(byte_tx) AS bytes FROM t "
+        "GROUP BY ip_src, ip_dst ORDER BY bytes DESC, ip_src, ip_dst "
+        "LIMIT 10"],
+    "flow_log.l7_flow_log": [
+        "SELECT ip_dst, port_dst, endpoint, Count() AS requests, "
+        "Sum(CASE WHEN response_status IN ('client_error', "
+        "'server_error', 'timeout') THEN 1 ELSE 0 END) AS errors, "
+        "Percentile(response_duration, 90) AS rrt_p90 FROM t "
+        "GROUP BY ip_dst, port_dst, endpoint "
+        "ORDER BY requests DESC, ip_dst, port_dst, endpoint LIMIT 20"],
+    "flow_metrics.network.1s": [
+        "SELECT server_port, Sum(new_flow) AS flows, "
+        "Sum(closed_flow) AS closed FROM t GROUP BY server_port "
+        "ORDER BY flows DESC, server_port LIMIT 20",
+        "SELECT server_port, Avg(rtt) AS rtt FROM t GROUP BY server_port"],
+    "flow_metrics.application.1s": [
+        "SELECT server_port, Avg(rrt) AS a, Max(rrt) AS m, Sum(error) AS e "
+        "FROM t GROUP BY server_port ORDER BY server_port"],
     "profile.tpu_hlo_span": [
         "SELECT hlo_module, hlo_category, hlo_op, Sum(duration_ns) AS d "
         "FROM t WHERE duration_ns > 0 AND kind IN ('device-compute', "
@@ -169,7 +189,7 @@ def test_bad_sql_raises_like_reference(sql):
     assert str(err.value) == str(ref_err.value)
 
 
-# -- engine over the six tables ---------------------------------------------
+# -- engine over the ten tables ---------------------------------------------
 
 # per table: a str column, a second str column, an enum column (or None),
 # a small int tag, and a metric
@@ -186,6 +206,14 @@ ROLES = {
                                         "agent_id", "value"),
     "deepflow_system.query_trace": ("name", "service", None, "agent_id",
                                     "duration_ns"),
+    "flow_log.l4_flow_log": ("ip_src", "ip_dst", "close_type", "port_dst",
+                             "byte_tx"),
+    "flow_log.l7_flow_log": ("endpoint", "request_type", "response_status",
+                             "port_dst", "response_duration"),
+    "flow_metrics.network.1s": ("ip_src", "ip_dst", "protocol",
+                                "server_port", "byte_tx"),
+    "flow_metrics.application.1s": ("ip_dst", "app_service", "l7_protocol",
+                                    "server_port", "rrt_sum"),
 }
 TABLES = tuple(ROLES)
 
@@ -269,6 +297,8 @@ def _rows(table: str, n: int, seed: int) -> list[dict]:
             vals = rng.integers(0, len(spec.enum_values), n).tolist()
         elif spec.kind == "f64":
             vals = (rng.random(n) * 1000).tolist()
+        elif spec.name == "time" and spec.kind == "u32":  # epoch seconds
+            vals = (BASE_NS // 10**9 + rng.integers(0, 30, n)).tolist()
         elif spec.name in ("time", "end_ns"):
             vals = (BASE_NS + rng.integers(0, 30 * 10**9, n)).tolist()
         elif spec.name == "org_id":
@@ -477,15 +507,17 @@ def test_show_databases_and_tables_are_the_ports():
     ref_tables = [r[0] for r in ref_catalog.show("tables")["values"]]
     assert set(tables) <= set(ref_tables)
     assert catalog.show("databases") == {
-        "columns": ["name"], "values": [["deepflow_system"], ["profile"]]}
+        "columns": ["name"], "values": [["deepflow_system"], ["flow_log"],
+                                        ["flow_metrics"], ["profile"]]}
     with pytest.raises(KeyError):
-        catalog.show("tags", "flow_log.l7_flow_log")  # not in the port
+        catalog.show("tags", "flow_log.trace_tree")  # not in the port
 
 
 def test_derived_metric_rewrite_like_reference(monkeypatch):
-    """No rule ships with the port's tables; a rule given to both
-    packages rewrites the same AST and runs to the same answer."""
-    assert catalog.DERIVED == {}
+    """The reference's rules (over the flow-metric tables) ship with the
+    port; a rule given to both packages rewrites the same AST and runs
+    to the same answer."""
+    assert catalog.DERIVED == ref_catalog.DERIVED
     rules = {"profile.tpu_hlo_span": {
         "busy": {"AVG": ("ratio", "duration_ns", "flops"),
                  "MAX": ("col", "duration_ns"),

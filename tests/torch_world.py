@@ -124,7 +124,8 @@ def _model(shape, dtype, kw, tree, axes=None, sp_axis=None):
     mesh = _mesh(shape, axes)
     model = tl.Llama(_cfg(dtype, kw), device="cpu", mesh=mesh,
                      sp_axis=sp_axis)
-    model.load_state_dict(tl.params_from_numpy(tree, "cpu", mesh=mesh))
+    model.load_state_dict(tl.params_from_numpy(tree, "cpu", mesh=mesh,
+                                               cfg=model.cfg))
     return model, mesh
 
 
