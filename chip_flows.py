@@ -15,12 +15,33 @@ Run by ``chip_smoke.flows_phase``. Four parts, each printing its numbers:
     the packets, and then through the dispatcher (native map, L7 parsing,
     collector, wire conversion) with HTTP/1.1 in the payload slots (a
     request, then its response), whose L4 logs, L7 logs and documents
-    (c) ships. Packets/s, flows closed and L7 records print beside the
-    host's CPU model;
+    (c) ships. The flows come in groups of four, the tiers of one
+    service: the j-th request of each flow of a group carries the same
+    W3C ``traceparent`` trace id and a span id of its own, and the
+    group's frames interleave so that each tier's request lies inside
+    the tier before it (a chain of four spans a trace, 25,000 traces).
+    Packets/s, flows closed and L7 records print beside the host's CPU
+    model;
 (c) ingest and query: (b)'s frames as the agent frames them, over TCP
-    into the port's server process: rows/s per table and the ingest lag;
-    then FLOW_QUERIES over POST /v1/query, each held to the in-process
-    engine's answer over the same frames and to the 1,000 ms gate;
+    into the port's server process: rows/s per table and the ingest lag,
+    beside the protobuf decode's; every flow batch must take the native
+    decode (``pure_batches`` 0), and the frames decoded in this process
+    both ways, native and pure, must give equal rows. Then
+    FLOW_QUERIES over POST /v1/query, each held to the in-process
+    engine's answer over the same frames and to the 1,000 ms gate; then
+    Tempo: ``/api/traces/<id>`` of a sampled trace holds its four spans
+    in their chain, and ``/api/search`` and ``/v1/trace/Search`` find
+    it;
+(c') rollups and PromQL: ROLLUP_KEYS_A_PORT of (b)'s metric documents
+    a server port and family, each sent again every ROLLUP_EVERY_S
+    seconds over ROLLUP_HOURS hours of 1 s buckets ending ROLLUP_AGO_S
+    ago, into a second server process, whose RollupJob rolls them: the
+    1m tier must fold a minute's rows of a key into one and the 1h tier
+    an hour's; a DF-SQL query over two hours must pick the 1m tier
+    (EXPLAIN's datasource) and
+    equal the same query kept on the 1 s table; two PromQL range
+    queries (a rate by server port and a topk of it) must equal a
+    DF-SQL recount of the same rows;
 (d) live: checked up front, explicitly, whether AF_PACKET opens (and
     whether a TPACKET_V3 ring maps on lo); where it does not, the line
     ``flows live: not run (<errno>)`` and nothing else. Else the node
@@ -67,6 +88,23 @@ LIVE_STEPS = 120
 NODE_AGENT_ID = 100       # the node agent's frames, apart from the child's
                           # (the training part's node agent: 101)
 AGENT_START_S = 60.0
+LIVE_TRACE = "1ive" + "0" * 12  # the live requests' trace ids' first half
+TIERS = 4                 # flows of a group: the tiers of one service
+SESSIONS = DATA_SEGMENTS // PAYLOAD_EVERY // 2 + 1  # requests a flow
+ROLLUP_HOURS = 3          # the re-stamped documents' span
+ROLLUP_AGO_S = 1800       # ... ending this long before the phase runs
+ROLLUP_KEYS_A_PORT = 2    # the re-stamped keys of a family, a server port
+ROLLUP_EVERY_S = 10       # each key's document this often over the span
+ROLLUP_WAIT_S = 90.0      # the rollup job rolls every 15 s, the trace
+                          # trees flush a trace idle for 4 s
+# the server's pure-protobuf flow decode before the native one, on the
+# card's host (NVIDIA H100 80GB HBM3, 700.00 W; Intel family 6 model 207;
+# PERF.md): rows/s a table from the first byte sent, and each decoder's
+# rows over its own handle time
+PROTOBUF_ROWS_PER_S = {"l4_flow_log": 3129, "l7_flow_log": 9990,
+                       "network_1s": 2562, "application_1s": 2411}
+PROTOBUF_DECODE_ROWS_PER_S = {"l4_log": 5394, "l7_log": 10117,
+                              "metrics": 8240}
 # the three dashboard queries over the flow tables: (db, DF-SQL)
 FLOW_QUERIES = {
     "top_talkers": (
@@ -94,12 +132,35 @@ FLOW_TABLES = ("flow_log.l4_flow_log", "flow_log.l7_flow_log",
 
 # -- traffic -------------------------------------------------------------
 
+_TRACEPARENT = b"traceparent: 00-"
+_HEX = np.frombuffer(b"0123456789abcdef", dtype=np.uint8)
+
+
+def trace_id(group: int, session: int) -> str:
+    """The W3C trace id of the session-th request of a group's flows."""
+    return f"{group + 1:024x}{session:08x}"
+
+
+def span_id(group: int, session: int, tier: int) -> str:
+    """The span id the tier's request of that trace carries."""
+    return f"{group + 1:08x}{session:04x}{tier:04x}"
+
+
+def _hex(v: np.ndarray, width: int) -> np.ndarray:
+    """(len(v), width) ASCII lowercase hex digits of uint64 values."""
+    shifts = (4 * np.arange(width - 1, -1, -1)).astype(np.uint64)
+    return _HEX[((v.astype(np.uint64)[:, None] >> shifts)
+                 & np.uint64(15)).astype(np.intp)]
+
+
 def _http_payloads() -> tuple[bytes, bytes, bytes]:
-    """A request, a 200 and a 500, each padded to PAYLOAD_BYTES."""
+    """A request (to tier 0's endpoint, with a traceparent of zeros), a
+    200 and a 500, each padded to PAYLOAD_BYTES."""
     def pad(head: bytes, tail: bytes) -> bytes:
         fill = PAYLOAD_BYTES - len(head) - len(tail) - len(b"X-Pad: \r\n")
         return head + b"X-Pad: " + b"p" * fill + b"\r\n" + tail
-    req = pad(b"GET /api/v1/items?page=3 HTTP/1.1\r\nHost: svc.local\r\n",
+    req = pad(b"GET /api/v1/tier0?page=3 HTTP/1.1\r\nHost: svc.local\r\n"
+              + _TRACEPARENT + b"0" * 32 + b"-" + b"0" * 16 + b"-01\r\n",
               b"\r\n")
     ok = pad(b"HTTP/1.1 200 OK\r\nContent-Length: 0\r\n", b"\r\n")
     err = pad(b"HTTP/1.1 500 ER\r\nContent-Length: 0\r\n", b"\r\n")
@@ -154,7 +215,10 @@ def bench_frames(n_flows: int, net: int, http: bool = False) -> tuple:
     ``net.(i >> 8).(i & 255).2`` port 40000 + i % 20000 to server
     ``net.9.9.(i % 64)`` port 8000 + i % 64, times 1 ns apart. One flow
     is encoded, and every flow's addresses and ports are written into
-    copies of it; with ``http``, one response in ERROR_EVERY is a 500."""
+    copies of it; with ``http``, one response in ERROR_EVERY is a 500,
+    each request carries its trace (``trace_id``, ``span_id``: flow i is
+    tier i % TIERS of group i // TIERS) and its tier's endpoint, and the
+    frames of each group interleave (``_nest``)."""
     tmpl = _template(http)
     lens = np.array([len(f) for f, _ in tmpl])
     starts = np.concatenate(([0], np.cumsum(lens)[:-1]))
@@ -175,9 +239,14 @@ def bench_frames(n_flows: int, net: int, http: bool = False) -> tuple:
         arr[:, o + 30:o + 34] = dst
         arr[:, o + 34:o + 36] = psrc
         arr[:, o + 36:o + 38] = pdst
+    order = None
     if http:
-        _, ok, err = _http_payloads()
+        req, ok, err = _http_payloads()
         code_at = ok.index(b"200")
+        tier_at = req.index(b"tier0") + 4
+        trace_at = req.index(_TRACEPARENT) + len(_TRACEPARENT)
+        group, tier = i // TIERS, i % TIERS
+        session = 0
         for (f, c2s), o in zip(tmpl, starts):
             if not c2s and f.endswith(ok):
                 at = o + len(f) - len(ok) + code_at
@@ -185,11 +254,50 @@ def bench_frames(n_flows: int, net: int, http: bool = False) -> tuple:
                                                               np.uint8)
                 arr[::ERROR_EVERY, at + 4:at + 6] = np.frombuffer(
                     err[code_at + 4:code_at + 6], np.uint8)
+            elif c2s and f.endswith(req):
+                at = o + len(f) - len(req)
+                arr[:, at + tier_at] = _HEX[tier]
+                t = at + trace_at
+                arr[:, t:t + 8] = ord("0")
+                arr[:, t + 8:t + 24] = _hex(group + 1, 16)
+                arr[:, t + 24:t + 32] = _hex(np.full(n_flows, session), 8)
+                arr[:, t + 33:t + 41] = _hex(group + 1, 8)
+                arr[:, t + 41:t + 45] = _hex(np.full(n_flows, session), 4)
+                arr[:, t + 45:t + 49] = _hex(tier, 4)
+                session += 1
+        if n_flows % TIERS == 0:
+            arr, order = _nest(arr, tmpl, lens, starts)
     n = n_flows * len(tmpl)
     offsets = np.zeros(n + 1, dtype=np.uint32)
-    np.cumsum(np.tile(lens, n_flows), out=offsets[1:])
+    frame_lens = lens if order is None else lens[order % len(tmpl)]
+    np.cumsum(np.tile(frame_lens, n_flows // (1 if order is None
+                                             else TIERS)),
+              out=offsets[1:])
     return (arr.tobytes(), offsets, np.arange(T0, T0 + n, dtype=np.uint64),
             n)
+
+
+def _nest(arr: np.ndarray, tmpl: list, lens: np.ndarray,
+          starts: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """Each group's TIERS flows interleaved frame by frame, every flow's
+    own frames in their order: a request slot goes tier 0 first, its
+    response slot tier TIERS - 1 first, so each tier's request and
+    response lie inside the tier before it, as a service calls the next
+    while it serves. Returns the bytes in the new order, one group a
+    row, and the order as flow-in-group * len(tmpl) + frame."""
+    m = len(tmpl)
+    _, ok, _ = _http_payloads()
+    resp = [not c2s and f.endswith(ok) for f, c2s in tmpl]
+    order = []
+    for t in range(m):
+        tiers = range(TIERS - 1, -1, -1) if resp[t] else range(TIERS)
+        order += [k * m + t for k in tiers]
+    order = np.asarray(order)
+    row = arr.shape[1]
+    idx = np.concatenate([np.arange(k * row + starts[t],
+                                    k * row + starts[t] + lens[t])
+                          for k, t in (divmod(o, m) for o in order)])
+    return arr.reshape(-1, TIERS * row)[:, idx], order
 
 
 # -- the explicit capture check ---------------------------------------------
@@ -354,8 +462,10 @@ def packet_part() -> tuple[dict, list]:
 
 # -- (c) ingest and query ---------------------------------------------------
 
-def _local_tables(frames: list):
-    """The same frames through the port's decoders in this process."""
+def _local_tables(frames: list, pure: bool = False):
+    """The same frames through the port's decoders in this process: the
+    native path, or with ``pure`` each decoder's pure ``wire`` path.
+    Returns (db, rows/s of each decoder over its own handle time)."""
     import queue
 
     from deepflow_tpu_torch.codec import FrameHeader, MessageType
@@ -368,9 +478,37 @@ def _local_tables(frames: list):
                 for cls, mt in ((FlowLogDecoder, MessageType.L4_LOG),
                                 (FlowLogDecoder, MessageType.L7_LOG),
                                 (MetricsDecoder, MessageType.METRICS))}
+    spent = dict.fromkeys(decoders, 0.0)
+    rows = dict.fromkeys(decoders, 0)
     for mt, payload in frames:
-        decoders[mt].handle(FrameHeader(MessageType(mt)), payload)
-    return db
+        dec = decoders[mt]
+        t0 = time.perf_counter()
+        rows[mt] += (dec.handle_pure if pure else dec.handle)(
+            FrameHeader(MessageType(mt)), payload)
+        spent[mt] += time.perf_counter() - t0
+    if not pure:
+        cs.check(all(d.stats["pure_batches"] == 0
+                     for d in decoders.values()),
+                 "every flow batch decoded natively in process")
+    rate = {f"{MessageType(mt).name.lower()}": rows[mt] / spent[mt]
+            for mt in decoders if spent[mt]}
+    return db, rate
+
+
+def _same_tables(a, b) -> bool:
+    """Two stores' flow tables hold the same rows, strings decoded."""
+    for t in FLOW_TABLES:
+        ta, tb = a.table(t), b.table(t)
+        names = list(ta.columns)
+        ca, cb = ta.column_concat(names), tb.column_concat(names)
+        for c in names:
+            if c in ta.dicts:
+                if ta.dicts[c].decode_many(ca[c]) != \
+                        tb.dicts[c].decode_many(cb[c]):
+                    return False
+            elif not np.array_equal(ca[c], cb[c]):
+                return False
+    return True
 
 
 def local_answer(db, name: str) -> dict:
@@ -392,7 +530,11 @@ def ingest_part(srv, frames: list) -> dict:
     data = [encode_frame(FrameHeader(MessageType(mt), agent_id=1,
                                      seq=i + 1), payload)
             for i, (mt, payload) in enumerate(frames)]
-    db = _local_tables(frames)
+    db, native_rate = _local_tables(frames)
+    pure_db, pure_rate = _local_tables(frames, pure=True)
+    cs.check(_same_tables(db, pure_db),
+             "the native and the pure decode give equal rows")
+    del pure_db
     want = {t: len(db.table(t)) for t in FLOW_TABLES}
     cs.check(all(want.values()), f"every flow table has rows ({want})")
     t0 = time.perf_counter()
@@ -425,6 +567,12 @@ def ingest_part(srv, frames: list) -> dict:
     cs.check(all(dec[k]["errors"] == 0 and dec[k]["dups"] == 0
                  for k in ("L4_LOG", "L7_LOG", "METRICS")),
              "no decode error or dup")
+    cs.check(all(dec[k]["pure_batches"] == 0 and dec[k]["native_batches"]
+                 for k in ("L4_LOG", "L7_LOG", "METRICS")),
+             "the server decoded every flow batch natively ("
+             + ", ".join(f"{k} {dec[k]['native_batches']} native "
+                         f"{dec[k]['pure_batches']} pure"
+                         for k in ("L4_LOG", "L7_LOG", "METRICS")) + ")")
     # each decoder's rows over its own time in handle() (decode + append;
     # the three decoders share the server's interpreter lock)
     decode = {f"{k.lower()}_decode_rows_per_s":
@@ -437,6 +585,15 @@ def ingest_part(srv, frames: list) -> dict:
         nums[f"{key}_rows_per_s"] = want[t] / seen[t]
     last = max(seen.values())
     nums.update(decode)
+    nums.update({f"inprocess_native_{k}_rows_per_s": v
+                 for k, v in native_rate.items()})
+    nums.update({f"inprocess_pure_{k}_rows_per_s": v
+                 for k, v in pure_rate.items()})
+    # beside them, not measured in this run: the protobuf path's record
+    nums.update({f"recorded_protobuf_{k}_rows_per_s": v
+                 for k, v in PROTOBUF_ROWS_PER_S.items()})
+    nums.update({f"recorded_protobuf_{k}_decode_rows_per_s": v
+                 for k, v in PROTOBUF_DECODE_ROWS_PER_S.items()})
     nums["ingest_s"] = last
     nums["frames"] = len(data)
     nums["send_s"] = sent["s"]
@@ -452,6 +609,250 @@ def ingest_part(srv, frames: list) -> dict:
                  f"{name} answers in {ms:.1f} ms < {cs.QUERY_LIMIT_MS}")
         nums[f"{name}_ms"] = ms
     cs.phase("flows ingest", **nums)
+    return nums
+
+
+def tempo_part(srv) -> dict:
+    """The sampled trace (the last group's last request, the newest)
+    through Tempo's trace and search routes and the trace-tree search;
+    each answer under the 1,000 ms gate."""
+    import urllib.parse
+    group, session = FLOWS // TIERS - 1, SESSIONS - 1
+    tid = trace_id(group, session)
+    nums: dict = {"traces": FLOWS // TIERS * SESSIONS, "trace_id": tid}
+    nums["settle_s"] = _background_settled(
+        srv.query_port, lambda st: st["trace_trees"]["traces_flushed"]
+        >= nums["traces"] and st["rollup"]["rollups"] >= 1)
+    code, ans, ms = cs._http(srv.query_port, f"/api/traces/{tid}")
+    cs.check(code == 200, f"/api/traces answers 200 ({ans})")
+    spans = ans["batches"][0]["spans"]
+    cs.check([s["spanID"] for s in spans]
+             == [span_id(group, session, k) for k in range(TIERS)]
+             and [s["operationName"] for s in spans]
+             == [f"GET /api/v1/tier{k}" for k in range(TIERS)]
+             and [s["parentSpanID"] for s in spans]
+             == [""] + [s["spanID"] for s in spans[:-1]],
+             f"the trace's {TIERS} spans chain tier to tier ({spans})")
+    nums["trace_ms"] = ms
+    start_ns = int(spans[0]["startTimeUnixNano"])
+    q = urllib.parse.urlencode({
+        "tags": 'endpoint="/api/v1/tier0"', "limit": 20,
+        "start": start_ns // 10**9 - 1, "end": start_ns // 10**9 + 2})
+    code, ans, ms = cs._http(srv.query_port, f"/api/search?{q}")
+    cs.check(code == 200 and ans["traces"]
+             and ans["traces"][0]["traceID"] == tid,
+             f"/api/search finds the trace first ({ans.get('traces')[:2]})")
+    nums.update(search_ms=ms,
+                search_inspected=ans["metrics"]["inspectedTraces"])
+    cs.check(nums["search_inspected"] == nums["traces"],
+             f"the search saw every trace ({nums['search_inspected']})")
+    code, ans, ms = cs._http(srv.query_port, "/v1/trace/Search", {
+        "from_ns": start_ns, "to_ns": start_ns + 1, "service_path": []})
+    hits = ans["result"]["traces"]
+    cs.check(code == 200 and [h["trace_id"] for h in hits] == [tid]
+             and hits[0]["span_count"] == TIERS,
+             f"/v1/trace/Search finds the trace's tree ({hits})")
+    nums["tree_search_ms"] = ms
+    code, ans, ms = cs._http(srv.query_port, "/v1/trace/Tracing",
+                             {"trace_id": tid})
+    cs.check(code == 200 and ans["result"]["span_count"] == TIERS,
+             f"/v1/trace/Tracing assembles the trace ({ans})")
+    nums["tracing_ms"] = ms
+    slow = {k: v for k, v in nums.items()
+            if k.endswith("_ms") and v >= cs.QUERY_LIMIT_MS}
+    cs.check(not slow, f"every Tempo answer under {cs.QUERY_LIMIT_MS} ms "
+                       f"({slow})")
+    cs.phase("flows tempo", **nums)
+    return nums
+
+
+def _background_settled(qport: int, done) -> float:
+    """Seconds until ``done(/v1/health's stats)`` holds: the server's
+    background work on the ingested rows (the trace trees' flush, a
+    rollup) has ended, so the timed answers do not share its core."""
+    t0 = time.perf_counter()
+    while True:
+        _, health, _ = cs._http(qport, "/v1/health")
+        if done(health["stats"]):
+            return time.perf_counter() - t0
+        cs.check(time.perf_counter() - t0 < ROLLUP_WAIT_S,
+                 f"the server's background work ended ("
+                 f"{health['stats']['rollup']}, "
+                 f"{health['stats']['trace_trees']})")
+        time.sleep(0.5)
+
+
+def _restamped(frames: list) -> tuple[list, int, int, dict]:
+    """(b)'s metric documents as a node reports its live keys: of each
+    family ROLLUP_KEYS_A_PORT documents a server port, each sent again
+    every ROLLUP_EVERY_S seconds over ROLLUP_HOURS hours of 1 s buckets
+    ending ROLLUP_AGO_S ago (on the hour), so a minute holds several rows
+    of every key for the 1m tier to fold. (DocumentBatch bytes, a batch
+    a minute; first second; last second + 1; rows a family.)"""
+    from deepflow_tpu_torch.codec import MessageType
+    from deepflow_tpu_torch.proto import wire
+    docs = [d for mt, p in frames if mt == MessageType.METRICS
+            for d in wire.DocumentBatch.FromString(p).docs]
+    end = (int(time.time()) - ROLLUP_AGO_S) // 3600 * 3600
+    span = ROLLUP_HOURS * 3600
+    keys: list[bytes] = []  # each key's document without its time
+    rows = {}
+    for fam, name in ((False, "network"), (True, "application")):
+        per_port: dict[int, int] = {}
+        for d in docs:
+            if d.HasField("app_meter") != fam or \
+                    per_port.get(d.tag.port, 0) >= ROLLUP_KEYS_A_PORT:
+                continue
+            per_port[d.tag.port] = per_port.get(d.tag.port, 0) + 1
+            d.timestamp_s = 0  # field 1, written before the rest below
+            keys.append(d.SerializeToString())
+        rows[name] = sum(per_port.values()) * span // ROLLUP_EVERY_S
+    stamps = [wire.uint_field("timestamp_s", 1, t)
+              for t in range(end - span, end)]
+    # DocumentBatch.docs is field 1, length-delimited, as span_entry's
+    entries = [wire.span_entry(stamps[i] + body) for i in range(span)
+               for body in keys[-i % ROLLUP_EVERY_S::ROLLUP_EVERY_S]]
+    per = len(entries) // (span // 60)  # a batch a minute
+    batches = [b"".join(entries[i:i + per])
+               for i in range(0, len(entries), per)]
+    return batches, end - span, end, rows
+
+
+def rollup_part(frames: list) -> dict:
+    """(b)'s documents, re-stamped, into a second server process; its
+    rollup job rolls them; a two-hour DF-SQL query picks the 1m tier
+    and equals the 1 s answer; PromQL equals a DF-SQL recount."""
+    from deepflow_tpu_torch.codec import FrameHeader, MessageType, \
+        encode_frame
+    payloads, lo_s, hi_s, rows = _restamped(frames)
+    srv = cs._ServerProcess(os.path.join(cs.OUT_DIR,
+                                         "flows_rollup_server.log"))
+    nums: dict = {"hours": ROLLUP_HOURS, "first_s": lo_s, "end_s": hi_s}
+    try:
+        with socket.create_connection(("127.0.0.1", srv.ingest_port),
+                                      timeout=60) as conn:
+            for p in payloads:  # no seq: no ack is left unread at close
+                conn.sendall(encode_frame(FrameHeader(
+                    MessageType.METRICS, agent_id=2), p))
+        health = cs._ingest_settled(srv.query_port)
+        dec = health["stats"]["decoders"]["METRICS"]
+        cs.check(dec["pure_batches"] == 0 and dec["errors"] == 0,
+                 f"the documents decoded natively ({dec})")
+        nums["docs_1s"] = {t: health["tables"][t] for t in FLOW_TABLES[2:]}
+        cs.check(nums["docs_1s"] == {f"flow_metrics.{f}.1s": n
+                                     for f, n in rows.items()},
+                 f"every re-stamped document landed ({nums['docs_1s']} "
+                 f"of {rows})")
+        nums["rolled_s"] = _background_settled(
+            srv.query_port, lambda st: st["rollup"]["rollups"] >= 1 and all(
+                st["rollup"]["horizons"][f"flow_metrics.{f}.{tier}"] >= hi_s
+                for f in ("network", "application") for tier in ("1m", "1h")))
+        _, health, _ = cs._http(srv.query_port, "/v1/health")
+        nums["rollup"] = health["stats"]["rollup"]
+        nums["tier_rows"] = tiers = {
+            t: n for t, n in health["tables"].items()
+            if t.startswith("flow_metrics.")}
+        # a minute holds 60 / ROLLUP_EVERY_S rows of a key, an hour 60
+        # minutes: a rollup that copied rows would keep their count
+        fold = 60 // ROLLUP_EVERY_S
+        cs.check(all(0 < tiers[f"flow_metrics.{f}.1m"] * fold
+                     <= tiers[f"flow_metrics.{f}.1s"]
+                     and 0 < tiers[f"flow_metrics.{f}.1h"] * 60
+                     <= tiers[f"flow_metrics.{f}.1m"]
+                     for f in ("network", "application")),
+                 f"the 1m tier folds {fold} rows of a key, the 1h tier 60 "
+                 f"({tiers})")
+        # two hours, minute-aligned and not hour-aligned: the 1m tier
+        lo, hi = lo_s + 420, lo_s + 420 + 7200
+        sql = ("SELECT server_port, Sum(byte_tx) AS b, Sum(new_flow) AS f,"
+               " Sum(packet_tx) AS p FROM network WHERE time >= {lo} AND "
+               "time {op} {hi} GROUP BY server_port ORDER BY server_port")
+        code, tier, ms = cs._http(srv.query_port, "/v1/query", {
+            "db": "flow_metrics", "sql": sql.format(lo=lo, op="<", hi=hi)})
+        cs.check(code == 200 and tier["debug"].get("datasource", {})
+                 .get("tier") == "1m",
+                 f"the two-hour query answers from 1m ({tier.get('debug')})")
+        nums["rollup_query_ms"] = ms
+        code, ex, ms = cs._http(srv.query_port, "/v1/query", {
+            "db": "flow_metrics",
+            "sql": "EXPLAIN " + sql.format(lo=lo, op="<", hi=hi)})
+        cs.check("flow_metrics.network.1m" in str(
+            ex["explain"]["plan"].get("datasource")),
+            f"EXPLAIN names the 1m datasource ({ex['explain']['plan']})")
+        nums["explain_ms"] = ms
+        # "<= hi - 1": the same rows, a bound no tier takes: the 1 s table
+        code, raw, ms = cs._http(srv.query_port, "/v1/query", {
+            "db": "flow_metrics",
+            "sql": sql.format(lo=lo, op="<=", hi=hi - 1)})
+        cs.check(code == 200 and "datasource" not in raw["debug"]
+                 and raw["result"]["values"]
+                 and raw["result"] == tier["result"],
+                 "the 1m answer equals the 1 s table's")
+        nums["raw_query_ms"] = ms
+        nums.update(_promql_checks(srv.query_port, lo_s + 3600))
+    finally:
+        srv.stop()
+    slow = {k: v for k, v in nums.items()
+            if k.endswith("_ms") and v >= cs.QUERY_LIMIT_MS}
+    cs.check(not slow, f"every rollup and PromQL answer under "
+                       f"{cs.QUERY_LIMIT_MS} ms ({slow})")
+    cs.phase("flows rollup promql", **nums)
+    return nums
+
+
+def _promql_checks(qport: int, hour: int) -> dict:
+    """A rate by server port and its topk 3 over twelve steps of five
+    minutes from ``hour``: each step's window (t - 60, t] is one minute
+    bucket, so a DF-SQL recount of the bucket's requests / 60 is the
+    rate. Values within a relative 1e-9."""
+    import math
+    import urllib.parse
+    step, n_steps = 300, 12
+    start = hour + 59
+    end = start + step * (n_steps - 1)
+    code, ans, _ = cs._http(qport, "/v1/query", {
+        "db": "flow_metrics",
+        "sql": "SELECT time(time, 60) AS m, server_port, Sum(request) AS r "
+               f"FROM application WHERE time >= {hour} AND time < "
+               f"{end + 1} GROUP BY time(time, 60), server_port"})
+    cs.check(code == 200, f"the recount answers ({ans})")
+    want: dict[int, dict[str, float]] = {}
+    for m, port, r in ans["result"]["values"]:
+        if (m - hour) % step == 0:
+            want.setdefault(m + 59, {})[str(port)] = r / 60.0
+    cs.check(len(want) == n_steps, f"requests in every step ({len(want)})")
+    nums = {}
+
+    def close(a: float, b: float) -> bool:
+        return math.isclose(a, b, rel_tol=1e-9, abs_tol=0.0)
+    rate = "sum by (server_port) (rate(flow_metrics_application_request[1m]))"
+    for name, q in (("rate", rate), ("topk", f"topk(3, {rate})")):
+        qs = urllib.parse.urlencode({"query": q, "start": start, "end": end,
+                                     "step": step})
+        code, out, ms = cs._http(qport, f"/api/v1/query_range?{qs}")
+        cs.check(code == 200 and out["status"] == "success",
+                 f"PromQL {name} answers ({out})")
+        got: dict[int, dict[str, float]] = {}
+        for series in out["data"]["result"]:
+            port = series["metric"]["server_port"]
+            for t, v in series["values"]:
+                got.setdefault(int(t), {})[port] = float(v)
+        if name == "rate":
+            ok = set(got) == set(want) and all(
+                set(got[t]) == set(want[t]) and all(
+                    close(got[t][p], want[t][p]) for p in want[t])
+                for t in want)
+        else:  # ties may pick other ports: the values and each port's
+            ok = set(got) == set(want) and all(
+                len(got[t]) == 3 and all(
+                    close(v, want[t][p]) for p, v in got[t].items())
+                and all(close(a, b) for a, b in zip(
+                    sorted(got[t].values()),
+                    sorted(want[t].values())[-3:]))
+                for t in want)
+        cs.check(ok, f"PromQL {name} equals the DF-SQL recount")
+        nums[f"promql_{name}_ms"] = ms
+        nums[f"promql_{name}_series"] = len(out["data"]["result"])
     return nums
 
 
@@ -485,7 +886,9 @@ def _requests(port: int) -> list[tuple[str, str, int]]:
         conn = http.client.HTTPConnection("127.0.0.1", port, timeout=30)
         for k in range(per):
             path = f"/item?id={c * per + k}"
-            conn.request("GET", path)
+            conn.request("GET", path, headers={
+                "traceparent": f"00-{LIVE_TRACE}{c * per + k:016x}-"
+                               f"{c * per + k + 1:016x}-01"})
             resp = conn.getresponse()
             resp.read()
             done.append(("GET", path, resp.status))
@@ -580,7 +983,8 @@ def live_part(srv, support: dict) -> dict:
     nums.update({f"capture_{k}": v for k, v in cap.items()})
     got = _query(qport, "flow_log",
                  "SELECT request_type, request_resource, response_code, "
-                 "response_status, response_duration FROM l7_flow_log "
+                 "response_status, response_duration, trace_id "
+                 "FROM l7_flow_log "
                  f"WHERE agent_id = {NODE_AGENT_ID} AND port_dst = {hport}")
     want = sorted(sent)
     rows = sorted((r[0], r[1], r[2]) for r in got)
@@ -595,6 +999,9 @@ def live_part(srv, support: dict) -> dict:
     cs.check(all(r[3] == ("server_error" if r[2] == 500 else "ok")
                  and r[4] > 0 for r in got),
              "every row has its status and a response time")
+    cs.check(sorted(r[5] for r in got) == sorted(
+        f"{LIVE_TRACE}{int(p.rsplit('=', 1)[1]):016x}" for _, p, _ in sent),
+        "every live request's row carries its traceparent's trace id")
     cs.check(errors == LIVE_REQUESTS // ERROR_EVERY, f"{errors} 500s")
     # the node agent's own flows ((c)'s rows are another agent's)
     touched = _query(qport, "flow_log",
@@ -664,6 +1071,8 @@ def flows_phase(nums: dict) -> None:
     srv = cs._ServerProcess(os.path.join(cs.OUT_DIR, "flows_server.log"))
     try:
         nums["ingest"] = ingest_part(srv, frames)
+        nums["tempo"] = tempo_part(srv)
+        nums["rollup"] = rollup_part(frames)
         del frames
         if support["af_packet"] != "ok":
             print(f"flows live: not run ({support['af_packet']})",

@@ -160,8 +160,17 @@ Phases, each printing its own lines:
    shape (20,000 flows, 1,980,000 packets) through the native flow map
    on one core, the Python map on a twentieth, and the dispatcher with
    HTTP in its payload slots; that run's L4 logs, L7 logs and documents
-   into a server process (rows/s per table) and three DF-SQL queries
-   held to the in-process answers; then, where AF_PACKET opens (checked
+   into a server process (rows/s per table; every batch decoded
+   natively, and in process both ways into equal rows) and three DF-SQL
+   queries held to the in-process answers; the HTTP carries W3C trace
+   headers (groups of four flows nest as the tiers of one service), and
+   one trace is read through Tempo's /api/traces, found by /api/search
+   and the trace-tree search; 256 of the metric documents, each sent
+   again every 10 s over three hours, are rolled by a second server's
+   rollup job, whose 1m and 1h tiers must fold each key's rows, and a
+   two-hour DF-SQL query must take the 1m tier and equal the 1 s
+   table's answer, and two PromQL range queries a DF-SQL recount; then,
+   where AF_PACKET opens (checked
    first; else "flows live: not run (<errno>)"), the node agent
    (python -m deepflow_tpu_torch.agent --flow --interface lo) beside a
    stdlib HTTP server taking 2,000 requests, which must all land in
@@ -711,9 +720,13 @@ def server_phase(sink, probe, seen) -> dict:
     want = {"deepflow_system.deepflow_system": 0,
             # the querier's own spans: no query has run yet
             "deepflow_system.query_trace": 0,
-            # the flow tables (the flows phase fills them)
+            # the flow tables (the flows phase fills them), their rollup
+            # tiers and the trace trees the server derives from them
             "flow_log.l4_flow_log": 0, "flow_log.l7_flow_log": 0,
-            "flow_metrics.application.1s": 0, "flow_metrics.network.1s": 0,
+            "flow_log.trace_tree": 0,
+            **{f"flow_metrics.{fam}.{sfx}": 0
+               for fam in ("application", "network")
+               for sfx in ("1s", "1m", "1h", "1d")},
             "profile.in_process_profile": 0,
             "profile.tpu_hlo_span": probe.stats["spans_sent"],
             "profile.tpu_memory": probe.stats["mem_samples_sent"],

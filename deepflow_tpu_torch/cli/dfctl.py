@@ -16,7 +16,15 @@ output for the same answers:
     step-trace [--run-id N]
     steps [--job J] [--run-id N] [--limit N] [--critical-path STEP] [--json]
     replay CAPTURE.pcap [--ingest HOST:PORT]
+    datasources [--json]
+    promql EXPR [--time S | --start S --end S [--step S]] [--org N]
+    trace TRACE_ID
+    trace-search [--tags "endpoint=/x"] [--min-duration 10ms] [--limit N]
+    query-trace TRACE_ID [--flame]
 
+``datasources`` lists the flow-metric tables by tier with their rows
+and the rollup job's completeness horizons (the port has no storage
+tier, whose segment view the reference's prints beside them).
 ``replay`` runs a pcap through the agent's flow path (the dispatcher's
 native flow map, the L7 parsers, the collector) and ships its L4_LOG,
 L7_LOG and METRICS frames over the durable sender to an ingester; it
@@ -29,6 +37,7 @@ from __future__ import annotations
 import argparse
 import json
 import sys
+import time
 import urllib.error
 import urllib.request
 
@@ -289,6 +298,120 @@ def _explain(server: str, args) -> None:
               f"{ex.get('spans', 0)} spans")
 
 
+def _datasources(server: str, as_json: bool) -> None:
+    h = _api(server, "/v1/health")
+    horizons = h["stats"]["rollup"]["horizons"]
+    if as_json:
+        print(json.dumps({"tables": h["tables"], "rollup_horizons":
+                          horizons}, indent=2))
+        return
+    tiers = ("1s", "1m", "1h", "1d")
+    rows = [[name, name.rsplit(".", 1)[-1], n]
+            for name, n in sorted(h["tables"].items())
+            if name.rsplit(".", 1)[-1] in tiers]
+    print_table(["TABLE", "TIER", "ROWS"], rows)
+    print("\nrollup completeness horizons (exclusive, epoch s):")
+    print_table(["DATASOURCE", "COMPLETE_BEFORE"],
+                [[k, v] for k, v in sorted(horizons.items())])
+
+
+def _promql(server: str, args) -> None:
+    from urllib.parse import quote
+    if (args.start is None) != (args.end is None):
+        raise SystemExit(
+            "promql: --start and --end must be given together "
+            "(a range query needs both bounds)")
+    org_q = f"&org_id={args.org}" if args.org is not None else ""
+    if args.start is not None:
+        out = _api(server, f"/prom/api/v1/query_range?query="
+                           f"{quote(args.expr)}&start={args.start}"
+                           f"&end={args.end}&step={args.step}{org_q}")
+        if out.get("status") != "success":
+            raise SystemExit(f"promql: {out.get('error')}")
+        for s in out["data"]["result"]:
+            print(json.dumps(s["metric"]))
+            for t, v in s["values"]:
+                print(f"  {t}  {v}")
+        return
+    t = args.time if args.time is not None else int(time.time())
+    out = _api(server, f"/prom/api/v1/query?query={quote(args.expr)}"
+                       f"&time={t}{org_q}")
+    if out.get("status") != "success":
+        raise SystemExit(f"promql: {out.get('error')}")
+    data = out["data"]
+    if data["resultType"] == "scalar":
+        print(data["result"][1])
+    else:
+        print_table(["SERIES", "VALUE"],
+                    [[json.dumps(s["metric"]), s["value"][1]]
+                     for s in data["result"]])
+
+
+def _trace_search(server: str, args) -> None:
+    from urllib.parse import urlencode
+    q = {"limit": args.limit}
+    for key, v in (("tags", args.tags), ("minDuration", args.min_duration),
+                   ("maxDuration", args.max_duration), ("start", args.start),
+                   ("end", args.end)):
+        if v not in (None, ""):
+            q[key] = v
+    out = _api(server, f"/api/search?{urlencode(q)}")
+    print_table(["TRACE_ID", "SERVICE", "NAME", "MS", "START_NS"],
+                [[t["traceID"], t["rootServiceName"], t["rootTraceName"],
+                  t["durationMs"], t["startTimeUnixNano"]]
+                 for t in out["traces"]])
+
+
+def _trace(server: str, trace_id: str) -> None:
+    tree = _api(server, "/v1/trace/Tracing",
+                {"trace_id": trace_id})["result"]
+    print(f"trace {tree['trace_id']}: {tree['span_count']} spans")
+
+    def show(node, depth=0):
+        mark = "◆" if node["kind"] == "device" else "●"
+        print(f"{'  ' * depth}{mark} {node['name']}  "
+              f"[{node['service']}] {node['duration_ns'] / 1e6:.2f}ms "
+              f"{node['status']}")
+        for c in node["children"]:
+            show(c, depth + 1)
+    for root in tree["spans"]:
+        show(root)
+
+
+def _query_trace(server: str, trace_id: str, flame: bool) -> None:
+    tree = _api(server, "/v1/trace/Tracing",
+                {"trace_id": trace_id})["result"]
+    if not tree["spans"]:
+        raise SystemExit(f"no spans for trace {trace_id}")
+    if flame:
+        from deepflow_tpu_torch.query.flamegraph import (
+            build_flame_tree, trace_flame_stacks)
+        stacks, values = trace_flame_stacks(tree)
+        print_flame(build_flame_tree(stacks, values,
+                                     root_name=trace_id).to_dict())
+        return
+    t0 = min(int(s["start_ns"]) for s in tree["spans"])
+    t1 = max(int(s["end_ns"]) for s in tree["spans"])
+    total = max(1, t1 - t0)
+    width = 40
+    print(f"trace {tree['trace_id']}: {tree['span_count']} spans, "
+          f"{total / 1e6:.2f}ms")
+
+    def waterfall(node, depth=0):
+        off = int(node["start_ns"]) - t0
+        lead = min(width - 1, int(width * off / total))
+        w = max(1, int(width * int(node["duration_ns"]) / total))
+        bar = " " * lead + "▇" * min(w, width - lead)
+        label = "  " * depth + node["name"]
+        print(f"{label:<34.34} {node['duration_ns'] / 1e6:>9.3f}ms "
+              f"|{bar:<{width}}| {node['service']} {node['status']}")
+        for c in node["children"]:
+            waterfall(c, depth + 1)
+
+    for root in sorted(tree["spans"], key=lambda s: s["start_ns"]):
+        waterfall(root)
+
+
 def main(argv: list[str] | None = None) -> int:
     parser = argparse.ArgumentParser(prog="dfctl")
     parser.add_argument("--server", default="127.0.0.1:20416",
@@ -362,6 +485,44 @@ def main(argv: list[str] | None = None) -> int:
     p_replay.add_argument("pcap")
     p_replay.add_argument("--ingest", default="127.0.0.1:20033")
 
+    p_ds = sub.add_parser(
+        "datasources", help="flow-metric tables by tier and the rollup "
+                            "completeness horizons")
+    p_ds.add_argument("--json", action="store_true",
+                      help="raw tables and horizons JSON")
+
+    p_trace = sub.add_parser("trace")
+    p_trace.add_argument("trace_id")
+
+    p_qtrace = sub.add_parser(
+        "query-trace", help="span waterfall for one query trace id "
+                            "(from EXPLAIN ANALYZE or trace-search)")
+    p_qtrace.add_argument("trace_id")
+    p_qtrace.add_argument("--flame", action="store_true",
+                          help="render as a flame graph (self-time "
+                               "weighted) instead of a waterfall")
+
+    p_promql = sub.add_parser(
+        "promql", help="evaluate a PromQL expression (instant by default; "
+                       "--start/--end for a range)")
+    p_promql.add_argument("expr")
+    p_promql.add_argument("--time", type=int, default=None)
+    p_promql.add_argument("--start", type=int, default=None)
+    p_promql.add_argument("--end", type=int, default=None)
+    p_promql.add_argument("--step", type=int, default=15)
+    p_promql.add_argument("--org", type=int, default=None,
+                          help="scope results to this org id")
+
+    p_ts = sub.add_parser(
+        "trace-search", help="search traces by tags/duration "
+                             "(tags is logfmt: service.name=x ...)")
+    p_ts.add_argument("--tags", default="")
+    p_ts.add_argument("--min-duration", default=None)
+    p_ts.add_argument("--max-duration", default=None)
+    p_ts.add_argument("--start", type=int, default=None)
+    p_ts.add_argument("--end", type=int, default=None)
+    p_ts.add_argument("--limit", type=int, default=20)
+
     args = parser.parse_args(argv)
     server = args.server
     if args.cmd == "health":
@@ -395,6 +556,16 @@ def main(argv: list[str] | None = None) -> int:
         _step_trace(server, args)
     elif args.cmd == "steps":
         _steps(server, args)
+    elif args.cmd == "datasources":
+        _datasources(server, args.json)
+    elif args.cmd == "promql":
+        _promql(server, args)
+    elif args.cmd == "trace":
+        _trace(server, args.trace_id)
+    elif args.cmd == "trace-search":
+        _trace_search(server, args)
+    elif args.cmd == "query-trace":
+        _query_trace(server, args.trace_id, args.flame)
     elif args.cmd == "replay":
         from deepflow_tpu_torch.agent.dispatcher import Dispatcher
         from deepflow_tpu_torch.agent.sender import UniformSender

@@ -26,14 +26,20 @@ does (``parallel/collectives.py``):
 - ``wq``/``wk``/``wv``/``w_gate``/``w_up`` are cut over ``tensor`` by
   columns (heads and the MLP's hidden units), ``wo``/``w_down`` by rows:
   a column-parallel product's input is ``copy_to`` the tensor group and a
-  row-parallel product's partial sums are ``reduce_from`` it. Heads,
-  ``d_ff`` and the vocabulary must divide by the tensor axis (the
-  reference's GSPMD cuts them unevenly; the port raises ValueError).
-  Fewer KV heads than tensor ranks, when they divide the axis, are
-  replicated as Megatron does for grouped-query attention: each KV head
-  lives on the ``tensor / n_kv_heads`` ranks whose query heads use it,
-  and its ``wk``/``wv`` gradient is summed over those ranks after the
-  backward pass (``_sum_kv_replicas_``);
+  row-parallel product's partial sums are ``reduce_from`` it. Every
+  dimension ``param_specs`` cuts must divide by its axis, as the
+  reference's ``device_put`` requires (ValueError otherwise); heads need
+  not. Where query heads divide over the tensor axis, and KV heads divide
+  over it or divide it, each rank attends with whole heads: fewer KV
+  heads than tensor ranks are replicated as Megatron does for
+  grouped-query attention (each KV head lives on the
+  ``tensor / n_kv_heads`` ranks whose query heads use it, and its
+  ``wk``/``wv`` gradient is summed over those ranks after the backward
+  pass, ``_sum_kv_replicas_``). Where a head straddles ranks (6 heads on
+  4), each rank's query, key and value columns are ``all_gather``-ed over
+  the tensor axis, every rank attends with all heads, and keeps the
+  columns of the output that its rows of ``wo`` take: the reference's
+  result, its gradients summed back to each rank's columns;
 - every weight's ``fsdp`` cut is ``gather_from`` the fsdp group before
   use, layer by layer (autograd keeps the gathered weights for the
   backward pass, which gathers nothing again); its gradient is
@@ -180,28 +186,38 @@ class _Axes:
 _SOLO = _Axes.of(None)
 
 
-def _kv_replicas(cfg: LlamaConfig, axes: _Axes) -> int:
-    """Tensor ranks that hold each KV head: 1 when the KV heads divide
-    over the tensor axis, ``tensor / n_kv_heads`` when they are fewer
-    and divide it (Megatron's replication for grouped-query attention)."""
+def _whole_heads(cfg: LlamaConfig, axes: _Axes) -> bool:
+    """True when each tensor rank can attend with whole heads: the query
+    heads divide over the axis and the KV heads divide over it or
+    divide it. Otherwise heads straddle ranks (``_layer`` gathers)."""
     t, nkv = axes.tensor.size, cfg.n_kv_heads
-    return t // nkv if nkv < t and t % nkv == 0 else 1
+    return cfg.n_heads % t == 0 and (nkv % t == 0 or t % nkv == 0)
+
+
+def _kv_replicas(cfg: LlamaConfig, axes: _Axes) -> int:
+    """Tensor ranks that hold each KV head: ``tensor / n_kv_heads`` when
+    the KV heads are fewer and each rank attends with whole heads
+    (Megatron's replication for grouped-query attention), else 1."""
+    t, nkv = axes.tensor.size, cfg.n_kv_heads
+    return t // nkv if nkv < t and _whole_heads(cfg, axes) else 1
 
 
 def _check_divides(cfg: LlamaConfig, axes: _Axes) -> None:
-    t, f = axes.tensor.size, axes.fsdp.size
+    """The reference's rule: every dimension ``param_specs`` cuts divides
+    by its mesh axis (JAX's ``device_put`` refuses the rest)."""
+    t, f, hd = axes.tensor.size, axes.fsdp.size, cfg.head_dim
     bad = [f"{name} = {n} does not divide by the {axis} axis of {k}"
            for name, n, axis, k in (
-               ("n_heads", cfg.n_heads, "tensor", t),
+               ("n_heads * head_dim (wq columns, wo rows)",
+                cfg.n_heads * hd, "tensor", t),
+               ("n_kv_heads * head_dim (wk, wv columns)",
+                cfg.n_kv_heads * hd, "tensor", t),
                ("d_ff", cfg.d_ff, "tensor", t),
                ("vocab", cfg.vocab, "tensor", t),
                ("d_model", cfg.d_model, "fsdp", f)) if n % k]
-    if cfg.n_kv_heads % t and _kv_replicas(cfg, axes) == 1:
-        bad.insert(1, f"n_kv_heads = {cfg.n_kv_heads} neither divides by "
-                   f"nor divides the tensor axis of {t}")
     if bad:
-        raise ValueError("the sharded Llama needs whole heads, columns and "
-                         "rows on every rank: " + "; ".join(bad))
+        raise ValueError("the sharded Llama cuts every sharded dimension "
+                         "into equal blocks: " + "; ".join(bad))
 
 
 def _shard_leaf(t, name: str, cfg: LlamaConfig, axes: _Axes, mesh):
@@ -290,21 +306,33 @@ def _layer(cfg: LlamaConfig, cos: torch.Tensor, sin: torch.Tensor,
     without a mesh); ``lp`` holds the gathered weights."""
     B, S, _ = x.shape
     t = axes.tensor.size
-    hd, nh = cfg.head_dim, cfg.n_heads // t
-    nkv = max(1, cfg.n_kv_heads // t)  # one replicated head when fewer
+    hd = cfg.head_dim
+    whole = _whole_heads(cfg, axes)
+    if whole:
+        nh = cfg.n_heads // t
+        nkv = max(1, cfg.n_kv_heads // t)  # one replicated head when fewer
+    else:
+        nh, nkv = cfg.n_heads, cfg.n_kv_heads
+
+    def heads(w: torch.Tensor, n: int) -> torch.Tensor:
+        y = h @ w
+        if not whole:  # heads straddle ranks: every rank takes them all
+            y = pc.all_gather(y, axes.tensor, -1)
+        return y.reshape(B, S, n, hd)
 
     h = pc.copy_to(_rms_norm(x, lp["attn_norm"], cfg.norm_eps), axes.tensor)
-    q = (h @ lp["wq"]).reshape(B, S, nh, hd)
-    k = (h @ lp["wk"]).reshape(B, S, nkv, hd)
-    v = (h @ lp["wv"]).reshape(B, S, nkv, hd)
-    q = _rope(q, cos, sin)
-    k = _rope(k, cos, sin)
+    q = _rope(heads(lp["wq"], nh), cos, sin)
+    k = _rope(heads(lp["wk"], nkv), cos, sin)
+    v = heads(lp["wv"], nkv)
     if axes.sp.group is not None:
         attn = ring_local(q, k, v, axes.sp, causal=True)
     else:
         attn = _attention(q, k, v, cfg)
-    x = x + pc.reduce_from(attn.reshape(B, S, nh * hd) @ lp["wo"],
-                           axes.tensor)
+    attn = attn.reshape(B, S, nh * hd)
+    if not whole:  # the columns this rank's rows of wo take
+        n = nh * hd // t
+        attn = attn[..., axes.tensor.index * n:(axes.tensor.index + 1) * n]
+    x = x + pc.reduce_from(attn @ lp["wo"], axes.tensor)
 
     h = pc.copy_to(_rms_norm(x, lp["mlp_norm"], cfg.norm_eps), axes.tensor)
     gate = F.silu((h @ lp["w_gate"]).float()).to(x.dtype)

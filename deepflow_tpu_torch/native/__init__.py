@@ -1,11 +1,13 @@
-"""The port's native library: the span decoder and string dictionary of
-``dfnative.cpp`` and ``ingest.cpp``, the query kernels of ``qexec.cpp``,
-and the packet decode and flow map of ``dfnative.cpp`` and
-``flowmap.cpp``, built at first use and bound with ctypes.
+"""The port's native library: the span and metric-document decoders and
+string dictionary of ``dfnative.cpp`` and ``ingest.cpp``, the flow-log
+decoders of ``pbcols.cpp``, the query kernels of ``qexec.cpp``, and the
+packet decode and flow map of ``dfnative.cpp`` and ``flowmap.cpp``,
+built at first use and bound with ctypes.
 
 Own copy of the parts of ``deepflow_tpu/native/__init__.py`` that the
-server's span path uses (``NativeDict``, ``ArenaStrings``,
-``SpanColumnDecoder``), of the query kernels' bindings (``qx_group``,
+server's ingest path uses (``NativeDict``, ``ArenaStrings``,
+``SpanColumnDecoder``, ``L4ColumnDecoder``, ``L7ColumnDecoder``,
+``DocColumnDecoder``), of the query kernels' bindings (``qx_group``,
 ``qx_agg_f64``, ``qx_sel_range``, ``qx_sel_isin``, ``qx_gather``,
 ``qx_isin_u32``), of the flow path's (``decode_eth_batch``, the
 ``df_fm_*`` flow map and the ``df_ring_*`` TPACKET_V3 ring, with the
@@ -35,11 +37,12 @@ import numpy as np
 
 _DIR = os.path.dirname(os.path.abspath(__file__))
 BUILD_DIR = os.path.join(_DIR, "_build")
-SOURCES = ("dfnative.cpp", "ingest.cpp", "qexec.cpp", "flowmap.cpp")
-HEADERS = ("dfpacket.h",)
+SOURCES = ("dfnative.cpp", "ingest.cpp", "qexec.cpp", "flowmap.cpp",
+           "pbcols.cpp")
+HEADERS = ("dfpacket.h", "dfwire.h")
 CXX = "g++"
 CXXFLAGS = ("-O3", "-std=c++17", "-fPIC", "-shared")
-ABI_VERSION = 3  # must match df_abi_version() in dfnative.cpp
+ABI_VERSION = 4  # must match df_abi_version() in dfnative.cpp
 
 _U64P = ctypes.POINTER(ctypes.c_uint64)
 _lib = None
@@ -102,45 +105,64 @@ def load() -> ctypes.CDLL:
         if got != ABI_VERSION:
             raise NativeLibraryError(
                 f"{path} has ABI {got}, the bindings expect {ABI_VERSION}")
-        vp, u32 = ctypes.c_void_p, ctypes.c_uint32
-        lib.df_dict_new.restype = vp
-        lib.df_dict_free.argtypes = [vp]
-        lib.df_dict_len.argtypes = [vp]
-        lib.df_dict_len.restype = ctypes.c_uint64
-        lib.df_dict_encode_batch.argtypes = [vp, ctypes.c_char_p, vp, u32,
-                                             vp]
-        lib.df_dict_encode_arena.argtypes = [vp, vp, vp, vp, u32, vp]
-        lib.df_dict_encode_arena.restype = ctypes.c_uint64
-        lib.df_dict_lookup.argtypes = [vp, ctypes.c_char_p, u32]
-        lib.df_dict_lookup.restype = u32
-        lib.df_dict_get.argtypes = [vp, u32, ctypes.c_char_p, u32]
-        lib.df_dict_get.restype = ctypes.c_int32
-        lib.df_dict_load.argtypes = [vp, ctypes.c_char_p, vp, u32]
-        lib.df_decode_span_cols.argtypes = [vp, ctypes.c_uint64, vp]
-        lib.df_decode_span_cols.restype = ctypes.c_int64
-        lib.df_span_batch_counts.argtypes = [vp, ctypes.c_uint64, _U64P,
-                                             _U64P]
-        lib.df_span_batch_counts.restype = ctypes.c_int32
-        u64, nd = ctypes.c_uint64, np.ctypeslib.ndpointer
-        lib.df_qx_group.restype = ctypes.c_int64
-        lib.df_qx_group.argtypes = [ctypes.POINTER(vp), u32, u64,
-                                    nd(np.uint64), nd(np.uint64)]
-        lib.df_qx_isin_u32.argtypes = [nd(np.uint32), u64, nd(np.uint32),
-                                       u64, nd(np.uint8)]
-        lib.df_qx_agg_f64.argtypes = [nd(np.float64), nd(np.uint64),
-                                      nd(np.uint64), u64, ctypes.c_int32,
-                                      nd(np.float64)]
-        lib.df_qx_sel_cmp.restype = ctypes.c_int64
-        lib.df_qx_sel_cmp.argtypes = [vp, u32, u32, u64, u64, u64,
-                                      nd(np.uint64)]
-        lib.df_qx_sel_isin_u32.restype = ctypes.c_int64
-        lib.df_qx_sel_isin_u32.argtypes = [nd(np.uint32), u64,
-                                           nd(np.uint32), u64, nd(np.uint64)]
-        lib.df_qx_gather.restype = ctypes.c_int32
-        lib.df_qx_gather.argtypes = [vp, u32, nd(np.uint64), u64, vp]
-        _bind_flow(lib)
+        try:
+            _bind(lib)
+        except AttributeError as e:  # a symbol the bindings need is gone
+            raise NativeLibraryError(f"{path}: {e}") from e
         _lib = lib
         return lib
+
+
+def _bind(lib: ctypes.CDLL) -> None:
+    """Signatures of the library's functions."""
+    vp, u32 = ctypes.c_void_p, ctypes.c_uint32
+    lib.df_dict_new.restype = vp
+    lib.df_dict_free.argtypes = [vp]
+    lib.df_dict_len.argtypes = [vp]
+    lib.df_dict_len.restype = ctypes.c_uint64
+    lib.df_dict_encode_batch.argtypes = [vp, ctypes.c_char_p, vp, u32,
+                                         vp]
+    lib.df_dict_encode_arena.argtypes = [vp, vp, vp, vp, u32, vp]
+    lib.df_dict_encode_arena.restype = ctypes.c_uint64
+    lib.df_dict_lookup.argtypes = [vp, ctypes.c_char_p, u32]
+    lib.df_dict_lookup.restype = u32
+    lib.df_dict_get.argtypes = [vp, u32, ctypes.c_char_p, u32]
+    lib.df_dict_get.restype = ctypes.c_int32
+    lib.df_dict_load.argtypes = [vp, ctypes.c_char_p, vp, u32]
+    lib.df_decode_span_cols.argtypes = [vp, ctypes.c_uint64, vp]
+    lib.df_decode_span_cols.restype = ctypes.c_int64
+    lib.df_span_batch_counts.argtypes = [vp, ctypes.c_uint64, _U64P,
+                                         _U64P]
+    lib.df_span_batch_counts.restype = ctypes.c_int32
+    u64, nd = ctypes.c_uint64, np.ctypeslib.ndpointer
+    lib.df_qx_group.restype = ctypes.c_int64
+    lib.df_qx_group.argtypes = [ctypes.POINTER(vp), u32, u64,
+                                nd(np.uint64), nd(np.uint64)]
+    lib.df_qx_isin_u32.argtypes = [nd(np.uint32), u64, nd(np.uint32),
+                                   u64, nd(np.uint8)]
+    lib.df_qx_agg_f64.argtypes = [nd(np.float64), nd(np.uint64),
+                                  nd(np.uint64), u64, ctypes.c_int32,
+                                  nd(np.float64)]
+    lib.df_qx_sel_cmp.restype = ctypes.c_int64
+    lib.df_qx_sel_cmp.argtypes = [vp, u32, u32, u64, u64, u64,
+                                  nd(np.uint64)]
+    lib.df_qx_sel_isin_u32.restype = ctypes.c_int64
+    lib.df_qx_sel_isin_u32.argtypes = [nd(np.uint32), u64,
+                                       nd(np.uint32), u64, nd(np.uint64)]
+    lib.df_qx_gather.restype = ctypes.c_int32
+    lib.df_qx_gather.argtypes = [vp, u32, nd(np.uint64), u64, vp]
+    for name in ("df_decode_l7_cols", "df_decode_doc_cols"):
+        getattr(lib, name).argtypes = [vp, ctypes.c_uint64, vp]
+        getattr(lib, name).restype = ctypes.c_int64
+    lib.df_decode_l4_cols.argtypes = [vp, ctypes.c_uint64, vp, vp, vp,
+                                      u32, ctypes.POINTER(u32)]
+    lib.df_decode_l4_cols.restype = ctypes.c_int64
+    lib.df_flow_batch_counts.argtypes = [vp, ctypes.c_uint64, _U64P,
+                                         _U64P]
+    lib.df_flow_batch_counts.restype = ctypes.c_int32
+    lib.df_doc_batch_count.argtypes = [vp, ctypes.c_uint64, _U64P]
+    lib.df_doc_batch_count.restype = ctypes.c_int32
+    _bind_flow(lib)
 
 
 def _bind_flow(lib: ctypes.CDLL) -> None:
@@ -340,6 +362,20 @@ class ArenaStrings:
     def __len__(self) -> int:
         return len(self.off)
 
+    def tolist(self) -> list[str]:
+        """The cells as Python strings (each distinct value decoded once;
+        the decoders admit valid UTF-8 only)."""
+        ab = self.arena.tobytes()
+        memo: dict[bytes, str] = {}
+        out = []
+        for o, ln in zip(self.off.tolist(), self.lens.tolist()):
+            b = ab[o:o + ln]
+            s = memo.get(b)
+            if s is None:
+                s = memo[b] = b.decode("utf-8")
+            out.append(s)
+        return out
+
 
 # -- columnar TpuSpanBatch decode (must mirror DfSpanCols in ingest.cpp) ----
 
@@ -449,6 +485,247 @@ class SpanColumnDecoder:
         cols = {k: v[:n_mem] if k.startswith("m_") else v[:n]
                 for k, v in self.arrays.items()}
         return n, cols, n_mem, self.arena[:self._cols.arena_used]
+
+
+# -- columnar FlowLogBatch and DocumentBatch decode (pbcols.cpp and
+# ingest.cpp) ---------------------------------------------------------------
+
+# ip_flags bits (must match pbcols.cpp and ingest.cpp)
+IP_SRC_EMPTY = 1
+IP_DST_EMPTY = 2
+IP_FALLBACK = 4
+
+# L7 string-column slot order; must match l7_str_slot() in pbcols.cpp
+L7_STRS = ("version", "request_type", "request_domain", "request_resource",
+           "endpoint", "response_exception", "response_result", "trace_id",
+           "span_id", "parent_span_id", "x_request_id", "process_kname_0",
+           "process_kname_1", "attrs_json", "pod_0", "pod_1")
+
+
+def _cols_struct(name: str, ptrs: tuple[str, ...],
+                 strs: int = 0) -> type:
+    """A packed ctypes struct of column pointers, then ``strs`` string
+    slots' offset and length pointers, the arena and its sizes."""
+    fields = [(n, ctypes.c_void_p) for n in ptrs]
+    if strs:
+        fields += [("str_off", ctypes.c_void_p * strs),
+                   ("str_len", ctypes.c_void_p * strs)]
+    fields += [("arena", ctypes.c_void_p), ("arena_cap", ctypes.c_uint32),
+               ("arena_used", ctypes.c_uint32), ("cap", ctypes.c_uint32)]
+    return type(name, (ctypes.Structure,), {"_pack_": 1, "_fields_": fields})
+
+
+class _ColumnDecoder:
+    """Reusable buffers for one columnar decode: ``COLS`` lists (dtype,
+    names) in the C struct's order, ``STRS`` the string slots. The
+    arena grows to the payload before each call (every cell is a
+    substring of it), and a batch with more rows than the buffers hold
+    grows them to its counts and decodes again, so a well-formed batch
+    always decodes here; ``decode`` returns None only for a batch the
+    pure decoder would refuse or decode field by field. The views it
+    returns are valid until the next call. One decoder per thread."""
+
+    COLS: tuple = ()
+    STRS: tuple = ()
+    STRUCT: type
+
+    def __init__(self, cap: int = 4096, arena_cap: int = 1 << 20) -> None:
+        self._lib = load()
+        self._cols = self.STRUCT()
+        self._alloc(cap, arena_cap)
+
+    def _alloc(self, cap: int, arena_cap: int) -> None:
+        self.arrays: dict[str, np.ndarray] = {}
+        for dt, names in self.COLS:
+            for n in names:
+                a = self.arrays[n] = np.zeros(cap, dtype=dt)
+                setattr(self._cols, n, a.ctypes.data)
+        for i, s in enumerate(self.STRS):
+            for part, field in (("off", self._cols.str_off),
+                                ("len", self._cols.str_len)):
+                a = self.arrays[f"{s}_{part}"] = np.zeros(cap, np.uint32)
+                field[i] = a.ctypes.data
+        self.arena = np.zeros(arena_cap, dtype=np.uint8)
+        self._cols.arena = self.arena.ctypes.data
+        self._cols.arena_cap = arena_cap
+        self._cols.cap = cap
+        self._grown(cap)
+
+    def _grown(self, cap: int) -> None:
+        """Hook: buffers beside the struct's, of ``cap`` rows."""
+
+    def _call(self, a: np.ndarray) -> int:
+        raise NotImplementedError
+
+    def _rows_needed(self, a: np.ndarray) -> int | None:
+        raise NotImplementedError
+
+    def _run(self, payload) -> np.ndarray | None:
+        """Decode into the buffers; the payload's bytes, or None when
+        the batch is malformed."""
+        a = np.frombuffer(payload, dtype=np.uint8)
+        if len(a) > _MAX_PAYLOAD:
+            raise ValueError(f"a {len(a)}-byte batch is past 4 GiB")
+        if len(a) > self._cols.arena_cap:
+            self._alloc(self._cols.cap, len(a))
+        n = self._call(a)
+        if n == _OVERFLOW:
+            need = self._rows_needed(a)
+            if need is None:
+                return None
+            self._alloc(max(self._cols.cap, 2 * need),
+                        self._cols.arena_cap)
+            n = self._call(a)
+            if n == _OVERFLOW:
+                raise RuntimeError(f"{type(self).__name__}: a batch "
+                                   "overflowed buffers sized to its counts")
+        if n == _MALFORMED:
+            return None
+        self.n = int(n)
+        return a
+
+    def _views(self) -> dict[str, np.ndarray]:
+        return {k: v[:self.n] for k, v in self.arrays.items()}
+
+
+_L4_COLS = (
+    (np.uint64, ("flow_id", "start_time_ns", "end_time_ns", "packet_tx",
+                 "packet_rx", "byte_tx", "byte_rx", "l7_request",
+                 "l7_response")),
+    (np.uint32, ("rtt_us", "art_us", "retrans_tx", "retrans_rx",
+                 "zero_win_tx", "zero_win_rx")),
+    (np.uint8, ("close_type",)),
+    (np.uint32, ("syn_count", "synack_count", "gpid_0", "gpid_1",
+                 "ip4_src", "ip4_dst")),
+    (np.uint8, ("is_v6",)),
+    (np.uint32, ("ip6_src_off", "ip6_dst_off")),
+    (np.uint8, ("ip_flags",)),
+    (np.uint16, ("port_src", "port_dst")),
+    (np.uint8, ("proto",)),
+    (np.uint32, ("tap_port",)),
+    (np.uint8, ("tunnel_type",)),
+    (np.uint32, ("tunnel_id", "pod0_off", "pod0_len", "pod1_off",
+                 "pod1_len")))
+
+_L7_COLS = (
+    (np.uint64, ("flow_id", "start_time_ns", "end_time_ns",
+                 "syscall_trace_id_request", "syscall_trace_id_response",
+                 "captured_request_byte", "captured_response_byte")),
+    (np.uint32, ("l7_protocol", "request_id", "response_status")),
+    (np.int32, ("response_code",)),
+    (np.uint32, ("syscall_thread_0", "syscall_thread_1", "gpid_0",
+                 "gpid_1", "ip4_src", "ip4_dst")),
+    (np.uint8, ("is_v6",)),
+    (np.uint32, ("ip6_src_off", "ip6_dst_off")),
+    (np.uint8, ("ip_flags",)),
+    (np.uint16, ("port_src", "port_dst")),
+    (np.uint8, ("proto", "tunnel_type")),
+    (np.uint32, ("tunnel_id",)))
+
+_DOC_COLS = (
+    (np.uint64, ("timestamp_s", "packet_tx", "packet_rx", "byte_tx",
+                 "byte_rx", "flow_count", "new_flow", "closed_flow",
+                 "rtt_sum", "rtt_count", "retrans", "syn_count",
+                 "synack_count", "request", "response", "rrt_sum",
+                 "rrt_count", "rrt_max", "error_client", "error_server",
+                 "timeout")),
+    (np.uint32, ("ip4_src", "ip4_dst", "proto", "l7_protocol",
+                 "app_service_off", "app_service_len", "port",
+                 "direction")),
+    (np.uint8, ("has_flow", "has_app", "ip_flags")))
+
+
+def _names(cols: tuple) -> tuple[str, ...]:
+    return tuple(n for _, names in cols for n in names)
+
+
+class L4ColumnDecoder(_ColumnDecoder):
+    """df_decode_l4_cols: the L4 rows of a FlowLogBatch as numpy column
+    views. ``decode()`` returns (n_l4, cols, n_l7, arena) or None for a
+    malformed batch; n_l7 counts the L7 entries, left for
+    ``L7ColumnDecoder``."""
+
+    COLS = _L4_COLS
+    STRUCT = _cols_struct("_DfL4Cols", _names(_L4_COLS))
+
+    def _grown(self, cap: int) -> None:
+        self._l7_off = np.zeros(cap, dtype=np.uint32)
+        self._l7_len = np.zeros(cap, dtype=np.uint32)
+        self._n_l7 = ctypes.c_uint32(0)
+
+    def _call(self, a: np.ndarray) -> int:
+        return self._lib.df_decode_l4_cols(
+            a.ctypes.data, len(a), ctypes.byref(self._cols),
+            self._l7_off.ctypes.data, self._l7_len.ctypes.data,
+            len(self._l7_off), ctypes.byref(self._n_l7))
+
+    def _rows_needed(self, a: np.ndarray) -> int | None:
+        n4, n7 = ctypes.c_uint64(), ctypes.c_uint64()
+        if self._lib.df_flow_batch_counts(a.ctypes.data, len(a),
+                                          ctypes.byref(n4),
+                                          ctypes.byref(n7)) != 0:
+            return None
+        return max(n4.value, n7.value)
+
+    def decode(self, payload):
+        if self._run(payload) is None:
+            return None
+        return self.n, self._views(), int(self._n_l7.value), \
+            self.arena[:self._cols.arena_used]
+
+
+class L7ColumnDecoder(_ColumnDecoder):
+    """df_decode_l7_cols: the L7 rows of a FlowLogBatch, their sixteen
+    string columns as arena (off, len) cells. ``decode()`` returns
+    (n_l7, cols, arena) or None for a malformed batch."""
+
+    COLS = _L7_COLS
+    STRS = L7_STRS
+    STRUCT = _cols_struct("_DfL7Cols", _names(_L7_COLS), len(L7_STRS))
+
+    def _call(self, a: np.ndarray) -> int:
+        return self._lib.df_decode_l7_cols(a.ctypes.data, len(a),
+                                           ctypes.byref(self._cols))
+
+    def _rows_needed(self, a: np.ndarray) -> int | None:
+        n4, n7 = ctypes.c_uint64(), ctypes.c_uint64()
+        if self._lib.df_flow_batch_counts(a.ctypes.data, len(a),
+                                          ctypes.byref(n4),
+                                          ctypes.byref(n7)) != 0:
+            return None
+        return n7.value
+
+    def decode(self, payload):
+        if self._run(payload) is None:
+            return None
+        return self.n, self._views(), self.arena[:self._cols.arena_used]
+
+
+class DocColumnDecoder(_ColumnDecoder):
+    """df_decode_doc_cols: a DocumentBatch as numpy column views, the
+    meters' fields under their flow_metrics column names, HasField as
+    ``has_flow`` / ``has_app`` and empty or non-v4 addresses in
+    ``ip_flags``. ``decode()`` returns (n, cols, arena) or None for a
+    malformed batch."""
+
+    COLS = _DOC_COLS
+    STRUCT = _cols_struct("_DfDocCols", _names(_DOC_COLS))
+
+    def _call(self, a: np.ndarray) -> int:
+        return self._lib.df_decode_doc_cols(a.ctypes.data, len(a),
+                                            ctypes.byref(self._cols))
+
+    def _rows_needed(self, a: np.ndarray) -> int | None:
+        n = ctypes.c_uint64()
+        if self._lib.df_doc_batch_count(a.ctypes.data, len(a),
+                                        ctypes.byref(n)) != 0:
+            return None
+        return n.value
+
+    def decode(self, payload):
+        if self._run(payload) is None:
+            return None
+        return self.n, self._views(), self.arena[:self._cols.arena_used]
 
 
 # -- encoded query execution kernels (qexec.cpp) ----------------------------

@@ -18,9 +18,10 @@ extern "C" {
 // ABI contract between this library and the ctypes bindings in
 // native/__init__.py. Bump on ANY change to an exported signature (the
 // qexec.cpp kernels' and flowmap.cpp's included) or to a packed layout
-// (DfSpanCols in ingest.cpp, DfPacketOut, FlowRecord, L7Event, SlowEvent);
+// (DfSpanCols and DfDocCols in ingest.cpp, DfL4Cols and DfL7Cols in
+// pbcols.cpp, DfPacketOut, FlowRecord, L7Event, SlowEvent);
 // load() refuses a library whose version differs.
-int32_t df_abi_version() { return 3; }
+int32_t df_abi_version() { return 4; }
 
 // ---------------------------------------------------------------------------
 // Dictionary: string <-> uint32 id, id 0 reserved for ""

@@ -13,6 +13,7 @@ function               forward                      backward
 ``reduce_from``        all-reduce (SUM)             identity
 ``copy_to``            identity                     all-reduce (SUM)
 ``gather_from``        all-gather along a dim       reduce-scatter, mean
+``all_gather``         all-gather along a dim       reduce-scatter, sum
 ``ppermute``           send to +1, receive from -1  the same, the other way
 =====================  ===========================  =======================
 
@@ -24,7 +25,11 @@ of the ranks' partial gradients. ``gather_from`` puts a weight's blocks
 together before use (fsdp): the ranks of its group compute on the same
 batch (the reference splits tokens over ``data`` only), so the gathered
 weight's gradient is the same on each, and its reduce-scatter is divided
-by the group's size, the mean of equal copies. ``ppermute`` is the
+by the group's size, the mean of equal copies. ``all_gather`` puts an
+activation's column blocks together (the sharded Llama's queries, keys
+and values when heads straddle tensor ranks): each rank then uses a
+different part of the whole, so the gradient of its block is the sum of
+the ranks' partial gradients. ``ppermute`` is the
 reference's ``lax.ppermute`` around a ring of the axis (ring attention's
 K/V blocks, the pipeline's activations): one ``batch_isend_irecv`` per
 call, and its backward sends each gradient back to the rank its value
@@ -137,14 +142,16 @@ class _CopyTo(torch.autograd.Function):
 
 class _GatherFrom(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, axis, dim):
-        ctx.axis, ctx.dim = axis, dim
+    def forward(ctx, x, axis, dim, mean):
+        ctx.axis, ctx.dim, ctx.mean = axis, dim, mean
         return _all_gather(x, axis, dim)
 
     @staticmethod
     def backward(ctx, g):
-        return (_reduce_scatter(g, ctx.axis, ctx.dim).div_(ctx.axis.size),
-                None, None)
+        out = _reduce_scatter(g, ctx.axis, ctx.dim)
+        if ctx.mean:
+            out.div_(ctx.axis.size)
+        return out, None, None, None
 
 
 class _Ppermute(torch.autograd.Function):
@@ -168,7 +175,11 @@ def copy_to(x: torch.Tensor, axis: Axis) -> torch.Tensor:
 
 
 def gather_from(x: torch.Tensor, axis: Axis, dim: int) -> torch.Tensor:
-    return x if axis.size == 1 else _GatherFrom.apply(x, axis, dim)
+    return x if axis.size == 1 else _GatherFrom.apply(x, axis, dim, True)
+
+
+def all_gather(x: torch.Tensor, axis: Axis, dim: int) -> torch.Tensor:
+    return x if axis.size == 1 else _GatherFrom.apply(x, axis, dim, False)
 
 
 def ppermute(axis: Axis, *tensors: torch.Tensor, shift: int = 1) -> tuple:

@@ -46,6 +46,11 @@ from deepflow_tpu_torch.query import sql as S
 from deepflow_tpu_torch.query.costmodel import KernelCostModel
 
 
+# a refill's first measured way: serial under this many morsels of rows
+# (one bucket's scan passes over them all), the pool from it up
+_POOL_FIRST_MORSELS = 4
+
+
 def normalize_sql(sql: str) -> str:
     return " ".join(sql.split())
 
@@ -89,6 +94,11 @@ class QueryCache:
         self._hop = telemetry.hop("query.cache") if telemetry else None
         # learned cold-cost per cached query shape (admission hook)
         self.cost = KernelCostModel(kernels=("cold", "warm"))
+        # per table: stale buckets refilled one after another or on the
+        # scan pool. A bucket's scan is interpreter work beside a native
+        # pass over the table's rows, so the pool loses to the serial
+        # loop on a small table and wins on a large one (query_refill.py)
+        self._refill: dict[str, KernelCostModel] = {}
 
     # -- helpers -------------------------------------------------------------
 
@@ -239,12 +249,30 @@ class QueryCache:
                 b, _mark = bm
                 bq = self._bucket_query(query, tc, b * div, (b + 1) * div)
                 return engine.execute_partial(view, bq, encoded=True)
-            # stale buckets recompute on the shared scan pool (each
-            # bucket's execute_partial runs serially inside its worker —
-            # the in_worker guard stops nested fan-out)
+            # stale buckets recompute serially or on the shared scan pool
+            # (each bucket's execute_partial runs serially inside its
+            # worker: the in_worker guard stops nested fan-out), as the
+            # table's refill model predicts cheaper per row scanned
             p = qpool.get_pool()
             if p is not None and len(stale) > 1:
-                outs = p.map(_scan, stale)
+                scanned = len(view) * len(stale)
+                with self._lock:
+                    model = self._refill.get(table.name)
+                    if model is None:
+                        # the way measured first: the pool from
+                        # _POOL_FIRST_MORSELS morsels of rows up
+                        big = len(view) >= (_POOL_FIRST_MORSELS
+                                            * engine._morsel_rows())
+                        model = self._refill[table.name] = KernelCostModel(
+                            kernels=(("pool", "serial") if big
+                                     else ("serial", "pool")),
+                            overhead_ns={"pool": 500_000.0})
+                how = model.choose(scanned)
+                t0 = time.perf_counter_ns()
+                outs = (p.map(_scan, stale) if how == "pool"
+                        else [_scan(bm) for bm in stale])
+                model.observe(how, scanned, time.perf_counter_ns() - t0)
+                qtrace.annotate(refill=how)
             else:
                 outs = [_scan(bm) for bm in stale]
             for (b, mark), part in zip(stale, outs):
@@ -262,8 +290,10 @@ class QueryCache:
         rng = S.BinOp("AND",
                       S.BinOp(">=", S.Col(tc), S.Lit(int(lo))),
                       S.BinOp("<", S.Col(tc), S.Lit(int(hi))))
+        # the bucket's range first: it keeps at most a bucket's rows, so
+        # the scan's later conjuncts read only those (engine._select_rows)
         where = rng if query.where is None else \
-            S.BinOp("AND", query.where, rng)
+            S.BinOp("AND", rng, query.where)
         # ORDER BY/LIMIT apply at the merge, not per slice; HAVING rides
         # along so its aggregate sites ship in the partial (it is only
         # APPLIED at the merge)

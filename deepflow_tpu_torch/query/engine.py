@@ -693,7 +693,30 @@ def _filter_prims(table: ColumnarTable, where) -> list[tuple] | None:
         lo = max(lo, int(info.min))
         hi = min(hi, int(info.max))
         prims.append(("range", col, lo, hi))
-    return prims
+    return _fold_ranges(prims)
+
+
+def _fold_ranges(prims: list[tuple]) -> list[tuple]:
+    """One range per column: the conjuncts' ranges on a column intersect
+    into one primitive at the first one's place (one that is empty is
+    "never"), so a scan passes over that column once. The query cache's
+    per-bucket scans add a bucket's range to the query's own time range:
+    folded, the bucket's narrow range is what the first pass selects."""
+    out: list[tuple] = []
+    at: dict[str, int] = {}
+    for p in prims:
+        kind, col, lo, hi = p
+        if kind != "range":
+            out.append(p)
+        elif col not in at:
+            at[col] = len(out)
+            out.append(p)
+        else:
+            _, _, lo0, hi0 = out[at[col]]
+            lo, hi = max(lo, lo0), min(hi, hi0)
+            out[at[col]] = ("range", col, lo, hi) if lo <= hi \
+                else ("never", col, 0, 0)
+    return out
 
 
 def _select_rows(get_col, sz: int, prims: list[tuple]) -> np.ndarray:

@@ -1,8 +1,9 @@
 """Flame-graph tree assembly from folded stacks, the CPU flame graph over
 the profile table, and the per-kernel device-time flame over span events.
 
-``build_flame_tree``, ``profile_stack_values``, ``merge_stack_values`` and
-``profile_flame_tree`` are own copies of the reference's
+``build_flame_tree``, ``trace_flame_stacks``, ``profile_stack_values``,
+``merge_stack_values`` and ``profile_flame_tree`` are own copies of the
+reference's
 (``deepflow_tpu/query/flamegraph.py``); ``device_flame`` folds spans as
 the reference server's ``tpu_flame`` query does
 (``deepflow_tpu/server/querier.py``), without the store in between.
@@ -58,6 +59,32 @@ def build_flame_tree(stacks: list[str], values: list[int],
             node = child
         node.self_value += value
     return root
+
+
+def trace_flame_stacks(tree: dict) -> tuple[list[str], list[int]]:
+    """An assembled trace tree (``build_trace_from_spans``) as folded
+    stacks weighted by self time in ns: each span's duration less its
+    children's, so the flame graph shows where a query or request spent
+    its wall clock. Feed the result to ``build_flame_tree``."""
+    stacks: list[str] = []
+    values: list[int] = []
+
+    def walk(node: dict, prefix: str) -> None:
+        label = f"{node['service']}:{node['name']}" \
+            if node.get("service") else node["name"]
+        path = f"{prefix}{SEP}{label}" if prefix else label
+        child_ns = sum(int(c.get("duration_ns", 0))
+                       for c in node.get("children", []))
+        self_ns = max(0, int(node.get("duration_ns", 0)) - child_ns)
+        if self_ns:
+            stacks.append(path)
+            values.append(self_ns)
+        for c in node.get("children", []):
+            walk(c, path)
+
+    for root in tree.get("spans", []):
+        walk(root, "")
+    return stacks, values
 
 
 def profile_stack_values(table: ColumnarTable,

@@ -2,8 +2,8 @@
 
 Own copy of ``deepflow_tpu/query/qtrace.py`` without the federation
 parts (``QueryTracer.adopt`` and ``ctx_for_wire``, which join a shard's
-spans to a coordinator's) and the Tempo read path's ``pending_spans``. Every DF-SQL query the port's querier serves
-gets a trace id and a span tree: parse, plan, execute, the cache lookup,
+spans to a coordinator's). Every DF-SQL, PromQL and Tempo query the
+port's querier serves gets a trace id and a span tree: parse, plan, execute, the cache lookup,
 the scan with its prune decision and morsel degree, the partial merge.
 Spans land in the server's own ``deepflow_system.query_trace`` table, the
 same self-monitoring channel the DFSTATS rows use.
@@ -477,6 +477,15 @@ class QueryTracer:
         if self._hop is not None:
             self._hop.account(delivered=len(batch))
         return len(batch)
+
+    def pending_spans(self, trace_id: str) -> list[dict]:
+        """Read-your-writes: the span dicts of one trace kept but not yet
+        flushed to the table (as the trace trees' ``pending_spans``)."""
+        with self._lock:
+            self._drain_locked()
+            kept = [s for s in self._pending
+                    if s._buf.trace_id == trace_id]
+        return [s.to_dict(s._buf) for s in kept]
 
     def snapshot(self) -> dict:
         with self._lock:

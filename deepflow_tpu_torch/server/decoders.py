@@ -4,11 +4,15 @@ Own copy of the profile and flow paths of ``deepflow_tpu/server/
 decoders.py``: the ``DedupWindow`` that makes retransmitted frames into no
 second row, the ``Decoder`` base (one receiver queue, a worker thread,
 stats) and the PROFILE, TPU_SPAN, STEP_METRICS, DFSTATS, L4_LOG / L7_LOG
-(``FlowLogDecoder``) and METRICS (``MetricsDecoder``) decoders. TPU_SPAN
-payloads decode with the port's native columnar decoder
-(``native/ingest.cpp``), the others with this package's ``proto/wire.py``:
-the flow decoders take the reference's protobuf path (its native columnar
-flow and document decode is not ported yet). Each decoder accounts
+(``FlowLogDecoder``) and METRICS (``MetricsDecoder``) decoders.
+TPU_SPAN, flow-log and metric-document payloads decode with the port's
+native columnar decoders (``native/ingest.cpp``, ``native/pbcols.cpp``),
+the others with this package's ``proto/wire.py``; a batch the native
+decoder refuses as malformed, and a flow or document batch that carries
+an address other than IPv4 (the reference's routing), takes the
+``wire`` path, counted in ``pure_batches``. The L7 rows that carry a
+trace id feed the ingest-time trace trees (``server/tracetree.py``) on
+both paths. Each decoder accounts
 its frames on a ``decoder.<TYPE>`` hop (delivered, or dropped as a dup
 or a decode error) and its rows on the ``table_write`` hop, and its
 worker beats a heartbeat.
@@ -28,11 +32,13 @@ import numpy as np
 from deepflow_tpu_torch import native
 from deepflow_tpu_torch.codec import FrameHeader, MessageType
 from deepflow_tpu_torch.native import (
-    SPAN_STRS, ArenaStrings, SpanColumnDecoder)
+    IP_DST_EMPTY, IP_FALLBACK, IP_SRC_EMPTY, SPAN_STRS, ArenaStrings,
+    DocColumnDecoder, L4ColumnDecoder, L7ColumnDecoder, SpanColumnDecoder)
 from deepflow_tpu_torch.proto import wire
 from deepflow_tpu_torch.server.platform_info import PlatformInfoTable
 from deepflow_tpu_torch.store.db import Database
-from deepflow_tpu_torch.store.schema import CLOSE_TYPES
+from deepflow_tpu_torch.store.schema import (
+    CLOSE_TYPES, L7_PROTOS, RESPONSE_STATUS)
 from deepflow_tpu_torch.telemetry import Telemetry
 from deepflow_tpu_torch.tpuprobe.stepmetrics import decode_step_payload
 
@@ -132,6 +138,7 @@ class Decoder:
 
     MSG_TYPE: MessageType
     DRAIN_FRAMES = 64  # max frames one wakeup consumes
+    WORKERS = 1  # threads draining the queue; rows of several interleave
 
     def __init__(self, q: queue.Queue, db: Database,
                  platform: PlatformInfoTable, dedup: DedupWindow | None = None,
@@ -145,7 +152,7 @@ class Decoder:
         self.dedup = dedup
         self.seq_tracker = seq_tracker
         self._stop = threading.Event()
-        self._thread: threading.Thread | None = None
+        self._threads: list[threading.Thread] = []
         self._stats_lock = threading.Lock()
         # handle_ns: wall time inside handle(); append_ns: the part spent
         # in store appends (handle_ns - append_ns = decode)
@@ -156,20 +163,23 @@ class Decoder:
         self._tw_hop = self.telemetry.hop("table_write")
 
     def start(self) -> "Decoder":
-        self._thread = threading.Thread(
-            target=self._run, name=f"df-decoder-{self.MSG_TYPE.name}",
-            daemon=True)
-        self._thread.start()
+        for i in range(max(1, self.WORKERS)):
+            t = threading.Thread(
+                target=self._run, args=(i,),
+                name=f"df-decoder-{self.MSG_TYPE.name}-{i}", daemon=True)
+            t.start()
+            self._threads.append(t)
         return self
 
     def stop(self) -> None:
-        """Join the worker, then decode whatever is still queued: those
+        """Join the workers, then decode whatever is still queued: those
         frames were accepted and must reach the tables."""
         self._stop.set()
-        if self._thread is None:
+        if not self._threads:
             return
-        self._thread.join(timeout=2.0)
-        self._thread = None
+        for t in self._threads:
+            t.join(timeout=2.0)
+        self._threads = []
         drained = []
         while True:
             try:
@@ -223,8 +233,9 @@ class Decoder:
             self._hop.account(emitted=len(frames))
         return frames
 
-    def _run(self) -> None:
-        hb = self.telemetry.heartbeat(f"decoder.{self.MSG_TYPE.name}.0")
+    def _run(self, worker: int = 0) -> None:
+        hb = self.telemetry.heartbeat(
+            f"decoder.{self.MSG_TYPE.name}.{worker}")
         handled = 0
         while not self._stop.is_set():
             hb.beat(progress=handled)
@@ -460,16 +471,166 @@ class StepMetricsDecoder(Decoder):
 class FlowLogDecoder(Decoder):
     """FlowLogBatch -> flow_log.l4_flow_log and flow_log.l7_flow_log.
     Registered for both L4_LOG and L7_LOG (``msg_type``), one instance
-    each. The reference's protobuf path (its ``_handle_pb`` and
-    ``_handle_l7_list``), columnar: one list per column. The endpoint
-    columns take the agent's gpid and pod values; the reference resolves
-    the rest (process names, per-side resource tags) from its socket scan
-    and resource index, which the port does not have yet, so they stay
-    empty."""
+    each.
+
+    A batch decodes natively (``native/pbcols.cpp``: df_decode_l4_cols,
+    then df_decode_l7_cols where it holds L7 entries) into numpy columns,
+    with the interpreter lock released, so several decode workers
+    (``WORKERS``, 1 as in the reference's default) could use several
+    cores; string cells stay (arena, off, len) until the dictionary
+    interns them. A batch the native decoder refuses is malformed, and a
+    batch with an address that is not IPv4 is formatted by the pure path
+    (the reference's routing): both take ``handle_pure``, the reference's
+    protobuf path on ``proto/wire.py``, which raises on the batch or
+    writes the same rows. The endpoint columns take the agent's gpid,
+    pod and kernel thread name; the reference resolves the rest
+    (process names, per-side resource tags) from its socket scan and
+    resource index, which the port does not have yet, so they stay
+    empty. L7 rows with a trace id feed ``trace_trees``. Constructing
+    the decoder builds and loads the native library, or raises."""
 
     MSG_TYPE = MessageType.L4_LOG
 
+    def __init__(self, *a, trace_trees=None, **kw) -> None:
+        super().__init__(*a, **kw)
+        native.load()
+        self.trace_trees = trace_trees  # TraceTreeBuilder, or None
+        self.stats.update(native_batches=0, pure_batches=0)
+        self._tl = threading.local()  # native buffers per worker thread
+        # u32 address -> dotted string, across batches and workers (a
+        # racy duplicate insert is harmless)
+        self._ip_memo: dict[int, str] = {}
+
+    def _columns(self, name: str, cls):
+        dec = getattr(self._tl, name, None)
+        if dec is None:
+            dec = cls()
+            setattr(self._tl, name, dec)
+        return dec
+
+    def _native(self, payload):
+        """(L4 decode or None, L7 decode or None), or None when the batch
+        takes the pure path."""
+        l4 = self._columns("l4", L4ColumnDecoder).decode(payload)
+        if l4 is None or _not_v4(l4[1]):
+            return None
+        l7 = None
+        if l4[2]:  # the L7 entries, into the L7 decoder's own buffers
+            l7 = self._columns("l7", L7ColumnDecoder).decode(payload)
+            if l7 is None or _not_v4(l7[1]):
+                return None
+        return (l4[0], l4[1], l4[3]) if l4[0] else None, l7
+
     def handle(self, header: FrameHeader, payload: bytes) -> int:
+        res = self._native(payload)
+        with self._stats_lock:
+            self.stats["pure_batches" if res is None
+                       else "native_batches"] += 1
+        if res is None:
+            return self.handle_pure(header, payload)
+        tags = self._agent_tags(header)
+        off = self._clock_offset(header)
+        l4, l7 = res
+        n = 0
+        if l4 is not None:
+            n += self._handle_l4_cols(*l4, tags, off)
+        if l7 is not None and l7[0]:
+            n += self._handle_l7_cols(*l7, tags, off)
+        return n
+
+    def _handle_l4_cols(self, n: int, cols: dict, arena, tags: dict,
+                        off: int) -> int:
+        flags = cols["ip_flags"]
+        out = {
+            "time": _shifted(cols["end_time_ns"], off),
+            "flow_id": cols["flow_id"],
+            "ip_src": _dotted(self._ip_memo, cols["ip4_src"], flags,
+                              IP_SRC_EMPTY),
+            "ip_dst": _dotted(self._ip_memo, cols["ip4_dst"], flags,
+                              IP_DST_EMPTY),
+            "ip4_src": cols["ip4_src"],
+            "ip4_dst": cols["ip4_dst"],
+            "port_src": cols["port_src"],
+            "port_dst": cols["port_dst"],
+            "protocol": cols["proto"],
+            "tap_port": cols["tap_port"],
+            "start_time": _shifted(cols["start_time_ns"], off),
+            "end_time": _shifted(cols["end_time_ns"], off),
+            "packet_tx": cols["packet_tx"],
+            "packet_rx": cols["packet_rx"],
+            "byte_tx": cols["byte_tx"],
+            "byte_rx": cols["byte_rx"],
+            "l7_request": cols["l7_request"],
+            "l7_response": cols["l7_response"],
+            "rtt": cols["rtt_us"],
+            "art": cols["art_us"],
+            "retrans_tx": cols["retrans_tx"],
+            "retrans_rx": cols["retrans_rx"],
+            "zero_win_tx": cols["zero_win_tx"],
+            "zero_win_rx": cols["zero_win_rx"],
+            "close_type": cols["close_type"],
+            "syn_count": cols["syn_count"],
+            "synack_count": cols["synack_count"],
+            "tunnel_type": cols["tunnel_type"],
+            "tunnel_id": cols["tunnel_id"],
+            "gprocess_id_0": cols["gpid_0"],
+            "gprocess_id_1": cols["gpid_1"],
+            "process_kname_0": "", "process_kname_1": "",
+            "pod_0": _arena_col(cols, arena, "pod0"),
+            "pod_1": _arena_col(cols, arena, "pod1"),
+        }
+        out.update(tags)  # constant per batch: scalar broadcast
+        self.write_columns("flow_log.l4_flow_log", out, n)
+        return n
+
+    def _handle_l7_cols(self, n: int, cols: dict, arena, tags: dict,
+                        off: int) -> int:
+        flags = cols["ip_flags"]
+        dur = np.maximum(
+            cols["end_time_ns"].astype(np.int64)
+            - cols["start_time_ns"].astype(np.int64), 0).astype(np.uint64)
+        out = {
+            "time": _shifted(cols["start_time_ns"], off),
+            "flow_id": cols["flow_id"],
+            "ip_src": _dotted(self._ip_memo, cols["ip4_src"], flags,
+                              IP_SRC_EMPTY),
+            "ip_dst": _dotted(self._ip_memo, cols["ip4_dst"], flags,
+                              IP_DST_EMPTY),
+            "port_src": cols["port_src"],
+            "port_dst": cols["port_dst"],
+            "tunnel_type": cols["tunnel_type"],
+            "tunnel_id": cols["tunnel_id"],
+            "l7_protocol": cols["l7_protocol"],
+            "request_id": cols["request_id"],
+            "response_status": cols["response_status"],
+            "response_code": cols["response_code"],
+            "response_duration": dur,
+            "syscall_trace_id_request": cols["syscall_trace_id_request"],
+            "syscall_trace_id_response": cols["syscall_trace_id_response"],
+            "syscall_thread_0": cols["syscall_thread_0"],
+            "syscall_thread_1": cols["syscall_thread_1"],
+            "captured_request_byte": cols["captured_request_byte"],
+            "captured_response_byte": cols["captured_response_byte"],
+            "gprocess_id_0": cols["gpid_0"],
+            "gprocess_id_1": cols["gpid_1"],
+            "attrs": _arena_col(cols, arena, "attrs_json"),
+        }
+        for name in ("version", "request_type", "request_domain",
+                     "request_resource", "endpoint", "response_exception",
+                     "response_result", "trace_id", "span_id",
+                     "parent_span_id", "x_request_id", "process_kname_0",
+                     "process_kname_1", "pod_0", "pod_1"):
+            out[name] = _arena_col(cols, arena, name)
+        out.update(tags)  # constant per batch: scalar broadcast
+        self.write_columns("flow_log.l7_flow_log", out, n)
+        if self.trace_trees is not None:
+            self._feed_trace_trees(out, n)
+        return n
+
+    def handle_pure(self, header: FrameHeader, payload: bytes) -> int:
+        """The batch through the pure-Python ``wire`` decoder (the
+        reference's protobuf path, columnar: one list per column): the
+        native path's rows, or the decode error."""
         batch = wire.FlowLogBatch.FromString(payload)
         tags = self._agent_tags(header)
         # ingest-side clock correction of this agent's absolute times
@@ -566,7 +727,86 @@ class FlowLogDecoder(Decoder):
         }
         cols.update(tags)  # constant per batch: scalar broadcast
         self.write_columns("flow_log.l7_flow_log", cols, len(l7))
+        if self.trace_trees is not None:
+            self._feed_trace_trees(cols, len(l7))
         return len(l7)
+
+    def _feed_trace_trees(self, cols: dict, n: int) -> None:
+        """The rows with a trace id, each as ``span_from_l7`` of the
+        reference's row dict, into the ingest-time trace trees. Columns
+        may be lists, arrays, arena strings or a scalar broadcast."""
+        from deepflow_tpu_torch.server.tracetree import span_from_l7
+
+        def values(name: str) -> list:
+            col = cols.get(name, "")
+            if isinstance(col, ArenaStrings):
+                return col.tolist()
+            if isinstance(col, np.ndarray):
+                return col.tolist()
+            if isinstance(col, list):
+                return col
+            return [col] * n
+        tids = values("trace_id")
+        rows = [i for i, t in enumerate(tids) if t]
+        if not rows:
+            return
+        cv = {name: values(name) for name in (
+            "time", "flow_id", "request_id", "span_id", "parent_span_id",
+            "request_type", "endpoint", "request_resource", "app_service",
+            "service_1", "host", "l7_protocol", "response_status",
+            "response_code", "response_duration", "ip_src", "ip_dst",
+            "x_request_id")}
+        for i in rows:
+            proto_i = int(cv["l7_protocol"][i])
+            status_i = int(cv["response_status"][i])
+            row = {name: v[i] for name, v in cv.items()}
+            row["l7_protocol"] = (L7_PROTOS[proto_i]
+                                  if 0 <= proto_i < len(L7_PROTOS)
+                                  else "unknown")
+            row["response_status"] = (
+                RESPONSE_STATUS[status_i]
+                if 0 <= status_i < len(RESPONSE_STATUS) else "unknown")
+            self.trace_trees.add_span(tids[i], span_from_l7(row))
+
+
+_IP_MEMO_MAX = 1 << 20  # distinct addresses before a full reset
+
+
+def _dotted(memo: dict[int, str], u32s: np.ndarray, flags: np.ndarray,
+            empty_bit: int) -> list[str]:
+    """Dotted addresses of a u32 column; "" where the address bytes were
+    empty (the pure path's rendering). ``memo`` keeps each distinct
+    address formatted once across batches."""
+    uniq, inv = np.unique(u32s, return_inverse=True)
+    uniq = uniq.tolist()
+    if len(memo) + len(uniq) > _IP_MEMO_MAX:
+        memo.clear()
+    dotted = []  # this batch's strings: another worker may clear ``memo``
+    for u in uniq:
+        s = memo.get(u)
+        if s is None:
+            s = memo[u] = "%d.%d.%d.%d" % (u >> 24 & 255, u >> 16 & 255,
+                                           u >> 8 & 255, u & 255)
+        dotted.append(s)
+    out = [dotted[i] for i in inv.reshape(-1).tolist()]
+    for i in np.flatnonzero(flags & empty_bit).tolist():
+        out[i] = ""
+    return out
+
+
+def _not_v4(cols: dict) -> bool:
+    """True when a decoded batch holds an address that is neither IPv4
+    nor empty: the pure path formats those."""
+    return bool(cols["is_v6"].any() or (cols["ip_flags"] & IP_FALLBACK).any())
+
+
+def _arena_col(cols: dict, arena: np.ndarray, name: str):
+    """A string column of arena cells, or "" broadcast when every cell
+    is empty."""
+    lens = cols[f"{name}_len"]
+    if not lens.any():
+        return ""
+    return ArenaStrings(arena, cols[f"{name}_off"], lens)
 
 
 def _endpoint_cols(items: list) -> dict:
@@ -579,15 +819,98 @@ def _endpoint_cols(items: list) -> dict:
             "pod_1": [f.pod_1 for f in items]}
 
 
+_NET_METERS = ("packet_tx", "packet_rx", "byte_tx", "byte_rx", "flow_count",
+               "new_flow", "closed_flow", "rtt_sum", "rtt_count", "retrans",
+               "syn_count", "synack_count")
+_APP_METERS = ("request", "response", "rrt_sum", "rrt_count", "rrt_max",
+               "error_client", "error_server", "timeout")
+
+
 class MetricsDecoder(Decoder):
     """DocumentBatch -> flow_metrics.network.1s (documents with a flow
-    meter) and flow_metrics.application.1s (with an app meter): the
-    reference's protobuf path. Its 1m rollups come from a rollup job that
-    is not ported yet."""
+    meter) and flow_metrics.application.1s (with an app meter); the 1m,
+    1h and 1d rollups come from ``server/datasource.py``'s RollupJob.
+
+    A batch decodes natively (``native/ingest.cpp`` df_decode_doc_cols):
+    the meters' fields land in numpy arrays under their column names,
+    HasField rides ``has_flow`` / ``has_app`` and empty addresses
+    ``ip_flags``. A malformed batch, and one with an address that is
+    neither IPv4 nor empty, take ``handle_pure`` (the reference's
+    protobuf path, on ``proto/wire.py``), counted in ``pure_batches``.
+    Constructing the decoder builds and loads the native library, or
+    raises."""
 
     MSG_TYPE = MessageType.METRICS
 
+    def __init__(self, *a, **kw) -> None:
+        super().__init__(*a, **kw)
+        native.load()
+        self.stats.update(native_batches=0, pure_batches=0)
+        self._tl = threading.local()
+        self._ip_memo: dict[int, str] = {}
+
     def handle(self, header: FrameHeader, payload: bytes) -> int:
+        dec = getattr(self._tl, "docs", None)
+        if dec is None:
+            dec = self._tl.docs = DocColumnDecoder()
+        res = dec.decode(payload)
+        if res is not None and (res[1]["ip_flags"] & IP_FALLBACK).any():
+            res = None
+        with self._stats_lock:
+            self.stats["pure_batches" if res is None
+                       else "native_batches"] += 1
+        if res is None:
+            return self.handle_pure(header, payload)
+        return self._handle_cols(header, *res)
+
+    def _handle_cols(self, header: FrameHeader, n: int, cols: dict,
+                     arena: np.ndarray) -> int:
+        tags = self._agent_tags(header)
+        off_s = round(self._clock_offset(header) / 1e9)  # 1 s grain
+        flags = cols["ip_flags"]
+        src = np.asarray(_dotted(self._ip_memo, cols["ip4_src"], flags,
+                                 IP_SRC_EMPTY), dtype=object)
+        dst = np.asarray(_dotted(self._ip_memo, cols["ip4_dst"], flags,
+                                 IP_DST_EMPTY), dtype=object)
+        t = cols["timestamp_s"]
+        if off_s:
+            t = (t.astype(np.int64) + off_s).astype(np.uint64)
+
+        def base_cols(idx: np.ndarray) -> dict:
+            out = {"time": t[idx], "ip_src": src[idx].tolist(),
+                   "ip_dst": dst[idx].tolist(),
+                   "server_port": cols["port"][idx]}
+            out.update(tags)  # constant per batch: scalar broadcast
+            return out
+
+        rows = 0
+        net = np.flatnonzero(cols["has_flow"])
+        if len(net):
+            c = base_cols(net)
+            c["protocol"] = cols["proto"][net]
+            c["direction"] = cols["direction"][net]
+            for name in _NET_METERS:
+                c[name] = cols[name][net]
+            self.write_columns("flow_metrics.network.1s", c, len(net))
+            rows += len(net)
+        app = np.flatnonzero(cols["has_app"])
+        if len(app):
+            c = base_cols(app)
+            lens = cols["app_service_len"][app]
+            c["l7_protocol"] = cols["l7_protocol"][app]
+            c["app_service"] = (ArenaStrings(
+                arena, cols["app_service_off"][app], lens)
+                if lens.any() else "")
+            for name in _APP_METERS:
+                c[name] = cols[name][app]
+            self.write_columns("flow_metrics.application.1s", c, len(app))
+            rows += len(app)
+        return rows
+
+    def handle_pure(self, header: FrameHeader, payload: bytes) -> int:
+        """The batch through the pure-Python ``wire`` decoder (the
+        reference's protobuf path): the native path's rows, or the
+        decode error."""
         batch = wire.DocumentBatch.FromString(payload)
         tags = self._agent_tags(header)
         off_s = round(self._clock_offset(header) / 1e9)  # 1 s grain

@@ -28,6 +28,10 @@ DEFAULT_TTL_S = {
     "profile.tpu_hlo_span": 3 * 86400,
     "flow_metrics.network.1s": 1 * 86400,
     "flow_metrics.application.1s": 1 * 86400,
+    "flow_metrics.network.1m": 7 * 86400,
+    "flow_metrics.application.1m": 7 * 86400,
+    "flow_metrics.network.1h": 30 * 86400,
+    "flow_metrics.application.1h": 30 * 86400,
     "deepflow_system.deepflow_system": 7 * 86400,
 }
 

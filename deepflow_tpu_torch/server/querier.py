@@ -15,7 +15,19 @@ trace (``query/qtrace.py``: parse, plan and execute spans, written into
 ``deepflow_system.query_trace``) through the result and bucket-partial
 cache (``query/cache.py``); ``EXPLAIN`` answers with the plan,
 ``EXPLAIN ANALYZE`` runs the query under a captured trace and answers
-with its stages. No federation and no rollup datasource. ``GET
+with its stages. A query over ``flow_metrics.*.1s`` that a rollup tier
+answers exactly runs on that tier (``query/datasource.py``, the rollup
+job's horizons; EXPLAIN's ``datasource``). Grafana's other two
+datasources: PromQL (``query/promql.py``) on ``GET /api/v1/query_range``,
+``/api/v1/query``, ``/api/v1/series``, ``/api/v1/labels`` and
+``/api/v1/label/<l>/values`` (and under ``/prom``), and Tempo over
+``flow_log.l7_flow_log`` on ``GET /api/traces/<id>``, ``/api/echo``,
+``/api/search``, ``/api/search/tags`` and ``/api/search/tag/<name>/
+values``, with the trace tree (``POST /v1/trace/Tracing``, from the
+ingest-time ``flow_log.trace_tree`` rows, the trace builder's pending
+spans and the querier's own query traces) and the service-path search
+(``POST /v1/trace/Search``); external Jaeger or OTLP-JSON backends join
+a trace through ``POST /v1/tracing-adapters``. No federation. ``GET
 /v1/health`` carries the cache's, the scan pool's and the tracer's stats
 (``query_cache``, ``query``, ``query_trace``), the server's own
 self-telemetry (``selfmon``, ``stages``, ``pipeline``,
@@ -28,11 +40,16 @@ from __future__ import annotations
 
 import json
 import logging
+import re
 import threading
 import time
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+from urllib.parse import parse_qs, parse_qsl, urlparse
 
-from deepflow_tpu_torch.query import catalog, engine, qtrace
+import numpy as np
+
+from deepflow_tpu_torch.query import catalog, engine, promql, qtrace
+from deepflow_tpu_torch.query import datasource as qds
 from deepflow_tpu_torch.query import pool as qpool
 from deepflow_tpu_torch.query import sql as S
 from deepflow_tpu_torch.query.cache import QueryCache
@@ -40,7 +57,11 @@ from deepflow_tpu_torch.query.costmodel import KernelCostModel
 from deepflow_tpu_torch.query.engine import QueryError
 from deepflow_tpu_torch.query.flamegraph import (
     build_flame_tree, profile_flame_tree)
+from deepflow_tpu_torch.query.tracing import (
+    build_syscall_trace, build_trace_from_spans, scan_trace_spans)
+from deepflow_tpu_torch.query.tracing_adapter import AdapterRegistry
 from deepflow_tpu_torch.server import stephealth
+from deepflow_tpu_torch.server import tracetree as tt
 from deepflow_tpu_torch.store.db import Database
 from deepflow_tpu_torch.store.schema import TPU_SPAN_KINDS
 from deepflow_tpu_torch.telemetry import Telemetry, collect_agent_selfmon
@@ -68,10 +89,18 @@ class QuerierAPI:
     """Route logic, separated from the HTTP plumbing for in-process use."""
 
     def __init__(self, db: Database, stats_provider=None,
-                 telemetry: Telemetry | None = None) -> None:
+                 telemetry: Telemetry | None = None, rollup=None,
+                 trace_trees=None) -> None:
         self.db = db
         self.stats_provider = stats_provider or (lambda: {})
         self.telemetry = telemetry
+        # RollupJob (server/datasource.py): its horizons drive the
+        # transparent choice of a rollup tier; None: raw tables only
+        self.rollup = rollup
+        # TraceTreeBuilder: its pending spans join the stored trees
+        self.trace_trees = trace_trees
+        # external tracing backends spliced into /v1/trace/Tracing
+        self.trace_adapters = AdapterRegistry()
         # result + partial-aggregate cache behind POST /v1/query
         self.query_cache = QueryCache(telemetry=telemetry)
         # dogfooded query tracing: every served query writes its span
@@ -200,21 +229,47 @@ class QuerierAPI:
             sp.cpu_ns = c1 - c0
             sp._buf.add(sp)
 
-    def _plan(self, body: dict, select: S.Select, db_name: str):
-        """The plan span: resolve the table and scope it to the org."""
+    def _plan(self, body: dict, select: S.Select, db_name: str,
+              sketches: bool = True):
+        """The plan span: resolve the table, scope it to the org, and
+        choose the datasource: a rollup tier that answers the query
+        exactly takes the table's place (the rollups share its column
+        names, so the SQL text runs unchanged and the cache keys on the
+        table), and a PERCENTILE the tiers' sketches cover is answered
+        from them (``sketches``). Returns (table, debug, sketch answer or
+        None)."""
         with qtrace.span("plan") as pl:
             table = self._resolve_table(select.table, db_name)
             org = body.get("org_id")
             if org is not None:
                 self._org_scope(select, table, org)
-            pl.annotate(table=table.name, federated=False)
-        return table
+            debug: dict = {"table": table.name}
+            sketch = None
+            if self.rollup is not None:
+                horizons = self.rollup.horizons()
+                if sketches:
+                    sketch = qds.sketch_percentile(self.db, table, select,
+                                                   horizons)
+                if sketch is None:
+                    picked = qds.select_rollup(self.db, table, select,
+                                               horizons)
+                    if picked is not None:
+                        table, debug["datasource"] = picked
+                        debug["table"] = table.name
+            pl.annotate(table=debug["table"], federated=False,
+                        **({"datasource": str(debug["datasource"])}
+                           if "datasource" in debug else {}))
+        return table, debug, sketch
 
     def _run_select(self, body: dict, select: S.Select, sql_text: str,
                     db_name: str) -> dict:
         """Plan + execute one SELECT (the body of ``query()``, shared
         with the EXPLAIN ANALYZE path, under whatever trace is open)."""
-        table = self._plan(body, select, db_name)
+        table, debug, sketch = self._plan(body, select, db_name)
+        if sketch is not None:
+            result, debug["datasource"] = sketch
+            qtrace.annotate(datasource=str(debug["datasource"]))
+            return {"result": result.to_dict(), "debug": debug}
         org = body.get("org_id")
         # org scoping rewrote the AST, not the text — fold it into the
         # cache key so scoped variants of one SQL string don't collide
@@ -223,7 +278,7 @@ class QuerierAPI:
                 table, sql_text, select=select,
                 extra_key=None if org is None else ("org", org))
             ex.annotate(rows=len(result.values))
-        return {"result": result.to_dict(), "debug": {"table": table.name}}
+        return {"result": result.to_dict(), "debug": debug}
 
     def _explain(self, body: dict, stmt: S.Explain, db_name: str) -> dict:
         """EXPLAIN: plan only. EXPLAIN ANALYZE: run the query under a
@@ -239,7 +294,7 @@ class QuerierAPI:
                 answer = self._run_select(body, stmt.select, stmt.sql,
                                           db_name)
             else:
-                self._plan(body, stmt.select, db_name)
+                self._plan(body, stmt.select, db_name, sketches=False)
         del answer
         # E2E = the root span's wall (query work only; excludes the
         # trace's own sink flush) — the number stage walls must sum to
@@ -492,9 +547,447 @@ class QuerierAPI:
         return [dict(zip(res.columns, row)) for row in res.values]
 
 
+    # -- PromQL (reference: querier/app/prometheus) --------------------------
+
+    def prom_query_range(self, params: dict) -> dict:
+        """GET /api/v1/query_range: query, start, end (epoch s), step."""
+        q = params.get("query", "")
+        try:
+            start = int(float(params.get("start", 0)))
+            end = int(float(params.get("end", 0)))
+            step = max(1, int(float(params.get("step", 15))))
+        except ValueError as e:
+            raise QueryError(f"bad time param: {e}") from None
+        with self.qtracer.start_trace("query", kind="promql",
+                                      promql=q[:200]):
+            try:
+                ast = promql.parse(q)
+                if params.get("org_id") is not None:
+                    promql.scope_to_org(ast, int(params["org_id"]))
+                with qtrace.span("execute", path="promql_range",
+                                 step=step):
+                    result = promql.evaluate(self.db, ast, start, end, step)
+            except promql.PromqlError as e:
+                return {"status": "error", "errorType": "bad_data",
+                        "error": str(e)}
+        return {"status": "success",
+                "data": {"resultType": "matrix", "result": result}}
+
+    def prom_query(self, params: dict) -> dict:
+        """GET /api/v1/query: an instant query at ``time`` (default now)."""
+        q = params.get("query", "")
+        try:
+            t = int(float(params.get("time", time.time())))
+        except ValueError as e:
+            raise QueryError(f"bad time param: {e}") from None
+        with self.qtracer.start_trace("query", kind="promql",
+                                      promql=q[:200]):
+            try:
+                ast = promql.parse(q)
+                if params.get("org_id") is not None:
+                    promql.scope_to_org(ast, int(params["org_id"]))
+                with qtrace.span("execute", path="promql_instant"):
+                    data = promql.evaluate_instant(self.db, ast, t)
+            except promql.PromqlError as e:
+                return {"status": "error", "errorType": "bad_data",
+                        "error": str(e)}
+        return {"status": "success", "data": data}
+
+    @staticmethod
+    def _prom_meta_args(params: dict) -> tuple:
+        """params is a parse_qs dict (match[] can repeat); the last hour
+        by default."""
+        matches = params.get("match[]", [])
+        now = int(time.time())
+        try:
+            start = int(float(params.get("start", [now - 3600])[0]))
+            end = int(float(params.get("end", [now])[0]))
+        except (ValueError, IndexError) as e:
+            raise QueryError(f"bad time param: {e}") from None
+        return matches, start, end
+
+    def _prom_meta(self, fn) -> dict:
+        try:
+            return {"status": "success", "data": fn()}
+        except promql.PromqlError as e:
+            return {"status": "error", "errorType": "bad_data",
+                    "error": str(e)}
+
+    def prom_series(self, params: dict) -> dict:
+        """GET /api/v1/series: the label sets of the series that match[]
+        selects (Grafana's variable queries)."""
+        matches, start, end = self._prom_meta_args(params)
+        if not matches:
+            return {"status": "error", "errorType": "bad_data",
+                    "error": "no match[] parameter"}
+        return self._prom_meta(
+            lambda: promql.series(self.db, matches, start, end))
+
+    def prom_labels(self, params: dict) -> dict:
+        matches, start, end = self._prom_meta_args(params)
+        return self._prom_meta(
+            lambda: promql.label_names(self.db, matches, start, end))
+
+    def prom_label_values(self, label: str, params: dict) -> dict:
+        matches, start, end = self._prom_meta_args(params)
+        return self._prom_meta(
+            lambda: promql.label_values(self.db, label, matches, start,
+                                        end))
+
+    # -- Tempo and the trace tree (reference: querier/tempo) -----------------
+
+    _TEMPO_DUR = {"ns": 1, "us": 1e3, "µs": 1e3, "ms": 1e6, "s": 1e9,
+                  "m": 60e9, "h": 3600e9}
+    _TEMPO_TAGS = ("service.name", "endpoint", "l7.protocol",
+                   "http.status_code")
+
+    @classmethod
+    def _tempo_duration_ns(cls, s: str) -> int:
+        m = re.match(r"^([\d.]+)(ns|us|µs|ms|s|m|h)$", s.strip())
+        if not m:
+            raise QueryError(f"bad duration {s!r}")
+        return int(float(m.group(1)) * cls._TEMPO_DUR[m.group(2)])
+
+    def _tempo_scan(self, params: dict) -> list[dict]:
+        """One partial dict per trace in the window. Tags select per
+        span, but start, end and duration are the whole trace's, so the
+        duration filters and the limit apply after the scan."""
+        tags = {}
+        for k, v_quoted, v_plain in re.findall(
+                r'([\w.]+)=(?:"([^"]*)"|(\S+))', params.get("tags", "")):
+            tags[k] = v_quoted or v_plain
+        for k in tags:
+            if k not in self._TEMPO_TAGS:
+                raise QueryError(
+                    f"unsupported search tag {k!r}; known: "
+                    f"{sorted(self._TEMPO_TAGS)}")
+        where = ["trace_id != ''"]
+        # a search always has a lower bound: an hour before its end (or
+        # before now) unless start names one
+        if params.get("start"):
+            start_ts = int(float(params["start"]))
+        else:
+            ref = (int(float(params["end"])) if params.get("end")
+                   else int(time.time()))
+            start_ts = ref - 3600
+        where.append(f"time >= {start_ts * 1_000_000_000}")
+        end_ns = None
+        if params.get("end"):
+            end_ns = int(float(params["end"])) * 1_000_000_000
+            where.append(f"time < {end_ns}")
+        traces = self._tempo_l7(start_ts * 1_000_000_000, end_ns, tags)
+
+        # the querier's own query traces answer through the same search
+        self.qtracer.flush()
+        qt = self.db.table("deepflow_system.query_trace")
+        if not len(qt):
+            return list(traces.values())
+        qres = engine.execute(
+            qt, "SELECT time, trace_id, parent_span_id, name, service, "
+                "duration_ns, status FROM t WHERE " + " AND ".join(where))
+        for t, tid, psid, name, svc, dur, status in qres.values:
+            t, dur = int(t), int(dur)
+            span_tags = {"service.name": svc or "", "endpoint": "",
+                         "l7.protocol": "query",
+                         "http.status_code": str(status)}
+            matched = all(span_tags.get(k) == v for k, v in tags.items())
+            tr = traces.get(tid)
+            if tr is None:
+                tr = traces[tid] = {
+                    "traceID": tid, "_start_ns": t, "_end_ns": t + dur,
+                    "spanCount": 1, "rootServiceName": svc or "",
+                    "rootTraceName": name or tid, "_root_t": t,
+                    "_matched": matched}
+            else:
+                tr["_start_ns"] = min(tr["_start_ns"], t)
+                tr["_end_ns"] = max(tr["_end_ns"], t + dur)
+                tr["spanCount"] += 1
+                tr["_matched"] = tr["_matched"] or matched
+            if psid == "":
+                # the coordinator root names the trace, whatever the
+                # order its spans arrive in
+                tr["_root_t"] = t
+                tr["rootServiceName"] = svc or ""
+                tr["rootTraceName"] = name or tid
+        return list(traces.values())
+
+    def _tempo_l7(self, lo_ns: int, hi_ns: int | None,
+                  tags: dict) -> dict[str, dict]:
+        """The l7_flow_log half of the Tempo scan, columnar: one partial
+        per trace in [lo_ns, hi_ns), in the order of its first row, as
+        the reference's row loop builds them (start, end, spans, the
+        earliest span as the root, whether any span matches every
+        tag)."""
+        v = self.db.table("flow_log.l7_flow_log").view()
+        names = ("time", "trace_id", "app_service", "request_type",
+                 "endpoint", "response_duration", "l7_protocol",
+                 "response_code")
+        if not v.chunks:
+            return {}
+        c = {n: np.concatenate([ch[n] for ch in v.chunks]) for n in names}
+        keep = c["time"] >= lo_ns
+        if hi_ns is not None:
+            keep &= c["time"] < hi_ns
+        empty = v.dicts["trace_id"].lookup("")
+        if empty is not None:
+            keep &= c["trace_id"] != empty
+        rows = np.flatnonzero(keep)
+        if not len(rows):
+            return {}
+        c = {n: a[rows] for n, a in c.items()}
+        t = c["time"].astype(np.int64)
+        end = t + c["response_duration"].astype(np.int64)
+        match = np.ones(len(rows), dtype=bool)
+        for k, val in tags.items():
+            if k in ("service.name", "endpoint"):
+                col = "app_service" if k == "service.name" else "endpoint"
+                code = v.dicts[col].lookup(val)
+                match &= (c[col] == code) if code is not None else False
+            elif k == "l7.protocol":
+                labels = v.columns["l7_protocol"].enum_values
+                match &= np.isin(c["l7_protocol"], [
+                    i for i, label in enumerate(labels) if label == val])
+            else:  # http.status_code, compared as str(int(code))
+                try:
+                    want = int(val)
+                except ValueError:
+                    want = None
+                match &= ((c["response_code"] == want)
+                          if want is not None and str(want) == val
+                          else False)
+        codes, first, inv = np.unique(c["trace_id"], return_index=True,
+                                      return_inverse=True)
+        n = len(codes)
+        start = np.full(n, np.iinfo(np.int64).max)
+        np.minimum.at(start, inv, t)
+        stop = np.full(n, np.iinfo(np.int64).min)
+        np.maximum.at(stop, inv, end)
+        spans = np.bincount(inv, minlength=n)
+        matched = np.bincount(inv, weights=match, minlength=n) > 0
+        # the root: the earliest span, the first row of it on a tie
+        order = np.lexsort((np.arange(len(t)), t, inv))
+        root = order[np.r_[0, np.flatnonzero(np.diff(inv[order])) + 1]]
+        d = v.dicts
+        traces: dict[str, dict] = {}
+        for g in np.argsort(first, kind="stable").tolist():
+            r = int(root[g])
+            tid = d["trace_id"].decode(int(codes[g]))
+            name = (f"{d['request_type'].decode(int(c['request_type'][r]))}"
+                    f" {d['endpoint'].decode(int(c['endpoint'][r]))}"
+                    ).strip()
+            traces[tid] = {
+                "traceID": tid, "_start_ns": int(start[g]),
+                "_end_ns": int(stop[g]), "spanCount": int(spans[g]),
+                "rootServiceName": d["app_service"].decode(
+                    int(c["app_service"][r])),
+                "rootTraceName": name or tid, "_root_t": int(t[r]),
+                "_matched": bool(matched[g])}
+        return traces
+
+    def tempo_search(self, params: dict) -> dict:
+        """GET /api/search: logfmt ``tags`` select traces (any one span
+        matching all of them), ``minDuration`` / ``maxDuration`` and the
+        time range filter them, newest first up to ``limit``; root,
+        start and duration report the whole trace."""
+        limit = max(1, min(int(params.get("limit", 20)), 500))
+        min_ns = (self._tempo_duration_ns(params["minDuration"])
+                  if params.get("minDuration") else 0)
+        max_ns = (self._tempo_duration_ns(params["maxDuration"])
+                  if params.get("maxDuration") else 0)
+        with self.qtracer.start_trace("query", kind="tempo",
+                                      tags=params.get("tags", "")):
+            with qtrace.span("execute", path="local"):
+                traces = self._tempo_scan(params)
+        out = []
+        for tr in traces:
+            if not tr["_matched"]:
+                continue
+            dur_ns = tr["_end_ns"] - tr["_start_ns"]
+            if min_ns and dur_ns < min_ns or max_ns and dur_ns > max_ns:
+                continue
+            out.append({"traceID": tr["traceID"],
+                        "rootServiceName": tr["rootServiceName"],
+                        "rootTraceName": tr["rootTraceName"],
+                        "startTimeUnixNano": str(tr["_start_ns"]),
+                        "durationMs": dur_ns // 1_000_000})
+        out.sort(key=lambda tr: -int(tr["startTimeUnixNano"]))
+        return {"traces": out[:limit],
+                "metrics": {"inspectedTraces": len(traces)}}
+
+    def tempo_search_tags(self) -> dict:
+        return {"tagNames": list(self._TEMPO_TAGS)}
+
+    def tempo_search_tag_values(self, name: str) -> dict:
+        """A tag's values from the live rows (a chunk scan, not the
+        dictionary, so trimmed values do not linger)."""
+        table = self.db.table("flow_log.l7_flow_log")
+        lo, hi = 0, 1 << 62
+        if name in ("service.name", "endpoint"):
+            col = "app_service" if name == "service.name" else "endpoint"
+            d = table.dicts[col]
+            vals = []
+            for c in promql._codes_in_range(table, col, lo, hi):
+                try:
+                    s = d.decode(c)
+                except IndexError:
+                    continue
+                if s:
+                    vals.append(s)
+        elif name == "l7.protocol":
+            enum = table.columns["l7_protocol"].enum_values
+            vals = [enum[c] for c in promql._codes_in_range(
+                table, "l7_protocol", lo, hi)
+                if 0 <= c < len(enum) and enum[c]]
+        elif name == "http.status_code":
+            vals = [str(c) for c in sorted(promql._codes_in_range(
+                table, "response_code", lo, hi)) if c]
+        else:
+            vals = []
+        return {"tagValues": sorted(vals)}
+
+    def tempo_trace(self, trace_id: str) -> dict:
+        """GET /api/traces/<id>: the trace in Tempo's shape, each span
+        with its parent."""
+        tree = self._assemble_trace(trace_id)
+        spans = []
+
+        def walk(node, parent_id=""):
+            spans.append({
+                "traceID": trace_id,
+                "spanID": node["span_id"],
+                "parentSpanID": parent_id,
+                "operationName": node["name"],
+                "serviceName": node["service"],
+                "startTimeUnixNano": str(node["start_ns"]),
+                "durationNano": str(node["duration_ns"]),
+                "tags": [{"key": "l7_protocol",
+                          "value": node["l7_protocol"]},
+                         {"key": "status", "value": node["status"]},
+                         {"key": "kind", "value": node["kind"]}],
+            })
+            for c in node["children"]:
+                walk(c, node["span_id"])
+
+        for root in tree["spans"]:
+            walk(root)
+        return {"batches": [{"spans": spans}]}
+
+    def trace(self, body: dict) -> dict:
+        """POST /v1/trace/Tracing: one trace's tree by trace_id, or by a
+        syscall chain id for flows without W3C headers; spans of the
+        configured external backends join it."""
+        trace_id = body.get("trace_id", "")
+        syscall_id = body.get("syscall_trace_id")
+        if syscall_id is not None:
+            try:
+                syscall_id = int(syscall_id)
+            except (TypeError, ValueError):
+                raise QueryError(
+                    f"bad syscall_trace_id {syscall_id!r}") from None
+            return {"result": build_syscall_trace(
+                self.db.table("flow_log.l7_flow_log"), syscall_id)}
+        if not trace_id:
+            raise QueryError("trace_id or syscall_trace_id required")
+        tree = self._assemble_trace(trace_id)
+        return {"result": self.trace_adapters.merge_into(tree, trace_id)}
+
+    def collect_trace_spans(self, trace_id: str) -> list[dict]:
+        """One trace's span dicts: its flow_log.trace_tree rows and the
+        trace builder's pending spans, else (rows ingested before any
+        tree) an l7_flow_log scan; then the querier's own query-trace
+        spans of that id."""
+        spans: list[dict] = []
+        tree_table = self.db.table("flow_log.trace_tree")
+        code = tree_table.dicts["trace_id"].lookup(trace_id)
+        if code is not None:
+            for ch in tree_table.snapshot():
+                if not ch:
+                    continue
+                for i in np.flatnonzero(ch["trace_id"] == code).tolist():
+                    spans.extend(json.loads(
+                        tree_table.dicts["tree"].decode(int(ch["tree"][i]))))
+        if self.trace_trees is not None:
+            spans.extend(self.trace_trees.pending_spans(trace_id))
+        if not spans:
+            spans = scan_trace_spans(self.db.table("flow_log.l7_flow_log"),
+                                     trace_id)
+        spans.extend(self._query_trace_spans(trace_id))
+        return spans
+
+    def _query_trace_spans(self, trace_id: str) -> list[dict]:
+        """deepflow_system.query_trace's spans of one trace, with the
+        tracer's unflushed ones (read-your-writes)."""
+        qt = self.db.table("deepflow_system.query_trace")
+        code = qt.dicts["trace_id"].lookup(trace_id)
+        rows: list[dict] = []
+        if code is not None:
+            for ch in qt.snapshot():
+                if not ch:
+                    continue
+                for i in np.flatnonzero(ch["trace_id"] == code).tolist():
+                    row = {}
+                    for name, arr in ch.items():
+                        spec = qt.columns[name]
+                        v = arr[i]
+                        if spec.kind == "str":
+                            row[name] = qt.dicts[name].decode(int(v))
+                        elif spec.kind == "enum":
+                            row[name] = spec.enum_values[int(v)]
+                        else:
+                            row[name] = int(v)
+                    rows.append(row)
+        spans = qtrace.spans_from_rows(rows)
+        spans.extend(self.qtracer.pending_spans(trace_id))
+        return spans
+
+    def _assemble_trace(self, trace_id: str, max_spans: int = 1000) -> dict:
+        return build_trace_from_spans(
+            trace_id, self.collect_trace_spans(trace_id),
+            tpu_table=self.db.table("profile.tpu_hlo_span"),
+            max_spans=max_spans)
+
+    def trace_search(self, body: dict) -> dict:
+        """POST /v1/trace/Search: the traces whose service path holds
+        ``service_path`` (a list, or "a>b"), over the stored trees and
+        the pending ones. Body: service_path, root_service, from_ns,
+        to_ns, min_duration_ns, limit."""
+        body = body or {}
+        path = body.get("service_path") or []
+        if isinstance(path, str):
+            path = [p for p in path.split(">") if p]
+        pending = (self.trace_trees.pending_summaries()
+                   if self.trace_trees is not None else None)
+        hits = tt.search(
+            self.db.table("flow_log.trace_tree"),
+            service_path_query=[str(p) for p in path],
+            root_service=body.get("root_service"),
+            time_from_ns=int(body.get("from_ns", 0) or 0),
+            time_to_ns=int(body.get("to_ns", 0) or 0),
+            min_duration_ns=int(body.get("min_duration_ns", 0) or 0),
+            limit=int(body.get("limit", 50) or 50),
+            pending=pending)
+        return {"result": {"traces": hits, "count": len(hits)}}
+
+    def tracing_adapters_api(self, body: dict | None = None) -> dict:
+        """POST /v1/tracing-adapters: {"kind": "jaeger" | "otlp",
+        "base_url"} adds a backend, {"remove": base_url} drops one; the
+        list either way."""
+        if body and body.get("remove"):
+            return {"removed": self.trace_adapters.remove(
+                str(body["remove"])),
+                "adapters": self.trace_adapters.list()}
+        if body and body.get("kind"):
+            try:
+                self.trace_adapters.add(str(body["kind"]),
+                                        str(body.get("base_url", "")))
+            except ValueError as e:
+                raise QueryError(str(e)) from None
+        return {"adapters": self.trace_adapters.list()}
+
+
 class QuerierHTTP:
-    """The querier's HTTP server: POST /v1/query, the profile POST routes
-    and GET /v1/health."""
+    """The querier's HTTP server: POST /v1/query, the profile and trace
+    POST routes, GET /v1/health and the PromQL and Tempo GET routes."""
 
     def __init__(self, api: QuerierAPI, host: str = "127.0.0.1",
                  port: int = 20416) -> None:
@@ -514,6 +1007,9 @@ class QuerierHTTP:
             "/v1/tpu/steps": api.tpu_steps,
             "/v1/tpu/steps/critical_path": api.tpu_step_critical_path,
             "/v1/profile/TpuMemory": api.tpu_memory,
+            "/v1/trace/Tracing": api.trace,
+            "/v1/trace/Search": api.trace_search,
+            "/v1/tracing-adapters": api.tracing_adapters_api,
         }
 
         class Handler(BaseHTTPRequestHandler):
@@ -528,12 +1024,51 @@ class QuerierHTTP:
                 self.end_headers()
                 self.wfile.write(data)
 
+            def _get(self, path: str, query: str):
+                params = dict(parse_qsl(query))
+                if path in ("/v1/health", "/health"):
+                    return api.health()
+                if path.startswith("/prom/"):
+                    path = path[len("/prom"):]
+                if path == "/api/v1/query_range":
+                    return api.prom_query_range(params)
+                if path == "/api/v1/query":
+                    return api.prom_query(params)
+                if path == "/api/v1/series":
+                    return api.prom_series(parse_qs(query))
+                if path == "/api/v1/labels":
+                    return api.prom_labels(parse_qs(query))
+                if (path.startswith("/api/v1/label/")
+                        and path.endswith("/values")):
+                    label = path[len("/api/v1/label/"):-len("/values")]
+                    return api.prom_label_values(label, parse_qs(query))
+                if path.startswith("/api/traces/"):
+                    return api.tempo_trace(path.rsplit("/", 1)[-1])
+                if path == "/api/echo":  # Tempo's datasource health
+                    return {"status": "echo"}
+                if path == "/api/search":
+                    return api.tempo_search(params)
+                if path == "/api/search/tags":
+                    return api.tempo_search_tags()
+                if (path.startswith("/api/search/tag/")
+                        and path.endswith("/values")):
+                    return api.tempo_search_tag_values(
+                        path[len("/api/search/tag/"):-len("/values")])
+                return None
+
             def do_GET(self) -> None:
-                if self.path.split("?")[0].rstrip("/") in ("/v1/health",
-                                                           "/health"):
-                    self._send(200, api.health())
-                else:
-                    self._send(404, {"error": f"no route {self.path}"})
+                parsed = urlparse(self.path)
+                try:
+                    out = self._get(parsed.path.rstrip("/"), parsed.query)
+                    if out is None:
+                        self._send(404, {"error": f"no route {self.path}"})
+                    else:
+                        self._send(200, out)
+                except (QueryError, S.SqlError, KeyError, ValueError) as e:
+                    self._send(400, {"error": str(e)})
+                except Exception as e:
+                    log.exception("querier 500")
+                    self._send(500, {"error": f"{type(e).__name__}: {e}"})
 
             def do_POST(self) -> None:
                 try:

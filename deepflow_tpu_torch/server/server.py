@@ -13,10 +13,14 @@ querier's hop ledgers and heartbeats, and a
 ``DeadmanDetector`` watches them; ``GET /v1/health`` shows both, and the
 agents' self-telemetry from their DFSTATS rows. A ``Janitor`` trims the
 tables to their TTLs (``server/janitor.py``); its stats show there too.
+A ``RollupJob`` rolls the 1 s flow-metric tables into their 1m, 1h and
+1d tiers (``server/datasource.py``), and a ``TraceTreeBuilder`` turns
+the L7 rows that carry a trace id into ``flow_log.trace_tree`` rows
+(``server/tracetree.py``); both show in ``/v1/health``.
 ``selfmon=None`` honours DF_NO_SELFMON; DF_CHAOS reaches the receiver.
-The server touches no device and imports no torch; TPU_SPAN frames
-decode with the native library, which starting the server builds (or
-raises).
+The server touches no device and imports no torch; span, flow-log and
+metric-document frames decode with the native library, which starting
+the server builds (or raises).
 
     python -m deepflow_tpu_torch.server [--host H] [--ingest-port P]
                                         [--query-port Q]
@@ -36,6 +40,7 @@ import threading
 import time
 
 from deepflow_tpu_torch.codec import MessageType
+from deepflow_tpu_torch.server.datasource import RollupJob
 from deepflow_tpu_torch.server.decoders import (
     DedupWindow, FlowLogDecoder, MetricsDecoder, ProfileDecoder,
     StatsDecoder, StepMetricsDecoder, TpuSpanDecoder)
@@ -43,6 +48,7 @@ from deepflow_tpu_torch.server.janitor import Janitor
 from deepflow_tpu_torch.server.platform_info import PlatformInfoTable
 from deepflow_tpu_torch.server.querier import QuerierAPI, QuerierHTTP
 from deepflow_tpu_torch.server.receiver import Receiver
+from deepflow_tpu_torch.server.tracetree import TraceTreeBuilder
 from deepflow_tpu_torch.store.db import Database
 from deepflow_tpu_torch.telemetry import DeadmanDetector, Telemetry
 
@@ -66,8 +72,12 @@ class Server:
         self.receiver.dedup = self.dedup
         self.decoders = []
         self.janitor = Janitor(self.db, telemetry=self.telemetry)
+        self.rollup = RollupJob(self.db)
+        # ingest-time trace precompute (reference: tracetree_writer.go)
+        self.trace_trees = TraceTreeBuilder(self.db)
         self.api = QuerierAPI(self.db, stats_provider=self._stats,
-                              telemetry=self.telemetry)
+                              telemetry=self.telemetry, rollup=self.rollup,
+                              trace_trees=self.trace_trees)
         self.http = QuerierHTTP(self.api, host=host, port=query_port)
 
     def _stats(self) -> dict:
@@ -77,6 +87,10 @@ class Server:
                          for d in self.decoders},
             "dedup": dict(self.dedup.stats),
             "janitor": dict(self.janitor.stats),
+            "rollup": {**self.rollup.stats, "horizons": {
+                f"{fam}.{sfx}": wm
+                for (fam, sfx), wm in self.rollup.horizons().items()}},
+            "trace_trees": dict(self.trace_trees.stats),
         }
 
     def start(self) -> "Server":
@@ -89,10 +103,14 @@ class Server:
                            (MetricsDecoder, MessageType.METRICS),
                            (StatsDecoder, MessageType.DFSTATS)):
             q = self.receiver.register(mtype)
+            kw = ({"trace_trees": self.trace_trees}
+                  if cls is FlowLogDecoder else {})
             self.decoders.append(cls(
                 q, self.db, self.platform, dedup=self.dedup,
                 seq_tracker=self.receiver.seq_tracker,
-                telemetry=self.telemetry, msg_type=mtype).start())
+                telemetry=self.telemetry, msg_type=mtype, **kw).start())
+        self.trace_trees.start()
+        self.rollup.start()
         self.janitor.start()
         self.deadman.start()
         self.receiver.start()
@@ -108,6 +126,8 @@ class Server:
         self.receiver.stop()
         for d in self.decoders:
             d.stop()
+        self.trace_trees.stop()  # writes the traces still pending
+        self.rollup.stop()
         self.janitor.stop()
         self.http.stop()
 

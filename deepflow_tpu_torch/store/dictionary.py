@@ -137,7 +137,7 @@ class Dictionary:
         with self._lock:
             return (self.gen, len(self._strings), self.version)
 
-    def _snapshot(self) -> list[str]:
+    def snapshot(self) -> list[str]:
         with self._lock:
             return list(self._strings)
 
@@ -146,13 +146,13 @@ class Dictionary:
         string filters resolve over the (small) dictionary, not the
         rows."""
         return np.fromiter(
-            (i for i, s in enumerate(self._snapshot()) if predicate(s)),
+            (i for i, s in enumerate(self.snapshot()) if predicate(s)),
             dtype=np.uint32)
 
     def collation_ranks(self) -> np.ndarray:
         """int64 rank of every id in the strings' sort order. Ids follow
         insertion order, so ORDER BY over a str column sorts by these."""
-        strs = np.asarray(self._snapshot(), dtype=object)
+        strs = np.asarray(self.snapshot(), dtype=object)
         rank = np.empty(len(strs), dtype=np.int64)
         rank[np.argsort(strs, kind="stable")] = np.arange(
             len(strs), dtype=np.int64)

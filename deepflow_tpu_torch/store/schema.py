@@ -2,11 +2,12 @@
 querier's own query traces land.
 
 Own copy of the profile, flow-log, 1 s flow-metric, self-telemetry and
-query-trace parts of ``deepflow_tpu/store/schema.py``: the same table
-names, columns, kinds and defaults, so rows and queries mean the same in
-both packages. Times are u64 nanoseconds, but for the flow-metric tables'
-u32 epoch seconds. The 1m, 1h and 1d rollups, ``flow_log.trace_tree`` and
-the ``event`` tables are not ported yet.
+query-trace parts of ``deepflow_tpu/store/schema.py``, with the
+flow-metric rollups (1m, 1h, 1d) and ``flow_log.trace_tree``: the same
+table names, columns, kinds and defaults, so rows and queries mean the
+same in both packages. Times are u64 nanoseconds, but for the
+flow-metric tables' u32 epoch seconds. The ``event`` tables are not
+ported yet.
 """
 
 from __future__ import annotations
@@ -52,6 +53,10 @@ UNIVERSAL_TAGS = [
 # Per-side resource tags (side 0 = ip_src, side 1 = ip_dst), resolved by
 # IP at ingest in the reference; the port has no resource index yet, so
 # they stay empty but keep the rows' shape and the queries' names.
+SIDE_TAG_NAMES = ("pod", "pod_ns", "workload", "service", "node", "az",
+                  "subnet")
+
+
 def _side_tags(side: str) -> list[C]:
     return [
         C(f"pod_ns_{side}", "str"),
@@ -234,8 +239,22 @@ _table("flow_log.l7_flow_log", [
     *UNIVERSAL_TAGS,
 ])
 
-# -- flow metrics, 1 s (reference: server/libs/flow-metrics) ---------------
-_table("flow_metrics.network.1s", [
+# precomputed trace trees: one row per (trace_id, flush window), written
+# at ingest by the TraceTreeBuilder (server/tracetree.py), so trace
+# assembly touches only that trace's rows and service-path search never
+# scans l7_flow_log
+_table("flow_log.trace_tree", [
+    C("time", "u64"),                   # earliest span start ns
+    C("trace_id", "str"),
+    C("span_count", "u32"),
+    C("duration_ns", "u64"),
+    C("root_service", "str"),
+    C("services", "str"),               # json: DFS-ordered service path
+    C("tree", "str"),                   # json: encoded span list
+])
+
+# -- flow metrics, 1 s and the rollups (reference: server/libs/flow-metrics)
+_NETWORK_COLS = [
     C("time", "u32"),                   # epoch seconds
     C("ip_src", "str"),
     C("ip_dst", "str"),
@@ -258,9 +277,11 @@ _table("flow_metrics.network.1s", [
     C("pod_1", "str"),
     *PER_SIDE_TAGS,
     *UNIVERSAL_TAGS,
-])
+]
+for _sfx in ("1s", "1m", "1h", "1d"):
+    _table(f"flow_metrics.network.{_sfx}", list(_NETWORK_COLS))
 
-_table("flow_metrics.application.1s", [
+_APP_COLS = [
     C("time", "u32"),
     C("ip_src", "str"),
     C("ip_dst", "str"),
@@ -279,7 +300,14 @@ _table("flow_metrics.application.1s", [
     C("pod_1", "str"),
     *PER_SIDE_TAGS,
     *UNIVERSAL_TAGS,
-])
+]
+_table("flow_metrics.application.1s", list(_APP_COLS))
+# the rollup tiers also carry a mergeable latency-distribution state
+# (query/sketch.py, JSON) built from the raw rrt_max values: PERCENTILE()
+# over a long range answers from it within the sketch's error bound
+for _sfx in ("1m", "1h", "1d"):
+    _table(f"flow_metrics.application.{_sfx}",
+           list(_APP_COLS) + [C("rrt_max_sketch", "str")])
 
 # the agents' self-stats: one row per (metric, value name) per emit
 _table("deepflow_system.deepflow_system", [

@@ -3,6 +3,7 @@ subcommand, run against a port server, must print what the reference's
 dfctl prints against a reference server fed the same frames; an error
 answer must end both the same way."""
 
+import json
 import os
 import subprocess
 import sys
@@ -156,3 +157,114 @@ def test_runs_as_a_module(pair, capsys):
     assert out.stdout == _run(dfctl.main, port.query_port, ["tpu-flame"],
                               capsys)[0]
     assert "sm90_xmma_gemm" in out.stdout
+
+
+# -- the flow tables' datasources: promql, trace, trace-search, query-trace,
+# datasources
+
+import test_torch_promql as tp  # noqa: E402
+import test_torch_tempo as tt  # noqa: E402
+
+S0, S1 = tt.SEARCH_S
+FLOW_COMMANDS = [
+    ["promql", "sum by (server_port) "
+               "(rate(flow_metrics_application_request[1m]))",
+     "--time", str(tp.END)],
+    ["promql", "histogram_quantile(0.9, sum by (le) "
+               "(rate(deepflow_system_req_latency_bucket[1m])))",
+     "--start", str(tp.START), "--end", str(tp.END), "--step", "60"],
+    ["promql", "scalar(sum(flow_metrics_network_byte_tx))",
+     "--time", str(tp.END)],
+    ["promql", "sum(flow_metrics_network_byte_tx)", "--time", str(tp.END),
+     "--org", "2"],
+    ["trace", tt.trace_id(0)],
+    ["trace", tt.trace_id(tt.N_TRACES - 1)],
+    ["trace-search", "--tags", 'endpoint="/cart"', "--start", str(S0),
+     "--end", str(S1)],
+    ["trace-search", "--min-duration", "20ms", "--start", str(S0), "--end",
+     str(S1), "--limit", "4"],
+]
+
+
+@pytest.fixture(scope="module")
+def flow_pair():
+    """A reference and a port server holding the same flow rows and L7
+    trace frames."""
+    from deepflow_tpu_torch.codec import FrameHeader, MessageType, \
+        encode_frame
+    ref, port = ts._start_pair()
+    try:
+        net, app, sysrows = tp._rows(0)
+        for srv in (ref, port):
+            srv.db.table("flow_metrics.network.1s").append_rows(net)
+            srv.db.table("flow_metrics.application.1s").append_rows(app)
+            srv.db.table("deepflow_system.deepflow_system").append_rows(
+                sysrows)
+        frames = [encode_frame(FrameHeader(msg_type=MessageType.L7_LOG,
+                                           agent_id=agent), payload)
+                  for agent, payload, _ in tt._frames(0)]
+        ts._ingest((ref, port), frames,
+                   {"flow_log.l7_flow_log": 4 * tt.N_TRACES})
+        yield ref, port
+    finally:
+        ref.stop()
+        port.stop()
+
+
+@pytest.mark.parametrize("args", FLOW_COMMANDS,
+                         ids=lambda a: " ".join(a)[:60])
+def test_flow_subcommand_prints_like_reference(flow_pair, args, capsys):
+    ref, port = flow_pair
+    want = _run(ref_dfctl.main, ref.query_port, args, capsys)
+    got = _run(dfctl.main, port.query_port, args, capsys)
+    assert got == want
+    assert got[1] == "rc 0" and got[0]
+
+
+@pytest.mark.parametrize("args", [
+    ["promql", "rate(", "--time", "0"],
+    ["promql", "flow_metrics_network_byte_tx", "--start", "5"],
+    ["trace-search", "--min-duration", "5 parsecs"],
+], ids=lambda a: " ".join(a)[:60])
+def test_flow_errors_end_like_reference(flow_pair, args, capsys):
+    ref, port = flow_pair
+    assert _run(dfctl.main, port.query_port, args, capsys) == \
+        _run(ref_dfctl.main, ref.query_port, args, capsys)
+
+
+@pytest.mark.parametrize("flame", [False, True])
+def test_query_trace_reads_a_query_just_served(flow_pair, capsys, flame):
+    """EXPLAIN ANALYZE on the port's server, then ``query-trace`` of its
+    trace id at once (the tracer's pending spans: read-your-writes) shows
+    the query's stages, as the reference's does of its own query."""
+    import re
+    ref, port = flow_pair
+    sql = ("EXPLAIN ANALYZE SELECT host, Sum(byte_tx) AS b FROM "
+           "flow_metrics.network.1s GROUP BY host")
+    names = []
+    for main, srv in ((ref_dfctl.main, ref), (dfctl.main, port)):
+        tid = srv.api.query({"sql": sql})["explain"]["trace_id"]
+        out, end = _run(main, srv.query_port,
+                        ["query-trace", tid, *(["--flame"] if flame
+                                               else [])], capsys)
+        assert end == "rc 0", out
+        # the span names, less the timings and the querier's shard name
+        names.append(sorted(set(re.findall(r"\b(query|plan|execute|"
+                                           r"cache\.lookup|scan\w*)\b",
+                                           out))))
+    assert names[0] == names[1] and "execute" in names[1]
+
+
+def test_datasources_lists_tiers_and_horizons(flow_pair, capsys):
+    _, port = flow_pair
+    port.rollup.roll(tp.T0 + tp.SPAN_S + 4000)
+    out, end = _run(dfctl.main, port.query_port, ["datasources"], capsys)
+    assert end == "rc 0"
+    import re
+    assert re.search(r"flow_metrics.application.1m\s+1m\s+\d+", out)
+    horizon = (tp.T0 + tp.SPAN_S + 4000 - 90) // 60 * 60
+    assert re.search(rf"flow_metrics.network.1m\s+{horizon}\b", out)
+    js, _ = _run(dfctl.main, port.query_port, ["datasources", "--json"],
+                 capsys)
+    assert json.loads(js)["rollup_horizons"][
+        "flow_metrics.network.1m"] == horizon

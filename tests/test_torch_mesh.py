@@ -161,16 +161,48 @@ def test_tiny_replicates_kv_heads_over_the_tensor_axis(world):
         jax.tree.leaves(tree), F32_UPDATE_RTOL)
 
 
+STRADDLING = [{"n_heads": 6}, {"n_heads": 6, "d_model": 48}]
+
+
+@pytest.mark.parametrize("kw", STRADDLING, ids=str)
+def test_heads_that_straddle_ranks_match_reference(world, kw):
+    """Six query heads on four tensor ranks (head_dim 10, then 8): the
+    reference cuts wq's 60 (48) columns into blocks of 15 (12), so heads
+    and the GQA groups of the two KV heads straddle ranks. The port
+    gathers each rank's query, key and value columns, attends with all
+    heads and keeps its columns: two float32 steps match the reference's
+    sharded step within the dividing shapes' tolerances, and per layer
+    the three gathers each way join the two row- and two column-parallel
+    products."""
+    shape = (1, 1, 4)
+    tree, tokens, want, want_params = _reference(shape, jnp.float32, 2,
+                                                 kw=kw)
+    got = world.run("train", shape, "float32", kw, tree, tokens, 2)
+    for losses, _, calls in got:
+        np.testing.assert_allclose(losses, want, rtol=F32_LOSS_RTOL)
+        assert losses == got[0][0]
+        assert calls == {"tensor": (4 + 6) * 2 + 1 + 1 + 3}
+    torch_world.assert_updates_close(
+        jax.tree.leaves(got[0][1]), jax.tree.leaves(want_params),
+        jax.tree.leaves(tree), F32_UPDATE_RTOL)
+
+
 def test_heads_that_do_not_divide_raise(world):
-    """Query heads that do not divide over the tensor axis (6 on 4): the
-    reference's GSPMD cuts them unevenly; the port refuses and names the
-    constraint. KV heads fewer than the tensor ranks are replicated
-    (above), so tiny() builds on (1, 1, 4) as on (1, 2, 2)."""
-    got = world.run("construct", (1, 1, 4), "float32", {"n_heads": 6})
-    assert all("n_heads = 6 does not divide by the tensor axis of 4"
-               in msg for msg in got), got
+    """Heads need not divide over the tensor axis (6 on 4 builds and
+    trains, above), but every dimension param_specs cuts must: d_ff = 130
+    on a tensor axis of 4 is refused by the reference's device_put and by
+    the port, which names the dimension; d_model over fsdp likewise."""
+    assert world.run("construct", (1, 1, 4), "float32",
+                     {"n_heads": 6}) == ["ok"] * 4
     assert world.run("construct", (1, 1, 4), "float32", {}) == ["ok"] * 4
     assert world.run("construct", (1, 2, 2), "float32", {}) == ["ok"] * 4
+    got = world.run("construct", (1, 1, 4), "float32", {"d_ff": 130})
+    assert all("d_ff = 130 does not divide by the tensor axis of 4"
+               in msg for msg in got), got
+    cfg = jl.LlamaConfig.tiny(dtype=jnp.float32, d_ff=130)
+    params = jl.init_params(cfg, jax.random.key(0))
+    with pytest.raises(ValueError, match="divisible by 4"):
+        jm.shard_params(params, jl.param_specs(cfg), _jax_mesh((1, 1, 4)))
     with pytest.raises(ValueError, match="d_model = 64 does not divide"):
         tl._check_divides(tl.LlamaConfig.tiny(), tl._Axes(
             *(tl.pc.Axis(a, None, n, 0) for a, n in

@@ -469,7 +469,10 @@ def test_port_imports_no_jax_and_no_reference():
                 "agent/flow_map.py", "agent/collector.py",
                 "agent/dispatcher.py", "agent/native_flow.py",
                 "agent/live_capture.py", "agent/protocol_logs/base.py",
-                "proto/pbwire.py"):
+                "proto/pbwire.py", "native/__main__.py",
+                "server/datasource.py", "server/tracetree.py",
+                "query/datasource.py", "query/tracing.py",
+                "query/tracing_adapter.py", "query/promql.py"):
         assert os.path.join(ROOT, "deepflow_tpu_torch", mod) in files, mod
     for path in files:
         with open(path) as f:
@@ -514,7 +517,12 @@ def test_port_import_leaves_jax_unloaded():
     "deepflow_tpu_torch.agent.dispatcher",
     "deepflow_tpu_torch.agent.native_flow",
     "deepflow_tpu_torch.agent.live_capture",
-    "deepflow_tpu_torch.agent.agent", "deepflow_tpu_torch.agent.__main__"])
+    "deepflow_tpu_torch.agent.agent", "deepflow_tpu_torch.agent.__main__",
+    # the flow tables' readers and the native self-check
+    "deepflow_tpu_torch.server.datasource",
+    "deepflow_tpu_torch.server.tracetree", "deepflow_tpu_torch.query.promql",
+    "deepflow_tpu_torch.query.tracing_adapter",
+    "deepflow_tpu_torch.native.__main__"])
 def test_server_and_dfctl_import_leaves_torch_unloaded(module):
     """The server, dfctl and the flow path touch no device, so importing
     them in a fresh interpreter loads no torch; the package still gives

@@ -17,7 +17,9 @@ import test_torch_query_parallel as tqp
 from deepflow_tpu.query.cache import QueryCache as RefCache
 from deepflow_tpu.query.cache import change_token as ref_change_token
 from deepflow_tpu_torch.query import engine
+from deepflow_tpu_torch.query import pool as qpool
 from deepflow_tpu_torch.query.cache import QueryCache, change_token
+from deepflow_tpu_torch.query.costmodel import KernelCostModel
 from deepflow_tpu_torch.telemetry import Telemetry
 
 BASE_NS, MINUTE = tqp.BASE_NS, tqp.MINUTE
@@ -62,6 +64,43 @@ def test_exact_bucket_invalidation_like_reference():
     old = {v[0]: v for v in r1["values"]}
     new = {v[0]: v for v in r3["values"]}
     assert new["gemm"][1:] == [old["gemm"][1] + 1, old["gemm"][2] + 7]
+    assert pc.counters == rc.counters
+
+
+@pytest.mark.parametrize("how", ["serial", "pool"])
+def test_bucket_refill_either_way_like_reference(how, monkeypatch):
+    """Stale buckets refill one after another or on the scan pool, as
+    the table's refill model chooses: the reference's answers and
+    counters either way, and the time observed for the way taken."""
+    monkeypatch.setenv("DF_QUERY_THREADS", "4")
+    ref, port, rc, pc = _caches()
+    model = KernelCostModel(kernels=("serial", "pool"))
+    model.choose = lambda n: how
+    pc._refill[port.name] = model
+    before = qpool.stats()["dispatched"]
+    _both(ref, port, rc, pc)
+    # the pool counts each bucket it took; the serial loop none
+    assert (qpool.stats()["dispatched"] > before) == (how == "pool")
+    assert pc.counters["bucket_misses"] == len(port.bucket_marks()[1]) >= 3
+    other = "pool" if how == "serial" else "serial"
+    assert model.coef[how] > 0 and model.coef[other] is None
+    assert pc.counters == rc.counters
+
+
+@pytest.mark.parametrize("rows,first", [(600, "serial"), (1200, "pool")])
+def test_bucket_refill_measures_both_ways_first(rows, first, monkeypatch):
+    """A table's first cold fill refills serially under four morsels of
+    rows and on the pool from four up, its second the other way; from
+    then on the cheaper prediction is taken."""
+    monkeypatch.setenv("DF_QUERY_THREADS", "4")
+    monkeypatch.setenv("DF_QUERY_MORSEL_ROWS", "256")  # four: 1,024 rows
+    ref, port, rc, pc = _caches(tqp._rows(rows, seed=11, minutes=3))
+    _both(ref, port, rc, pc)
+    model = pc._refill[port.name]
+    second = "pool" if first == "serial" else "serial"
+    assert model.coef[first] > 0 and model.coef[second] is None
+    _both(ref, port, rc, pc, SQL + " LIMIT 5")
+    assert model.coef[second] > 0
     assert pc.counters == rc.counters
 
 

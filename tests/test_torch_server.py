@@ -47,7 +47,12 @@ TABLES = ("profile.tpu_hlo_span", "profile.tpu_memory",
 # the reference names them
 FLOW_TABLES = ("flow_log.l4_flow_log", "flow_log.l7_flow_log",
                "flow_metrics.network.1s", "flow_metrics.application.1s")
-SCHEMA_TABLES = TABLES + ("deepflow_system.query_trace",) + FLOW_TABLES
+# the rollups and the trace trees the server derives from them
+DERIVED_TABLES = tuple(f"flow_metrics.{fam}.{sfx}"
+                       for fam in ("network", "application")
+                       for sfx in ("1m", "1h", "1d")) + ("flow_log.trace_tree",)
+SCHEMA_TABLES = (TABLES + ("deepflow_system.query_trace",) + FLOW_TABLES
+                 + DERIVED_TABLES)
 QUERIES = ("tpu_flame", "tpu_memory", "tpu_collectives", "tpu_step_trace",
            "tpu_steps", "tpu_step_critical_path", "profile_tracing")
 
@@ -181,7 +186,7 @@ def _frames():
               # the querier's own spans: no query has run yet
               "deepflow_system.query_trace": 0,
               # no flow frames (test_torch_flow_ingest.py sends those)
-              **dict.fromkeys(FLOW_TABLES, 0),
+              **dict.fromkeys(FLOW_TABLES + DERIVED_TABLES, 0),
               **more_counts}
     return frames, counts
 

@@ -214,6 +214,15 @@ ROLES = {
                                 "server_port", "byte_tx"),
     "flow_metrics.application.1s": ("ip_dst", "app_service", "l7_protocol",
                                     "server_port", "rrt_sum"),
+    **{f"flow_metrics.network.{sfx}": ("ip_src", "ip_dst", "protocol",
+                                       "server_port", "byte_tx")
+       for sfx in ("1m", "1h", "1d")},
+    **{f"flow_metrics.application.{sfx}": ("ip_dst", "app_service",
+                                           "l7_protocol", "server_port",
+                                           "rrt_sum")
+       for sfx in ("1m", "1h", "1d")},
+    "flow_log.trace_tree": ("root_service", "trace_id", None, "span_count",
+                            "duration_ns"),
 }
 TABLES = tuple(ROLES)
 
@@ -261,6 +270,14 @@ TEMPLATES = [
     "AND time < 1760000003000000000 GROUP BY {K}",
     "SELECT Max({M}) - Min({M}) AS spread, Avg({K}) * 2 AS a2 FROM t "
     "HAVING Count() >= 1",
+    # several ranges on one column, as the query cache's bucket scans
+    # make them: they fold into one (engine._fold_ranges)
+    "SELECT {S}, Sum({M}) AS s, Count() AS n FROM t "
+    "WHERE time >= 1760000005000000000 AND {K} >= 1 "
+    "AND time < 1760000025000000000 AND {K} <= 3 "
+    "AND time >= 1760000010000000000 GROUP BY {S} ORDER BY {S}",
+    "SELECT Count() AS n, Sum({M}) AS s FROM t "
+    "WHERE {K} >= 3 AND time >= 0 AND {K} < 3",
 ]
 ENUM_TEMPLATES = [
     "SELECT {E}, Count() AS n FROM t WHERE {E} IN ('{L1}', 'nope') "
@@ -274,7 +291,10 @@ ENUM_TEMPLATES = [
 
 def _queries(table: str) -> list[str]:
     s, s2, e, k, m = ROLES[table]
-    out = [q.format(S=s, S2=s2, K=k, M=m) for q in TEMPLATES]
+    # flow_log.trace_tree carries no universal tags, org_id among them
+    scoped = any(c.name == "org_id" for c in schema.TABLES[table])
+    out = [q.format(S=s, S2=s2, K=k, M=m) for q in TEMPLATES
+           if scoped or "org_id" not in q]
     if e is not None:
         label = schema.TABLES[table]
         label = next(c for c in label if c.name == e).enum_values[1]
@@ -426,6 +446,22 @@ def test_bad_query_fails_like_reference(tables, sql):
         engine.execute(port, sql)
 
 
+def test_ranges_on_one_column_fold_into_one():
+    """Conjunct ranges on a column intersect into one primitive at the
+    first one's place; an empty intersection is "never"."""
+    port = ColumnarTable("flow_metrics.network.1s",
+                         schema.TABLES["flow_metrics.network.1s"])
+    where = S.parse("SELECT byte_tx FROM t WHERE time >= 100 AND "
+                    "server_port = 80 AND time < 500 AND time >= 160 "
+                    "AND time <= 219").where
+    assert engine._filter_prims(port, where) == [
+        ("range", "time", 160, 219), ("range", "server_port", 80, 80)]
+    where = S.parse("SELECT byte_tx FROM t WHERE server_port > 80 "
+                    "AND server_port < 81").where
+    assert engine._filter_prims(port, where) == [
+        ("never", "server_port", 0, 0)]
+
+
 def test_unseen_strings_match_nothing_and_order_by_collation():
     """A string the dictionary never saw matches no row in =, IN and
     LIKE (and every row in !=); ids follow insertion order, so < and
@@ -509,8 +545,10 @@ def test_show_databases_and_tables_are_the_ports():
     assert catalog.show("databases") == {
         "columns": ["name"], "values": [["deepflow_system"], ["flow_log"],
                                         ["flow_metrics"], ["profile"]]}
+    assert catalog.show("tags", "flow_log.trace_tree") == \
+        ref_catalog.show("tags", "flow_log.trace_tree")
     with pytest.raises(KeyError):
-        catalog.show("tags", "flow_log.trace_tree")  # not in the port
+        catalog.show("tags", "event.event")  # not in the port
 
 
 def test_derived_metric_rewrite_like_reference(monkeypatch):
