@@ -60,8 +60,10 @@ def main() -> int:
     captures = []
     parse = sources.extract_device_spans
 
-    def wrapped(trace, steps, rank=None):
-        events = parse(trace, steps, rank=rank)
+    def wrapped(trace, steps, rank=None, **kw):
+        # the parser's keywords (the call log, communicator sizes, the
+        # world) pass through as the probe gives them
+        events = parse(trace, steps, rank=rank, **kw)
         captures.append(_edges(trace, steps, events))
         return events
     sources.extract_device_spans = wrapped

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Run some of chip_smoke.py's phases alone, for a shorter call.
 
-    python3 chip_phases.py resnet dp parallel mp flows
+    python3 chip_phases.py resnet dp parallel mp flows control
 
 The device phase (the card's name and power limit) first, then each named
 phase (``resnet``: ResNet-50 trained with the probe in this process;
@@ -9,7 +9,9 @@ phase (``resnet``: ResNet-50 trained with the probe in this process;
 GPU, shipping into a server process; ``parallel``: chip_parallel.py's
 checks on every GPU; ``mp``: the sharded Llama-7B example on every GPU,
 plain and shipping into a server process; ``flows``: the flow/L7 agent
-on the card's host, chip_flows.py) with the same checks as the smoke.
+on the card's host, chip_flows.py; ``control``: the control plane with
+two jobs on the card, chip_control.py) with the same checks as the
+smoke.
 The numbers land in results/chip_phases.json; a failed check raises.
 """
 
@@ -30,7 +32,8 @@ def main(names: list[str]) -> int:
               "dp": lambda res: cs.dp_phase(torch, res),
               "parallel": lambda res: cs.parallel_phase(torch, res),
               "mp": lambda res: cs.mp_phase(torch, res),
-              "flows": lambda res: cs.flows_phase(res)}
+              "flows": lambda res: cs.flows_phase(res),
+              "control": lambda res: cs.control_phase(res)}
     unknown = [n for n in names if n not in phases]
     if unknown or not names:
         print(f"chip_phases: name phases among {sorted(phases)}",

@@ -123,9 +123,10 @@ Phases, each printing its own lines:
    the per-op sums;
 10. dp: the example with --preset resnet50 (batch 128 per rank) under
    python -m torch.distributed.run --nproc-per-node N (N = the GPUs
-   visible) and the zero-code runner, shipping live into a fresh server
-   process. Every rank must train DP_STEPS steps with the same mean loss
-   at each step, its span rows must land under agent id rank + 1 with
+   visible) and the zero-code runner with --controller, shipping live
+   into a fresh server process. Every rank must train DP_STEPS steps with
+   the same mean loss at each step, its span rows must land under the id
+   the controller assigned it (one a rank) with
    device_id = chip_id = rank, exactly as many as its probe sent, its
    stats rows must carry its rank, and the server must see no dup. With
    N >= 2, each all-reduce group of a step every rank captured must have
@@ -175,9 +176,24 @@ Phases, each printing its own lines:
    (python -m deepflow_tpu_torch.agent --flow --interface lo) beside a
    stdlib HTTP server taking 2,000 requests, which must all land in
    l7_flow_log, and the runner phase's child without and with it: the
-   flow-capture cost % and the Guard's readings of the node agent.
+   flow-capture cost % and the Guard's readings of the node agent;
+14. control: the control plane (chip_control.py). A server process with
+   its controller; dfctl org puts job B's agent group in org 2; phase 2's
+   configuration trains as two concurrent one-rank launcher jobs on the
+   card under the runner with --controller, one group each. Once both
+   shipped a long capture, dfctl agent-group-config pushes a new probe
+   cadence to both groups. Two distinct controller-assigned ids; every
+   span each agent sent held once under its id; every row with the host,
+   a nonzero host id and its job's org, and DF-SQL under org 2 sees job
+   B only; /v1/agents shows both RUNNING with the card's name and memory
+   and a measured clock offset; the push applied by push within 2 s, and
+   every capture after it holds at most six steps. Step medians, the
+   Guard's readings and the synchronizer threads' CPU are printed.
 
-The servers of phases 5-8, 10, 12 and 13 run the server's entry point (its main(),
+The dp phase's ranks run with --controller too: their ids are the
+controller's, one a rank (not rank + 1), found by the rank in each agent's
+launcher identity. The servers of phases 5-8, 10 and 12-14 run
+the server's entry point (its main(),
 stopped by SIGTERM after its drain) in a process of their own
 (multiprocessing, spawn) that then hands the smoke their tables' rows.
 Every phase line carries the card's name and power limit.
@@ -609,7 +625,8 @@ def _server_child(conn, argv: list[str], log_path: str,
             if ctl is not None:
                 _env_control(ctl)
             conn.send({"ingest_port": srv.ingest_port,
-                       "query_port": srv.query_port})
+                       "query_port": srv.query_port,
+                       "sync_port": srv.sync_port})
         server_mod.main(argv, on_start=on_start)
         conn.send({name: _table_rows(started[0], name, cols)
                    for name, cols in dump.items()})
@@ -629,7 +646,10 @@ class _ServerProcess:
         ctx = multiprocessing.get_context("spawn")
         self._conn, child = ctx.Pipe()
         self._ctl, child_ctl = ctx.Pipe() if env_control else (None, None)
-        argv = ["--ingest-port", str(ingest_port), "--query-port", "0"]
+        # the entry point's controller on a free port (phases run
+        # servers side by side)
+        argv = ["--ingest-port", str(ingest_port), "--query-port", "0",
+                "--sync-port", "0"]
         self._proc = ctx.Process(target=_server_child,
                                  args=(child, argv, log_path, self.dump,
                                        child_ctl),
@@ -652,6 +672,7 @@ class _ServerProcess:
         self.start_s = time.perf_counter() - t0
         self.ingest_port = ports["ingest_port"]
         self.query_port = ports["query_port"]
+        self.sync_port = ports["sync_port"]
         self.pid = self._proc.pid
 
     def setenv(self, **kv) -> None:
@@ -2117,6 +2138,7 @@ def dp_phase(torch, nums: dict) -> None:
             ["-m", "torch.distributed.run", "--standalone",
              "--nproc-per-node", str(n), *RUNNER,
              "--server", f"127.0.0.1:{srv.ingest_port}",
+             "--controller", f"127.0.0.1:{srv.sync_port}",
              "--service", "resnet-dp", "-m", EXAMPLE, "--preset", "resnet50",
              "--image", str(RESNET_IMAGE), "--batch", str(RESNET_BATCH),
              "--steps", str(DP_STEPS)], "dp")
@@ -2127,8 +2149,12 @@ def dp_phase(torch, nums: dict) -> None:
         _, steps, _ = _http(srv.query_port, "/v1/tpu/steps",
                             {"limit": DP_STEPS + 1})
         steps = steps["result"]["steps"]
+        _, fleet, _ = _http(srv.query_port, "/v1/agents")
     finally:
         rows = srv.stop()
+    # each rank's controller-assigned id, by the rank in its launcher id
+    id_of_rank = {int(a["launcher_id"].rsplit("/", 1)[1]): a["agent_id"]
+                  for a in fleet["agents"] if a["launcher_id"]}
     with open(os.path.join(OUT_DIR, "dp.out")) as f:
         lines = [json.loads(x) for x in f if x.startswith("{")]
     spans = rows["profile.tpu_hlo_span"]
@@ -2201,14 +2227,20 @@ def dp_phase(torch, nums: dict) -> None:
         losses = {v[i]["loss"] for v in by_rank.values()}
         check(len(losses) == 1 and all(map(math.isfinite, losses)),
               f"every rank's mean loss equal at step {i} ({losses})")
-    check(pairs == {(r + 1, r, r) for r in range(n)},
-          f"span rows under agent rank+1 with device_id = chip_id = rank "
-          f"({sorted(pairs)})")
-    check(all(per_agent.get(r + 1, 0) == sent.get(r + 1, (0, -1))[1] > 0
-              for r in range(n)),
+    nums["agent_id_of_rank"] = id_of_rank
+    check(sorted(id_of_rank) == list(range(n))
+          and len(set(id_of_rank.values())) == n
+          and len(fleet["agents"]) == n,
+          f"the controller registered each rank under an id of its own "
+          f"({id_of_rank})")
+    check(pairs == {(id_of_rank[r], r, r) for r in range(n)},
+          f"span rows under each rank's assigned id with device_id = "
+          f"chip_id = rank ({sorted(pairs)})")
+    check(all(per_agent.get(id_of_rank[r], 0)
+              == sent.get(id_of_rank[r], (0, -1))[1] > 0 for r in range(n)),
           f"every rank's spans land exactly once ({per_agent} against "
           f"{ {a: v for a, (_, v) in sent.items()} })")
-    check(all(rank_tags.get(r + 1) == {str(r)} for r in range(n)),
+    check(all(rank_tags.get(id_of_rank[r]) == {str(r)} for r in range(n)),
           f"each agent's stats rows carry its rank ({rank_tags})")
     check(nums["dups"] == 0 and nums["decode_errors"] == 0,
           "no dup and no decode error in the server")
@@ -2520,6 +2552,13 @@ def flows_phase(nums: dict) -> None:
     chip_flows.flows_phase(nums)
 
 
+def control_phase(nums: dict) -> None:
+    """Phase 14 (chip_control.py): the control plane on the card's host."""
+    import chip_control
+    chip_control.cs.CARD.update(CARD)
+    chip_control.control_phase(nums)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2567,6 +2606,8 @@ def main() -> int:
         mp_phase(torch, result["mp"])
         result["flows"] = {}
         flows_phase(result["flows"])
+        result["control"] = {}
+        control_phase(result["control"])
     finally:
         # every number so far, also when a check failed
         result["seconds"] = time.perf_counter() - t0

@@ -13,7 +13,12 @@ heartbeats) and its ``DeadmanDetector`` ride in every DFSTATS batch, and
 a wedge ships one at once. ``attach`` / ``detach`` start and stop one
 agent inside the current process; that is how ``python -m
 deepflow_tpu_torch.cli.runner`` profiles a script with no change to its
-code.
+code. With ``controller`` set the agent registers there while it is
+built (``agent/synchronizer.py``: a bounded first sync, so its sender
+ships under the assigned id from the first frame; an agent id of 0 asks
+the controller for one, and one that cannot register falls back to the
+id it would have without a controller), then keeps syncing and takes its
+group's config by poll and push (reference: agent.py:378-389).
 
 The agent runs beside a workload on the card: ``device`` defaults to
 "cuda" and a missing CUDA device is an error. With ``device="cpu"`` the
@@ -23,8 +28,8 @@ device work at all and loads no torch: a node agent that only captures.
 Live capture that cannot open (no CAP_NET_RAW, no such interface) raises
 and names the cause; the agent does not run on without it.
 
-    python -m deepflow_tpu_torch.agent [--server H:P] [--device cuda|cpu]
-                                       [--agent-id N]
+    python -m deepflow_tpu_torch.agent [-f CONFIG.yaml] [--server H:P]
+        [--device cuda|cpu] [--agent-id N] [--controller H:P] [--group G]
     python -m deepflow_tpu_torch.agent --server H:P --flow \
         [--interface IFACE] [--capture-mode local|mirror|analyzer]
 """
@@ -42,7 +47,8 @@ import tempfile
 import threading
 import time
 
-from deepflow_tpu_torch.agent.config import AgentConfig, parse_addr
+from deepflow_tpu_torch.agent.config import AgentConfig, default_agent_id, \
+    parse_addr
 from deepflow_tpu_torch.agent.guard import Guard, read_self_usage
 from deepflow_tpu_torch.agent.profiler import OnCpuSampler, ProfileSample
 from deepflow_tpu_torch.agent.sender import UniformSender
@@ -93,6 +99,18 @@ class Agent:
             self.telemetry, window_s=sm.deadman_window_s,
             check_interval_s=sm.check_interval_s or None,
             on_wedge=self._on_wedge)
+        self.guard: Guard | None = None
+        self.synchronizer = None
+        if self.config.controller:
+            # registered before the sender exists: every frame carries the
+            # controller's id, so no stream splits at an id change
+            from deepflow_tpu_torch.agent.synchronizer import Synchronizer
+            self.synchronizer = Synchronizer(
+                self, self.config.controller,
+                interval_s=self.config.sync_interval_s)
+            if not self.synchronizer.register() and \
+                    not self.config.agent_id:
+                self.config.agent_id = default_agent_id()
         sc = self.config.sender
         self.sender = UniformSender(
             sc.servers, agent_id=self.config.agent_id,
@@ -103,7 +121,6 @@ class Agent:
         self.tpuprobe = None
         self.dispatcher = None
         self.live_capture = None
-        self.guard: Guard | None = None
         # the probe's step hook is the agent's: installed with the first
         # probe, it counts on while the guard has the probe paused, so the
         # step numbers (the spans' run_id) of a resumed probe continue
@@ -217,6 +234,8 @@ class Agent:
             threads.append(self.dispatcher._thread)
         if self.live_capture is not None:
             threads += self.live_capture.threads
+        if self.synchronizer is not None:
+            threads += self.synchronizer.threads
         return [t for t in threads if t is not None]
 
     def start(self) -> "Agent":
@@ -246,6 +265,12 @@ class Agent:
                 self, max_cpu_pct=g.max_cpu_pct, max_mem_mb=g.max_mem_mb,
                 check_interval_s=g.check_interval_s).start()
             self._components.append("guard")
+        if self.synchronizer is not None:
+            self.synchronizer.start()
+            self._components.append(
+                f"synchronizer (agent id {self.config.agent_id}"
+                + ("" if self.synchronizer.registered else
+                   ", not registered") + ")")
         self._stats_thread = threading.Thread(
             target=self._stats_loop, name="df-agent-stats", daemon=True)
         self._stats_thread.start()
@@ -294,6 +319,8 @@ class Agent:
         """Undo a start that failed part way: the sources, the deadman
         and the sender stop, with no final stats."""
         self._stop.set()
+        if self.synchronizer is not None:
+            self.synchronizer.stop()
         self.pause_profilers()
         self.deadman.stop()
         self.sender.flush_and_stop(0.5)
@@ -305,6 +332,8 @@ class Agent:
         flush, so its ledger shows what the flush left pending."""
         self._stop.set()
         self.deadman.stop()
+        if self.synchronizer is not None:  # no config applies from here
+            self.synchronizer.stop()
         if self.guard:
             self.guard.stop()
         if self.live_capture is not None:
@@ -409,6 +438,13 @@ class Agent:
                 if isinstance(v, (int, float))},
                 extra_tags={"mode": self.live_capture.mode})
         guard = self.guard
+        sync = self.synchronizer
+        if sync is not None:
+            metric("agent.synchronizer", {
+                **sync.stats, "registered": int(sync.registered),
+                "config_version": sync.config_version,
+                "clock_offset_ns": sync.clock_offset_ns,
+                "ntp_rtt_ns": sync.ntp_rtt_ns})
         if guard is not None:
             metric("agent.guard", guard.snapshot())
             # which of the agent's threads the guard's reading comes from
@@ -429,7 +465,8 @@ class _Attached:
 def attach(app_service: str = "", servers: list | None = None,
            device: str | None = "cuda", **overrides) -> Agent:
     """Start an agent inside the current process, once; later calls
-    return the running one. ``overrides`` set AgentConfig fields."""
+    return the running one. ``overrides`` set AgentConfig fields; with a
+    ``controller`` and no ``agent_id`` the controller assigns the id."""
     if _Attached.agent is not None:
         return _Attached.agent
     cfg = AgentConfig()
@@ -439,6 +476,8 @@ def attach(app_service: str = "", servers: list | None = None,
         cfg.sender.servers = servers
     for k, v in overrides.items():
         setattr(cfg, k, v)
+    if cfg.controller and "agent_id" not in overrides:
+        cfg.agent_id = 0
     _Attached.agent = Agent(cfg, device=device).start()
     # interpreter teardown with a capture still open can abort the
     # process: detach at exit (detach is idempotent)
@@ -456,7 +495,9 @@ def detach() -> None:
 
 def main(argv: list[str] | None = None) -> None:
     parser = argparse.ArgumentParser(
-        description="deepflow-tpu agent (PyTorch port), standalone")
+        description="deepflow-tpu agent (PyTorch port)")
+    parser.add_argument("-f", "--config", default=None,
+                        help="agent config YAML (the flags below win)")
     parser.add_argument("--server", default=None,
                         help="host:port of the ingester")
     parser.add_argument("--device", default="cuda",
@@ -470,18 +511,28 @@ def main(argv: list[str] | None = None) -> None:
     parser.add_argument("--capture-mode", default="local",
                         choices=("local", "mirror", "analyzer"))
     parser.add_argument("--agent-id", type=int, default=None,
-                        help="this agent's id (default: the launcher "
-                             "rank's, else 0)")
+                        help="this agent's id (default: the controller's, "
+                             "else the launcher rank's, else 0)")
+    parser.add_argument("--controller", default=None,
+                        help="host:port of the controller's sync port")
+    parser.add_argument("--group", default=None,
+                        help="agent group: the controller's config and org")
     parser.add_argument("-v", "--verbose", action="store_true")
     args = parser.parse_args(argv)
     logging.basicConfig(
         level=logging.DEBUG if args.verbose else logging.INFO,
         format="%(asctime)s %(name)s %(levelname)s %(message)s")
-    cfg = AgentConfig()
+    cfg = AgentConfig.load(args.config)
     if args.server is not None:
         cfg.sender.servers = [parse_addr(args.server)]
+    if args.controller is not None:
+        cfg.controller = args.controller
+    if args.group is not None:
+        cfg.group = args.group
     if args.agent_id is not None:
         cfg.agent_id = args.agent_id
+    elif cfg.controller and args.config is None:
+        cfg.agent_id = 0  # the controller assigns it
     device = args.device
     if args.flow:
         # a node agent profiles no process and touches no device

@@ -1,5 +1,6 @@
 """Agent configuration: the sampler, the probe, the guard, the sender,
-fault injection, self-telemetry, self-stats and flow capture.
+fault injection, self-telemetry, self-stats, flow capture and the
+controller.
 
 A subset of ``deepflow_tpu/agent/config.py`` with the reference's field
 names, defaults and validation ranges for the fields kept: the OnCPU
@@ -7,25 +8,38 @@ sampler (``ProfilerConfig``), the device probe (``TpuProbeConfig``), the
 resource guard (``GuardConfig``), the durable sender and its on-disk
 spool (``SenderConfig``, ``SpoolConfig``), transport fault injection
 (``ChaosConfig``), the self-telemetry spine (``SelfmonConfig``), live
-packet capture into the flow path (``FlowConfig``) and the agent's
-identity and stats cadence (``AgentConfig``). The guard and
+packet capture into the flow path (``FlowConfig``), server-directed
+backpressure (``BackpressureConfig``) and the agent's identity, ACLs,
+controller, group and cadences (``AgentConfig``). The guard and
 self-telemetry are on by default, the spool, fault injection and flow
-capture off.
+capture off. ``AgentConfig.from_dict`` builds one from a parsed YAML
+mapping as the reference's does (a section's unknown key raises, an
+unknown top-level key is ignored), and ``AgentConfig.load`` reads a
+YAML file with the port's own reader (``agent/yamlcfg.py``). The ACLs,
+the ``qos`` block, ``profiler.memory`` and ``tpuprobe.source`` parse
+and validate, but nothing in the port applies them yet: the labeler,
+the backpressure and the memory profiler are later slices, and the
+port's probe has one source, Kineto (``auto``).
 
-``AgentConfig.agent_id`` is 0, the reference's default, outside a
-launcher. In a process a launcher started (``RANK`` and ``WORLD_SIZE`` in
+``AgentConfig.agent_id`` is 0, the reference's default ("assigned by the
+controller"), outside a launcher. In a process a launcher started (``RANK`` and ``WORLD_SIZE`` in
 its environment, as ``torchrun`` sets them) it defaults to the rank's own
 nonzero id (``tpuprobe/ranks.py::agent_id_for_rank``), so the ranks of one
 job ship under distinct ids into one server: with one shared id, each
 sender's sequence numbers start from its own boot epoch and the server's
 dedup window drops one rank's frames as duplicates of the other's. An
-explicit ``agent_id`` (the runner's ``--agent-id``) wins.
+explicit ``agent_id`` (the runner's ``--agent-id``) wins. With a
+``controller`` the id the controller assigns is the agent's
+(``agent/synchronizer.py``).
 """
 
 from __future__ import annotations
 
+import dataclasses
+import ipaddress
 from dataclasses import dataclass, field
 
+from deepflow_tpu_torch.agent import yamlcfg
 from deepflow_tpu_torch.tpuprobe.ranks import MAX_AGENT_ID, launcher_agent_id
 
 DEFAULT_INGEST_PORT = 20033
@@ -41,11 +55,14 @@ class ProfilerConfig:
     enabled: bool = True
     sample_hz: float = 99.0
     emit_interval_s: float = 1.0
+    memory: bool = False            # tracemalloc flame graphs (not ported)
+    memory_interval_s: float = 10.0
 
 
 @dataclass
 class TpuProbeConfig:
     enabled: bool = True
+    source: str = "auto"          # auto | kineto: the port's one source
     trace_interval_s: float = 10.0  # fallback cadence before steps observed
     trace_duration_ms: int = 1000
     # step-adaptive duty cycle: windows sized to whole steps, gaps sized so
@@ -134,9 +151,25 @@ class FlowConfig:
 
 
 @dataclass
+class BackpressureConfig:
+    """Server-directed degradation: one factor per pressure level 0..3
+    (SyncResponse.qos), applied to the configured value. Parsed and
+    validated; the port applies no backpressure yet."""
+    enabled: bool = True
+    hz_scale: list = field(default_factory=lambda: [1.0, 0.5, 0.25, 0.1])
+    emit_scale: list = field(default_factory=lambda: [1.0, 1.0, 2.0, 4.0])
+    topk_scale: list = field(default_factory=lambda: [1.0, 1.0, 0.5, 0.2])
+    trace_scale: list = field(default_factory=lambda: [1.0, 1.0, 2.0, 4.0])
+
+
+@dataclass
 class AgentConfig:
     agent_id: int = field(default_factory=default_agent_id)
     app_service: str = ""
+    # policy rules [{cidr, port, protocol, action: trace|ignore|pcap|npb}]
+    acls: list = field(default_factory=list)
+    group: str = "default"        # agent group: config routing and org
+    controller: str = ""          # host:port; empty = no controller
     profiler: ProfilerConfig = field(default_factory=ProfilerConfig)
     tpuprobe: TpuProbeConfig = field(default_factory=TpuProbeConfig)
     guard: GuardConfig = field(default_factory=GuardConfig)
@@ -144,7 +177,47 @@ class AgentConfig:
     chaos: ChaosConfig = field(default_factory=ChaosConfig)
     selfmon: SelfmonConfig = field(default_factory=SelfmonConfig)
     flow: FlowConfig = field(default_factory=FlowConfig)
+    qos: BackpressureConfig = field(default_factory=BackpressureConfig)
     stats_interval_s: float = 10.0
+    sync_interval_s: float = 10.0
+
+    @classmethod
+    def from_dict(cls, d: dict) -> "AgentConfig":
+        """As the reference's: each section present replaces its
+        defaults (an unknown key in it raises TypeError), the top-level
+        fields present are set, other top-level keys are ignored."""
+        cfg = cls()
+        for name, section in _SECTIONS.items():
+            sd = d.get(name)
+            if not isinstance(sd, dict):
+                continue
+            if name == "sender":
+                sd = dict(sd)
+                if "servers" in sd:
+                    sd["servers"] = [
+                        tuple(x) if isinstance(x, (list, tuple))
+                        else parse_addr(x) for x in sd["servers"]]
+                if isinstance(sd.get("spool"), dict):
+                    sd["spool"] = SpoolConfig(**sd["spool"])
+            setattr(cfg, name, section(**sd))
+        for f in dataclasses.fields(cls):
+            if f.name not in _SECTIONS and f.name in d:
+                setattr(cfg, f.name, d[f.name])
+        return cfg
+
+    @classmethod
+    def load(cls, path: str | None = None) -> "AgentConfig":
+        """Defaults, or the YAML file at ``path`` (a missing file raises:
+        the reference's returns the defaults)."""
+        if path is None:
+            return cls()
+        with open(path, "rb") as f:
+            data = yamlcfg.load(f.read())
+        if data is None:
+            data = {}
+        if not isinstance(data, dict):
+            raise ValueError(f"{path}: an agent config is a YAML mapping")
+        return cls.from_dict(data)
 
     def validate(self) -> "AgentConfig":
         """Type and range checks, the reference's for these fields."""
@@ -162,6 +235,7 @@ class AgentConfig:
                              f"got {self.agent_id!r}")
         num(self.profiler.sample_hz, "profiler.sample_hz", 0.1, 10_000)
         num(self.profiler.emit_interval_s, "profiler.emit_interval_s", 0.01)
+        num(self.profiler.memory_interval_s, "profiler.memory_interval_s", 1)
         num(self.tpuprobe.trace_interval_s, "tpuprobe.trace_interval_s", 0.1)
         num(self.tpuprobe.trace_duration_ms, "tpuprobe.trace_duration_ms", 1)
         num(self.tpuprobe.target_coverage, "tpuprobe.target_coverage",
@@ -170,6 +244,7 @@ class AgentConfig:
             1, 10_000)
         num(self.tpuprobe.step_topk, "tpuprobe.step_topk", 1, 100)
         num(self.stats_interval_s, "stats_interval_s", 0.1)
+        num(self.sync_interval_s, "sync_interval_s", 0.1)
         num(self.selfmon.deadman_window_s, "selfmon.deadman_window_s", 0.1)
         num(self.selfmon.check_interval_s, "selfmon.check_interval_s", 0)
         num(self.sender.queue_size, "sender.queue_size", 1)
@@ -186,6 +261,36 @@ class AgentConfig:
         num(self.guard.max_cpu_pct, "guard.max_cpu_pct", 1)
         num(self.guard.max_mem_mb, "guard.max_mem_mb", 16)
         num(self.guard.check_interval_s, "guard.check_interval_s", 0.1)
+        if not isinstance(self.qos.enabled, bool):
+            raise ValueError(
+                f"qos.enabled must be a bool, got {self.qos.enabled!r}")
+        for sname in ("hz_scale", "emit_scale", "topk_scale",
+                      "trace_scale"):
+            scales = getattr(self.qos, sname)
+            if not isinstance(scales, (list, tuple)) or len(scales) != 4:
+                raise ValueError(
+                    f"qos.{sname} must be 4 factors (levels 0..3), "
+                    f"got {scales!r}")
+            for i, v in enumerate(scales):
+                num(v, f"qos.{sname}[{i}]", 0.001, 1000)
+        for i, a in enumerate(self.acls):
+            if not isinstance(a, dict):
+                raise ValueError(f"acls[{i}] must be a mapping, got {a!r}")
+            if a.get("action", "trace") not in ("trace", "ignore",
+                                                "pcap", "npb"):
+                raise ValueError(
+                    f"acls[{i}].action must be trace|ignore|pcap|npb")
+            if a.get("cidr"):
+                try:
+                    ipaddress.ip_network(a["cidr"], strict=False)
+                except ValueError as e:
+                    raise ValueError(f"acls[{i}].cidr invalid: {e}") from None
+            num(a.get("port", 0), f"acls[{i}].port", 0, 65535)
+            num(a.get("protocol", 0), f"acls[{i}].protocol", 0, 3)
+        if self.tpuprobe.source not in ("auto", "kineto"):
+            raise ValueError(
+                f"tpuprobe.source must be auto|kineto (the port's probe "
+                f"reads Kineto), got {self.tpuprobe.source!r}")
         if self.flow.capture_mode not in ("local", "mirror", "analyzer"):
             raise ValueError(
                 f"flow.capture_mode must be local|mirror|analyzer, "
@@ -208,6 +313,13 @@ class AgentConfig:
             if not isinstance(b, bool):
                 raise ValueError(f"{name} must be a bool, got {b!r}")
         return self
+
+
+# AgentConfig's nested blocks, as from_dict reads them
+_SECTIONS = {"profiler": ProfilerConfig, "tpuprobe": TpuProbeConfig,
+             "guard": GuardConfig, "flow": FlowConfig,
+             "sender": SenderConfig, "chaos": ChaosConfig,
+             "selfmon": SelfmonConfig, "qos": BackpressureConfig}
 
 
 def parse_addr(s: str) -> tuple[str, int]:

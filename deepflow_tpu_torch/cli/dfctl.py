@@ -21,7 +21,15 @@ output for the same answers:
     trace TRACE_ID
     trace-search [--tags "endpoint=/x"] [--min-duration 10ms] [--limit N]
     query-trace TRACE_ID [--flame]
+    agent list
+    agent-group-config set FILE [--group G]
+    org [--assign GROUP ORG_ID]
 
+``agent``, ``agent-group-config`` and ``org`` read and drive the
+server's controller (reference: cli/dfctl.py:142-216): the fleet with
+each agent's staleness and health, a group's new config (validated,
+then pushed to its agents), and the group -> org assignments that scope
+the group's rows.
 ``datasources`` lists the flow-metric tables by tier with their rows
 and the rollup job's completeness horizons (the port has no storage
 tier, whose segment view the reference's prints beside them).
@@ -523,6 +531,20 @@ def main(argv: list[str] | None = None) -> int:
     p_ts.add_argument("--end", type=int, default=None)
     p_ts.add_argument("--limit", type=int, default=20)
 
+    p_agent = sub.add_parser("agent", help="the controller's agents")
+    p_agent.add_argument("action", choices=["list"])
+
+    p_cfg = sub.add_parser("agent-group-config",
+                           help="set an agent group's config (YAML file)")
+    p_cfg.add_argument("action", choices=["set"])
+    p_cfg.add_argument("file")
+    p_cfg.add_argument("--group", default="default")
+
+    p_org = sub.add_parser("org", help="org/team scoping: assign agent "
+                                       "groups to orgs, list assignments")
+    p_org.add_argument("--assign", nargs=2, metavar=("GROUP", "ORG_ID"),
+                       default=None)
+
     args = parser.parse_args(argv)
     server = args.server
     if args.cmd == "health":
@@ -566,6 +588,35 @@ def main(argv: list[str] | None = None) -> int:
         _trace_search(server, args)
     elif args.cmd == "query-trace":
         _query_trace(server, args.trace_id, args.flame)
+    elif args.cmd == "agent":
+        out = _api(server, "/v1/agents")
+        rows = [[a["agent_id"], a["hostname"], a["ctrl_ip"],
+                 a.get("staleness_s", ""), a.get("degraded", ""),
+                 a.get("exception_bitmap", 0), a.get("version", "")]
+                for a in out["agents"]]
+        print_table(["ID", "HOSTNAME", "CTRL_IP", "STALE_S", "DEGRADED",
+                     "EXC", "VERSION"], rows)
+    elif args.cmd == "agent-group-config":
+        with open(args.file) as f:
+            yaml_text = f.read()
+        out = _api(server, "/v1/agent-group-config",
+                   {"group": args.group, "yaml": yaml_text})
+        print(f"group {out['group']} -> version {out['version']}")
+    elif args.cmd == "org":
+        body = {"action": "list"}
+        if args.assign:
+            try:
+                org_id = int(args.assign[1])
+            except ValueError:
+                raise SystemExit(f"org: ORG_ID must be an integer, got "
+                                 f"{args.assign[1]!r}")
+            body = {"action": "assign", "group": args.assign[0],
+                    "org_id": org_id}
+        out = _api(server, "/v1/orgs", body)
+        rows = sorted(out["orgs"].items())
+        print_table(["GROUP", "ORG_ID"],
+                    [[g, o] for g, o in rows] or
+                    [["(all groups)", out["default_org"]]])
     elif args.cmd == "replay":
         from deepflow_tpu_torch.agent.dispatcher import Dispatcher
         from deepflow_tpu_torch.agent.sender import UniformSender

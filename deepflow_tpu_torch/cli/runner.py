@@ -2,7 +2,8 @@
 its code.
 
     python -m deepflow_tpu_torch.cli.runner [--server H:P] [--service NAME]
-        [--device cuda|cpu] [--agent-id N] [-m] target [args...]
+        [--device cuda|cpu] [--agent-id N] [--controller H:P] [--group G]
+        [-m] target [args...]
 
     # one agent per rank of a data-parallel job:
     torchrun --nproc-per-node N -m deepflow_tpu_torch.cli.runner \
@@ -15,7 +16,11 @@ with ``-m``, as a module, and detaches when it ends. The runner itself
 never touches the device: the probe waits until the workload has
 initialised CUDA. Without CUDA it exits with status 2 unless ``--device
 cpu`` is given. Under a launcher each rank's agent takes its rank's own
-agent id (``agent/config.py``) unless ``--agent-id`` names one.
+agent id (``agent/config.py``) unless ``--agent-id`` names one. With
+``--controller`` the agent registers with the controller before the
+target starts (a bounded first sync; reference: runner.py:23, :83), ships
+under the id it assigns, uploads its platform data and NTP offset, and
+takes its ``--group``'s config by poll and push.
 """
 
 from __future__ import annotations
@@ -38,6 +43,13 @@ def main(argv: list[str] | None = None) -> int:
     parser.add_argument("--agent-id", type=int, default=None,
                         help="the agent's id (default: 0, or under a "
                              "launcher the rank's own nonzero id)")
+    parser.add_argument("--controller", default="",
+                        help="host:port of the controller's sync port: "
+                             "controller-assigned id, platform tags, "
+                             "pushed config")
+    parser.add_argument("--group", default="default",
+                        help="agent group (the controller's config and "
+                             "org for it)")
     parser.add_argument("-m", dest="module", action="store_true",
                         help="run target as a module (python -m style)")
     parser.add_argument("target")
@@ -51,7 +63,8 @@ def main(argv: list[str] | None = None) -> int:
 
     ids = {} if opts.agent_id is None else {"agent_id": opts.agent_id}
     attach(app_service=opts.service or opts.target, servers=[opts.server],
-           device=opts.device, **ids)
+           device=opts.device, controller=opts.controller, group=opts.group,
+           **ids)
     sys.argv = [opts.target] + opts.args
     try:
         if opts.module:

@@ -6,7 +6,8 @@ Encodes and decodes ``TpuSpan``, ``TpuMemorySample``, ``TpuSpanBatch``,
 ``L4FlowLog``, ``L7FlowLog``, ``FlowLogBatch``, ``MetricTag``,
 ``FlowMeter``, ``AppMeter``, ``Document``, ``DocumentBatch``, on
 ``PbMessage`` below, with the ``L4Protocol``, ``L7Protocol`` and
-``ResponseStatus`` enums), without the protobuf package: the
+``ResponseStatus`` enums), and its control-plane messages (below
+``SyncRequest``; messages.proto:333-529), without the protobuf package: the
 fields are written in field-number order and proto3 defaults (0, "", b"")
 are skipped, so ``TpuSpanBatch`` and ``ProfileBatch`` serialize to the
 same bytes as the generated classes. ``StatsMetric``'s two maps are
@@ -427,8 +428,33 @@ globals().update({e.name: int(e) for enum in
                   (L4Protocol, L7Protocol, ResponseStatus) for e in enum})
 
 _I32_MIN, _I32_MAX = -(1 << 31), (1 << 31) - 1
+_I64_MIN, _I64_MAX = -(1 << 63), (1 << 63) - 1
 _SCALAR_DEFAULTS = {"s": "", "b": b"", "u32": 0, "u64": 0, "i32": 0,
-                    "enum": 0}
+                    "enum": 0, "f64": 0.0, "bool": False, "os64": 0}
+# repeated scalars: "rs" strings, "ru32" / "ri32" packed varints
+_REP_SCALARS = ("rs", "ru32", "ri32")
+_INT_RANGES = {"u32": (0, _U32), "u64": (0, _U64), "i32": (_I32_MIN, _I32_MAX),
+               "enum": (_I32_MIN, _I32_MAX), "ru32": (0, _U32),
+               "ri32": (_I32_MIN, _I32_MAX), "os64": (_I64_MIN, _I64_MAX)}
+_ZERO_F64 = bytes(8)
+
+
+def _int_in_range(name: str, kind: str, v) -> int:
+    v = int(v)
+    lo, hi = _INT_RANGES[kind]
+    if not lo <= v <= hi:
+        raise WireError(f"{name}={v} out of range")
+    return v
+
+
+def _narrow(kind: str, v: int) -> int:
+    """A parsed varint as protobuf keeps it for the field's type."""
+    if kind in ("u32", "ru32"):
+        return v & _U32
+    if kind in ("i32", "enum", "ri32"):
+        v &= _U32
+        return v - (1 << 32) if v > _I32_MAX else v
+    return v & _U64
 
 
 class _SubMessage:
@@ -454,15 +480,20 @@ class _SubMessage:
 
 
 class PbMessage:
-    """Base of the flow messages. ``FIELDS`` lists (name, number, kind)
-    or (name, number, "msg" | "rep", class) in number order; kinds are
-    "u32", "u64", "i32", "enum" (int32 on the wire), "s" and "b"."""
+    """Base of the flow and control-plane messages. ``FIELDS`` lists
+    (name, number, kind) or (name, number, "msg" | "rep", class) in number
+    order; kinds are "u32", "u64", "i32", "enum" (int32 on the wire),
+    "f64" (double), "bool", "s", "b", "os64" (an ``optional sint64``: its
+    presence is kept, so a set 0 is written and ``HasField`` tells it from
+    an absent one) and the repeated scalars "rs" (strings), "ru32" and
+    "ri32" (packed varints)."""
 
     FIELDS: tuple = ()
 
     def __init_subclass__(cls) -> None:
         cls._scalars = {}
         cls._reps = []
+        cls._optional = set()
         cls._plan = []
         for f in cls.FIELDS:
             name, num, kind = f[:3]
@@ -470,12 +501,15 @@ class PbMessage:
                 setattr(cls, name, _SubMessage(name, f[3]))
                 cls._plan.append((name, kind, _varint(num << 3 | 2), f[3]))
                 continue
-            if kind == "rep":
+            if kind == "rep" or kind in _REP_SCALARS:
                 cls._reps.append(name)
-                cls._plan.append((name, kind, _varint(num << 3 | 2), f[3]))
+                cls._plan.append((name, kind, _varint(num << 3 | 2),
+                                  f[3] if kind == "rep" else None))
                 continue
             cls._scalars[name] = _SCALAR_DEFAULTS[kind]
-            wt = 2 if kind in "sb" else 0
+            if kind == "os64":
+                cls._optional.add(name)
+            wt = 2 if kind in ("s", "b") else 1 if kind == "f64" else 0
             cls._plan.append((name, kind, _varint(num << 3 | wt), None))
         cls._by_num = {f[1]: (f[0], f[2], f[3] if len(f) > 3 else None)
                        for f in cls.FIELDS}
@@ -488,7 +522,10 @@ class PbMessage:
         for name in self._reps:
             d[name] = []
         for k, v in fields.items():
-            setattr(self, k, v)
+            if isinstance(type(self).__dict__.get(k), _SubMessage):
+                getattr(self, k).CopyFrom(v)  # as protobuf's constructor
+            else:
+                setattr(self, k, v)
 
     def __setattr__(self, name: str, value) -> None:
         d = self.__dict__
@@ -496,6 +533,8 @@ class PbMessage:
             d[name] = list(value)
         elif name in self._scalars:
             d[name] = value
+            if name in self._optional:
+                d["_present"].add(name)
         else:
             raise AttributeError(
                 f"{type(self).__name__} has no field {name!r}")
@@ -515,9 +554,29 @@ class PbMessage:
             up[0]._mark(up[1])
 
     def HasField(self, name: str) -> bool:  # noqa: N802 (protobuf's name)
-        if not isinstance(type(self).__dict__.get(name), _SubMessage):
+        if name not in self._optional and not isinstance(
+                type(self).__dict__.get(name), _SubMessage):
             raise ValueError(f"{name!r} is not a singular message field")
         return name in self.__dict__["_present"]
+
+    def CopyFrom(self, other: "PbMessage") -> None:  # noqa: N802
+        """This message becomes a copy of ``other`` (and, as a
+        submessage, present in its parent)."""
+        if type(other) is not type(self):
+            raise TypeError(f"CopyFrom({type(other).__name__}) into "
+                            f"{type(self).__name__}")
+        d = self.__dict__
+        d.update(self._scalars)
+        d["_present"] = set()
+        for name in self._reps:
+            d[name] = []
+        for f in self.FIELDS:
+            d.pop("_m_" + f[0], None)
+        self._merge(other.SerializeToString())
+        up = d["_up"]
+        if up is not None:
+            d["_up"] = None
+            up[0]._mark(up[1])
 
     def _encode(self, out: bytearray) -> None:
         d = self.__dict__
@@ -536,6 +595,30 @@ class PbMessage:
                     out += tag
                     out += _varint(len(body))
                     out += body
+            elif kind == "rs":
+                for v in d[name]:
+                    b = v.encode()
+                    out += tag
+                    out += _varint(len(b))
+                    out += b
+            elif kind in ("ru32", "ri32"):
+                if d[name]:
+                    body = b"".join(
+                        _varint(_int_in_range(name, kind, v) & _U64)
+                        for v in d[name])
+                    out += tag
+                    out += _varint(len(body))
+                    out += body
+            elif kind == "os64":
+                if name in d["_present"]:
+                    v = _int_in_range(name, kind, d[name])
+                    out += tag
+                    out += _varint(((v << 1) ^ (v >> 63)) & _U64)
+            elif kind == "f64":
+                b = struct.pack("<d", float(d[name]))
+                if b != _ZERO_F64:  # -0.0 is written, as protobuf does
+                    out += tag
+                    out += b
             else:
                 v = d[name]
                 if not v:
@@ -548,14 +631,10 @@ class PbMessage:
                 elif kind == "b":
                     out += _varint(len(v))
                     out += v
+                elif kind == "bool":
+                    out += b"\x01"
                 else:
-                    v = int(v)
-                    if kind == "u32" and not 0 <= v <= _U32 or \
-                            kind == "u64" and not 0 <= v <= _U64 or \
-                            kind in ("i32", "enum") and \
-                            not _I32_MIN <= v <= _I32_MAX:
-                        raise WireError(f"{name}={v} out of range")
-                    out += _varint(v & _U64)
+                    out += _varint(_int_in_range(name, kind, v) & _U64)
 
     def SerializeToString(self) -> bytes:  # noqa: N802
         out = bytearray()
@@ -567,7 +646,8 @@ class PbMessage:
         """As protobuf parses: unknown fields and known ones of another
         wire type are skipped, a uint32 keeps its low 32 bits and an
         int32 or enum its low 32 bits as a signed value; a repeated
-        submessage appends, a singular one merges."""
+        submessage appends, a singular one merges; a packed repeated
+        varint field also parses unpacked."""
         msg = cls()
         msg._merge(bytes(data))
         return msg
@@ -580,13 +660,26 @@ class PbMessage:
             if spec is None:
                 continue
             name, kind, sub = spec
-            if kind in "sb" or kind in ("msg", "rep"):
+            if kind in ("ru32", "ri32"):
+                if wt == 2:
+                    i = 0
+                    while i < len(v):
+                        x, i = _read_varint(v, i)
+                        d[name].append(_narrow(kind, x))
+                elif wt == 0:
+                    d[name].append(_narrow(kind, v))
+            elif kind == "f64":
+                if wt == 1:
+                    d[name] = struct.unpack("<d", v)[0]
+            elif kind in ("s", "b", "rs", "msg", "rep"):
                 if wt != 2:
                     continue
                 if kind == "s":
                     d[name] = v.decode("utf-8")
                 elif kind == "b":
                     d[name] = v
+                elif kind == "rs":
+                    d[name].append(v.decode("utf-8"))
                 elif kind == "msg":
                     d["_present"].add(name)
                     getattr(self, name)._merge(v)
@@ -595,13 +688,14 @@ class PbMessage:
                     m._merge(v)
                     d[name].append(m)
             elif wt == 0:
-                if kind == "u32":
-                    v &= _U32
-                elif kind in ("i32", "enum"):
-                    v &= _U32
-                    if v > _I32_MAX:
-                        v -= 1 << 32
-                d[name] = v
+                if kind == "bool":
+                    d[name] = bool(v)
+                elif kind == "os64":
+                    v &= _U64
+                    d[name] = (v >> 1) ^ -(v & 1)
+                    d["_present"].add(name)
+                else:
+                    d[name] = _narrow(kind, v)
 
     def __eq__(self, other) -> bool:
         return type(other) is type(self) and \
@@ -609,7 +703,8 @@ class PbMessage:
 
     def __repr__(self) -> str:
         d = self.__dict__
-        parts = [f"{n}={d[n]!r}" for n in self._scalars if d[n]]
+        parts = [f"{n}={d[n]!r}" for n in self._scalars
+                 if d[n] or n in d["_present"]]
         parts += [f"{f[0]}={getattr(self, f[0])!r}" for f in self.FIELDS
                   if f[2] == "msg" and f[0] in d["_present"]]
         parts += [f"{n}=[{len(d[n])}]" for n in self._reps if d[n]]
@@ -698,3 +793,124 @@ class Document(PbMessage):
 
 class DocumentBatch(PbMessage):
     FIELDS = (("docs", 1, "rep", Document),)
+
+
+# -- the control plane --------------------------------------------------------
+# messages.proto:333-529: agent <-> controller sync, NTP, gpids and the
+# Prometheus id allocator. The reference carries them over gRPC; the port
+# carries the same bytes over HTTP/1.1 (server/syncwire.py).
+
+
+class AgentState(IntEnum):
+    ENV_UNKNOWN = 0
+    RUNNING = 1
+    DISABLED = 2
+    DEGRADED = 3    # the resource guard has paused the profilers
+
+
+class SyncStatus(IntEnum):
+    SYNC_UNKNOWN = 0
+    SUCCESS = 1
+    FAILED = 2
+    HEARTBEAT = 3
+
+
+globals().update({e.name: int(e) for enum in (AgentState, SyncStatus)
+                  for e in enum})
+
+
+class TpuDeviceInfo(PbMessage):
+    FIELDS = (("device_id", 1, "u32"), ("chip_id", 2, "u32"),
+              ("core_id", 3, "u32"), ("slice_id", 4, "u32"),
+              ("device_kind", 5, "s"), ("coords", 6, "ri32"),
+              ("hbm_bytes", 7, "u64"))
+
+
+class PlatformData(PbMessage):
+    FIELDS = (("hostname", 1, "s"), ("host_ip", 2, "s"),
+              ("host_id", 3, "u32"), ("pod_name", 4, "s"),
+              ("pod_namespace", 5, "s"), ("node_name", 6, "s"),
+              ("cluster_id", 7, "s"), ("tpu_pod_name", 8, "s"),
+              ("tpu_worker_id", 9, "s"), ("slice_count", 10, "u32"),
+              ("devices", 11, "rep", TpuDeviceInfo),
+              ("accelerator_type", 12, "s"), ("runtime_version", 13, "s"))
+
+
+class ProcessInfo(PbMessage):
+    FIELDS = (("pid", 1, "u32"), ("name", 2, "s"), ("cmdline", 3, "s"),
+              ("start_time_ns", 4, "u64"), ("container_id", 5, "s"),
+              ("gpid", 6, "u32"))
+
+
+class RemoteCommand(PbMessage):
+    FIELDS = (("id", 1, "u64"), ("cmd", 2, "s"), ("args", 3, "rs"))
+
+
+class CommandResult(PbMessage):
+    FIELDS = (("id", 1, "u64"), ("exit_code", 2, "i32"), ("output", 3, "s"))
+
+
+class SyncRequest(PbMessage):
+    """``launcher_id`` (18) is the port's own field: the launcher's
+    identity of a rank (``tpuprobe/ranks.py::launcher_identity``), which
+    tells apart the agents of one host that the reference's registry
+    keys by host alone. The reference's parser skips it as unknown."""
+    FIELDS = (("ctrl_ip", 1, "s"), ("ctrl_mac", 2, "s"),
+              ("hostname", 3, "s"), ("agent_id", 4, "u32"),
+              ("config_version", 5, "u64"), ("platform_version", 6, "u64"),
+              ("state", 7, "enum"), ("exception_bitmap", 8, "u64"),
+              ("platform", 9, "msg", PlatformData),
+              ("processes", 10, "rep", ProcessInfo), ("version", 11, "s"),
+              ("cpu_usage", 12, "f64"), ("mem_bytes", 13, "u64"),
+              ("agent_group", 14, "s"), ("config_epoch", 15, "u64"),
+              ("command_results", 16, "rep", CommandResult),
+              ("clock_offset_ns", 17, "os64"), ("launcher_id", 18, "s"))
+
+
+class NtpRequest(PbMessage):
+    FIELDS = (("t1_ns", 1, "u64"),)
+
+
+class NtpResponse(PbMessage):
+    FIELDS = (("t1_ns", 1, "u64"), ("t2_ns", 2, "u64"), ("t3_ns", 3, "u64"))
+
+
+class QosDirective(PbMessage):
+    FIELDS = (("pressure_level", 1, "u32"), ("sample_rate", 2, "f64"),
+              ("weight", 3, "u32"), ("rate_fps", 4, "f64"),
+              ("updated_ns", 5, "u64"))
+
+
+class GpidEntry(PbMessage):
+    FIELDS = (("agent_id", 1, "u32"), ("pid", 2, "u32"), ("gpid", 3, "u32"),
+              ("ip", 4, "b"), ("port", 5, "u32"), ("proto", 6, "enum"),
+              ("role", 7, "u32"), ("process_name", 8, "s"))
+
+
+class SyncResponse(PbMessage):
+    FIELDS = (("status", 1, "enum"), ("agent_id", 2, "u32"),
+              ("user_config_yaml", 3, "b"), ("config_version", 4, "u64"),
+              ("platform", 5, "msg", PlatformData),
+              ("platform_version", 6, "u64"),
+              ("gpid_table", 7, "rep", GpidEntry),
+              ("config_epoch", 8, "u64"),
+              ("commands", 9, "rep", RemoteCommand),
+              ("analyzer_addrs", 10, "rs"),
+              ("analyzer_assignment", 11, "bool"),
+              ("qos", 12, "msg", QosDirective))
+
+
+class GpidSyncRequest(PbMessage):
+    FIELDS = (("agent_id", 1, "u32"), ("entries", 2, "rep", GpidEntry))
+
+
+class GpidSyncResponse(PbMessage):
+    FIELDS = (("entries", 1, "rep", GpidEntry),)
+
+
+class PromEncodeRequest(PbMessage):
+    FIELDS = (("metric_names", 1, "rs"), ("label_sets", 2, "rs"))
+
+
+class PromEncodeResponse(PbMessage):
+    FIELDS = (("metric_ids", 1, "ru32"), ("label_set_ids", 2, "ru32"))

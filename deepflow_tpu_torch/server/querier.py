@@ -33,7 +33,11 @@ a trace through ``POST /v1/tracing-adapters``. No federation. ``GET
 self-telemetry (``selfmon``, ``stages``, ``pipeline``,
 ``ledger_imbalance``, ``wedges``) and the agents', read back from
 ``deepflow_system`` (``agents_selfmon``); a current wedge makes its
-``status`` ``degraded`` with the ``wedged_stages``.
+``status`` ``degraded`` with the ``wedged_stages``. With the server's
+controller: ``GET /v1/agents`` (the fleet with each agent's health, its
+clock offset and its platform's devices), ``POST /v1/agent-group-config``
+(a group's new YAML, validated and pushed), ``POST /v1/orgs`` (list, or
+assign a group to an org) and ``GET`` / ``POST /v1/analyzers``.
 """
 
 from __future__ import annotations
@@ -90,8 +94,10 @@ class QuerierAPI:
 
     def __init__(self, db: Database, stats_provider=None,
                  telemetry: Telemetry | None = None, rollup=None,
-                 trace_trees=None) -> None:
+                 trace_trees=None, controller=None) -> None:
         self.db = db
+        # server/controller.py's Controller, or None: the fleet routes
+        self.controller = controller
         self.stats_provider = stats_provider or (lambda: {})
         self.telemetry = telemetry
         # RollupJob (server/datasource.py): its horizons drive the
@@ -985,6 +991,84 @@ class QuerierAPI:
         return {"adapters": self.trace_adapters.list()}
 
 
+    # -- the controller's routes ------------------------------------------
+
+    def _controller(self):
+        if self.controller is None:
+            raise QueryError("no controller")
+        return self.controller
+
+    def agents(self, body: dict | None = None) -> dict:
+        """The fleet with each agent's health (reference: querier.py
+        :1472-1499), and the port's clock offset and platform devices."""
+        if self.controller is None:
+            return {"agents": []}
+        now = time.time_ns()
+        out = []
+        for a in self.controller.registry.list():
+            staleness_s = (now - a.get("last_seen_ns", now)) / 1e9
+            p = self.controller.platform_of(a["agent_id"])
+            out.append({
+                "agent_id": a["agent_id"],
+                "hostname": a["hostname"],
+                "ctrl_ip": a["ctrl_ip"],
+                "last_seen_ns": a.get("last_seen_ns", 0),
+                "staleness_s": round(staleness_s, 1),
+                "stale": staleness_s > 60.0,
+                "state": a.get("state", 0),
+                "exception_bitmap": a.get("exception_bitmap", 0),
+                "degraded": a.get("degraded", False),
+                "version": a.get("version", ""),
+                "cpu_usage": a.get("cpu_usage", 0.0),
+                "mem_bytes": a.get("mem_bytes", 0),
+                "agent_group": a.get("agent_group", "default"),
+                "config_version": a.get("config_version", 0),
+                "syncs": a.get("syncs", 0),
+                "launcher_id": a.get("launcher_id", ""),
+                "clock_offset_ms": a.get("clock_offset_ms"),
+                "platform": None if p is None else {
+                    "host_ip": p.host_ip,
+                    "accelerator_type": p.accelerator_type,
+                    "runtime_version": p.runtime_version,
+                    "devices": [{"device_id": d.device_id,
+                                 "chip_id": d.chip_id,
+                                 "device_kind": d.device_kind,
+                                 "hbm_bytes": d.hbm_bytes}
+                                for d in p.devices]},
+            })
+        return {"agents": out}
+
+    def update_agent_config(self, body: dict) -> dict:
+        ctl = self._controller()
+        group = body.get("group", "default")
+        version = ctl.configs.update(group, body.get("yaml", "").encode())
+        return {"group": group, "version": version}
+
+    def orgs_api(self, body: dict) -> dict:
+        """List the group -> org assignments, or assign a group to an
+        org. Scoped reads pass ``org_id`` on ``/v1/query``."""
+        ctl = self._controller()
+        if body.get("action", "list") == "assign":
+            group = body.get("group", "default")
+            try:
+                org = int(body.get("org_id", 1))
+            except (TypeError, ValueError):
+                raise QueryError("org_id must be an integer")
+            if org < 1 or org > 0xFFFF:
+                raise QueryError("org_id out of range (1..65535)")
+            ctl.assign_org(group, org)
+        return {"orgs": ctl.org_assignments(), "default_org": 1}
+
+    def analyzers_api(self, body: dict | None = None) -> dict:
+        ctl = self._controller()
+        if body and "addrs" in body:
+            try:
+                ctl.set_analyzers([str(a) for a in body["addrs"]])
+            except ValueError as e:
+                raise QueryError(f"bad analyzer address: {e}") from None
+        return {"analyzers": ctl.analyzers()}
+
+
 class QuerierHTTP:
     """The querier's HTTP server: POST /v1/query, the profile and trace
     POST routes, GET /v1/health and the PromQL and Tempo GET routes."""
@@ -1010,6 +1094,9 @@ class QuerierHTTP:
             "/v1/trace/Tracing": api.trace,
             "/v1/trace/Search": api.trace_search,
             "/v1/tracing-adapters": api.tracing_adapters_api,
+            "/v1/agent-group-config": api.update_agent_config,
+            "/v1/orgs": api.orgs_api,
+            "/v1/analyzers": api.analyzers_api,
         }
 
         class Handler(BaseHTTPRequestHandler):
@@ -1028,6 +1115,10 @@ class QuerierHTTP:
                 params = dict(parse_qsl(query))
                 if path in ("/v1/health", "/health"):
                     return api.health()
+                if path == "/v1/agents":
+                    return api.agents()
+                if path == "/v1/analyzers":
+                    return api.analyzers_api()
                 if path.startswith("/prom/"):
                     path = path[len("/prom"):]
                 if path == "/api/v1/query_range":

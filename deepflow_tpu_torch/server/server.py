@@ -22,8 +22,23 @@ The server touches no device and imports no torch; span, flow-log and
 metric-document frames decode with the native library, which starting
 the server builds (or raises).
 
+With ``enable_controller`` (the entry point's default) the server runs
+the controller (``server/controller.py``) on ``sync_port``: agents
+register and take their ids there, upload their platform data and NTP
+offsets (the tags and clock shift its decoders apply) and take their
+group's config by poll and push; the querier serves ``/v1/agents``,
+``/v1/agent-group-config``, ``/v1/orgs`` and ``/v1/analyzers`` from it.
+A sync port that cannot be bound fails the start. With a lease
+(``ha_lease_path``, a file on a shared volume, or ``ha_k8s_lease``, a
+Kubernetes Lease's name) the singletons (the controller, the rollup job
+and the janitor) run only while this server is the elected leader
+(``server/election.py``); every server ingests and answers queries. A
+Lease with no cluster to hold it fails the start (the reference runs the
+singletons locally then).
+
     python -m deepflow_tpu_torch.server [--host H] [--ingest-port P]
-                                        [--query-port Q]
+        [--query-port Q] [--sync-port S] [--no-controller]
+        [--ha-lease FILE | --ha-k8s-lease NAME]
 
 Once it listens it prints one JSON line with the bound ports, so that a
 parent process that asked for port 0 can find them. SIGTERM or SIGINT
@@ -44,10 +59,12 @@ from deepflow_tpu_torch.server.datasource import RollupJob
 from deepflow_tpu_torch.server.decoders import (
     DedupWindow, FlowLogDecoder, MetricsDecoder, ProfileDecoder,
     StatsDecoder, StepMetricsDecoder, TpuSpanDecoder)
+from deepflow_tpu_torch.server.controller import Controller
 from deepflow_tpu_torch.server.janitor import Janitor
 from deepflow_tpu_torch.server.platform_info import PlatformInfoTable
 from deepflow_tpu_torch.server.querier import QuerierAPI, QuerierHTTP
 from deepflow_tpu_torch.server.receiver import Receiver
+from deepflow_tpu_torch.server.syncwire import DEFAULT_SYNC_PORT
 from deepflow_tpu_torch.server.tracetree import TraceTreeBuilder
 from deepflow_tpu_torch.store.db import Database
 from deepflow_tpu_torch.telemetry import DeadmanDetector, Telemetry
@@ -58,9 +75,19 @@ log = logging.getLogger("df.server")
 class Server:
     def __init__(self, host: str = "127.0.0.1", ingest_port: int = 20033,
                  query_port: int = 20416,
-                 selfmon: bool | None = None) -> None:
+                 selfmon: bool | None = None,
+                 sync_port: int = DEFAULT_SYNC_PORT,
+                 enable_controller: bool = False,
+                 ha_lease_path: str | None = None,
+                 ha_k8s_lease: str | None = None) -> None:
         self.db = Database()
         self.platform = PlatformInfoTable()
+        self.controller = (Controller(self.platform, host=host,
+                                      port=sync_port)
+                           if enable_controller else None)
+        self.ha_lease_path = ha_lease_path
+        self.ha_k8s_lease = ha_k8s_lease
+        self.election = None
         # one registry per Server: the tests run several in one process
         self.telemetry = Telemetry("server", enabled=selfmon)
         self.deadman = DeadmanDetector(self.telemetry)
@@ -77,7 +104,8 @@ class Server:
         self.trace_trees = TraceTreeBuilder(self.db)
         self.api = QuerierAPI(self.db, stats_provider=self._stats,
                               telemetry=self.telemetry, rollup=self.rollup,
-                              trace_trees=self.trace_trees)
+                              trace_trees=self.trace_trees,
+                              controller=self.controller)
         self.http = QuerierHTTP(self.api, host=host, port=query_port)
 
     def _stats(self) -> dict:
@@ -94,6 +122,21 @@ class Server:
         }
 
     def start(self) -> "Server":
+        # the election first: a Lease with no cluster raises before
+        # anything runs
+        if self.ha_k8s_lease:
+            import os
+            from deepflow_tpu_torch.server.election import K8sLeaseElection
+            self.election = K8sLeaseElection(
+                self.ha_k8s_lease,
+                namespace=os.environ.get("POD_NAMESPACE", "default"),
+                on_elected=self._start_singletons,
+                on_deposed=self._stop_singletons)
+        elif self.ha_lease_path:
+            from deepflow_tpu_torch.server.election import LeaderElection
+            self.election = LeaderElection(
+                self.ha_lease_path, on_elected=self._start_singletons,
+                on_deposed=self._stop_singletons)
         # register every queue before listening: no frame finds none
         for cls, mtype in ((ProfileDecoder, MessageType.PROFILE),
                            (TpuSpanDecoder, MessageType.TPU_SPAN),
@@ -110,16 +153,35 @@ class Server:
                 seq_tracker=self.receiver.seq_tracker,
                 telemetry=self.telemetry, msg_type=mtype, **kw).start())
         self.trace_trees.start()
-        self.rollup.start()
-        self.janitor.start()
         self.deadman.start()
         self.receiver.start()
         self.http.start()
-        log.info("server up: ingest :%d query :%d", self.ingest_port,
-                 self.query_port)
+        if self.election is not None:
+            self.election.start()
+        else:
+            self._start_singletons()
+        log.info("server up: ingest :%d query :%d%s", self.ingest_port,
+                 self.query_port,
+                 f" sync :{self.sync_port}" if self.controller else "")
         return self
 
+    def _start_singletons(self) -> None:
+        """The leader's components (each a no-op when running)."""
+        self.rollup.start()
+        self.janitor.start()
+        if self.controller is not None and not self.controller.running():
+            self.controller.start()
+
+    def _stop_singletons(self) -> None:
+        self.rollup.stop()
+        self.janitor.stop()
+        if self.controller is not None:
+            self.controller.stop()
+
     def stop(self) -> None:
+        if self.election is not None:
+            self.election.stop()  # its resign stops the singletons
+            self.election = None
         # the receiver first: once its handlers are gone nothing enqueues,
         # and each decoder's stop drains what is queued
         self.deadman.stop()
@@ -127,8 +189,7 @@ class Server:
         for d in self.decoders:
             d.stop()
         self.trace_trees.stop()  # writes the traces still pending
-        self.rollup.stop()
-        self.janitor.stop()
+        self._stop_singletons()
         self.http.stop()
 
     @property
@@ -138,6 +199,11 @@ class Server:
     @property
     def query_port(self) -> int:
         return self.http.port
+
+    @property
+    def sync_port(self) -> int | None:
+        """The controller's bound port (None without a controller)."""
+        return self.controller.port if self.controller is not None else None
 
     def wait_for_rows(self, table: str, n: int, timeout: float = 5.0) -> bool:
         """Block until a table holds >= n rows, or the timeout passes."""
@@ -161,6 +227,15 @@ def main(argv: list[str] | None = None, on_start=None) -> None:
                              "take frames from other hosts)")
     parser.add_argument("--ingest-port", type=int, default=20033)
     parser.add_argument("--query-port", type=int, default=20416)
+    parser.add_argument("--sync-port", type=int, default=DEFAULT_SYNC_PORT,
+                        help="the controller's port (agents' --controller)")
+    parser.add_argument("--no-controller", action="store_true",
+                        help="run no controller: agents keep their own ids "
+                             "and configs")
+    parser.add_argument("--ha-lease", default=None,
+                        help="shared-volume lease FILE for leader election")
+    parser.add_argument("--ha-k8s-lease", default=None,
+                        help="Kubernetes Lease name for leader election")
     args = parser.parse_args(argv)
     logging.basicConfig(
         level=logging.INFO,
@@ -169,10 +244,14 @@ def main(argv: list[str] | None = None, on_start=None) -> None:
     for sig in (signal.SIGTERM, signal.SIGINT):
         signal.signal(sig, lambda *_: stop.set())
     server = Server(host=args.host, ingest_port=args.ingest_port,
-                    query_port=args.query_port).start()
+                    query_port=args.query_port, sync_port=args.sync_port,
+                    enable_controller=not args.no_controller,
+                    ha_lease_path=args.ha_lease,
+                    ha_k8s_lease=args.ha_k8s_lease).start()
     try:
         print(json.dumps({"ingest_port": server.ingest_port,
-                          "query_port": server.query_port}), flush=True)
+                          "query_port": server.query_port,
+                          "sync_port": server.sync_port}), flush=True)
         if on_start is not None:
             on_start(server)
         stop.wait()

@@ -12,9 +12,13 @@ The probe and the agent read them here:
   launcher gives each rank one visible GPU (every local ordinal 0). A lone
   process has no rank and keeps the CUDA ordinal, so the devices of a
   one-process multi-GPU job stay apart;
-- the agent's id is ``agent_id_for_rank``: distinct for the ranks of one
-  job, the same for a rank that restarts, never 0 (a lone process's
-  default), within the frame header's u16.
+- the agent's id without a controller is ``agent_id_for_rank``: distinct
+  for the ranks of one job, the same for a rank that restarts, never 0 (a
+  lone process's default), within the frame header's u16. Two jobs that
+  ship into one server collide on it (both rank 0s are agent 1), so with a
+  controller the controller assigns the id, keyed by
+  ``launcher_identity``: the job (the launcher's run id, else its
+  rendezvous address, else the launcher's pid) and the global rank.
 """
 
 from __future__ import annotations
@@ -88,3 +92,20 @@ def launcher_agent_id() -> int | None:
     one."""
     env = launcher_env()
     return None if env is None else agent_id_for_rank(env[0])
+
+
+def launcher_identity() -> str:
+    """"<job>/<rank>" for a process a launcher started, "" outside one.
+    The job is TORCHELASTIC_RUN_ID (torchrun sets it, the same across a
+    rank's restarts), else MASTER_ADDR:MASTER_PORT, else the launcher's
+    pid: the same for every rank of one job, different for two jobs on
+    one host."""
+    env = launcher_env()
+    if env is None:
+        return ""
+    e = os.environ
+    job = e.get("TORCHELASTIC_RUN_ID") or (
+        f"{e['MASTER_ADDR']}:{e['MASTER_PORT']}"
+        if e.get("MASTER_ADDR") and e.get("MASTER_PORT")
+        else f"ppid{os.getppid()}")
+    return f"{job}/{env[0]}"

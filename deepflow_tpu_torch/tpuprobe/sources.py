@@ -217,6 +217,11 @@ class KinetoSource:
     Contention guard: a window that would collide with a user's own
     profiler session, or another source, is skipped and counted as
     `contended`, never raised.
+
+    ``retune`` (the controller's pushed config) changes the cadence
+    between captures, never inside one: the values wait until the
+    capture in progress ends, and a gap in progress is measured again
+    with them.
     """
 
     def __init__(self, sink, interval_s: float = 10.0,
@@ -253,11 +258,50 @@ class KinetoSource:
         self._dead_s = 0.0
         self._started_monotonic = time.monotonic()
         self._cuda_up_at: float | None = None  # first seen initialised
+        # retune(): cadence waiting for the end of a capture, and the
+        # wake-up of a gap in progress
+        self._retune_lock = threading.Lock()
+        self._pending: dict = {}
+        self._wake = threading.Event()
         self.stats = {"captures": 0, "events": 0, "errors": 0, "skipped": 0,
                       "contended": 0, "steps_seen": 0,
                       "coverage_pct": 0.0, "est_step_ms": 0.0,
                       "captured_s": 0.0, "dead_ms": 0.0, "unheld": 0,
-                      "period_steps": 0}
+                      "period_steps": 0, "retunes": 0,
+                      "interval_s": interval_s,
+                      "steps_per_capture": steps_per_capture}
+
+    def retune(self, interval_s: float, duration_ms: int,
+               target_coverage: float, steps_per_capture: int) -> None:
+        """New cadence, taken by the source's thread between captures."""
+        with self._retune_lock:
+            self._pending = {
+                "interval_s": interval_s, "duration_ms": duration_ms,
+                "target_coverage": min(max(target_coverage, 0.05), 0.95),
+                "steps_per_capture": steps_per_capture}
+        self._wake.set()
+
+    def _apply_retune(self) -> None:
+        with self._retune_lock:
+            pending, self._pending = self._pending, {}
+        if pending:
+            for k, v in pending.items():
+                setattr(self, k, v)
+            self.stats["retunes"] += 1
+            self.stats["interval_s"] = self.interval_s
+            self.stats["steps_per_capture"] = self.steps_per_capture
+
+    def _wait_gap(self) -> bool:
+        """Wait out the gap before the next capture, measured again after
+        a retune; True when the source stops."""
+        t0 = time.monotonic()
+        while True:
+            left = self._next_gap_s() - (time.monotonic() - t0)
+            if left <= 0 or self._stop.is_set():
+                return self._stop.is_set()
+            self._wake.wait(left)
+            self._wake.clear()
+            self._apply_retune()
 
     def available(self) -> bool:
         """Capture only once the workload has initialised CUDA itself (the
@@ -301,6 +345,7 @@ class KinetoSource:
 
     def stop(self) -> None:
         self._stop.set()
+        self._wake.set()
         if self._thread:
             # a window runs up to max_duration_ms, plus export+parse+sink
             self._thread.join(timeout=max(2.0, self.duration_ms / 1000 + 2,
@@ -321,6 +366,7 @@ class KinetoSource:
         if self._stop.wait(1.0):
             return
         while not self._stop.is_set():
+            self._apply_retune()  # between captures only
             # beat BEFORE the capture: a capture that never returns
             # freezes the progress counter and trips the deadman
             hb.beat(progress=self.stats["captures"] + self.stats["skipped"])
@@ -332,7 +378,7 @@ class KinetoSource:
                     log.exception("kineto capture failed")
             else:
                 self.stats["skipped"] += 1
-            if self._stop.wait(self._next_gap_s()):
+            if self._wait_gap():
                 return
 
     def _period_steps(self) -> int:

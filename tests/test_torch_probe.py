@@ -450,7 +450,8 @@ def test_memory_source_skips_without_cuda_context():
 def _port_files():
     files = [os.path.join(ROOT, n) for n in (
         "chip_smoke.py", "probe_stall.py", "chip_phases.py",
-        "nccl_explore.py", "capture_tail.py", "chip_parallel.py")]
+        "nccl_explore.py", "capture_tail.py", "chip_parallel.py",
+        "chip_flows.py", "chip_control.py")]
     for d, _, names in os.walk(os.path.join(ROOT, "deepflow_tpu_torch")):
         files += [os.path.join(d, n) for n in names if n.endswith(".py")]
     return files
@@ -472,7 +473,11 @@ def test_port_imports_no_jax_and_no_reference():
                 "proto/pbwire.py", "native/__main__.py",
                 "server/datasource.py", "server/tracetree.py",
                 "query/datasource.py", "query/tracing.py",
-                "query/tracing_adapter.py", "query/promql.py"):
+                "query/tracing_adapter.py", "query/promql.py",
+                "agent/yamlcfg.py", "agent/synchronizer.py",
+                "server/controller.py", "server/syncwire.py",
+                "server/election.py", "server/prom_encoder.py",
+                "tpuprobe/topology.py"):
         assert os.path.join(ROOT, "deepflow_tpu_torch", mod) in files, mod
     for path in files:
         with open(path) as f:
@@ -486,8 +491,10 @@ def test_port_imports_no_jax_and_no_reference():
                 continue
             for m in mods:
                 top = m.split(".")[0]
+                # the card's machine has no grpcio, yaml or protobuf
                 assert top not in ("jax", "jaxlib", "flax", "optax",
-                                   "deepflow_tpu"), (path, m)
+                                   "deepflow_tpu", "grpc", "yaml",
+                                   "google"), (path, m)
 
 
 def test_port_import_leaves_jax_unloaded():
@@ -522,7 +529,14 @@ def test_port_import_leaves_jax_unloaded():
     "deepflow_tpu_torch.server.datasource",
     "deepflow_tpu_torch.server.tracetree", "deepflow_tpu_torch.query.promql",
     "deepflow_tpu_torch.query.tracing_adapter",
-    "deepflow_tpu_torch.native.__main__"])
+    "deepflow_tpu_torch.native.__main__",
+    # the control plane: the node agent syncs too
+    "deepflow_tpu_torch.server.controller",
+    "deepflow_tpu_torch.server.syncwire",
+    "deepflow_tpu_torch.server.election",
+    "deepflow_tpu_torch.agent.synchronizer",
+    "deepflow_tpu_torch.agent.yamlcfg",
+    "deepflow_tpu_torch.tpuprobe.topology"])
 def test_server_and_dfctl_import_leaves_torch_unloaded(module):
     """The server, dfctl and the flow path touch no device, so importing
     them in a fresh interpreter loads no torch; the package still gives

@@ -523,10 +523,11 @@ def test_server_subprocess_prints_ports_and_answers():
     first line, ingests, answers /v1/health, and exits 0 on SIGTERM."""
     proc = subprocess.Popen(
         [sys.executable, "-m", "deepflow_tpu_torch.server",
-         "--ingest-port", "0", "--query-port", "0"],
+         "--ingest-port", "0", "--query-port", "0", "--sync-port", "0"],
         cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
     try:
         ports = json.loads(proc.stdout.readline())
+        assert ports["sync_port"] > 0  # the controller runs by default
         frames, counts = _frames()
         _send(ports["ingest_port"], b"".join(frames))
         url = f"http://127.0.0.1:{ports['query_port']}/v1/health"
