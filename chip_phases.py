@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Run some of chip_smoke.py's phases alone, for a shorter call.
 
-    python3 chip_phases.py resnet dp parallel mp flows control
+    python3 chip_phases.py resnet dp parallel mp flows control storage
 
 The device phase (the card's name and power limit) first, then each named
 phase (``resnet``: ResNet-50 trained with the probe in this process;
@@ -10,8 +10,9 @@ GPU, shipping into a server process; ``parallel``: chip_parallel.py's
 checks on every GPU; ``mp``: the sharded Llama-7B example on every GPU,
 plain and shipping into a server process; ``flows``: the flow/L7 agent
 on the card's host, chip_flows.py; ``control``: the control plane with
-two jobs on the card, chip_control.py) with the same checks as the
-smoke.
+two jobs on the card, chip_control.py; ``storage``: the durable tier,
+chip_storage.py, fed the span frames of phases 2-4, which run first)
+with the same checks as the smoke.
 The numbers land in results/chip_phases.json; a failed check raises.
 """
 
@@ -21,6 +22,18 @@ import sys
 import time
 
 import chip_smoke as cs
+
+
+def _span_sink(torch):
+    """Phases 2-4 of the smoke: the model trained with the probe, and the
+    sink that holds its frames."""
+    from deepflow_tpu_torch.models import llama as tl
+    model, tokens, _nums = cs.model_phase(torch, tl)
+    train_step, _opt = tl.make_train_step(model)
+    sink, probe, _training, window = cs.training_phase(
+        torch, train_step, (tokens,))
+    cs.frames_phase(sink, probe, window)
+    return sink
 
 
 def main(names: list[str]) -> int:
@@ -33,7 +46,9 @@ def main(names: list[str]) -> int:
               "parallel": lambda res: cs.parallel_phase(torch, res),
               "mp": lambda res: cs.mp_phase(torch, res),
               "flows": lambda res: cs.flows_phase(res),
-              "control": lambda res: cs.control_phase(res)}
+              "control": lambda res: cs.control_phase(res),
+              "storage": lambda res: cs.storage_phase(_span_sink(torch),
+                                                      res)}
     unknown = [n for n in names if n not in phases]
     if unknown or not names:
         print(f"chip_phases: name phases among {sorted(phases)}",

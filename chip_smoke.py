@@ -189,10 +189,28 @@ Phases, each printing its own lines:
    and a measured clock offset; the push applied by push within 2 s, and
    every capture after it holds at most six steps. Step medians, the
    Guard's readings and the synchronizer threads' CPU are printed.
+15. storage (run right after phase 8, with phase 3's frames): the
+   durable tier (chip_storage.py). Phase 3's span frames, re-stamped as
+   phase 8 re-stamps them, to STORAGE_ROWS rows through the agent's own
+   sender with its spool: the first half into a server process without
+   storage and into one with --storage (a data directory on the
+   checkout's filesystem, its type and free bytes printed, deleted at
+   the end); that half's three dashboard queries; a quarter more until
+   the acked seq passes the half, SIGKILL with frames in flight, the rest
+   into the dead port. Every row of every frame acked before the kill
+   must recover from disk; the server restarted on the same port and
+   directory must answer the three queries as before the kill, take the
+   sender's retransmits and spool, and after the drain hold every
+   frame's spans exactly once (counted per frame seq, on disk after a
+   clean stop); a compaction run, a ten-minute range that prunes
+   segments with the whole range's answer filtered here, and every query
+   under 1,000 ms cold (cache bypassed) and warm. Rows/s with storage on
+   and off, commit ms, bytes a row, segments per codec, recovery s, the
+   server's RSS and query ms are printed.
 
 The dp phase's ranks run with --controller too: their ids are the
 controller's, one a rank (not rank + 1), found by the rank in each agent's
-launcher identity. The servers of phases 5-8, 10 and 12-14 run
+launcher identity. The servers of phases 5-8, 10 and 12-15 run
 the server's entry point (its main(),
 stopped by SIGTERM after its drain) in a process of their own
 (multiprocessing, spawn) that then hands the smoke their tables' rows.
@@ -634,12 +652,14 @@ def _server_child(conn, argv: list[str], log_path: str,
 
 class _ServerProcess:
     """The port's server in a process of its own (multiprocessing, spawn)
-    on ``ingest_port`` (0: any free one), its log in ``log_path``; its
-    stop hands back the rows of the tables in ``dump`` (name: columns)."""
+    on ``ingest_port`` (0: any free one), its log in ``log_path``, with
+    the entry point's ``extra_args``; its stop hands back the rows of the
+    tables in ``dump`` (name: columns)."""
 
     def __init__(self, log_path: str, ingest_port: int = 0,
                  dump: dict[str, list[str]] | None = None,
-                 env_control: bool = False) -> None:
+                 env_control: bool = False,
+                 extra_args: list[str] | None = None) -> None:
         self.log_path = log_path
         self.dump = dump or {}
         self._stopped = False
@@ -649,7 +669,7 @@ class _ServerProcess:
         # the entry point's controller on a free port (phases run
         # servers side by side)
         argv = ["--ingest-port", str(ingest_port), "--query-port", "0",
-                "--sync-port", "0"]
+                "--sync-port", "0"] + list(extra_args or ())
         self._proc = ctx.Process(target=_server_child,
                                  args=(child, argv, log_path, self.dump,
                                        child_ctl),
@@ -681,6 +701,16 @@ class _ServerProcess:
         self._ctl.send(kv)
         check(self._ctl.poll(30) and self._ctl.recv() == "ok",
               f"the server took the environment {kv}")
+
+    def kill(self) -> None:
+        """SIGKILL: the server dies at once, with whatever it holds in
+        flight; nothing is checked."""
+        self._stopped = True
+        self._proc.kill()
+        self._proc.join(60)
+        self._conn.close()
+        if self._ctl is not None:
+            self._ctl.close()
 
     def stop(self) -> dict[str, dict[str, list]]:
         """SIGTERM: the server drains its decoders, hands over its rows
@@ -2552,6 +2582,14 @@ def flows_phase(nums: dict) -> None:
     chip_flows.flows_phase(nums)
 
 
+def storage_phase(sink, nums: dict) -> None:
+    """Phase 15 (chip_storage.py): the durable storage tier on the card's
+    host, fed phase 3's span frames through the agent's sender."""
+    import chip_storage
+    chip_storage.cs.CARD.update(CARD)
+    chip_storage.storage_phase(sink, nums)
+
+
 def control_phase(nums: dict) -> None:
     """Phase 14 (chip_control.py): the control plane on the card's host."""
     import chip_control
@@ -2584,6 +2622,9 @@ def main() -> int:
         seen["max_bytes_in_use"] = result["frames"]["max_bytes_in_use"]
         result["server"] = server_phase(sink, probe, seen)
         result["query"] = query_phase(sink)
+        gc.collect()
+        result["storage"] = {}
+        storage_phase(sink, result["storage"])
         gc.collect()
         # the card's memory to the children
         del model, tokens, sink, probe, seen

@@ -1,14 +1,17 @@
-"""Seeded fault injection for the agent-to-server transport.
+"""Seeded fault injection for the transport and the storage tier.
 
-Own copy of the transport part of ``deepflow_tpu/chaos.py``: a seeded
-``ChaosInjector`` behind narrow hook points in the sender, the receiver
-and the spool,
+Own copy of ``deepflow_tpu/chaos.py``: a seeded ``ChaosInjector``
+behind narrow hook points in the sender, the receiver, the spool and
+the tier,
 
   * ``on_connect``     refuse the connection (ECONNREFUSED);
   * ``on_send``        inject latency, reset before a write, or write a
                        PARTIAL frame and then reset;
   * ``on_accept``      accept, then stall before the first read;
-  * ``on_spool_write`` disk full (ENOSPC) on a spool append.
+  * ``on_spool_write`` disk full (ENOSPC) on a spool append;
+  * ``on_tier_write``  disk full (ENOSPC) on a tier flush commit,
+
+and ``corrupt_segment``, which rots a sealed segment file on purpose.
 
 Every fault is drawn from one seeded ``random.Random``, so a run
 replays exactly with the same seed: the same ``DF_CHAOS`` spec gives the
@@ -19,9 +22,9 @@ k=v list,
 
 Probabilities are per call in [0, 1]; absent keys are 0 (off).
 ``chaos_from_env()`` returns None when DF_CHAOS is unset, and the hot
-paths then pay one ``is None`` check. The storage-tier and object-store
-knobs parse (a spec stays valid in both packages) but have no hook here:
-the port has no storage tiers yet.
+paths then pay one ``is None`` check. The object-store knob
+(``objstore_eio``) parses, so a spec stays valid in both packages, but
+has no hook: the port has no object store yet.
 """
 
 from __future__ import annotations
@@ -149,6 +152,61 @@ class ChaosInjector:
         if self._hit(self.config.disk_full):
             self.stats["disk_full"] += 1
             raise OSError(errno.ENOSPC, "chaos: no space left on device")
+
+    def on_tier_write(self) -> None:
+        """Called by TieredStore.commit before writing segments: a full
+        data disk fails the WHOLE commit (no manifest rename, no acks) —
+        the flusher requeues and backs off, agents keep retransmitting."""
+        if self._hit(self.config.tier_enospc):
+            self.stats["tier_enospc"] += 1
+            raise OSError(errno.ENOSPC,
+                          "chaos: no space left on device (tier)")
+
+
+def corrupt_segment(path: str, seed: int = 0,
+                    mode: str = "bit_flip") -> dict:
+    """Inject silent data corruption into a sealed segment file — a
+    test's fault, not a runtime hook.
+
+    ``bit_flip`` parses the footer to find a column block and flips one
+    bit INSIDE it: the footer (and its crc) stay valid, the file still
+    opens, only the block checksum can catch it — exactly the disk-rot
+    shape the scrubber exists for. ``truncate`` cuts the file mid-byte
+    (torn-file shape: Segment.open refuses it outright).
+
+    Returns {"mode", "column", "offset"} describing the damage."""
+    import json as _json
+    import struct as _struct
+    rng = random.Random(seed)
+    size = os.path.getsize(path)
+    if mode == "truncate":
+        cut = max(1, size // 2 + rng.randrange(-size // 4 or 1,
+                                               size // 4 or 2))
+        with open(path, "rb+") as f:
+            f.truncate(min(cut, size - 1))
+        return {"mode": "truncate", "column": None, "offset": cut}
+    tail = _struct.Struct("<II8s")
+    with open(path, "rb+") as f:
+        f.seek(size - tail.size)
+        flen, _, magic = tail.unpack(f.read(tail.size))
+        if magic != b"DFSEGEND":
+            raise ValueError(f"{path}: not a sealed segment")
+        f.seek(size - tail.size - flen)
+        footer = _json.loads(f.read(flen))
+        cols = {k: v for k, v in footer.get("cols", {}).items()
+                if v.get("nbytes", 0) > 0}
+        if not cols:
+            raise ValueError(f"{path}: no non-empty column block")
+        name = rng.choice(sorted(cols))
+        c = cols[name]
+        off = c["off"] + rng.randrange(c["nbytes"])
+        f.seek(off)
+        b = f.read(1)
+        f.seek(off)
+        f.write(bytes([b[0] ^ (1 << rng.randrange(8))]))
+        f.flush()
+        os.fsync(f.fileno())
+    return {"mode": "bit_flip", "column": name, "offset": off}
 
 
 def chaos_from_env() -> ChaosInjector | None:

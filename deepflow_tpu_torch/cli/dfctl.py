@@ -16,7 +16,8 @@ output for the same answers:
     step-trace [--run-id N]
     steps [--job J] [--run-id N] [--limit N] [--critical-path STEP] [--json]
     replay CAPTURE.pcap [--ingest HOST:PORT]
-    datasources [--json]
+    datasources [--json] [--zones]
+    segments [TABLE] [--v1] [--json]
     promql EXPR [--time S | --start S --end S [--step S]] [--org N]
     trace TRACE_ID
     trace-search [--tags "endpoint=/x"] [--min-duration 10ms] [--limit N]
@@ -30,9 +31,13 @@ server's controller (reference: cli/dfctl.py:142-216): the fleet with
 each agent's staleness and health, a group's new config (validated,
 then pushed to its agents), and the group -> org assignments that scope
 the group's rows.
-``datasources`` lists the flow-metric tables by tier with their rows
-and the rollup job's completeness horizons (the port has no storage
-tier, whose segment view the reference's prints beside them).
+``datasources`` prints the reference's storage view of a server started
+with ``--storage`` (per table its tier, segments, rows, bytes and time
+span; ``--zones`` adds the segments with zone maps) and the rollup
+horizons; on a server without storage it lists the flow-metric tables
+by tier with their rows and the horizons (the reference prints only
+that storage is off). ``segments`` lists each on-disk segment: format,
+rows, bytes, sorted run, zones, skip indexes and codecs.
 ``replay`` runs a pcap through the agent's flow path (the dispatcher's
 native flow map, the L7 parsers, the collector) and ships its L4_LOG,
 L7_LOG and METRICS frames over the durable sender to an ingester; it
@@ -306,8 +311,80 @@ def _explain(server: str, args) -> None:
               f"{ex.get('spans', 0)} spans")
 
 
-def _datasources(server: str, as_json: bool) -> None:
+def _storage_view(st: dict, args) -> None:
+    """The reference's datasources output over a storage block."""
+    if args.json:
+        print(json.dumps(st, indent=2))
+        return
+    print(f"root: {st['root']}  flush_gen: {st['flush_gen']}  "
+          f"evict_gen: {st['evict_gen']}  "
+          f"gate_pending: {st.get('gate_pending', 0)}")
+    tables = st.get("tables", {})
+    if tables:
+        # tier = trailing datasource suffix; everything else is a raw
+        # event table (flow logs, profiles, ...)
+        tiers = ("1s", "1m", "1h", "1d")
+        rows = []
+        for name, v in sorted(tables.items()):
+            sfx = name.rsplit(".", 1)[-1]
+            row = [name, sfx if sfx in tiers else "raw",
+                   v["segments"], v["rows"], v["bytes"],
+                   v["tmin"] if v["tmin"] is not None else "-",
+                   v["tmax"] if v["tmax"] is not None else "-"]
+            if args.zones:
+                # segments without zone maps never prune
+                row.append(f"{v.get('zoned_segments', 0)}"
+                           f"/{v['segments']}")
+            rows.append(row)
+        hdr = ["TABLE", "TIER", "SEGMENTS", "ROWS", "BYTES", "TMIN", "TMAX"]
+        if args.zones:
+            hdr.append("ZONES")
+        print()
+        print_table(hdr, rows)
+    else:
+        print("(no segments on disk yet)")
+    horizons = st.get("rollup_horizons", {})
+    if horizons:
+        print("\nrollup completeness horizons (exclusive, epoch s):")
+        print_table(["DATASOURCE", "COMPLETE_BEFORE"],
+                    [[k, v] for k, v in sorted(horizons.items())])
+
+
+def _segments(server: str, args) -> None:
+    q = ([f"table={args.table}"] if args.table else []) \
+        + (["v1=1"] if args.v1 else [])
+    out = _api(server, "/v1/segments" + ("?" + "&".join(q) if q else ""))
+    if not out.get("storage"):
+        print("(storage tier disabled — start the server with --storage)")
+        return
+    if args.json:
+        print(json.dumps(out, indent=2))
+        return
+    rows = []
+    for name, segs in sorted(out.get("tables", {}).items()):
+        for s in segs:
+            # a codec histogram, not one codec a column
+            counts: dict[str, int] = {}
+            for c in s.get("codecs", {}).values():
+                counts[c] = counts.get(c, 0) + 1
+            codec_s = ",".join(f"{k}:{v}" for k, v in sorted(counts.items()))
+            idx = s.get("indexed_cols", [])
+            rows.append([
+                name, s["file"], f"v{s['format']}", s["rows"], s["bytes"],
+                s["run"] if s["run"] is not None else "-",
+                s.get("sorted_by") or "-", s.get("zoned_cols", 0),
+                ",".join(idx) if idx else "-", codec_s or "-"])
+    print_table(["TABLE", "SEGMENT", "FMT", "ROWS", "BYTES", "RUN",
+                 "SORTED_BY", "ZONES", "INDEXED", "CODECS"], rows)
+    print(f"\ncompact_gen: {out.get('compact_gen', 0)}")
+
+
+def _datasources(server: str, args) -> None:
     h = _api(server, "/v1/health")
+    if h.get("storage") is not None:
+        _storage_view(h["storage"], args)
+        return
+    as_json = args.json
     horizons = h["stats"]["rollup"]["horizons"]
     if as_json:
         print(json.dumps({"tables": h["tables"], "rollup_horizons":
@@ -494,10 +571,28 @@ def main(argv: list[str] | None = None) -> int:
     p_replay.add_argument("--ingest", default="127.0.0.1:20033")
 
     p_ds = sub.add_parser(
-        "datasources", help="flow-metric tables by tier and the rollup "
-                            "completeness horizons")
+        "datasources", help="tiered storage view (per-table segments, "
+                            "on-disk bytes, time spans; without storage "
+                            "the flow-metric tables by tier) and the "
+                            "rollup completeness horizons")
     p_ds.add_argument("--json", action="store_true",
-                      help="raw tables and horizons JSON")
+                      help="raw storage block (or tables and horizons) "
+                           "JSON")
+    p_ds.add_argument("--zones", action="store_true",
+                      help="add a ZONES column: segments carrying "
+                           "zone-map footers (prunable), as zoned/total")
+
+    p_seg = sub.add_parser(
+        "segments", help="per-segment inspector: format version, rows, "
+                         "codecs, zone/bloom index presence and "
+                         "sorted-run membership")
+    p_seg.add_argument("table", nargs="?", default=None,
+                       help="limit to one table (default: all)")
+    p_seg.add_argument("--v1", action="store_true",
+                       help="only segments still on format v1 "
+                            "(awaiting migrate-on-compact)")
+    p_seg.add_argument("--json", action="store_true",
+                       help="raw /v1/segments JSON")
 
     p_trace = sub.add_parser("trace")
     p_trace.add_argument("trace_id")
@@ -579,7 +674,9 @@ def main(argv: list[str] | None = None) -> int:
     elif args.cmd == "steps":
         _steps(server, args)
     elif args.cmd == "datasources":
-        _datasources(server, args.json)
+        _datasources(server, args)
+    elif args.cmd == "segments":
+        _segments(server, args)
     elif args.cmd == "promql":
         _promql(server, args)
     elif args.cmd == "trace":

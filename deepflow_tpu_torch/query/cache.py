@@ -17,6 +17,13 @@ never by TTL:
   repeats re-scan only stale buckets, then ``engine.combine_partials``
   folds the slices back into one exact partial.
 
+With a storage tier the same watermark moves on every persistence
+event: attaching the recovered tier, a flush commit (the RAM chunks
+swapped for segments: the answers are the same, so the bucket marks
+stay), a compaction (every bucket goes stale) and an eviction (the
+evicted time range goes stale). A cached answer never outlives a change
+to the segments it read.
+
 The token and the marks are read BEFORE executing: a write racing the
 fill can only make the stored token stale (a harmless recompute next
 time), never let a stale entry validate. One fill scans one view of the

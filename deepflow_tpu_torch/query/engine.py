@@ -25,16 +25,21 @@ Aggregates add in float64, as the reference's do: a Sum of integers is
 exact while it stays below 2**53. Groups come out in ascending key
 order; rows that tie on every ORDER BY key have no specified order.
 
-Left out: zone and bloom pruning (the port's chunks keep no zone maps,
-so every scan reads every live chunk; the ``prune`` span reports zero
-candidates), and federation's use of the partials (the distributed
-partial cache and the wire context of a query trace).
+Scans over a table with a storage tier prune its segments first, as
+the reference's do (``_scan_plan``): zone maps, zstr collation-order
+zones and the v2 skip indexes, counted in ``scan_stats()``, on the
+``query.scan`` hop and in the ``prune`` span that EXPLAIN reads. RAM
+chunks keep no zones and are always scanned.
+
+Left out: federation's use of the partials (the distributed partial
+cache and the wire context of a query trace).
 """
 
 from __future__ import annotations
 
 import os
 import re
+import threading
 import time
 from dataclasses import dataclass
 
@@ -752,35 +757,258 @@ def _select_rows(get_col, sz: int, prims: list[tuple]) -> np.ndarray:
     return idx
 
 
-# -- scan accounting -----------------------------------------------------------
+# -- segment pruning -----------------------------------------------------------
 #
-# The reference prunes scan units by zone maps and skip indexes before a
-# scan, and accounts the decision to its query.scan hop ledger, to
-# /v1/health's scan counters and to the trace's prune span. The port's
-# chunks keep no zone maps, so every scan reads every live chunk: no
-# chunk is a pruning candidate, the counters stay 0, and the prune span
-# reports zero candidates.
+# A tier segment carries per-column zone maps (min/max over the ENCODED
+# values), a zstr collation-order zone for string columns of a v2 run,
+# and v2 skip indexes (an inline id list or a bloom filter). WHERE
+# conjuncts become NECESSARY conditions: a segment whose zone is
+# disjoint from an interval, or whose index lacks every id of an
+# equality, holds no matching row, and its columns never decode. Only
+# top-level AND conjuncts of the forms `col <op> literal` and `col IN
+# (...)` yield conditions; anything else does not prune, which is
+# always sound. Intervals are closed (`<` widens to `<=`), and a
+# string no dictionary holds prunes every unit, RAM chunks too. Each
+# decision is counted in _SCAN_STATS and on the query.scan hop, and
+# traced as the prune span.
 
+_SCAN_LOCK = threading.Lock()
 _SCAN_STATS = {"scanned_segments": 0, "pruned_segments": 0,
                "bloom_checked": 0, "bloom_pruned": 0}
+_SCAN_HOP = None
+
+
+def set_scan_telemetry(telemetry) -> None:
+    """Wire the query.scan hop (emitted = candidate segments, delivered
+    = scanned, dropped = pruned)."""
+    global _SCAN_HOP
+    _SCAN_HOP = telemetry.hop("query.scan") if telemetry else None
 
 
 def scan_stats() -> dict:
-    """The reference's segment-pruning counters (all 0 here)."""
-    return dict(_SCAN_STATS)
+    with _SCAN_LOCK:
+        return dict(_SCAN_STATS)
 
 
-def _scan_plan(table: TableView) -> list[dict]:
-    """One scan's chunk list, traced as the reference's prune span:
-    shared by the serial and morsel-parallel paths."""
-    chunks = list(table.chunks)
-    qtrace.span(f"prune {table.name}", candidates=0, zone_pruned=0,
-                bloom_checked=0, bloom_pruned=0,
-                scanned=len(chunks)).finish()
+def _note_scan(candidates: int, pruned: int, bloom_checked: int = 0,
+               bloom_pruned: int = 0) -> None:
+    if not candidates:
+        return
+    scanned = candidates - pruned - bloom_pruned
+    with _SCAN_LOCK:
+        _SCAN_STATS["scanned_segments"] += scanned
+        _SCAN_STATS["pruned_segments"] += pruned
+        _SCAN_STATS["bloom_checked"] += bloom_checked
+        _SCAN_STATS["bloom_pruned"] += bloom_pruned
+    hop = _SCAN_HOP
+    if hop is not None:
+        hop.account(emitted=candidates, delivered=scanned,
+                    dropped=pruned, reason="pruned")
+        if bloom_pruned:
+            hop.account(dropped=bloom_pruned, reason="bloom_pruned")
+
+
+_NO_ROW = object()   # the literal provably matches no row (absent string)
+_NEVER_CON = (None, 0, 0)  # constraint: the WHERE matches nothing
+
+
+def _zone_coerce(table: TableView, col: str, value):
+    """A literal in the column's encoded number space: None = not
+    comparable with zones, _NO_ROW = matches no row. Ints stay ints (a
+    u64 time past 2**53 must not round)."""
+    spec = table.columns[col]
+    if isinstance(value, str):
+        if spec.kind in ("str", "enum"):
+            sid = _lit_id(table, col, value)
+            return _NO_ROW if sid is None else int(sid)
+        return None
+    if isinstance(value, bool):
+        return int(value)
+    if isinstance(value, (int, float)):
+        return value
+    return None
+
+
+def _zone_constraints(table: TableView, where) -> list[tuple]:
+    """[(col, lo, hi)] closed-interval necessary conditions (None =
+    unbounded on that side); _NEVER_CON when the WHERE matches
+    nothing."""
+    cons: list[tuple] = []
+    for c in _split_conjuncts(where):
+        if not (isinstance(c, S.BinOp) and isinstance(c.left, S.Col)
+                and c.left.name in table.columns):
+            continue
+        col = c.left.name
+        if c.op == "IN" and isinstance(c.right, tuple) and c.right:
+            vals, dead, skip = [], False, False
+            for lit in c.right:
+                v = (_zone_coerce(table, col, lit.value)
+                     if isinstance(lit, S.Lit) else None)
+                if v is None:
+                    skip = True
+                    break
+                if v is _NO_ROW:
+                    dead = True
+                else:
+                    vals.append(v)
+            if skip:
+                continue
+            if vals:
+                cons.append((col, min(vals), max(vals)))
+            elif dead:
+                cons.append(_NEVER_CON)
+            continue
+        if (c.op not in ("=", "<", "<=", ">", ">=")
+                or not isinstance(c.right, S.Lit)):
+            continue
+        if (c.op != "=" and isinstance(c.right.value, str)
+                and table.columns[col].kind in ("str", "enum")):
+            # ordered string predicates follow collation order, not id
+            # order: the zstr zone checks them (_str_pruned)
+            continue
+        v = _zone_coerce(table, col, c.right.value)
+        if v is None:
+            continue
+        if v is _NO_ROW:
+            if c.op == "=":
+                cons.append(_NEVER_CON)
+            continue
+        if c.op == "=":
+            cons.append((col, v, v))
+        elif c.op in ("<", "<="):
+            cons.append((col, None, v))
+        else:
+            cons.append((col, v, None))
+    return cons
+
+
+def _index_constraints(table: TableView, where) -> tuple[list, list]:
+    """(idcons, strcons): [(col, [encoded ids])] from `col = 'lit'` and
+    `col IN (...)` over str and enum columns, checked against a
+    segment's id list or bloom filter, and [(col, op, value)] from
+    ordered string predicates over str columns, checked against its
+    zstr zone."""
+    idcons: list[tuple] = []
+    strcons: list[tuple] = []
+    for c in _split_conjuncts(where):
+        if not (isinstance(c, S.BinOp) and isinstance(c.left, S.Col)
+                and c.left.name in table.columns):
+            continue
+        col = c.left.name
+        spec = table.columns[col]
+        if spec.kind not in ("str", "enum"):
+            continue
+        if c.op == "IN" and isinstance(c.right, tuple) and c.right:
+            ids, ok = [], True
+            for lit in c.right:
+                v = (_zone_coerce(table, col, lit.value)
+                     if isinstance(lit, S.Lit) else None)
+                if v is None or isinstance(v, float):
+                    ok = False
+                    break
+                if v is not _NO_ROW:
+                    ids.append(int(v))
+            if ok:
+                idcons.append((col, ids))
+            continue
+        if not isinstance(c.right, S.Lit):
+            continue
+        if c.op == "=":
+            v = _zone_coerce(table, col, c.right.value)
+            if v is _NO_ROW:
+                idcons.append((col, []))
+            elif v is not None and not isinstance(v, float):
+                idcons.append((col, [int(v)]))
+        elif c.op in ("<", "<=", ">", ">=") and spec.kind == "str" \
+                and isinstance(c.right.value, str):
+            strcons.append((col, c.op, c.right.value))
+    return idcons, strcons
+
+
+def _str_pruned(seg, strcons: list) -> bool:
+    """True when the segment's zstr zone proves no row meets an ordered
+    string predicate (a truncated upper bound is None: no pruning)."""
+    for col, op, val in strcons:
+        z = seg.str_zone(col)
+        if z is None:
+            continue
+        lo, hi = z
+        if op in (">", ">=") and hi is not None:
+            if hi < val or (op == ">" and hi <= val):
+                return True
+        elif op in ("<", "<="):
+            if lo > val or (op == "<" and lo >= val):
+                return True
+    return False
+
+
+def _zone_pruned(zones: dict | None, cons: list) -> bool:
+    """True when the unit provably holds no matching row. A unit without
+    zones (a RAM chunk) prunes only on _NEVER_CON."""
+    for col, lo, hi in cons:
+        if col is None:
+            return True
+        zb = (zones or {}).get(col)
+        if zb is None:
+            continue
+        zmin, zmax = zb
+        if (lo is not None and zmax < lo) or \
+                (hi is not None and zmin > hi):
+            return True
+    return False
+
+
+def _scan_plan(table: TableView, query: S.Select) -> list[dict]:
+    """One scan's chunk list, pruned and counted: shared by the serial
+    and morsel-parallel paths, so both skip the same segments. Zone maps
+    (and zstr zones) first, then the skip indexes for equality and IN
+    over dictionary columns. A pruned segment decodes no byte."""
+    prune_sp = qtrace.span(f"prune {table.name}")
+    cons = idcons = strcons = ()
+    if query.where is not None:
+        cons = _zone_constraints(table, query.where)
+        idcons, strcons = _index_constraints(table, query.where)
+    chunks = []
+    zoned = pruned = bchecked = bpruned = 0
+    for ch, zones, seg in table.scan_units():
+        if zones is not None:
+            zoned += 1
+        if cons and _zone_pruned(zones, cons):
+            if zones is not None:
+                pruned += 1
+            continue
+        if seg is not None and (idcons or strcons):
+            if strcons and _str_pruned(seg, strcons):
+                pruned += 1
+                continue
+            hit, checked = True, False
+            for col, ids in idcons:
+                if not seg.has_index(col):
+                    continue
+                checked = True
+                if not seg.maybe_contains(col, ids):
+                    hit = False
+                    break
+            if checked:
+                bchecked += 1
+            if not hit:
+                bpruned += 1
+                continue
+        chunks.append(ch)
+    _note_scan(zoned, pruned, bchecked, bpruned)
+    prune_sp.annotate(candidates=zoned, zone_pruned=pruned,
+                      bloom_checked=bchecked, bloom_pruned=bpruned,
+                      scanned=len(chunks))
+    prune_sp.finish()
     return chunks
 
 
-def _chunk_rows(ch: dict) -> int:
+def _chunk_rows(ch) -> int:
+    """Rows of a scan chunk without decoding a column: a segment's
+    LazyChunk carries ``rows``; a RAM chunk pays one len()."""
+    rows = getattr(ch, "rows", None)
+    if rows is not None:
+        return rows
     return len(next(iter(ch.values()))) if ch else 0
 
 
@@ -792,7 +1020,7 @@ def _materialize(table: TableView, query: S.Select,
     needed = _needed_cols(table, query, extra_cols)
     # no chunk: the WHERE still runs once, over empty columns, so a bad
     # condition fails on an empty table too
-    chunks = _scan_plan(table) or [
+    chunks = _scan_plan(table, query) or [
         {name: np.empty(0, dtype=table.columns[name].np_dtype)
          for name in needed}]
     prims = None if query.where is None else _filter_prims(table,
@@ -812,11 +1040,16 @@ def _materialize(table: TableView, query: S.Select,
                 if mask.ndim == 0:  # WHERE with no column refs
                     mask = np.full(m, bool(mask))
                 idx = np.flatnonzero(mask.astype(bool))
+            if not len(idx):
+                # no survivor: a segment's other columns never decode
+                continue
             n += len(idx)
         for name in needed:
             parts[name].append(cols[name][idx])
-    return _Env(table, {name: p[0] if len(p) == 1 else np.concatenate(p)
-                        for name, p in parts.items()}), n
+    return _Env(table, {
+        name: (p[0] if len(p) == 1 else np.concatenate(p) if p
+               else np.empty(0, dtype=table.columns[name].np_dtype))
+        for name, p in parts.items()}), n
 
 
 # -- grouping ---------------------------------------------------------------
@@ -1101,7 +1334,7 @@ def _execute_parallel(table: TableView, query: S.Select,
     if p is None:
         return None
     needed = _needed_cols(table, query)
-    chunks = _scan_plan(table)
+    chunks = _scan_plan(table, query)
     mrows = _morsel_rows()
     morsels: list[tuple[dict, int, int]] = []
     for ch in chunks:

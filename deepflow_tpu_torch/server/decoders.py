@@ -76,11 +76,20 @@ class DedupWindow:
     to the oldest parked seq. One window is shared by all decoders: the
     seq space is per agent, not per message type."""
 
-    def __init__(self, capacity: int = 65536) -> None:
+    def __init__(self, capacity: int = 65536,
+                 floors: dict[int, int] | None = None,
+                 parked: dict[int, list[int]] | None = None) -> None:
+        """``floors`` and ``parked``: persisted per-agent floors and the
+        seqs held above them (a restart with a data dir): a retransmit of
+        a frame already held is a dup."""
         self.capacity = capacity
         self._lock = threading.Lock()
         # agent_id -> [floor, set of parked seqs > floor]
-        self._state: dict[int, list] = {}
+        self._state: dict[int, list] = {
+            int(a): [int(f), set()] for a, f in (floors or {}).items()}
+        for a, seqs in (parked or {}).items():
+            st = self._state.setdefault(int(a), [0, set()])
+            st[1].update(int(s) for s in seqs if int(s) > st[0])
         self.stats = {"dups": 0, "tracked": 0, "floor_jumps": 0}
 
     def seen(self, agent_id: int, seq: int) -> bool:
@@ -134,7 +143,10 @@ class Decoder:
     ``dups`` and writes nothing. With a ``seq_tracker``, every seq'd frame
     is observed after the pass that wrote its rows, so an ack means the
     rows are in the store (dups and decode errors are observed too: a
-    resend would meet the same fate)."""
+    resend would meet the same fate). With a ``durability`` gate
+    (``--storage``) the frames park in the gate instead, and the flusher
+    observes them into the tracker after the commit that made their rows
+    durable (``server/flusher.py``)."""
 
     MSG_TYPE: MessageType
     DRAIN_FRAMES = 64  # max frames one wakeup consumes
@@ -143,7 +155,8 @@ class Decoder:
     def __init__(self, q: queue.Queue, db: Database,
                  platform: PlatformInfoTable, dedup: DedupWindow | None = None,
                  seq_tracker=None, telemetry: Telemetry | None = None,
-                 msg_type: MessageType | None = None) -> None:
+                 msg_type: MessageType | None = None,
+                 durability=None) -> None:
         if msg_type is not None:  # a decoder that serves several types
             self.MSG_TYPE = msg_type
         self.q = q
@@ -151,6 +164,7 @@ class Decoder:
         self.platform = platform
         self.dedup = dedup
         self.seq_tracker = seq_tracker
+        self.durability = durability
         self._stop = threading.Event()
         self._threads: list[threading.Thread] = []
         self._stats_lock = threading.Lock()
@@ -191,6 +205,17 @@ class Decoder:
 
     def _handle_items(self, items: list) -> None:
         """Decode and write a list of (header, payload)."""
+        if self.durability is not None:
+            # the pass and the parking are one step for the flusher's cut
+            with self.durability.writing():
+                self._decode_items(items)
+                for header, _ in items:
+                    if header.seq is not None:
+                        self.durability.add(header.agent_id, header.seq)
+        else:
+            self._decode_items(items)
+
+    def _decode_items(self, items: list) -> None:
         batches = rows = errors = dups = 0
         t0 = time.perf_counter_ns()
         for header, payload in items:
@@ -205,7 +230,7 @@ class Decoder:
                 errors += 1
                 log.exception("decode error (%s)", self.MSG_TYPE.name)
         dt = time.perf_counter_ns() - t0
-        if self.seq_tracker is not None:
+        if self.durability is None and self.seq_tracker is not None:
             for header, _ in items:
                 if header.seq is not None:
                     self.seq_tracker.observe(header.agent_id, header.seq)

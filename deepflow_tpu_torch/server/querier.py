@@ -32,8 +32,11 @@ a trace through ``POST /v1/tracing-adapters``. No federation. ``GET
 (``query_cache``, ``query``, ``query_trace``), the server's own
 self-telemetry (``selfmon``, ``stages``, ``pipeline``,
 ``ledger_imbalance``, ``wedges``) and the agents', read back from
-``deepflow_system`` (``agents_selfmon``); a current wedge makes its
-``status`` ``degraded`` with the ``wedged_stages``. With the server's
+``deepflow_system`` (``agents_selfmon``), and with ``--storage`` the tier's ``storage`` block
+(segments, rows and bytes per table, codecs, flush, eviction and
+compaction counters); a current wedge makes its
+``status`` ``degraded`` with the ``wedged_stages``. ``GET /v1/segments``
+lists each on-disk segment (``?table=``, ``?v1=1``). With the server's
 controller: ``GET /v1/agents`` (the fleet with each agent's health, its
 clock offset and its platform's devices), ``POST /v1/agent-group-config``
 (a group's new YAML, validated and pushed), ``POST /v1/orgs`` (list, or
@@ -44,6 +47,7 @@ from __future__ import annotations
 
 import json
 import logging
+import os
 import re
 import threading
 import time
@@ -94,8 +98,11 @@ class QuerierAPI:
 
     def __init__(self, db: Database, stats_provider=None,
                  telemetry: Telemetry | None = None, rollup=None,
-                 trace_trees=None, controller=None) -> None:
+                 trace_trees=None, controller=None,
+                 storage_provider=None) -> None:
         self.db = db
+        # the server's storage block for /v1/health (None: storage off)
+        self.storage_provider = storage_provider
         # server/controller.py's Controller, or None: the fleet routes
         self.controller = controller
         self.stats_provider = stats_provider or (lambda: {})
@@ -117,6 +124,7 @@ class QuerierAPI:
         # per-stage costs observed by EXPLAIN ANALYZE runs feed the same
         # EWMA cost-model machinery the kernel and degree choosers use
         self.stage_cost = KernelCostModel(("plan", "execute"))
+        engine.set_scan_telemetry(telemetry)
 
     def _qtrace_sink(self, spans: list[dict]) -> None:
         self.db.table("deepflow_system.query_trace") \
@@ -138,6 +146,10 @@ class QuerierAPI:
             "pool_dispatched": pool_stats["dispatched"],
             "degree": engine._DEGREE.snapshot(),
         }
+        if self.storage_provider is not None:
+            storage = self.storage_provider()
+            if storage is not None:
+                out["storage"] = storage
         # span counters + the query.trace hop ledger (emitted ==
         # delivered + dropped + pending, as for every frame hop)
         out["query_trace"] = self.qtracer.snapshot()
@@ -165,6 +177,38 @@ class QuerierAPI:
             out["status"] = "degraded"
             out["wedged_stages"] = sorted(set(wedged_stages))
         return out
+
+    def segments(self, table: str | None = None,
+                 v1_only: bool = False) -> dict:
+        """GET /v1/segments (the `dfctl segments` backend): each on-disk
+        segment of a table (or of all tables) with its format, rows,
+        codecs, zones, skip indexes and sorted run; ``v1_only`` keeps the
+        segments still awaiting the format migration."""
+        store = self.db.tier_store
+        if store is None:
+            return {"tables": {}, "storage": False}
+        self.db._ensure_loaded()
+        tables: dict[str, list] = {}
+        for name in [table] if table else sorted(store.tables()):
+            rows = []
+            for seg in store.tier(name).segments():
+                if v1_only and seg.fmt >= 2:
+                    continue
+                codecs = seg.codecs()
+                rows.append({
+                    "file": os.path.basename(seg.path),
+                    "format": seg.fmt, "rows": seg.rows,
+                    "bytes": seg.nbytes,
+                    "tmin": seg.tmin, "tmax": seg.tmax,
+                    "run": seg.run, "sorted_by": seg.sorted_by,
+                    "codecs": codecs, "zoned_cols": len(seg.zones),
+                    "indexed_cols": sorted(
+                        c for c in codecs if seg.has_index(c)),
+                })
+            if rows or not v1_only:
+                tables[name] = rows
+        return {"tables": tables, "storage": True,
+                "compact_gen": store.compact_gen}
 
     def _resolve_table(self, table_name: str, db_name: str = ""):
         # resolution order: as-given, db-prefixed, then with the default
@@ -1117,6 +1161,10 @@ class QuerierHTTP:
                     return api.health()
                 if path == "/v1/agents":
                     return api.agents()
+                if path == "/v1/segments":
+                    return api.segments(
+                        table=params.get("table") or None,
+                        v1_only=params.get("v1") in ("1", "true"))
                 if path == "/v1/analyzers":
                     return api.analyzers_api()
                 if path.startswith("/prom/"):

@@ -8,7 +8,9 @@ type. A corrupt frame drops its connection and counts in
 
 Durable delivery: v2 frames carry a per-agent ``seq``. ``SeqAckTracker``
 keeps the highest contiguous seq per agent; the decoders feed it after a
-frame's rows are written, so an acked frame has reached the store. Each
+frame's rows are written, so an acked frame has reached the store (with
+``--storage`` the flusher feeds it after the commit that made the rows
+durable, and a restart ``seed``s it from the persisted floors). Each
 connection writes an ACK frame back whenever an agent's watermark moved.
 A SEQ_BASE control frame moves the watermark (and the dedup floor) up to
 the base the agent announced. The ``receiver`` hop of the server's
@@ -50,6 +52,13 @@ class SeqAckTracker:
         self._lock = threading.Lock()
         # agent_id -> [contiguous seq, set of parked seqs above it]
         self._state: dict[int, list] = {}
+
+    def seed(self, agent_id: int, contiguous: int) -> None:
+        """Restore a persisted watermark (a restart with a data dir)."""
+        with self._lock:
+            st = self._state.get(agent_id)
+            if st is None or contiguous > st[0]:
+                self._state[agent_id] = [contiguous, set()]
 
     def advance(self, agent_id: int, contiguous: int) -> None:
         """Forward-only watermark jump (SEQ_BASE): parked seqs at or below
@@ -94,6 +103,12 @@ class SeqAckTracker:
                     contig += 1
                     oos.discard(contig)
                 st[0] = contig
+
+    def parked(self) -> dict[int, list[int]]:
+        """Per agent, the seqs held above its watermark (a gap below)."""
+        with self._lock:
+            return {a: sorted(st[1]) for a, st in self._state.items()
+                    if st[1]}
 
     def contiguous(self, agent_id: int) -> int | None:
         with self._lock:

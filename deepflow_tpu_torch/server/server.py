@@ -17,7 +17,23 @@ A ``RollupJob`` rolls the 1 s flow-metric tables into their 1m, 1h and
 1d tiers (``server/datasource.py``), and a ``TraceTreeBuilder`` turns
 the L7 rows that carry a trace id into ``flow_log.trace_tree`` rows
 (``server/tracetree.py``); both show in ``/v1/health``.
-``selfmon=None`` honours DF_NO_SELFMON; DF_CHAOS reaches the receiver.
+``selfmon=None`` honours DF_NO_SELFMON; DF_CHAOS reaches the receiver
+and the tier.
+
+With ``data_dir`` the server resumes what a clean stop saved and keeps
+each agent's ack floor in ``ack_state.json`` (atomic; a torn file is
+counted as ``state_corrupt`` on the ``storage`` hop and read as absent).
+With ``storage`` too, the tables sit over an on-disk tier
+(``store/tiered.py``): a ``Flusher`` commits their sealed chunks into
+segments every ``flush_interval_s`` and releases a frame's ack only
+after the manifest commit that made its rows durable, so an ack is a
+durability receipt; a ``Compactor`` merges segments into sorted runs
+every ``compact_interval_s``; the janitor evicts segments past the TTLs
+and ``storage_max_bytes``. A restart recovers the tier and seeds the
+receiver's ack tracker and the dedup floors from the persisted floors,
+so the retransmit of a frame committed but not acked is a dup.
+``/v1/health`` carries the ``storage`` block. The reference's querier
+role, object store and scrubber are not ported.
 The server touches no device and imports no torch; span, flow-log and
 metric-document frames decode with the native library, which starting
 the server builds (or raises).
@@ -39,6 +55,8 @@ singletons locally then).
     python -m deepflow_tpu_torch.server [--host H] [--ingest-port P]
         [--query-port Q] [--sync-port S] [--no-controller]
         [--ha-lease FILE | --ha-k8s-lease NAME]
+        [--data-dir DIR [--storage] [--flush-interval-s S]
+         [--compact-interval-s S] [--storage-max-mb MB]]
 
 Once it listens it prints one JSON line with the bound ports, so that a
 parent process that asked for port 0 can find them. SIGTERM or SIGINT
@@ -50,16 +68,20 @@ from __future__ import annotations
 import argparse
 import json
 import logging
+import os
 import signal
 import threading
 import time
 
+from deepflow_tpu_torch.chaos import chaos_from_env
 from deepflow_tpu_torch.codec import MessageType
 from deepflow_tpu_torch.server.datasource import RollupJob
 from deepflow_tpu_torch.server.decoders import (
     DedupWindow, FlowLogDecoder, MetricsDecoder, ProfileDecoder,
     StatsDecoder, StepMetricsDecoder, TpuSpanDecoder)
 from deepflow_tpu_torch.server.controller import Controller
+from deepflow_tpu_torch.server.flusher import (
+    Compactor, DurabilityGate, Flusher)
 from deepflow_tpu_torch.server.janitor import Janitor
 from deepflow_tpu_torch.server.platform_info import PlatformInfoTable
 from deepflow_tpu_torch.server.querier import QuerierAPI, QuerierHTTP
@@ -79,8 +101,20 @@ class Server:
                  sync_port: int = DEFAULT_SYNC_PORT,
                  enable_controller: bool = False,
                  ha_lease_path: str | None = None,
-                 ha_k8s_lease: str | None = None) -> None:
-        self.db = Database()
+                 ha_k8s_lease: str | None = None,
+                 data_dir: str | None = None, storage: bool = False,
+                 flush_interval_s: float = 1.0,
+                 compact_interval_s: float = 60.0,
+                 storage_max_bytes: int = 0) -> None:
+        # acks are released only after the commit that made their rows
+        # durable (server/flusher.py)
+        self.storage = bool(storage and data_dir)
+        self.flush_interval_s = flush_interval_s
+        self.compact_interval_s = compact_interval_s
+        self.db = Database(data_dir=data_dir, storage=self.storage)
+        self.durability = DurabilityGate() if self.storage else None
+        self.flusher: Flusher | None = None
+        self.compactor: Compactor | None = None
         self.platform = PlatformInfoTable()
         self.controller = (Controller(self.platform, host=host,
                                       port=sync_port)
@@ -98,14 +132,16 @@ class Server:
         self.dedup = DedupWindow()
         self.receiver.dedup = self.dedup
         self.decoders = []
-        self.janitor = Janitor(self.db, telemetry=self.telemetry)
+        self.janitor = Janitor(self.db, telemetry=self.telemetry,
+                               tier_max_bytes=storage_max_bytes)
         self.rollup = RollupJob(self.db)
         # ingest-time trace precompute (reference: tracetree_writer.go)
         self.trace_trees = TraceTreeBuilder(self.db)
         self.api = QuerierAPI(self.db, stats_provider=self._stats,
                               telemetry=self.telemetry, rollup=self.rollup,
                               trace_trees=self.trace_trees,
-                              controller=self.controller)
+                              controller=self.controller,
+                              storage_provider=self._storage_stats)
         self.http = QuerierHTTP(self.api, host=host, port=query_port)
 
     def _stats(self) -> dict:
@@ -119,7 +155,71 @@ class Server:
                 f"{fam}.{sfx}": wm
                 for (fam, sfx), wm in self.rollup.horizons().items()}},
             "trace_trees": dict(self.trace_trees.stats),
+            "flusher": (dict(self.flusher.stats)
+                        if self.flusher is not None else None),
+            "compactor": (dict(self.compactor.stats)
+                          if self.compactor is not None else None),
         }
+
+    def _storage_stats(self) -> dict | None:
+        """The /v1/health storage block: the tier's state, the gate's
+        depth and the rollup horizons."""
+        if self.db.tier_store is None:
+            return None
+        snap = self.db.tier_store.snapshot()
+        snap["gate_pending"] = len(self.durability)
+        if self.flusher is not None:
+            snap["flush_consec_errors"] = self.flusher.consec_errors
+            snap["commit_ms"] = self.flusher.commit_ms_quantiles()
+        snap["rollup_horizons"] = {
+            f"{fam}.{sfx}": wm
+            for (fam, sfx), wm in self.rollup.horizons().items()}
+        return snap
+
+    def _ack_state_path(self) -> str | None:
+        return (os.path.join(self.db.data_dir, "ack_state.json")
+                if self.db.data_dir else None)
+
+    def _load_ack_state(self) -> dict[int, int]:
+        """Persisted per-agent contiguous-seq floors. They seed the
+        receiver's ack tracker and the dedup floors, so a retransmit of
+        a frame from before the restart writes no second row. A torn
+        file reads as absent (the tier's manifest keeps its own floors)
+        and is counted as ``state_corrupt``."""
+        path = self._ack_state_path()
+        if not path or not os.path.exists(path):
+            return {}
+        try:
+            with open(path) as f:
+                raw = json.load(f)
+            return {int(k): int(v) for k, v in raw.items()}
+        except (OSError, ValueError, AttributeError):
+            log.warning("ack state unreadable; starting fresh",
+                        exc_info=True)
+            self.telemetry.hop("storage").account(
+                emitted=1, dropped=1, reason="state_corrupt")
+            return {}
+
+    def _save_ack_state(self) -> None:
+        """temp file + fsync + rename: a crash leaves the old floors or
+        the new, never a torn file."""
+        path = self._ack_state_path()
+        if not path:
+            return
+        tmp = f"{path}.tmp.{os.getpid()}"
+        try:
+            with open(tmp, "w") as f:
+                json.dump({str(k): v for k, v in
+                           self.receiver.seq_tracker.snapshot().items()}, f)
+                f.flush()
+                os.fsync(f.fileno())
+            os.replace(tmp, path)
+        except OSError:
+            log.warning("ack state save failed", exc_info=True)
+            try:
+                os.unlink(tmp)
+            except OSError:
+                pass
 
     def start(self) -> "Server":
         # the election first: a Lease with no cluster raises before
@@ -137,6 +237,33 @@ class Server:
             self.election = LeaderElection(
                 self.ha_lease_path, on_elected=self._start_singletons,
                 on_deposed=self._stop_singletons)
+        if self.db.data_dir:
+            self.db.load()  # resume the saved tables, adopt the tier
+        floors = self._load_ack_state()
+        parked: dict[int, list[int]] = {}
+        if self.db.tier_store is not None:
+            self.db.tier_store.chaos = chaos_from_env()
+            if self.db.tier_store.stats.get("manifest_corrupt"):
+                # recovery met an unreadable MANIFEST.json and scavenged
+                # the segment files instead
+                self.telemetry.hop("storage").account(
+                    emitted=1, dropped=1, reason="state_corrupt")
+            # the manifest's floors were committed with the rows they
+            # cover: after a SIGKILL they are ahead of ack_state.json,
+            # which only a clean stop writes. Both describe durable rows
+            for agent_id, contig in self.db.tier_store.ack_floors.items():
+                if contig > floors.get(agent_id, -1):
+                    floors[agent_id] = contig
+            # committed seqs above a gap: durable too
+            parked = {a: [q for q in seqs if q > floors.get(a, -1)]
+                      for a, seqs in self.db.tier_store.ack_parked.items()}
+        for agent_id, contig in floors.items():
+            self.receiver.seq_tracker.seed(agent_id, contig)
+        for agent_id, seqs in parked.items():
+            for seq in seqs:
+                self.receiver.seq_tracker.observe(agent_id, seq)
+        self.dedup = DedupWindow(floors=floors, parked=parked)
+        self.receiver.dedup = self.dedup
         # register every queue before listening: no frame finds none
         for cls, mtype in ((ProfileDecoder, MessageType.PROFILE),
                            (TpuSpanDecoder, MessageType.TPU_SPAN),
@@ -151,7 +278,19 @@ class Server:
             self.decoders.append(cls(
                 q, self.db, self.platform, dedup=self.dedup,
                 seq_tracker=self.receiver.seq_tracker,
-                telemetry=self.telemetry, msg_type=mtype, **kw).start())
+                telemetry=self.telemetry, msg_type=mtype,
+                durability=self.durability, **kw).start())
+        if self.storage:
+            self.flusher = Flusher(self.db, gate=self.durability,
+                                   seq_tracker=self.receiver.seq_tracker,
+                                   interval_s=self.flush_interval_s,
+                                   telemetry=self.telemetry)
+            self.flusher.seed_floors(floors, parked)
+            self.flusher.start()
+            if self.compact_interval_s > 0:
+                self.compactor = Compactor(
+                    self.db, interval_s=self.compact_interval_s,
+                    telemetry=self.telemetry).start()
         self.trace_trees.start()
         self.deadman.start()
         self.receiver.start()
@@ -189,8 +328,21 @@ class Server:
         for d in self.decoders:
             d.stop()
         self.trace_trees.stop()  # writes the traces still pending
+        if self.compactor is not None:
+            # before the final flush: both rename the manifest
+            self.compactor.stop()
+            self.compactor = None
+        if self.flusher is not None:
+            # after the decoders' drain: the final flush commits what they
+            # wrote and parked, and releases the last gated seqs
+            self.flusher.stop()
+            self.flusher = None
+        # after the drain: every acked frame is in a table now
+        self._save_ack_state()
         self._stop_singletons()
         self.http.stop()
+        if self.db.data_dir:
+            self.db.save()
 
     @property
     def ingest_port(self) -> int:
@@ -236,6 +388,24 @@ def main(argv: list[str] | None = None, on_start=None) -> None:
                         help="shared-volume lease FILE for leader election")
     parser.add_argument("--ha-k8s-lease", default=None,
                         help="Kubernetes Lease name for leader election")
+    parser.add_argument("--data-dir", default=None,
+                        help="persist the tables and the ack floors here")
+    parser.add_argument("--storage", action="store_true",
+                        help="persistent tiered storage: flush sealed "
+                             "chunks into on-disk columnar segments "
+                             "under <data-dir>/segments and release "
+                             "ingest acks only after the commit that "
+                             "makes their rows durable")
+    parser.add_argument("--flush-interval-s", type=float, default=1.0,
+                        help="tier flush cadence (storage mode)")
+    parser.add_argument("--compact-interval-s", type=float, default=60.0,
+                        help="tier compaction cadence (storage mode): "
+                             "merge small sealed segments into sorted "
+                             "format-v2 runs; 0 disables")
+    parser.add_argument("--storage-max-mb", type=int, default=0,
+                        help="on-disk tier size budget per node; the "
+                             "janitor evicts oldest segments past it "
+                             "(0 = TTL-only eviction)")
     args = parser.parse_args(argv)
     logging.basicConfig(
         level=logging.INFO,
@@ -247,7 +417,11 @@ def main(argv: list[str] | None = None, on_start=None) -> None:
                     query_port=args.query_port, sync_port=args.sync_port,
                     enable_controller=not args.no_controller,
                     ha_lease_path=args.ha_lease,
-                    ha_k8s_lease=args.ha_k8s_lease).start()
+                    ha_k8s_lease=args.ha_k8s_lease,
+                    data_dir=args.data_dir, storage=args.storage,
+                    flush_interval_s=args.flush_interval_s,
+                    compact_interval_s=args.compact_interval_s,
+                    storage_max_bytes=args.storage_max_mb << 20).start()
     try:
         print(json.dumps({"ingest_port": server.ingest_port,
                           "query_port": server.query_port,

@@ -3,12 +3,14 @@
 Own copy of ``deepflow_tpu/store/dictionary.py::Dictionary``, with its
 native mirror for ``encode_arena`` (the columnar span decoder's string
 cells interned in C++), the query side's ``match_ids`` and collation
-ranks, and the change counters of ``sync_state`` that the query cache
+ranks, the JSON ``dump`` / ``load`` the storage tier persists, and the
+change counters of ``sync_state`` that the query cache
 validates against. Id 0 is always the empty string.
 """
 
 from __future__ import annotations
 
+import json
 import threading
 
 import numpy as np
@@ -148,6 +150,20 @@ class Dictionary:
         return np.fromiter(
             (i for i, s in enumerate(self.snapshot()) if predicate(s)),
             dtype=np.uint32)
+
+    # -- persistence ---------------------------------------------------------
+
+    def dump(self, path: str) -> None:
+        with open(path, "w") as f:
+            json.dump(self.snapshot(), f)
+
+    @classmethod
+    def load(cls, path: str, name: str = "") -> "Dictionary":
+        with open(path) as f:
+            d = cls(name, json.load(f))
+        d.version = len(d._strings)
+        d.gen = 1  # ids from any process before the load are not comparable
+        return d
 
     def collation_ranks(self) -> np.ndarray:
         """int64 rank of every id in the strings' sort order. Ids follow

@@ -477,7 +477,10 @@ def test_port_imports_no_jax_and_no_reference():
                 "agent/yamlcfg.py", "agent/synchronizer.py",
                 "server/controller.py", "server/syncwire.py",
                 "server/election.py", "server/prom_encoder.py",
-                "tpuprobe/topology.py"):
+                "tpuprobe/topology.py", "store/segment.py",
+                "store/tiered.py", "store/migration.py", "store/table.py",
+                "store/db.py", "server/flusher.py", "server/janitor.py",
+                "chaos.py"):
         assert os.path.join(ROOT, "deepflow_tpu_torch", mod) in files, mod
     for path in files:
         with open(path) as f:
@@ -536,7 +539,11 @@ def test_port_import_leaves_jax_unloaded():
     "deepflow_tpu_torch.server.election",
     "deepflow_tpu_torch.agent.synchronizer",
     "deepflow_tpu_torch.agent.yamlcfg",
-    "deepflow_tpu_torch.tpuprobe.topology"])
+    "deepflow_tpu_torch.tpuprobe.topology",
+    # durable storage
+    "deepflow_tpu_torch.store.segment", "deepflow_tpu_torch.store.tiered",
+    "deepflow_tpu_torch.store.migration", "deepflow_tpu_torch.store.db",
+    "deepflow_tpu_torch.server.flusher"])
 def test_server_and_dfctl_import_leaves_torch_unloaded(module):
     """The server, dfctl and the flow path touch no device, so importing
     them in a fresh interpreter loads no torch; the package still gives
