@@ -31,9 +31,11 @@ whole steps a capture at a 10 % coverage). Checks:
   job's captures change how many steps fit a window).
 
 Printed beside the card's name and power limit: each job's step medians
-and means, its Guard's CPU readings and the synchronizer threads'
-CPU-seconds (``agent.guard.threads``), the push's lag, the NTP offsets,
-and the phase's seconds.
+and means, its Guard's CPU readings and the synchronizer's and the
+socket scan's threads' CPU-seconds (``agent.guard.threads``), the
+scan's last ms, entries and count (``agent.socket_scan``: each runner
+agent scans every 30 s, the reference's default, and must have scanned),
+the push's lag, the NTP offsets, and the phase's seconds.
 """
 
 from __future__ import annotations
@@ -237,6 +239,9 @@ def control_phase(nums: dict) -> None:
         guard_latest, guard_max = cs._latest_and_max(guard_rows,
                                                      "agent.guard")
         threads = cs._latest_and_max(guard_rows, "agent.guard.threads")[0]
+        scan = _latest(stats, aid, "agent.socket_scan")
+        cs.check(scan.get("scans", 0) >= 1 and not scan.get("errors"),
+                 f"{g}: the runner agent's socket scan ran ({scan})")
         cs.check(per_agent[aid] == tp.get("spans_sent", -1) > 0,
                  f"{g}: every span it sent held once ({per_agent[aid]} "
                  f"against {tp.get('spans_sent')})")
@@ -291,7 +296,12 @@ def control_phase(nums: dict) -> None:
             "guard_cpu_pct_latest": guard_latest.get("cpu_pct"),
             "guard_cpu_pct_max": guard_max.get("cpu_pct"),
             "synchronizer_thread_cpu_s": {
-                k: v for k, v in threads.items() if "sync" in k}}
+                k: v for k, v in threads.items() if "sync" in k},
+            "socket_scan_thread_cpu_s": {
+                k: v for k, v in threads.items() if "scan" in k},
+            "socket_scans": scan.get("scans"),
+            "socket_scan_ms_last": scan.get("scan_ms"),
+            "socket_scan_entries": scan.get("entries")}
     out["phase_s"] = time.perf_counter() - t_phase
     nums.update(out)
     cs.phase("control", **{k: json.dumps(v) if isinstance(v, dict) else v

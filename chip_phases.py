@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Run some of chip_smoke.py's phases alone, for a shorter call.
 
-    python3 chip_phases.py resnet dp parallel mp flows control storage
+    python3 chip_phases.py resnet dp parallel mp flows control storage enrich
 
 The device phase (the card's name and power limit) first, then each named
 phase (``resnet``: ResNet-50 trained with the probe in this process;
@@ -11,7 +11,8 @@ checks on every GPU; ``mp``: the sharded Llama-7B example on every GPU,
 plain and shipping into a server process; ``flows``: the flow/L7 agent
 on the card's host, chip_flows.py; ``control``: the control plane with
 two jobs on the card, chip_control.py; ``storage``: the durable tier,
-chip_storage.py, fed the span frames of phases 2-4, which run first)
+chip_storage.py, fed the span frames of phases 2-4, which run first;
+``enrich``: every flow row's process and pod, chip_enrich.py)
 with the same checks as the smoke.
 The numbers land in results/chip_phases.json; a failed check raises.
 """
@@ -47,6 +48,7 @@ def main(names: list[str]) -> int:
               "mp": lambda res: cs.mp_phase(torch, res),
               "flows": lambda res: cs.flows_phase(res),
               "control": lambda res: cs.control_phase(res),
+              "enrich": lambda res: cs.enrich_phase(res),
               "storage": lambda res: cs.storage_phase(_span_sink(torch),
                                                       res)}
     unknown = [n for n in names if n not in phases]

@@ -31,9 +31,10 @@ Phases, each printing its own lines:
    records, and its memory view phase 4's largest sample. Then DF-SQL over POST
    /v1/query: the top ten ops by device time equal phase 4's per-op
    sums and flame graph, the spans per run_id less its module span
-   equal phase 4's kernels per step, SHOW TABLES lists the port's ten
-   tables (the five above, deepflow_system.query_trace and the four flow
-   tables, as the reference's server lists them), and org_id 1 keeps
+   equal phase 4's kernels per step, SHOW TABLES lists the port's
+   tables (the five above, deepflow_system.query_trace, the flow tables
+   with their rollups and trace trees, and event.event, as
+   the reference's server lists them), and org_id 1 keeps
    every row, 2
    none. Every query, the six profile
    queries included, must answer in under 1,000 ms; their times print
@@ -207,10 +208,28 @@ Phases, each printing its own lines:
    under 1,000 ms cold (cache bypassed) and warm. Rows/s with storage on
    and off, commit ms, bytes a row, segments per codec, recovery s, the
    server's RSS and query ms are printed.
+16. enrich (run last, chip_enrich.py): every flow row names its process
+   and its pod. (a) The port's server with its controller in this
+   process, the node agent on lo with its socket scan every 2 s, a stdlib
+   HTTP server child taking 500 requests, and phase 6's child training
+   60 steps under the runner with --controller: every HTTP row names the
+   HTTP child (gpid and comm) on side 1, and the training child's flows
+   to its server name the child by the gpid its own runner agent's
+   registration gave its pid, and the server process; the scan's ms and
+   entries are printed. (b) genesis over a stub apiserver of 10,000 pods
+   (at most 110 a node) and 1,000 services laid over 10,000 flows of
+   phase 13's shape: every row's side tags equal the index's, natively,
+   the 1m rollup keeps them, and a pod deleted, a service changed and a
+   node added are followed by later rows and land in event.event; rows/s
+   with the index empty and loaded. (c) The node agent's labeler takes
+   the controller's PodMap once. (d) ignore, pcap and npb ACLs pushed by
+   dfctl: no row for the ignored port, captures holding exactly the pcap
+   port's frames, VXLAN datagrams of the npb port's frames.
 
 The dp phase's ranks run with --controller too: their ids are the
 controller's, one a rank (not rank + 1), found by the rank in each agent's
-launcher identity. The servers of phases 5-8, 10 and 12-15 run
+launcher identity. The runner's agents of phases 10, 14 and 16 run the
+socket scan (every 30 s, the reference's default) beside their sync. The servers of phases 5-8, 10 and 12-15 run
 the server's entry point (its main(),
 stopped by SIGTERM after its drain) in a process of their own
 (multiprocessing, spawn) that then hands the smoke their tables' rows.
@@ -775,6 +794,8 @@ def server_phase(sink, probe, seen) -> dict:
             # tiers and the trace trees the server derives from them
             "flow_log.l4_flow_log": 0, "flow_log.l7_flow_log": 0,
             "flow_log.trace_tree": 0,
+            # the resource recorder's events (no cluster here)
+            "event.event": 0,
             **{f"flow_metrics.{fam}.{sfx}": 0
                for fam in ("application", "network")
                for sfx in ("1s", "1m", "1h", "1d")},
@@ -1444,16 +1465,18 @@ def _proc_sample(pid: int) -> tuple[float, int] | None:
     return cpu_s, resident_pages * os.sysconf("SC_PAGE_SIZE")
 
 
-def _train_child(args: list[str], name: str) -> dict:
+def _train_child(args: list[str], name: str, on_spawn=None) -> dict:
     """Run one training child to its end while sampling its /proc every
     0.1 s (CPU time and resident memory; the last sample may be of the
     exited child, whose CPU time is final); parse its per-step JSON
-    lines."""
+    lines. ``on_spawn(pid)``, when given, runs once the child exists."""
     out_path = os.path.join(OUT_DIR, f"{name}.out")
     err_path = os.path.join(OUT_DIR, f"{name}.err")
     with open(out_path, "w") as out, open(err_path, "w") as err:
         proc = subprocess.Popen([sys.executable, *args], cwd=ROOT,
                                 stdout=out, stderr=err)
+    if on_spawn is not None:
+        on_spawn(proc.pid)
     t0 = time.perf_counter()
     samples = []   # (seconds since start, CPU seconds, resident bytes)
     try:
@@ -2597,6 +2620,14 @@ def control_phase(nums: dict) -> None:
     chip_control.control_phase(nums)
 
 
+def enrich_phase(nums: dict) -> None:
+    """Phase 16 (chip_enrich.py): every flow row names its process and
+    its pod, on the card's host."""
+    import chip_enrich
+    chip_enrich.cs.CARD.update(CARD)
+    chip_enrich.enrich_phase(nums)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2649,6 +2680,8 @@ def main() -> int:
         flows_phase(result["flows"])
         result["control"] = {}
         control_phase(result["control"])
+        result["enrich"] = {}
+        enrich_phase(result["enrich"])
     finally:
         # every number so far, also when a check failed
         result["seconds"] = time.perf_counter() - t0

@@ -18,7 +18,20 @@ built (``agent/synchronizer.py``: a bounded first sync, so its sender
 ships under the assigned id from the first frame; an agent id of 0 asks
 the controller for one, and one that cannot register falls back to the
 id it would have without a controller), then keeps syncing and takes its
-group's config by poll and push (reference: agent.py:378-389).
+group's config by poll and push (reference: agent.py:378-389), and, with
+``socket_scan_interval_s`` above 0 (30 s by default), runs the socket
+scan that uploads every local socket's process to the controller
+(``agent/socket_scan.py``), so the server names the process on each
+side of a flow.
+
+The ``Labeler`` (``agent/labeler.py``) is built from ``acls`` and fed the
+controller's PodMap by the synchronizer: the dispatcher labels each
+closed flow's pods and drops the flows an ACL ignores. With a ``pcap``
+or ``npb`` ACL the dispatcher runs ``PacketActions``
+(``agent/packet_actions.py``) on the frames of pcap replay and of the
+SOCK_RAW capture; an agent started without a dispatcher builds one when
+such ACLs are pushed (``ensure_packet_actions``), and the NPB target's
+port is excluded from capture as the sender's are.
 
 The agent runs beside a workload on the card: ``device`` defaults to
 "cuda" and a missing CUDA device is an error. With ``device="cpu"`` the
@@ -50,6 +63,8 @@ import time
 from deepflow_tpu_torch.agent.config import AgentConfig, default_agent_id, \
     parse_addr
 from deepflow_tpu_torch.agent.guard import Guard, read_self_usage
+from deepflow_tpu_torch.agent.labeler import Labeler, acl_rules, \
+    has_packet_acls
 from deepflow_tpu_torch.agent.profiler import OnCpuSampler, ProfileSample
 from deepflow_tpu_torch.agent.sender import UniformSender
 from deepflow_tpu_torch.agent.spool import Spool
@@ -100,7 +115,10 @@ class Agent:
             check_interval_s=sm.check_interval_s or None,
             on_wedge=self._on_wedge)
         self.guard: Guard | None = None
+        self.labeler = Labeler()
+        self.labeler.load_acls(acl_rules(self.config.acls))
         self.synchronizer = None
+        self.socket_scanner = None
         if self.config.controller:
             # registered before the sender exists: every frame carries the
             # controller's id, so no stream splits at an id change
@@ -131,6 +149,11 @@ class Agent:
                           if self.config.tpuprobe.enabled
                           and self.device_type == "cuda" else None)
         self.first_step_rss: int | None = None
+        # the counters of the probes the guard stopped: agent.tpuprobe
+        # reports what the agent sent across pauses, not only since the
+        # last resume
+        self._stopped_probes: dict[str, float] = {}
+        self._probe_stats_lock = threading.Lock()
         self._stats_thread: threading.Thread | None = None
         self._stop = threading.Event()
         self._components: list[str] = []
@@ -197,7 +220,11 @@ class Agent:
                 self.sampler = None
             if self.tpuprobe is not None:
                 self.tpuprobe.stop()
-                self.tpuprobe = None
+                with self._probe_stats_lock:  # counted once, in one place
+                    for k, v in self.tpuprobe.stats.items():
+                        self._stopped_probes[k] = \
+                            self._stopped_probes.get(k, 0) + v
+                    self.tpuprobe = None
 
     def resume_profilers(self) -> None:
         """Start them again as configured, the probe afresh on the
@@ -236,6 +263,8 @@ class Agent:
             threads += self.live_capture.threads
         if self.synchronizer is not None:
             threads += self.synchronizer.threads
+        if self.socket_scanner is not None:
+            threads += self.socket_scanner.threads
         return [t for t in threads if t is not None]
 
     def start(self) -> "Agent":
@@ -259,6 +288,8 @@ class Agent:
             except CaptureError:
                 self._abort_start()
                 raise
+        elif has_packet_acls(self.config.acls):
+            self.ensure_packet_actions()  # for pcap replay
         if self.config.guard.enabled:
             g = self.config.guard
             self.guard = Guard(
@@ -271,6 +302,13 @@ class Agent:
                 f"synchronizer (agent id {self.config.agent_id}"
                 + ("" if self.synchronizer.registered else
                    ", not registered") + ")")
+            if self.config.socket_scan_interval_s > 0:
+                from deepflow_tpu_torch.agent.socket_scan import \
+                    SocketScanner
+                self.socket_scanner = SocketScanner(
+                    self.synchronizer, agent_id=self.config.agent_id,
+                    interval_s=self.config.socket_scan_interval_s).start()
+                self._components.append("socket-scan")
         self._stats_thread = threading.Thread(
             target=self._stats_loop, name="df-agent-stats", daemon=True)
         self._stats_thread.start()
@@ -290,10 +328,14 @@ class Agent:
         fc = self.config.flow
         self.dispatcher = Dispatcher(
             sender=self.sender, agent_id=self.config.agent_id,
-            telemetry=self.telemetry).start()
+            labeler=self.labeler, telemetry=self.telemetry).start()
+        self.dispatcher.packet_actions = self._packet_actions(self.config)
         self._components.append("dispatcher")
         exclude = set(fc.exclude_ports)
         exclude.update(p for _, p in self.sender.servers)
+        npb_port = self.dispatcher.packet_actions.npb_port
+        if npb_port:  # NPB's own datagrams are not traffic to forward
+            exclude.add(npb_port)
         try:
             self.live_capture = LiveCapture(
                 self.dispatcher, interface=fc.interface,
@@ -315,6 +357,33 @@ class Agent:
                 f"live capture on {where} cannot open ({cause})") from e
         self._components.append(f"live-capture ({self.live_capture.mode})")
 
+    def _packet_actions(self, cfg: AgentConfig):
+        from deepflow_tpu_torch.agent.packet_actions import PacketActions
+        return PacketActions(self.labeler, sender=self.sender,
+                             agent_id=self.config.agent_id,
+                             npb_target=cfg.npb_target,
+                             npb_vni=cfg.npb_vni)
+
+    def ensure_packet_actions(self, cfg: AgentConfig | None = None) -> None:
+        """Pushed pcap or npb ACLs on an agent started without them: a
+        dispatcher (for pcap replay) and the action executor, with
+        ``cfg``'s NPB target, whose port the running capture then
+        excludes."""
+        cfg = cfg or self.config
+        if self.dispatcher is None:
+            from deepflow_tpu_torch.agent.dispatcher import Dispatcher
+            self.dispatcher = Dispatcher(
+                sender=self.sender, agent_id=self.config.agent_id,
+                labeler=self.labeler, telemetry=self.telemetry).start()
+            self._components.append("dispatcher")
+        pa = self.dispatcher.packet_actions
+        if pa is None or (cfg.npb_target and pa.npb_target != cfg.npb_target):
+            if pa is not None:
+                pa.stop()
+            pa = self.dispatcher.packet_actions = self._packet_actions(cfg)
+        if self.live_capture is not None and pa.npb_port:
+            self.live_capture.exclude_port(pa.npb_port)
+
     def _abort_start(self) -> None:
         """Undo a start that failed part way: the sources, the deadman
         and the sender stop, with no final stats."""
@@ -332,6 +401,8 @@ class Agent:
         flush, so its ledger shows what the flush left pending."""
         self._stop.set()
         self.deadman.stop()
+        if self.socket_scanner is not None:
+            self.socket_scanner.stop()
         if self.synchronizer is not None:  # no config applies from here
             self.synchronizer.stop()
         if self.guard:
@@ -416,14 +487,19 @@ class Agent:
                 values={k: float(v) for k, v in values.items()}))
 
         metric("agent.sender", self.sender.stats)
-        sampler, tpuprobe = self.sampler, self.tpuprobe
+        with self._probe_stats_lock:
+            sampler, tpuprobe = self.sampler, self.tpuprobe
+            sent = dict(self._stopped_probes)
         if sampler is not None:
             st = sampler.stats
             metric("agent.oncpu_sampler", {
                 "samples": st.samples, "emits": st.emits,
                 "overruns": st.overruns})
+        for k, v in (tpuprobe.stats.items() if tpuprobe is not None else ()):
+            sent[k] = sent.get(k, 0) + v
+        if sent:  # every probe's sends, those the guard stopped included
+            metric("agent.tpuprobe", sent)
         if tpuprobe is not None:
-            metric("agent.tpuprobe", tpuprobe.stats)
             # the capture source's duty cycle and dead time (numbers only)
             for src in tpuprobe.sources:
                 if isinstance(src, KinetoSource):
@@ -432,6 +508,13 @@ class Agent:
                         if isinstance(v, (int, float))})
         if self.dispatcher is not None:
             metric("agent.dispatcher", self.dispatcher.stats)
+            pa = self.dispatcher.packet_actions
+            if pa is not None:
+                metric("agent.packet_actions", pa.stats)
+        metric("agent.labeler", self.labeler.stats)
+        scanner = self.socket_scanner
+        if scanner is not None:
+            metric("agent.socket_scan", scanner.stats)
         if self.live_capture is not None:
             metric("agent.live_capture", {
                 k: v for k, v in self.live_capture.stats.items()

@@ -15,11 +15,15 @@ self-telemetry are on by default, the spool, fault injection and flow
 capture off. ``AgentConfig.from_dict`` builds one from a parsed YAML
 mapping as the reference's does (a section's unknown key raises, an
 unknown top-level key is ignored), and ``AgentConfig.load`` reads a
-YAML file with the port's own reader (``agent/yamlcfg.py``). The ACLs,
-the ``qos`` block, ``profiler.memory`` and ``tpuprobe.source`` parse
-and validate, but nothing in the port applies them yet: the labeler,
-the backpressure and the memory profiler are later slices, and the
-port's probe has one source, Kineto (``auto``).
+YAML file with the port's own reader (``agent/yamlcfg.py``). The ACLs
+build the agent's labeler (``agent/labeler.py``), with ``npb_target``
+and ``npb_vni`` for the ``npb`` action; ``socket_scan_interval_s`` (30 s,
+0 off) paces the socket scan that gives every flow endpoint its process
+(``agent/socket_scan.py``; it needs a controller). The ``qos`` block,
+``profiler.memory`` and ``tpuprobe.source`` parse and validate, but
+nothing in the port applies them yet: the backpressure and the memory
+profiler are later slices, and the port's probe has one source, Kineto
+(``auto``).
 
 ``AgentConfig.agent_id`` is 0, the reference's default ("assigned by the
 controller"), outside a launcher. In a process a launcher started (``RANK`` and ``WORLD_SIZE`` in
@@ -166,10 +170,18 @@ class BackpressureConfig:
 class AgentConfig:
     agent_id: int = field(default_factory=default_agent_id)
     app_service: str = ""
-    # policy rules [{cidr, port, protocol, action: trace|ignore|pcap|npb}]
+    # policy rules [{cidr, port, protocol, action: trace|ignore|pcap|npb}];
+    # pcap and npb also capture or forward the matched flows' packets
     acls: list = field(default_factory=list)
+    # the NPB broker for action=npb: matched frames, VXLAN-encapsulated
+    # with npb_vni, go to host:port over UDP; "" forwards nothing
+    npb_target: str = ""
+    npb_vni: int = 1
     group: str = "default"        # agent group: config routing and org
     controller: str = ""          # host:port; empty = no controller
+    # the /proc socket-inode scan into GpidSync (a gpid and a process name
+    # for every local flow endpoint); 0 = off; needs a controller
+    socket_scan_interval_s: float = 30.0
     profiler: ProfilerConfig = field(default_factory=ProfilerConfig)
     tpuprobe: TpuProbeConfig = field(default_factory=TpuProbeConfig)
     guard: GuardConfig = field(default_factory=GuardConfig)

@@ -14,10 +14,15 @@ of ``native/flowmap.cpp`` (``native_flow.NativeFlowMap``), and a native
 library that does not build or load raises. ``"python"`` runs the
 pure-Python ``FlowMap`` alone and is used only when a caller names it.
 MetaPacket injection always takes the Python map (disjoint key spaces,
-shared output callbacks), as in the reference. The reference's agent-side
-labeler and packet actions (ACLs, pcap and NPB actions) are not ported
-yet. Reference analog: agent/src/dispatcher (capture loop) + the sender
-conversion in flow_generator. This module loads no torch.
+shared output callbacks), as in the reference. With a ``labeler``
+(``agent/labeler.py``) each closed flow is labeled: its L4 and L7 logs
+carry the labeler's pods (``pod_0`` / ``pod_1``), and a flow an ACL
+``ignore``s is dropped whole (its L4 log, its L7 logs and its documents;
+``ignored_flows``). ``packet_actions`` (``agent/packet_actions.py``),
+once an agent sets it, runs the pcap and NPB actions on the raw frames
+of pcap replay (both engines) and of the SOCK_RAW capture. Reference
+analog: agent/src/dispatcher (capture loop) + the sender conversion in
+flow_generator. This module loads no torch.
 """
 
 from __future__ import annotations
@@ -127,7 +132,7 @@ class Dispatcher:
     def __init__(self, sender=None, agent_id: int = 0,
                  flush_interval_s: float = 1.0,
                  batch_size: int = 256, engine: str = "native",
-                 telemetry: Telemetry | None = None) -> None:
+                 labeler=None, telemetry: Telemetry | None = None) -> None:
         if engine not in ENGINES:
             raise ValueError(f"engine must be one of {ENGINES}, "
                              f"got {engine!r}")
@@ -141,6 +146,10 @@ class Dispatcher:
         self._fm_hop = telemetry.hop("flow_map")
         self._co_hop = telemetry.hop("collector")
         self._hop = telemetry.hop("dispatcher")
+        self.labeler = labeler  # the agent's labeler, or None
+        # the ACL's pcap and NPB actions on frame-visible paths; None
+        # until an agent sets one
+        self.packet_actions = None
         self.batch_size = batch_size
         self.flush_interval_s = flush_interval_s
         self._l4_buf: list[pb.L4FlowLog] = []
@@ -163,21 +172,68 @@ class Dispatcher:
         # loop all take this lock
         self._lock = threading.Lock()
 
+    def run_packet_actions(self, frames) -> None:
+        """The packet actions on (frame, ts_ns) pairs; nothing unless a
+        pcap or npb ACL exists."""
+        pa = self.packet_actions
+        if pa is None or not pa.enabled():
+            return
+        for frame, ts_ns in frames:
+            try:
+                pa.handle_frame(frame, ts_ns)
+            except Exception:
+                # one malformed frame must not lose the rest of the batch
+                log.exception("packet action failed")
+
     # -- pipeline callbacks ----------------------------------------------------
 
+    def _label(self, node: FlowNode):
+        """(source label, destination label, action)."""
+        if self.labeler is None:
+            return None, None, "trace"
+        return self.labeler.label_flow(node.ip_src, node.ip_dst,
+                                       node.port_src, node.port_dst,
+                                       node.protocol)
+
+    def _ignored(self, action: str) -> bool:
+        if action != "ignore":
+            return False
+        self.labeler.stats["ignored_flows"] += 1
+        self._fm_hop.account(emitted=1, dropped=1, reason="acl_ignore")
+        return True
+
     def _on_flow_update(self, node: FlowNode, closed: bool) -> None:
+        # an ignored flow is in no log and no document
+        if self._label(node)[2] == "ignore":
+            return
         self.quadruple.add_flow(node, closed)
 
     def _on_l4(self, node: FlowNode) -> None:
+        src, dst, action = self._label(node)
+        if self._ignored(action):
+            return
         self._fm_hop.account(emitted=1, delivered=1)
-        self._l4_buf.append(flow_to_l4_pb(node))
+        f = flow_to_l4_pb(node)
+        if src is not None:
+            f.pod_0 = src.pod
+        if dst is not None:
+            f.pod_1 = dst.pod
+        self._l4_buf.append(f)
         if len(self._l4_buf) >= self.batch_size:
             self._flush_l4()
 
     def _on_l7(self, record: L7Record) -> None:
+        src, dst, action = self._label(record.flow)
+        if self._ignored(action):
+            return
         self._fm_hop.account(emitted=1, delivered=1)
         self.quadruple.add_l7(record)
-        self._l7_buf.append(record_to_l7_pb(record))
+        f = record_to_l7_pb(record)
+        if src is not None:
+            f.pod_0 = src.pod
+        if dst is not None:
+            f.pod_1 = dst.pod
+        self._l7_buf.append(f)
         if len(self._l7_buf) >= self.batch_size:
             self._flush_l7()
 
@@ -250,10 +306,18 @@ class Dispatcher:
         MetaPacket in Python.
         """
         if self.native_map is not None:
-            raw = read_pcap_records(path)
-            self.inject_frames([(frame, ts_ns) for frame, ts_ns, _ in raw])
+            raw = [(frame, ts_ns) for frame, ts_ns, _ in
+                   read_pcap_records(path)]
+            self.run_packet_actions(raw)
+            self.inject_frames(raw)
             n = len(raw)
         else:
+            if self.packet_actions is not None and \
+                    self.packet_actions.enabled():
+                # the second parse only where a pcap or npb ACL exists
+                self.run_packet_actions(
+                    (frame, ts_ns)
+                    for frame, ts_ns, _ in read_pcap_records(path))
             packets = read_pcap(path, use_native=False)
             for p in packets:
                 self.inject(p)
@@ -286,10 +350,13 @@ class Dispatcher:
         return self
 
     def stop(self) -> None:
+        """Close and ship every flow, and the last rolling capture."""
         self._stop.set()
         if self._thread:
             self._thread.join(timeout=2.0)
         self.flush(force=True)
+        if self.packet_actions is not None:
+            self.packet_actions.stop()
 
     def _run(self) -> None:
         hb = self._telemetry.heartbeat(

@@ -21,7 +21,13 @@ sender's traffic makes flows that make more sender traffic. The capture
 modes are the reference's: ``local`` (this host's own traffic, exclusions
 on), ``mirror`` (a SPAN port carrying other hosts' traffic: promiscuous,
 exclusions on) and ``analyzer`` (a dedicated analyzer NIC fed by remote
-TAPs: promiscuous, no exclusions). Reference analog:
+TAPs: promiscuous, no exclusions). ``exclude_port`` adds a port while
+the capture runs (an NPB target pushed with its ACL).
+
+The SOCK_RAW loop runs the dispatcher's ``packet_actions`` (the ACL's
+pcap and NPB actions) on each frame that is not excluded, before the
+frame reaches the map; the ring's frames never surface in Python, so a
+ring capture runs none (reference: live_capture.py:184-189). Reference analog:
 agent/src/dispatcher/recv_engine (AF_PACKET capture, recv_engine/mod.rs:40).
 This module loads no torch.
 """
@@ -188,6 +194,34 @@ class LiveCapture:
                 log.exception("ring rx failed")
                 return
 
+    def exclude_port(self, port: int) -> None:
+        """Exclude one more port from capture, at once."""
+        if port in self.exclude_ports or self.capture_mode == "analyzer":
+            return
+        self.exclude_ports = self.exclude_ports | {port}
+        nfm = self.dispatcher.native_map
+        if nfm is not None:
+            with self.dispatcher._lock:
+                nfm.exclude_port(port)
+
+    def _packet_actions(self, batch: list) -> None:
+        """The ACL's packet actions on a received batch's frames, the
+        excluded ports' left out (an NPB target's own datagrams never
+        loop back into the forwarding)."""
+        pa = self.dispatcher.packet_actions
+        if pa is None or not pa.enabled():
+            return
+        excluded = self.exclude_ports
+        for frame, ts_ns in batch:
+            mp = decode_ethernet(frame, timestamp_ns=ts_ns)
+            if mp is None or mp.port_src in excluded or \
+                    mp.port_dst in excluded:
+                continue
+            try:
+                pa.handle_meta(mp, frame)
+            except Exception:
+                log.exception("packet action failed")
+
     def _socket_drops(self) -> int:
         """Frames the kernel dropped for this socket since the last read
         (struct tpacket_stats)."""
@@ -247,6 +281,7 @@ class LiveCapture:
                 for frame, ts_ns in batch:
                     self._inject_python(frame, ts_ns)
                 continue
+            self._packet_actions(batch)
             try:
                 self.dispatcher.inject_frames(batch)
             except Exception:
@@ -266,6 +301,12 @@ class LiveCapture:
                 mp.port_dst in self.exclude_ports:
             self.stats["excluded"] += 1
             return
+        pa = self.dispatcher.packet_actions
+        if pa is not None and pa.enabled():
+            try:
+                pa.handle_meta(mp, frame)  # the decode above, reused
+            except Exception:
+                log.exception("packet action failed")
         self.dispatcher.inject(mp)
         self.stats["injected"] += 1
 

@@ -20,15 +20,20 @@ agent/src/rpc/synchronizer.rs) over the port's sync transport
   between the poll and the push threads and only ever forward;
 - ``_apply_config`` hot-applies the pushed YAML (the port's own reader):
   the sampler's rate and on/off, the probe's on/off and its
-  ``KinetoSource`` cadence (taken between captures), the Guard's limits;
+  ``KinetoSource`` cadence (taken between captures), the Guard's limits,
+  and the ACLs into the labeler (pcap and npb ACLs build the packet
+  actions, ``Agent.ensure_packet_actions``);
+- ``_sync_pod_map`` after each Sync: the controller's ``PodMap`` into the
+  agent's labeler (``Labeler.update_pod_map``), the entries only when the
+  labeler's version or epoch is stale; a failure leaves the sync done;
 - ``ntp_sync``: three 4-timestamp exchanges, the minimum-RTT one's offset
   folded into the median of the last five;
-- ``gpid_sync``: a socket snapshot's gpids.
+- ``gpid_sync``: a socket snapshot's gpids (the ``SocketScanner``'s
+  uploads).
 
 Left out: remote commands and their results (the agent's operations),
-the pod map (genesis), the QoS pressure (``Agent.apply_backpressure``);
-``profiler.memory`` parses but nothing applies it (the memory profiler is
-not ported yet).
+the QoS pressure (``Agent.apply_backpressure``); ``profiler.memory``
+parses but nothing applies it (the memory profiler is not ported yet).
 """
 
 from __future__ import annotations
@@ -43,6 +48,7 @@ from collections import deque
 
 from deepflow_tpu_torch.agent import yamlcfg
 from deepflow_tpu_torch.agent.config import AgentConfig, parse_addr
+from deepflow_tpu_torch.agent.labeler import acl_rules, has_packet_acls
 from deepflow_tpu_torch.proto import wire
 from deepflow_tpu_torch.server.syncwire import PUSH_HOLD_S, SyncClient, \
     SyncError
@@ -83,7 +89,9 @@ class Synchronizer:
                       "pushes": 0, "push_updates": 0, "ntp_syncs": 0,
                       "register_failures": 0, "rejected_configs": 0,
                       "rebalances": 0, "config_applied_ns": 0,
-                      "config_applied_by_push": 0}
+                      "config_applied_by_push": 0, "podmap_updates": 0,
+                      "podmap_entries": 0, "podmap_errors": 0,
+                      "gpid_syncs": 0}
         # NTP against the controller: the median over recent min-RTT
         # exchanges damps a GC pause or a queue
         self.clock_offset_ns = 0
@@ -255,7 +263,25 @@ class Synchronizer:
         resp = self._client.call("Sync", req, timeout_s=_left(deadline))
         self.stats["syncs"] += 1
         self._on_response(resp, apply=apply)
+        try:
+            self._sync_pod_map(_left(deadline))
+        except (SyncError, OSError) as e:
+            # a PodMap that fails leaves an otherwise good sync done
+            self.stats["podmap_errors"] += 1
+            log.debug("pod map fetch failed: %s", e)
         return resp
+
+    def _sync_pod_map(self, timeout_s: float = 5.0) -> None:
+        """The controller's pods into the labeler, when it is stale."""
+        labeler = getattr(self.agent, "labeler", None)
+        if labeler is None:
+            return
+        resp = self._client.call("PodMap", wire.PodMapRequest(
+            version=labeler.version, epoch=labeler.epoch),
+            timeout_s=timeout_s)
+        self.stats["podmap_entries"] += len(resp.entries)
+        if labeler.update_pod_map(resp):
+            self.stats["podmap_updates"] += 1
 
     def _on_response(self, resp: wire.SyncResponse, apply: bool = True,
                      by_push: bool = False) -> None:
@@ -325,7 +351,15 @@ class Synchronizer:
         cfg.stats_interval_s = new.stats_interval_s
         cfg.guard = new.guard
         cfg.acls = new.acls
+        cfg.npb_target = new.npb_target
+        cfg.npb_vni = new.npb_vni
         cfg.qos = new.qos
+        labeler = getattr(agent, "labeler", None)
+        if labeler is not None:  # pushed ACLs take effect at once
+            labeler.load_acls(acl_rules(new.acls))
+            if has_packet_acls(new.acls):
+                # pushed packet actions are never silently inert
+                agent.ensure_packet_actions(new)
         guard = agent.guard  # the controller's knob for a hot agent
         if guard is not None:
             guard.max_cpu_pct = new.guard.max_cpu_pct
@@ -357,8 +391,10 @@ class Synchronizer:
         log.info("applied pushed config v%d", version)
 
     def gpid_sync(self, entries: list) -> wire.GpidSyncResponse:
-        return self._client.call("GpidSync", wire.GpidSyncRequest(
+        resp = self._client.call("GpidSync", wire.GpidSyncRequest(
             agent_id=self.agent.config.agent_id, entries=entries))
+        self.stats["gpid_syncs"] += 1
+        return resp
 
 
 def _left(deadline: float) -> float:

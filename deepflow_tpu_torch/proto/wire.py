@@ -7,7 +7,9 @@ Encodes and decodes ``TpuSpan``, ``TpuMemorySample``, ``TpuSpanBatch``,
 ``FlowMeter``, ``AppMeter``, ``Document``, ``DocumentBatch``, on
 ``PbMessage`` below, with the ``L4Protocol``, ``L7Protocol`` and
 ``ResponseStatus`` enums), and its control-plane messages (below
-``SyncRequest``; messages.proto:333-529), without the protobuf package: the
+``SyncRequest``; messages.proto:333-529), the pcap upload (``PcapUpload``)
+and the labeler's feed (``PodMapRequest``, ``PodMapEntry``,
+``PodMapResponse``; messages.proto:513-554), without the protobuf package: the
 fields are written in field-number order and proto3 defaults (0, "", b"")
 are skipped, so ``TpuSpanBatch`` and ``ProfileBatch`` serialize to the
 same bytes as the generated classes. ``StatsMetric``'s two maps are
@@ -914,3 +916,24 @@ class PromEncodeRequest(PbMessage):
 
 class PromEncodeResponse(PbMessage):
     FIELDS = (("metric_ids", 1, "ru32"), ("label_set_ids", 2, "ru32"))
+
+
+class PcapUpload(PbMessage):
+    """An agent's rolling capture of the frames a pcap ACL matched."""
+    FIELDS = (("name", 1, "s"), ("agent_id", 2, "u32"),
+              ("start_ns", 3, "u64"), ("packet_count", 4, "u32"),
+              ("pcap_gz", 5, "b"))
+
+
+class PodMapRequest(PbMessage):
+    FIELDS = (("version", 1, "u64"), ("epoch", 2, "u64"))
+
+
+class PodMapEntry(PbMessage):
+    FIELDS = (("cidr", 1, "s"), ("pod", 2, "s"), ("namespace", 3, "s"),
+              ("workload", 4, "s"), ("node", 5, "s"))
+
+
+class PodMapResponse(PbMessage):
+    FIELDS = (("version", 1, "u64"), ("epoch", 2, "u64"),
+              ("entries", 3, "rep", PodMapEntry))

@@ -9,16 +9,16 @@ not have):
   health (state, exception bitmap, CPU, memory, group, config version,
   NTP offset);
 - ``GpidAllocator``: global process ids and the per-agent 5-tuple
-  snapshots the ingest-side join reads;
+  snapshots the ingest-side join reads (``name_lookup``);
 - ``ConfigStore``: versioned agent-group configs, validated with the
   port's YAML reader and ``AgentConfig``, with a boot epoch and
   listeners;
 - ``Controller``: ``Sync`` (registration, the group's config when the
   agent's version or epoch differs, the platform upload into the
   ingest tag table, the NTP offset, the analyzer list), ``Ntp``,
-  ``GpidSync``, ``PromEncode``, ``Push`` (a long poll that answers on a
-  version bump), the analyzers with rendezvous assignment, and the orgs
-  (an agent group's org, which the group's rows carry).
+  ``GpidSync``, ``PromEncode``, ``PodMap``, ``Push`` (a long poll that
+  answers on a version bump), the analyzers with rendezvous assignment,
+  and the orgs (an agent group's org, which the group's rows carry).
 
 One deliberate difference: the reference keys an agent by
 ``(ctrl_ip, hostname)``, because one JAX process owns a TPU host's chips.
@@ -30,10 +30,25 @@ global rank), so each rank has its own entry, a restarted rank gets its
 id back, and a request without one (a node agent) registers exactly as
 the reference's.
 
+A second difference follows from it: the reference's ``GpidAllocator``
+keys a process by ``(agent_id, pid)``. On a GPU host one training
+process is seen by its own runner agent (``SyncRequest.processes``) and
+by the host's node agent (its socket scan), and with several ranks by
+every rank's agent, so the reference's key gives it as many gpids as
+agents, and the last scan to sync flips its flows between them. The
+port keys a process by the registry's host identity ``(ctrl_ip,
+hostname)`` and the pid, so a pid has one gpid a host; an agent that
+never registered keeps the reference's ``(agent_id, pid)``, and a node
+agent alone on its host gets the reference's gpids.
+
+``PodMap`` serves genesis's pod index (``server/genesis.py``) to the
+agents' labelers: the entries only when the agent's version or epoch is
+stale, so a steady-state fetch is a few bytes.
+
 Left out until their slices (ROADMAP Queue 1): ``PackageRepo``,
 ``CommandQueue``, ``FetchPackage`` and command delivery (the agent's
-operations, item 15); ``PodMap`` (genesis, item 4); the QoS directive
-(the ``qos/`` item); the replication ring's ``ring_provider`` (item 9).
+operations, item 15); the QoS directive (the ``qos/`` item); the
+replication ring's ``ring_provider`` (item 9).
 """
 
 from __future__ import annotations
@@ -130,11 +145,13 @@ class AgentRegistry:
 
 
 class GpidAllocator:
-    """Global process ids: (agent_id, pid) -> gpid, and the per-agent
-    socket 5-tuple snapshots behind the ingest-side join. Each agent's
-    sync is a full snapshot of its entries (the ones it stopped reporting
-    go), and agents silent for ``ENTRY_TTL_S`` are swept every
-    ``SWEEP_INTERVAL_S``."""
+    """Global process ids: (host, pid) -> gpid, and the per-agent socket
+    5-tuple snapshots behind the ingest-side join. An agent's host is
+    the registry's ``(ctrl_ip, hostname)``, told by ``set_host`` at its
+    Sync; until then the agent is its own host, ``(agent_id, pid)`` as
+    in the reference. Each agent's sync is a full snapshot of its
+    entries (the ones it stopped reporting go), and agents silent for
+    ``ENTRY_TTL_S`` are swept every ``SWEEP_INTERVAL_S``."""
 
     ENTRY_TTL_S = 600.0
     SWEEP_INTERVAL_S = 60.0
@@ -142,16 +159,35 @@ class GpidAllocator:
     def __init__(self) -> None:
         self._lock = threading.Lock()
         self._gpids: dict[tuple, int] = {}
+        self._hosts: dict[int, tuple] = {}  # agent id -> host identity
         self._by_agent: dict[int, dict[tuple, wire.GpidEntry]] = {}
         self._agent_ts: dict[int, float] = {}
         self._flat: dict[tuple, wire.GpidEntry] = {}
         self._last_sweep = 0.0
         self._next = 1
 
+    def set_host(self, agent_id: int, host: tuple) -> None:
+        with self._lock:
+            self._hosts[agent_id] = host
+
+    def _key(self, agent_id: int, pid: int) -> tuple:
+        return (self._hosts.get(agent_id, agent_id), pid)
+
     def gpid_for(self, agent_id: int, pid: int) -> int:
         with self._lock:
-            return self._gpids.get((agent_id, pid)) or \
-                self._alloc_locked(agent_id, pid)
+            key = self._key(agent_id, pid)
+            return self._gpids.get(key) or self._alloc_locked(key)
+
+    def gpid_of(self, agent_id: int, pid: int) -> int:
+        """The pid's gpid as ``agent_id`` reports it, 0 when none was
+        given (nothing is allocated)."""
+        with self._lock:
+            return self._gpids.get(self._key(agent_id, pid), 0)
+
+    def entries(self) -> list:
+        """Every endpoint the join reads now (one GpidEntry each)."""
+        with self._lock:
+            return list(self._flat.values())
 
     def sync(self, req: wire.GpidSyncRequest) -> wire.GpidSyncResponse:
         now = time.monotonic()
@@ -159,8 +195,8 @@ class GpidAllocator:
             bucket: dict[tuple, wire.GpidEntry] = {}
             for e in req.entries:
                 e.agent_id = req.agent_id  # never trust the entry's own
-                e.gpid = self._gpids.get((req.agent_id, e.pid), 0) or \
-                    self._alloc_locked(req.agent_id, e.pid)
+                key = self._key(req.agent_id, e.pid)
+                e.gpid = self._gpids.get(key, 0) or self._alloc_locked(key)
                 bucket[(bytes(e.ip), e.port, int(e.proto), e.role)] = e
             old = self._by_agent.get(req.agent_id)
             if old:
@@ -187,24 +223,27 @@ class GpidAllocator:
                     del self._flat[k]
             del self._agent_ts[aid]
 
-    def _alloc_locked(self, agent_id: int, pid: int) -> int:
+    def _alloc_locked(self, key: tuple) -> int:
         g = self._next
         self._next += 1
-        self._gpids[(agent_id, pid)] = g
+        self._gpids[key] = g
         return g
 
     def lookup(self, ip: bytes, port: int, proto: int) -> int:
         """A flow endpoint's gpid: the server (listen) role's exact tuple
         first, then the client role's; 0 when unknown."""
-        e = self._entry_for(ip, port, proto)
+        e = self.entry_for(ip, port, proto)
         return e.gpid if e is not None else 0
 
     def name_lookup(self, ip: bytes, port: int, proto: int
                     ) -> tuple[int, str]:
-        e = self._entry_for(ip, port, proto)
+        e = self.entry_for(ip, port, proto)
         return (e.gpid, e.process_name) if e is not None else (0, "")
 
-    def _entry_for(self, ip: bytes, port: int, proto: int):
+    def entry_for(self, ip: bytes, port: int, proto: int):
+        """The endpoint's GpidEntry (its pid, gpid, name and reporting
+        agent): the server (listen) role's first, then the client's;
+        None when unknown."""
         flat = self._flat  # entries are never changed once inserted
         for role in (1, 0):
             e = flat.get((ip, port, proto, role))
@@ -269,8 +308,9 @@ class Controller:
 
     def __init__(self, platform_table: PlatformInfoTable,
                  host: str = "127.0.0.1",
-                 port: int = DEFAULT_SYNC_PORT) -> None:
+                 port: int = DEFAULT_SYNC_PORT, pod_index=None) -> None:
         self.platform_table = platform_table
+        self.pod_index = pod_index  # genesis's PodIpIndex, or None
         self.registry = AgentRegistry()
         self.gpids = GpidAllocator()
         # agent group -> org (the group routes configs, so it is the
@@ -309,6 +349,8 @@ class Controller:
             request.ctrl_ip, request.hostname, request.agent_id,
             request=request)
         agent_id = entry["agent_id"]
+        # the agents of one host share its pids' gpids
+        self.gpids.set_host(agent_id, (entry["ctrl_ip"], entry["hostname"]))
         resp = wire.SyncResponse(status=wire.SUCCESS, agent_id=agent_id)
         cfg, version = self.configs.get(request.agent_group or "default")
         # resend on a version OR epoch mismatch: a restarted store's
@@ -347,6 +389,25 @@ class Controller:
     def GpidSync(self, request: wire.GpidSyncRequest,  # noqa: N802
                  context=None) -> wire.GpidSyncResponse:
         return self.gpids.sync(request)
+
+    def PodMap(self, request: wire.PodMapRequest,  # noqa: N802
+               context=None) -> wire.PodMapResponse:
+        """The cluster's pods for the agents' labelers: the entries only
+        when the agent's version or epoch is stale (the epoch guards a
+        restarted controller whose version counter met the agent's)."""
+        resp = wire.PodMapResponse()
+        if self.pod_index is None:
+            return resp
+        resp.version = self.pod_index.version
+        resp.epoch = self.configs.epoch
+        if request.version == resp.version and \
+                request.epoch == resp.epoch:
+            return resp
+        resp.entries = [wire.PodMapEntry(
+            cidr=f"{ip}/32" if ":" not in ip else f"{ip}/128",
+            pod=pod.name, namespace=pod.namespace, workload=pod.workload,
+            node=pod.node) for ip, pod in self.pod_index.items_copy()]
+        return resp
 
     async def Push(self, request: wire.SyncRequest,  # noqa: N802
                    context=None) -> wire.SyncResponse | None:
@@ -506,7 +567,8 @@ class Controller:
     async def _serve(self) -> None:
         self._wire = SyncWireServer({
             "Sync": self.Sync, "Ntp": self.Ntp, "GpidSync": self.GpidSync,
-            "PromEncode": self.prom_encoder.handle, "Push": self.Push,
+            "PromEncode": self.prom_encoder.handle, "PodMap": self.PodMap,
+            "Push": self.Push,
         }, host=self.host, port=self.port)
         try:
             await self._wire.start()

@@ -23,7 +23,9 @@ from __future__ import annotations
 import ipaddress
 import json
 import logging
+import os
 import queue
+import re
 import threading
 import time
 
@@ -38,7 +40,8 @@ from deepflow_tpu_torch.proto import wire
 from deepflow_tpu_torch.server.platform_info import PlatformInfoTable
 from deepflow_tpu_torch.store.db import Database
 from deepflow_tpu_torch.store.schema import (
-    CLOSE_TYPES, L7_PROTOS, RESPONSE_STATUS)
+    CLOSE_TYPES, L7_PROTOS, RESPONSE_STATUS, SIDE_RESOLVE_NAMES,
+    SIDE_TAG_NAMES)
 from deepflow_tpu_torch.telemetry import Telemetry
 from deepflow_tpu_torch.tpuprobe.stepmetrics import decode_step_payload
 
@@ -156,12 +159,19 @@ class Decoder:
                  platform: PlatformInfoTable, dedup: DedupWindow | None = None,
                  seq_tracker=None, telemetry: Telemetry | None = None,
                  msg_type: MessageType | None = None,
-                 durability=None) -> None:
+                 durability=None, pod_index=None, gpid_table=None,
+                 resources=None) -> None:
         if msg_type is not None:  # a decoder that serves several types
             self.MSG_TYPE = msg_type
         self.q = q
         self.db = db
         self.platform = platform
+        # the flow enrichment's sources, each optional: genesis's pod
+        # index and ResourceIndex (server/platform_info.py), and the
+        # controller's GpidAllocator (its name_lookup)
+        self.pod_index = pod_index
+        self.gpid_table = gpid_table
+        self.resources = resources
         self.dedup = dedup
         self.seq_tracker = seq_tracker
         self.durability = durability
@@ -493,6 +503,54 @@ class StepMetricsDecoder(Decoder):
         return len(rows)
 
 
+class PcapDecoder(Decoder):
+    """PcapUpload -> ``<data-dir>/pcaps/<name>.pcap.gz``, or memory
+    without a data dir; the newest ``MAX_MEMORY`` captures are kept and
+    listed by the querier's ``/v1/pcaps`` (reference: decoders.py:584-631,
+    the ingester's pcap module)."""
+
+    MSG_TYPE = MessageType.PCAP
+    MAX_MEMORY = 64
+    _store_lock = threading.Lock()
+
+    @staticmethod
+    def _safe_name(name: str) -> str:
+        """A name off the wire never walks a path."""
+        cleaned = re.sub(r"[^A-Za-z0-9._-]", "_", os.path.basename(name))
+        return cleaned.lstrip(".") or "unnamed"
+
+    def handle(self, header: FrameHeader, payload: bytes) -> int:
+        up = wire.PcapUpload.FromString(payload)
+        safe = self._safe_name(up.name)
+        entry = {"name": safe, "agent_id": up.agent_id or header.agent_id,
+                 "start_ns": up.start_ns, "packet_count": up.packet_count,
+                 "bytes_gz": len(up.pcap_gz)}
+        with self._store_lock:
+            store = getattr(self.db, "pcap_store", None)
+            if store is None:
+                store = self.db.pcap_store = {"dir": None, "entries": []}
+                if self.db.data_dir:
+                    store["dir"] = os.path.join(self.db.data_dir, "pcaps")
+                    os.makedirs(store["dir"], exist_ok=True)
+            if store["dir"]:
+                path = os.path.join(store["dir"], f"{safe}.pcap.gz")
+                with open(path, "wb") as f:
+                    f.write(up.pcap_gz)
+                entry["path"] = path
+            else:
+                entry["data"] = up.pcap_gz
+            store["entries"].append(entry)
+            for old in store["entries"][:-self.MAX_MEMORY]:
+                p = old.get("path")  # an evicted capture leaves no file
+                if p:
+                    try:
+                        os.unlink(p)
+                    except OSError:
+                        pass
+            del store["entries"][:-self.MAX_MEMORY]
+        return 1
+
+
 class FlowLogDecoder(Decoder):
     """FlowLogBatch -> flow_log.l4_flow_log and flow_log.l7_flow_log.
     Registered for both L4_LOG and L7_LOG (``msg_type``), one instance
@@ -507,12 +565,16 @@ class FlowLogDecoder(Decoder):
     batch with an address that is not IPv4 is formatted by the pure path
     (the reference's routing): both take ``handle_pure``, the reference's
     protobuf path on ``proto/wire.py``, which raises on the batch or
-    writes the same rows. The endpoint columns take the agent's gpid,
-    pod and kernel thread name; the reference resolves the rest
-    (process names, per-side resource tags) from its socket scan and
-    resource index, which the port does not have yet, so they stay
-    empty. L7 rows with a trace id feed ``trace_trees``. Constructing
-    the decoder builds and loads the native library, or raises."""
+    writes the same rows. Both paths fill the endpoint columns through
+    one ladder, ``_resolve_endpoint_cols`` (the reference's): the
+    agent's gpid and pod win; else the controller's gpid table
+    (``gpid_table.name_lookup``: the socket scans' entries) gives each
+    side's gpid and process name, and the ``ResourceIndex`` its pod and
+    resource tags, each distinct endpoint resolved once a batch. On the
+    native path the join runs on the decoded columns: no batch goes back
+    to the pure path for it. L7 rows with a trace id feed
+    ``trace_trees``. Constructing the decoder builds and loads the
+    native library, or raises."""
 
     MSG_TYPE = MessageType.L4_LOG
 
@@ -563,16 +625,111 @@ class FlowLogDecoder(Decoder):
             n += self._handle_l7_cols(*l7, tags, off)
         return n
 
+    def _resolve_endpoint_cols(self, n: int, ipb0, ipb1, ports0, ports1,
+                               protos, agent_g0, agent_g1, pod0, pod1,
+                               src_s: list, dst_s: list) -> dict:
+        """The gprocess and resource columns of both sides, one ladder
+        for the L4 and L7 rows of both decode paths (the reference's,
+        decoders.py:708-798). ``ipb0`` / ``ipb1``: each row's address
+        bytes (read only by the gpid join; None without a gpid table);
+        ``pod0`` / ``pod1``: the agent's pods, a list, arena strings or a
+        "" broadcast. Agent values win for the gpid and the pod; each
+        distinct (address, port, protocol) asks the gpid table once and
+        each distinct address the resource index once."""
+        cols: dict = {}
+        if self.gpid_table is None:
+            cols["gprocess_id_0"] = agent_g0
+            cols["gprocess_id_1"] = agent_g1
+            cols["process_kname_0"] = ""
+            cols["process_kname_1"] = ""
+        else:
+            nl = self.gpid_table.name_lookup
+            cache: dict = {}
+            protos = _aslist(protos, n)
+
+            def side(ipbs, ports, agents):
+                gpids, names = [], []
+                for ipb, port, proto, ag in zip(ipbs, _aslist(ports, n),
+                                                protos, _aslist(agents, n)):
+                    k = (ipb, port, proto)
+                    v = cache.get(k)
+                    if v is None:
+                        v = cache[k] = nl(ipb, port, proto)
+                    gpids.append(ag or v[0])
+                    names.append(v[1])
+                return gpids, names
+            cols["gprocess_id_0"], cols["process_kname_0"] = side(
+                ipb0, ports0, agent_g0)
+            cols["gprocess_id_1"], cols["process_kname_1"] = side(
+                ipb1, ports1, agent_g1)
+        if self.resources is not None and not self.resources.is_empty():
+            t0, t1 = _resolve_sides(self.resources, src_s, dst_s)
+            cols["pod_0"] = [p or t.pod
+                             for p, t in zip(_aslist(pod0, n), t0)]
+            cols["pod_1"] = [p or t.pod
+                             for p, t in zip(_aslist(pod1, n), t1)]
+            for name in SIDE_RESOLVE_NAMES:
+                cols[f"{name}_0"] = [getattr(t, name) for t in t0]
+                cols[f"{name}_1"] = [getattr(t, name) for t in t1]
+        elif self.resources is not None:
+            # nothing can resolve: the agent's pods, the rest "" broadcast
+            cols["pod_0"], cols["pod_1"] = pod0, pod1
+            for name in SIDE_RESOLVE_NAMES:
+                cols[f"{name}_0"] = ""
+                cols[f"{name}_1"] = ""
+        elif self.pod_index is not None and len(self.pod_index):
+            pods = self.pod_index.snapshot()
+
+            def pod_of(ip: str) -> str:
+                pod = pods.get(ip)
+                return pod.name if pod is not None else ""
+            cols["pod_0"] = [p or pod_of(a)
+                             for p, a in zip(_aslist(pod0, n), src_s)]
+            cols["pod_1"] = [p or pod_of(a)
+                             for p, a in zip(_aslist(pod1, n), dst_s)]
+        else:
+            cols["pod_0"], cols["pod_1"] = pod0, pod1
+        return cols
+
+    def _endpoint_cols(self, items: list, keys: list, src_s: list,
+                       dst_s: list) -> dict:
+        """The ladder's front end for the pure path's message objects."""
+        return self._resolve_endpoint_cols(
+            len(items),
+            [bytes(k.ip_src) for k in keys], [bytes(k.ip_dst) for k in keys],
+            [k.port_src for k in keys], [k.port_dst for k in keys],
+            [int(k.proto) for k in keys],
+            [f.gpid_0 for f in items], [f.gpid_1 for f in items],
+            [f.pod_0 for f in items], [f.pod_1 for f in items],
+            src_s, dst_s)
+
+    def _native_endpoint_cols(self, n: int, cols: dict, arena,
+                              pod_names: tuple[str, str]) -> tuple:
+        """(src dotted, dst dotted, the ladder's columns) of a native
+        decode: the address bytes are built only for a gpid join."""
+        flags = cols["ip_flags"]
+        src_s = _dotted(self._ip_memo, cols["ip4_src"], flags, IP_SRC_EMPTY)
+        dst_s = _dotted(self._ip_memo, cols["ip4_dst"], flags, IP_DST_EMPTY)
+        ipb0 = ipb1 = None
+        if self.gpid_table is not None:
+            ipb0 = _packed(cols["ip4_src"], flags, IP_SRC_EMPTY)
+            ipb1 = _packed(cols["ip4_dst"], flags, IP_DST_EMPTY)
+        ep = self._resolve_endpoint_cols(
+            n, ipb0, ipb1, cols["port_src"], cols["port_dst"],
+            cols["proto"], cols["gpid_0"], cols["gpid_1"],
+            _arena_col(cols, arena, pod_names[0]),
+            _arena_col(cols, arena, pod_names[1]), src_s, dst_s)
+        return src_s, dst_s, ep
+
     def _handle_l4_cols(self, n: int, cols: dict, arena, tags: dict,
                         off: int) -> int:
-        flags = cols["ip_flags"]
+        src_s, dst_s, ep = self._native_endpoint_cols(n, cols, arena,
+                                                      ("pod0", "pod1"))
         out = {
             "time": _shifted(cols["end_time_ns"], off),
             "flow_id": cols["flow_id"],
-            "ip_src": _dotted(self._ip_memo, cols["ip4_src"], flags,
-                              IP_SRC_EMPTY),
-            "ip_dst": _dotted(self._ip_memo, cols["ip4_dst"], flags,
-                              IP_DST_EMPTY),
+            "ip_src": src_s,
+            "ip_dst": dst_s,
             "ip4_src": cols["ip4_src"],
             "ip4_dst": cols["ip4_dst"],
             "port_src": cols["port_src"],
@@ -598,11 +755,7 @@ class FlowLogDecoder(Decoder):
             "synack_count": cols["synack_count"],
             "tunnel_type": cols["tunnel_type"],
             "tunnel_id": cols["tunnel_id"],
-            "gprocess_id_0": cols["gpid_0"],
-            "gprocess_id_1": cols["gpid_1"],
-            "process_kname_0": "", "process_kname_1": "",
-            "pod_0": _arena_col(cols, arena, "pod0"),
-            "pod_1": _arena_col(cols, arena, "pod1"),
+            **ep,
         }
         out.update(tags)  # constant per batch: scalar broadcast
         self.write_columns("flow_log.l4_flow_log", out, n)
@@ -610,17 +763,16 @@ class FlowLogDecoder(Decoder):
 
     def _handle_l7_cols(self, n: int, cols: dict, arena, tags: dict,
                         off: int) -> int:
-        flags = cols["ip_flags"]
+        src_s, dst_s, ep = self._native_endpoint_cols(n, cols, arena,
+                                                      ("pod_0", "pod_1"))
         dur = np.maximum(
             cols["end_time_ns"].astype(np.int64)
             - cols["start_time_ns"].astype(np.int64), 0).astype(np.uint64)
         out = {
             "time": _shifted(cols["start_time_ns"], off),
             "flow_id": cols["flow_id"],
-            "ip_src": _dotted(self._ip_memo, cols["ip4_src"], flags,
-                              IP_SRC_EMPTY),
-            "ip_dst": _dotted(self._ip_memo, cols["ip4_dst"], flags,
-                              IP_DST_EMPTY),
+            "ip_src": src_s,
+            "ip_dst": dst_s,
             "port_src": cols["port_src"],
             "port_dst": cols["port_dst"],
             "tunnel_type": cols["tunnel_type"],
@@ -636,15 +788,21 @@ class FlowLogDecoder(Decoder):
             "syscall_thread_1": cols["syscall_thread_1"],
             "captured_request_byte": cols["captured_request_byte"],
             "captured_response_byte": cols["captured_response_byte"],
-            "gprocess_id_0": cols["gpid_0"],
-            "gprocess_id_1": cols["gpid_1"],
+            **ep,
+            # the agent-observed kernel thread name wins; the socket
+            # scan's join fills the rest
+            "process_kname_0": _kname_merge(
+                _arena_col(cols, arena, "process_kname_0"),
+                ep["process_kname_0"], n),
+            "process_kname_1": _kname_merge(
+                _arena_col(cols, arena, "process_kname_1"),
+                ep["process_kname_1"], n),
             "attrs": _arena_col(cols, arena, "attrs_json"),
         }
         for name in ("version", "request_type", "request_domain",
                      "request_resource", "endpoint", "response_exception",
                      "response_result", "trace_id", "span_id",
-                     "parent_span_id", "x_request_id", "process_kname_0",
-                     "process_kname_1", "pod_0", "pod_1"):
+                     "parent_span_id", "x_request_id"):
             out[name] = _arena_col(cols, arena, name)
         out.update(tags)  # constant per batch: scalar broadcast
         self.write_columns("flow_log.l7_flow_log", out, n)
@@ -666,11 +824,13 @@ class FlowLogDecoder(Decoder):
             keys = [f.key for f in l4]
             src_d = [_ip_decode(k.ip_src) for k in keys]
             dst_d = [_ip_decode(k.ip_dst) for k in keys]
+            src_s = [t[0] for t in src_d]
+            dst_s = [t[0] for t in dst_d]
             cols = {
                 "time": [f.end_time_ns + off for f in l4],
                 "flow_id": [f.flow_id for f in l4],
-                "ip_src": [t[0] for t in src_d],
-                "ip_dst": [t[0] for t in dst_d],
+                "ip_src": src_s,
+                "ip_dst": dst_s,
                 "ip4_src": [t[1] for t in src_d],
                 "ip4_dst": [t[1] for t in dst_d],
                 "port_src": [k.port_src for k in keys],
@@ -696,7 +856,7 @@ class FlowLogDecoder(Decoder):
                 "synack_count": [f.synack_count for f in l4],
                 "tunnel_type": [min(int(k.tunnel_type), 4) for k in keys],
                 "tunnel_id": [k.tunnel_id for k in keys],
-                **_endpoint_cols(l4),
+                **self._endpoint_cols(l4, keys, src_s, dst_s),
             }
             cols.update(tags)  # constant per batch: scalar broadcast
             self.write_columns("flow_log.l4_flow_log", cols, len(l4))
@@ -707,11 +867,14 @@ class FlowLogDecoder(Decoder):
 
     def _handle_l7_list(self, l7: list, tags: dict, off: int) -> int:
         keys = [f.key for f in l7]
+        src_s = [_ip_decode(k.ip_src)[0] for k in keys]
+        dst_s = [_ip_decode(k.ip_dst)[0] for k in keys]
+        ep = self._endpoint_cols(l7, keys, src_s, dst_s)
         cols = {
             "time": [f.start_time_ns + off for f in l7],
             "flow_id": [f.flow_id for f in l7],
-            "ip_src": [_ip_decode(k.ip_src)[0] for k in keys],
-            "ip_dst": [_ip_decode(k.ip_dst)[0] for k in keys],
+            "ip_src": src_s,
+            "ip_dst": dst_s,
             "port_src": [k.port_src for k in keys],
             "port_dst": [k.port_dst for k in keys],
             "tunnel_type": [min(int(k.tunnel_type), 4) for k in keys],
@@ -743,11 +906,15 @@ class FlowLogDecoder(Decoder):
                 f.captured_request_byte for f in l7],
             "captured_response_byte": [
                 f.captured_response_byte for f in l7],
-            **_endpoint_cols(l7),
+            **ep,
             # the agent-observed kernel thread name (the reference's
-            # sslprobe path); its socket-scan join fills the rest
-            "process_kname_0": [f.process_kname_0 for f in l7],
-            "process_kname_1": [f.process_kname_1 for f in l7],
+            # sslprobe path) wins; the socket scan's join fills the rest
+            "process_kname_0": [
+                f.process_kname_0 or k for f, k in zip(
+                    l7, _aslist(ep["process_kname_0"], len(l7)))],
+            "process_kname_1": [
+                f.process_kname_1 or k for f, k in zip(
+                    l7, _aslist(ep["process_kname_1"], len(l7)))],
             "attrs": [f.attrs_json for f in l7],
         }
         cols.update(tags)  # constant per batch: scalar broadcast
@@ -834,14 +1001,60 @@ def _arena_col(cols: dict, arena: np.ndarray, name: str):
     return ArenaStrings(arena, cols[f"{name}_off"], lens)
 
 
-def _endpoint_cols(items: list) -> dict:
-    """The reference's endpoint ladder with nothing to resolve from: the
-    agent's gpids and pods, no process names."""
-    return {"gprocess_id_0": [f.gpid_0 for f in items],
-            "gprocess_id_1": [f.gpid_1 for f in items],
-            "process_kname_0": "", "process_kname_1": "",
-            "pod_0": [f.pod_0 for f in items],
-            "pod_1": [f.pod_1 for f in items]}
+def _packed(u32s: np.ndarray, flags: np.ndarray, empty_bit: int) -> list:
+    """Each row's address as the pure path's bytes: 4 big-endian bytes,
+    b"" where the address was empty."""
+    uniq, inv = np.unique(u32s, return_inverse=True)
+    raw = uniq.astype(">u4").tobytes()
+    ub = [raw[i:i + 4] for i in range(0, len(raw), 4)]
+    out = [ub[i] for i in inv.reshape(-1).tolist()]
+    for i in np.flatnonzero(flags & empty_bit).tolist():
+        out[i] = b""
+    return out
+
+
+def _aslist(v, n: int) -> list:
+    """A column as a per-row list: a list as it is, arena strings and
+    arrays converted, a scalar broadcast repeated."""
+    if isinstance(v, list):
+        return v
+    if isinstance(v, (ArenaStrings, np.ndarray)):
+        return v.tolist()
+    return [v] * n
+
+
+def _kname_merge(agent, resolved, n: int):
+    """The agent's kernel thread names where set, else the join's."""
+    if isinstance(agent, str):  # the "" broadcast: no agent names
+        return resolved
+    return [a or r for a, r in zip(_aslist(agent, n),
+                                   _aslist(resolved, n))]
+
+
+def _resolve_sides(resources, src_s: list, dst_s: list) -> tuple:
+    """Each row's EndpointTags of both sides, one resolve a distinct
+    address."""
+    res = resources.batch_resolver()
+    return [res(a) for a in src_s], [res(a) for a in dst_s]
+
+
+def _side_tag_cols(resources, src_s: list, dst_s: list) -> dict:
+    """A metric document's per-side tags (the documents carry no agent
+    pod): every side tag from the index; "" broadcast when the index
+    resolves nothing; none without an index."""
+    if resources is None:
+        return {}
+    cols: dict = {}
+    if resources.is_empty():
+        for name in SIDE_TAG_NAMES:
+            cols[f"{name}_0"] = ""
+            cols[f"{name}_1"] = ""
+        return cols
+    t0, t1 = _resolve_sides(resources, src_s, dst_s)
+    for name in SIDE_TAG_NAMES:
+        cols[f"{name}_0"] = [getattr(t, name) for t in t0]
+        cols[f"{name}_1"] = [getattr(t, name) for t in t1]
+    return cols
 
 
 _NET_METERS = ("packet_tx", "packet_rx", "byte_tx", "byte_rx", "flow_count",
@@ -902,9 +1115,10 @@ class MetricsDecoder(Decoder):
             t = (t.astype(np.int64) + off_s).astype(np.uint64)
 
         def base_cols(idx: np.ndarray) -> dict:
-            out = {"time": t[idx], "ip_src": src[idx].tolist(),
-                   "ip_dst": dst[idx].tolist(),
-                   "server_port": cols["port"][idx]}
+            src_s, dst_s = src[idx].tolist(), dst[idx].tolist()
+            out = {"time": t[idx], "ip_src": src_s, "ip_dst": dst_s,
+                   "server_port": cols["port"][idx],
+                   **_side_tag_cols(self.resources, src_s, dst_s)}
             out.update(tags)  # constant per batch: scalar broadcast
             return out
 
@@ -942,11 +1156,15 @@ class MetricsDecoder(Decoder):
         n = 0
 
         def base_cols(docs):
+            src_s = [_ip_decode(d.tag.ip_src)[0] for d in docs]
+            dst_s = [_ip_decode(d.tag.ip_dst)[0] for d in docs]
             cols = {
                 "time": [d.timestamp_s + off_s for d in docs],
-                "ip_src": [_ip_decode(d.tag.ip_src)[0] for d in docs],
-                "ip_dst": [_ip_decode(d.tag.ip_dst)[0] for d in docs],
+                "ip_src": src_s,
+                "ip_dst": dst_s,
                 "server_port": [d.tag.port for d in docs],
+                # per-side tags: "group any metric by any resource"
+                **_side_tag_cols(self.resources, src_s, dst_s),
             }
             cols.update(tags)  # constant per batch: scalar broadcast
             return cols

@@ -16,8 +16,8 @@ is absent, expired by this candidate's own clock, or its own, with the
 apiserver's resourceVersion arbitrating races (a conflict loses with a
 409). Both have the same callbacks and flags.
 
-``in_cluster_config`` and ``build_api_context`` are own copies of the
-reference's (``server/genesis.py:31-59``): the pod's service-account
+``in_cluster_config`` and ``build_api_context`` come from
+``server/genesis.py``, as in the reference: the pod's service-account
 token and CA, and a TLS context that verifies, or skips verification
 only when told to, with a warning.
 """
@@ -29,44 +29,13 @@ import json
 import logging
 import os
 import socket
-import ssl
 import threading
 import time
 
+from deepflow_tpu_torch.server.genesis import build_api_context, \
+    in_cluster_config
+
 log = logging.getLogger("df.election")
-
-
-_SA_DIR = "/var/run/secrets/kubernetes.io/serviceaccount"
-
-
-def in_cluster_config() -> tuple[str, str, str] | None:
-    """(api_base, token, ca_path) from the pod's environment, or None."""
-    host = os.environ.get("KUBERNETES_SERVICE_HOST")
-    port = os.environ.get("KUBERNETES_SERVICE_PORT", "443")
-    token_path = os.path.join(_SA_DIR, "token")
-    if not host or not os.path.exists(token_path):
-        return None
-    with open(token_path) as f:
-        token = f.read().strip()
-    ca = os.path.join(_SA_DIR, "ca.crt")
-    return (f"https://{host}:{port}", token,
-            ca if os.path.exists(ca) else "")
-
-
-def build_api_context(api_base: str, ca_path: str = "",
-                      insecure_skip_verify: bool = False):
-    """A verified CA, or verification off only when asked, with a
-    warning; never unverified TLS under a bearer token by default."""
-    if not api_base.startswith("https"):
-        return None
-    if ca_path:
-        return ssl.create_default_context(cafile=ca_path)
-    if insecure_skip_verify:
-        log.warning("k8s api: TLS verification DISABLED "
-                    "(insecure_skip_verify)")
-        return ssl._create_unverified_context()
-    raise ValueError("https api_base needs ca_path "
-                     "(or explicit insecure_skip_verify=True)")
 
 
 class LeaderElection:

@@ -40,7 +40,9 @@ lists each on-disk segment (``?table=``, ``?v1=1``). With the server's
 controller: ``GET /v1/agents`` (the fleet with each agent's health, its
 clock offset and its platform's devices), ``POST /v1/agent-group-config``
 (a group's new YAML, validated and pushed), ``POST /v1/orgs`` (list, or
-assign a group to an org) and ``GET`` / ``POST /v1/analyzers``.
+assign a group to an org) and ``GET`` / ``POST /v1/analyzers``. ``POST
+/v1/pcaps`` lists the agents' pcap ACL captures, or with ``{"name"}``
+answers one, gzip'd and in base64.
 """
 
 from __future__ import annotations
@@ -1103,6 +1105,29 @@ class QuerierAPI:
             ctl.assign_org(group, org)
         return {"orgs": ctl.org_assignments(), "default_org": 1}
 
+    def pcaps(self, body: dict | None = None) -> dict:
+        """The pcap store (``server/decoders.py::PcapDecoder``): the
+        captures' list, or with ``name`` that capture's gzip'd pcap in
+        base64."""
+        store = getattr(self.db, "pcap_store", None)
+        entries = list(store["entries"]) if store else []
+        if body and body.get("name"):
+            import base64
+            for e in entries:
+                if e["name"] == body["name"]:
+                    data = e.get("data")
+                    if data is None and e.get("path") and \
+                            os.path.exists(e["path"]):
+                        with open(e["path"], "rb") as f:
+                            data = f.read()
+                    if data is None:
+                        raise QueryError("capture data gone")
+                    return {"name": e["name"],
+                            "pcap_gz_b64": base64.b64encode(data).decode()}
+            raise QueryError(f"no capture {body['name']!r}")
+        return {"pcaps": [{k: v for k, v in e.items() if k != "data"}
+                          for e in entries]}
+
     def analyzers_api(self, body: dict | None = None) -> dict:
         ctl = self._controller()
         if body and "addrs" in body:
@@ -1141,6 +1166,7 @@ class QuerierHTTP:
             "/v1/agent-group-config": api.update_agent_config,
             "/v1/orgs": api.orgs_api,
             "/v1/analyzers": api.analyzers_api,
+            "/v1/pcaps": api.pcaps,
         }
 
         class Handler(BaseHTTPRequestHandler):

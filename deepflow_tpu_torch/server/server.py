@@ -34,6 +34,19 @@ receiver's ack tracker and the dedup floors from the persisted floors,
 so the retransmit of a frame committed but not acked is a dup.
 ``/v1/health`` carries the ``storage`` block. The reference's querier
 role, object store and scrubber are not ported.
+
+Every flow and metric row names its processes and its resources: the
+flow decoders join each side against the controller's gpid table (the
+agents' socket scans, ``agent/socket_scan.py``) for its gpid and
+process name, and against the ``ResourceIndex`` that K8s genesis keeps
+(``server/genesis.py``) for its pod, namespace, workload, service, node,
+zone and subnet. ``start_genesis`` attaches the list-watch (the pod's
+own cluster when called without an ``api_base``; the server calls it
+itself when it runs in a cluster); a cluster it cannot reach leaves the
+rows untagged and returns False. The recorder's resource-change events
+land in ``event.event``, and ``/v1/health`` carries genesis's stats.
+PCAP frames (the agents' pcap ACL captures) land in the pcap store that
+``POST /v1/pcaps`` lists and serves.
 The server touches no device and imports no torch; span, flow-log and
 metric-document frames decode with the native library, which starting
 the server builds (or raises).
@@ -77,13 +90,14 @@ from deepflow_tpu_torch.chaos import chaos_from_env
 from deepflow_tpu_torch.codec import MessageType
 from deepflow_tpu_torch.server.datasource import RollupJob
 from deepflow_tpu_torch.server.decoders import (
-    DedupWindow, FlowLogDecoder, MetricsDecoder, ProfileDecoder,
+    DedupWindow, FlowLogDecoder, MetricsDecoder, PcapDecoder, ProfileDecoder,
     StatsDecoder, StepMetricsDecoder, TpuSpanDecoder)
 from deepflow_tpu_torch.server.controller import Controller
 from deepflow_tpu_torch.server.flusher import (
     Compactor, DurabilityGate, Flusher)
 from deepflow_tpu_torch.server.janitor import Janitor
-from deepflow_tpu_torch.server.platform_info import PlatformInfoTable
+from deepflow_tpu_torch.server.platform_info import PlatformInfoTable, \
+    PodIpIndex, ResourceIndex
 from deepflow_tpu_torch.server.querier import QuerierAPI, QuerierHTTP
 from deepflow_tpu_torch.server.receiver import Receiver
 from deepflow_tpu_torch.server.syncwire import DEFAULT_SYNC_PORT
@@ -116,8 +130,14 @@ class Server:
         self.flusher: Flusher | None = None
         self.compactor: Compactor | None = None
         self.platform = PlatformInfoTable()
+        self.pod_index = PodIpIndex()  # K8s genesis's pods by IP
+        # IP -> universal tags (pods, services, nodes, subnets), shared
+        # by every ingest decoder
+        self.resources = ResourceIndex(self.pod_index)
+        self.genesis = None  # start_genesis()
         self.controller = (Controller(self.platform, host=host,
-                                      port=sync_port)
+                                      port=sync_port,
+                                      pod_index=self.pod_index)
                            if enable_controller else None)
         self.ha_lease_path = ha_lease_path
         self.ha_k8s_lease = ha_k8s_lease
@@ -144,6 +164,27 @@ class Server:
                               storage_provider=self._storage_stats)
         self.http = QuerierHTTP(self.api, host=host, port=query_port)
 
+    def start_genesis(self, api_base: str | None = None, token: str = "",
+                      ca_path: str = "") -> bool:
+        """Attach the K8s list-watch (the pod's own cluster when
+        ``api_base`` is None). False when no cluster is reachable: the
+        rows stay untagged and the server runs on."""
+        from deepflow_tpu_torch.server.genesis import K8sGenesis
+
+        def events(rows: list[dict]) -> None:
+            self.db.table("event.event").append_rows(rows)
+        try:
+            self.genesis = K8sGenesis(
+                self.pod_index, api_base=api_base, token=token,
+                ca_path=ca_path, event_sink=events,
+                resources=self.resources,
+                telemetry=self.telemetry).start()
+            return True
+        except (RuntimeError, ValueError) as e:
+            # ValueError: https without a CA (no ca.crt mounted)
+            log.warning("k8s genesis not started: %s", e)
+            return False
+
     def _stats(self) -> dict:
         return {
             "receiver": dict(self.receiver.stats),
@@ -159,6 +200,8 @@ class Server:
                         if self.flusher is not None else None),
             "compactor": (dict(self.compactor.stats)
                           if self.compactor is not None else None),
+            "genesis": (dict(self.genesis.stats)
+                        if self.genesis is not None else None),
         }
 
     def _storage_stats(self) -> dict | None:
@@ -225,7 +268,6 @@ class Server:
         # the election first: a Lease with no cluster raises before
         # anything runs
         if self.ha_k8s_lease:
-            import os
             from deepflow_tpu_torch.server.election import K8sLeaseElection
             self.election = K8sLeaseElection(
                 self.ha_k8s_lease,
@@ -265,7 +307,8 @@ class Server:
         self.dedup = DedupWindow(floors=floors, parked=parked)
         self.receiver.dedup = self.dedup
         # register every queue before listening: no frame finds none
-        for cls, mtype in ((ProfileDecoder, MessageType.PROFILE),
+        for cls, mtype in ((PcapDecoder, MessageType.PCAP),
+                           (ProfileDecoder, MessageType.PROFILE),
                            (TpuSpanDecoder, MessageType.TPU_SPAN),
                            (StepMetricsDecoder, MessageType.STEP_METRICS),
                            (FlowLogDecoder, MessageType.L4_LOG),
@@ -279,7 +322,11 @@ class Server:
                 q, self.db, self.platform, dedup=self.dedup,
                 seq_tracker=self.receiver.seq_tracker,
                 telemetry=self.telemetry, msg_type=mtype,
-                durability=self.durability, **kw).start())
+                durability=self.durability, pod_index=self.pod_index,
+                resources=self.resources,
+                gpid_table=(self.controller.gpids
+                            if self.controller is not None else None),
+                **kw).start())
         if self.storage:
             self.flusher = Flusher(self.db, gate=self.durability,
                                    seq_tracker=self.receiver.seq_tracker,
@@ -299,6 +346,8 @@ class Server:
             self.election.start()
         else:
             self._start_singletons()
+        if os.environ.get("KUBERNETES_SERVICE_HOST"):
+            self.start_genesis()  # in a cluster: watch it
         log.info("server up: ingest :%d query :%d%s", self.ingest_port,
                  self.query_port,
                  f" sync :{self.sync_port}" if self.controller else "")
@@ -321,6 +370,9 @@ class Server:
         if self.election is not None:
             self.election.stop()  # its resign stops the singletons
             self.election = None
+        if self.genesis is not None:
+            self.genesis.stop()
+            self.genesis = None
         # the receiver first: once its handlers are gone nothing enqueues,
         # and each decoder's stop drains what is queued
         self.deadman.stop()

@@ -6,8 +6,8 @@ The reference serves its ``deepflow_tpu.Synchronizer`` service on gRPC
 the standard library: ``POST /deepflow_tpu.Synchronizer/<Method>`` with
 the request's protobuf bytes as the body and the response's as the
 answer (``application/x-protobuf``), on the reference's sync port 20035.
-The methods are ``Sync``, ``Ntp``, ``GpidSync``, ``PromEncode`` and
-``Push``. ``Push`` is the reference's server stream as a long poll: the
+The methods are ``Sync``, ``Ntp``, ``GpidSync``, ``PromEncode``,
+``PodMap`` and ``Push``. ``Push`` is the reference's server stream as a long poll: the
 request names the config version the agent holds, and the answer comes
 as soon as the agent's group has another (within a second of the bump),
 or, after ``PUSH_HOLD_S`` with no change, as ``204 No Content``, after
@@ -41,6 +41,7 @@ METHODS = {
     "Ntp": (wire.NtpRequest, wire.NtpResponse),
     "GpidSync": (wire.GpidSyncRequest, wire.GpidSyncResponse),
     "PromEncode": (wire.PromEncodeRequest, wire.PromEncodeResponse),
+    "PodMap": (wire.PodMapRequest, wire.PodMapResponse),
     "Push": (wire.SyncRequest, wire.SyncResponse),
 }
 MAX_BODY = 80 << 20          # the reference's gRPC message cap

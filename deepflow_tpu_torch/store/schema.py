@@ -6,8 +6,9 @@ query-trace parts of ``deepflow_tpu/store/schema.py``, with the
 flow-metric rollups (1m, 1h, 1d) and ``flow_log.trace_tree``: the same
 table names, columns, kinds and defaults, so rows and queries mean the
 same in both packages. Times are u64 nanoseconds, but for the
-flow-metric tables' u32 epoch seconds. The ``event`` tables are not
-ported yet.
+flow-metric tables' u32 epoch seconds. Of the ``event`` tables only
+``event.event`` is ported, where the resource recorder's change events
+land (``server/recorder.py``); ``event.file_agg`` is not.
 """
 
 from __future__ import annotations
@@ -51,10 +52,11 @@ UNIVERSAL_TAGS = [
 
 
 # Per-side resource tags (side 0 = ip_src, side 1 = ip_dst), resolved by
-# IP at ingest in the reference; the port has no resource index yet, so
-# they stay empty but keep the rows' shape and the queries' names.
+# IP at ingest from genesis's ResourceIndex (server/platform_info.py).
+# `pod` is resolved apart: an agent's value wins over the index's.
 SIDE_TAG_NAMES = ("pod", "pod_ns", "workload", "service", "node", "az",
                   "subnet")
+SIDE_RESOLVE_NAMES = tuple(n for n in SIDE_TAG_NAMES if n != "pod")
 
 
 def _side_tags(side: str) -> list[C]:
@@ -308,6 +310,19 @@ _table("flow_metrics.application.1s", list(_APP_COLS))
 for _sfx in ("1m", "1h", "1d"):
     _table(f"flow_metrics.application.{_sfx}",
            list(_APP_COLS) + [C("rrt_max_sketch", "str")])
+
+# the resource recorder's change events (server/recorder.py): one row per
+# added, modified or deleted resource
+_table("event.event", [
+    C("time", "u64"),
+    C("event_type", "str"),
+    C("resource_type", "str"),
+    C("resource_name", "str"),
+    C("pid", "u32"),
+    C("description", "str"),
+    C("attrs", "str"),                  # json
+    *UNIVERSAL_TAGS,
+])
 
 # the agents' self-stats: one row per (metric, value name) per emit
 _table("deepflow_system.deepflow_system", [

@@ -458,7 +458,7 @@ def test_pause_releases_a_held_step():
     src = KinetoSource(lambda ev: None)  # its capture thread not started
     src.step_hook.install()
     agent.tpuprobe = types.SimpleNamespace(
-        sources=[src], stop=src.stop)
+        sources=[src], stop=src.stop, stats={"spans_sent": 0})
     step = _tiny_step()
     step()  # step signal: the hook has counted a step
     in_session, done = threading.Event(), threading.Event()
@@ -544,3 +544,48 @@ def test_validate_new_ranges_equal_reference(sub, name, values):
             except ValueError as e:
                 verdicts.append(str(e))
         assert verdicts[0] == verdicts[1], (sub, name, v)
+
+
+def test_probe_stats_count_the_probes_the_guard_stopped():
+    """agent.tpuprobe reports every span the agent sent: a probe the
+    guard stopped keeps its counts in the rows after the pause and
+    beside the resumed probe's, so a rank's rows can be held to them."""
+    from deepflow_tpu_torch.proto import wire
+
+    class Probe:
+        sources: list = []
+
+        def __init__(self, spans: int) -> None:
+            self.stats = {"spans_sent": spans, "batches": 1}
+
+        def stop(self) -> None:
+            self.stats["spans_sent"] += 3   # the capture its stop ships
+
+    class Sender:
+        stats: dict = {}
+
+        def __init__(self) -> None:
+            self.sent = []
+
+        def send(self, mt, payload) -> bool:
+            self.sent.append(wire.StatsBatch.FromString(payload))
+            return True
+
+    cfg = config.AgentConfig()
+    cfg.profiler.enabled = cfg.guard.enabled = False
+    agent = Agent(cfg, device=None)
+    agent.sender = Sender()
+
+    def probe_row() -> dict:
+        agent._emit_stats()
+        rows = [m.values for m in agent.sender.sent[-1].metrics
+                if m.name == "agent.tpuprobe"]
+        return rows[0] if rows else {}
+    assert probe_row() == {}
+    agent.tpuprobe = Probe(10)
+    assert probe_row() == {"spans_sent": 10.0, "batches": 1.0}
+    agent.pause_profilers()
+    assert agent.tpuprobe is None
+    assert probe_row() == {"spans_sent": 13.0, "batches": 1.0}
+    agent.tpuprobe = Probe(4)   # resumed afresh
+    assert probe_row() == {"spans_sent": 17.0, "batches": 2.0}

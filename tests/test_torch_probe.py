@@ -480,7 +480,12 @@ def test_port_imports_no_jax_and_no_reference():
                 "tpuprobe/topology.py", "store/segment.py",
                 "store/tiered.py", "store/migration.py", "store/table.py",
                 "store/db.py", "server/flusher.py", "server/janitor.py",
-                "chaos.py"):
+                "chaos.py", "server/platform_info.py", "server/recorder.py",
+                "server/genesis.py", "server/decoders.py",
+                "server/server.py", "server/querier.py",
+                "agent/socket_scan.py", "agent/labeler.py",
+                "agent/packet_actions.py", "agent/agent.py",
+                "agent/config.py", "proto/wire.py"):
         assert os.path.join(ROOT, "deepflow_tpu_torch", mod) in files, mod
     for path in files:
         with open(path) as f:

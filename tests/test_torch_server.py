@@ -47,10 +47,12 @@ TABLES = ("profile.tpu_hlo_span", "profile.tpu_memory",
 # the reference names them
 FLOW_TABLES = ("flow_log.l4_flow_log", "flow_log.l7_flow_log",
                "flow_metrics.network.1s", "flow_metrics.application.1s")
-# the rollups and the trace trees the server derives from them
+# the rollups and the trace trees the server derives from them, and the
+# resource recorder's change events
 DERIVED_TABLES = tuple(f"flow_metrics.{fam}.{sfx}"
                        for fam in ("network", "application")
-                       for sfx in ("1m", "1h", "1d")) + ("flow_log.trace_tree",)
+                       for sfx in ("1m", "1h", "1d")) + (
+                           "flow_log.trace_tree", "event.event")
 SCHEMA_TABLES = (TABLES + ("deepflow_system.query_trace",) + FLOW_TABLES
                  + DERIVED_TABLES)
 QUERIES = ("tpu_flame", "tpu_memory", "tpu_collectives", "tpu_step_trace",
@@ -453,7 +455,7 @@ def test_undecodable_payload_counts_as_decode_error():
         errs = {d.MSG_TYPE.name: d.stats["errors"] for d in port.decoders}
         assert errs == {"TPU_SPAN": 1, "STEP_METRICS": 1, "PROFILE": 0,
                         "DFSTATS": 0, "L4_LOG": 0, "L7_LOG": 0,
-                        "METRICS": 0}
+                        "METRICS": 0, "PCAP": 0}
         assert {d.MSG_TYPE.name: d.stats["errors"] for d in ref.decoders
                 if d.MSG_TYPE.name in errs} == errs
     finally:
@@ -514,7 +516,7 @@ def test_http_routes_and_errors(pair):
     assert health["stats"]["receiver"]["bad_frames"] == 0
     assert set(health["stats"]["decoders"]) == {
         "PROFILE", "TPU_SPAN", "STEP_METRICS", "DFSTATS", "L4_LOG",
-        "L7_LOG", "METRICS"}
+        "L7_LOG", "METRICS", "PCAP"}
     assert health["stats"]["receiver"]["acks_sent"] == 0  # v1 frames only
 
 

@@ -223,6 +223,7 @@ ROLES = {
        for sfx in ("1m", "1h", "1d")},
     "flow_log.trace_tree": ("root_service", "trace_id", None, "span_count",
                             "duration_ns"),
+    "event.event": ("event_type", "resource_name", None, "agent_id", "pid"),
 }
 TABLES = tuple(ROLES)
 
@@ -543,12 +544,15 @@ def test_show_databases_and_tables_are_the_ports():
     ref_tables = [r[0] for r in ref_catalog.show("tables")["values"]]
     assert set(tables) <= set(ref_tables)
     assert catalog.show("databases") == {
-        "columns": ["name"], "values": [["deepflow_system"], ["flow_log"],
-                                        ["flow_metrics"], ["profile"]]}
+        "columns": ["name"], "values": [["deepflow_system"], ["event"],
+                                        ["flow_log"], ["flow_metrics"],
+                                        ["profile"]]}
     assert catalog.show("tags", "flow_log.trace_tree") == \
         ref_catalog.show("tags", "flow_log.trace_tree")
+    assert catalog.show("tags", "event.event") == \
+        ref_catalog.show("tags", "event.event")
     with pytest.raises(KeyError):
-        catalog.show("tags", "event.event")  # not in the port
+        catalog.show("tags", "event.file_agg")  # not in the port
 
 
 def test_derived_metric_rewrite_like_reference(monkeypatch):
