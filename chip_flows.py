@@ -84,7 +84,7 @@ T0 = 1_700_000_000_000_000_000
 ERROR_EVERY = 100         # one response in a hundred is a 500
 LIVE_REQUESTS = 2_000
 LIVE_CONNECTIONS = 10
-LIVE_STEPS = 120
+LIVE_STEPS = 40           # each training child: the smoke's time limit caps it
 NODE_AGENT_ID = 100       # the node agent's frames, apart from the child's
                           # (the training part's node agent: 101)
 AGENT_START_S = 60.0

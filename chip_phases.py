@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Run some of chip_smoke.py's phases alone, for a shorter call.
 
-    python3 chip_phases.py resnet dp parallel mp flows control storage enrich
+    python3 chip_phases.py resnet dp parallel mp flows control storage \
+        cluster enrich
 
 The device phase (the card's name and power limit) first, then each named
 phase (``resnet``: ResNet-50 trained with the probe in this process;
@@ -12,7 +13,9 @@ plain and shipping into a server process; ``flows``: the flow/L7 agent
 on the card's host, chip_flows.py; ``control``: the control plane with
 two jobs on the card, chip_control.py; ``storage``: the durable tier,
 chip_storage.py, fed the span frames of phases 2-4, which run first;
-``enrich``: every flow row's process and pod, chip_enrich.py)
+``cluster``: three servers as one replicated cluster, chip_cluster.py,
+fed the same frames; ``enrich``: every flow row's process and pod,
+chip_enrich.py)
 with the same checks as the smoke.
 The numbers land in results/chip_phases.json; a failed check raises.
 """
@@ -49,13 +52,21 @@ def main(names: list[str]) -> int:
               "flows": lambda res: cs.flows_phase(res),
               "control": lambda res: cs.control_phase(res),
               "enrich": lambda res: cs.enrich_phase(res),
-              "storage": lambda res: cs.storage_phase(_span_sink(torch),
-                                                      res)}
+              "storage": lambda res: cs.storage_phase(sink(), res),
+              "cluster": lambda res: cs.cluster_phase(sink(), res)}
     unknown = [n for n in names if n not in phases]
     if unknown or not names:
         print(f"chip_phases: name phases among {sorted(phases)}",
               file=sys.stderr)
         return 2
+    frames: list = []
+
+    def sink():
+        """Phases 2-4 once, for every phase that replays their frames."""
+        if not frames:
+            frames.append(_span_sink(torch))
+        return frames[0]
+
     t0 = time.perf_counter()
     result = {"device": cs.device_phase(torch)}
     try:

@@ -208,7 +208,23 @@ Phases, each printing its own lines:
    under 1,000 ms cold (cache bypassed) and warm. Rows/s with storage on
    and off, commit ms, bytes a row, segments per codec, recovery s, the
    server's RSS and query ms are printed.
-16. enrich (run last, chip_enrich.py): every flow row names its process
+16. cluster (run right after phase 15, with phase 3's frames): the
+   server as a three-shard cluster with --replication 2
+   (chip_cluster.py). A solo server and three shards (shard 1 the seed
+   with the controller, 2 and 3 joining it), each with --storage; eight
+   agents take their analyzers from the seed controller's Sync and ship
+   phase 3's span frames, re-stamped as phase 8 re-stamps them, to
+   500,000 span rows through replicated senders, the same frames to the
+   solo server. Every agent's rows on exactly its two owners; the three
+   dashboard queries, an Avg, Count(DISTINCT), a Percentile (2 %),
+   TpuFlame and the step timeline through each shard equal to the solo
+   server's with no shard missing; after a SIGKILL of shard 3 the same
+   through shards 1 and 2 with shard 3 covered; after its restart on its
+   ingest port and data directory, the ring's new epoch, every frame
+   acked with none dropped and the answers equal again. Rows/s at R = 2
+   and R = 1, query ms, the kill-to-exact seconds, the fan-out hops'
+   ledgers and each shard's RSS are printed.
+17. enrich (run last, chip_enrich.py): every flow row names its process
    and its pod. (a) The port's server with its controller in this
    process, the node agent on lo with its socket scan every 2 s, a stdlib
    HTTP server child taking 500 requests, and phase 6's child training
@@ -229,7 +245,7 @@ Phases, each printing its own lines:
 The dp phase's ranks run with --controller too: their ids are the
 controller's, one a rank (not rank + 1), found by the rank in each agent's
 launcher identity. The runner's agents of phases 10, 14 and 16 run the
-socket scan (every 30 s, the reference's default) beside their sync. The servers of phases 5-8, 10 and 12-15 run
+socket scan (every 30 s, the reference's default) beside their sync. The servers of phases 5-8, 10, 12-16 run
 the server's entry point (its main(),
 stopped by SIGTERM after its drain) in a process of their own
 (multiprocessing, spawn) that then hands the smoke their tables' rows.
@@ -2613,6 +2629,15 @@ def storage_phase(sink, nums: dict) -> None:
     chip_storage.storage_phase(sink, nums)
 
 
+def cluster_phase(sink, nums: dict) -> None:
+    """Phase 16 (chip_cluster.py): three port servers as one cluster with
+    replication 2, fed phase 3's span frames through eight agents'
+    replicated senders, exact through a shard's SIGKILL and restart."""
+    import chip_cluster
+    chip_cluster.cs.CARD.update(CARD)
+    chip_cluster.cluster_phase(sink, nums)
+
+
 def control_phase(nums: dict) -> None:
     """Phase 14 (chip_control.py): the control plane on the card's host."""
     import chip_control
@@ -2621,7 +2646,7 @@ def control_phase(nums: dict) -> None:
 
 
 def enrich_phase(nums: dict) -> None:
-    """Phase 16 (chip_enrich.py): every flow row names its process and
+    """Phase 17 (chip_enrich.py): every flow row names its process and
     its pod, on the card's host."""
     import chip_enrich
     chip_enrich.cs.CARD.update(CARD)
@@ -2656,6 +2681,9 @@ def main() -> int:
         gc.collect()
         result["storage"] = {}
         storage_phase(sink, result["storage"])
+        gc.collect()
+        result["cluster"] = {}
+        cluster_phase(sink, result["cluster"])
         gc.collect()
         # the card's memory to the children
         del model, tokens, sink, probe, seen

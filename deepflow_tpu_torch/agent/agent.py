@@ -7,7 +7,9 @@ Own copy of the in-process parts of ``deepflow_tpu/agent/agent.py``:
 ``LiveCapture``: L4_LOG, L7_LOG and METRICS frames, with
 ``flow.enabled``) and a stats thread (DFSTATS frames every
 ``stats_interval_s``) into one ``UniformSender``, with its spool and
-fault injection when configured. The ``Guard`` pauses the profilers
+fault injection when configured (with ``sender.replication`` above 1, a
+``ReplicatedSender``: one sender and spool subdirectory a ring owner,
+the controller's analyzers its owners). The ``Guard`` pauses the profilers
 while the agent costs too much; the ``Telemetry`` registry (hop ledgers,
 heartbeats) and its ``DeadmanDetector`` ride in every DFSTATS batch, and
 a wedge ships one at once. ``attach`` / ``detach`` start and stop one
@@ -66,7 +68,7 @@ from deepflow_tpu_torch.agent.guard import Guard, read_self_usage
 from deepflow_tpu_torch.agent.labeler import Labeler, acl_rules, \
     has_packet_acls
 from deepflow_tpu_torch.agent.profiler import OnCpuSampler, ProfileSample
-from deepflow_tpu_torch.agent.sender import UniformSender
+from deepflow_tpu_torch.agent.sender import ReplicatedSender, UniformSender
 from deepflow_tpu_torch.agent.spool import Spool
 from deepflow_tpu_torch.chaos import ChaosConfig, ChaosInjector, chaos_from_env
 from deepflow_tpu_torch.codec import MessageType
@@ -130,11 +132,19 @@ class Agent:
                     not self.config.agent_id:
                 self.config.agent_id = default_agent_id()
         sc = self.config.sender
-        self.sender = UniformSender(
-            sc.servers, agent_id=self.config.agent_id,
-            queue_size=sc.queue_size, ack_window=sc.ack_window,
-            telemetry=self.telemetry, spool=self._build_spool(),
-            chaos=self._build_chaos())
+        if sc.replication > 1:
+            self.sender = ReplicatedSender(
+                sc.servers, replication=sc.replication,
+                agent_id=self.config.agent_id, queue_size=sc.queue_size,
+                ack_window=sc.ack_window, telemetry=self.telemetry,
+                spool_factory=self._build_spool_factory(),
+                chaos=self._build_chaos())
+        else:
+            self.sender = UniformSender(
+                sc.servers, agent_id=self.config.agent_id,
+                queue_size=sc.queue_size, ack_window=sc.ack_window,
+                telemetry=self.telemetry, spool=self._build_spool(),
+                chaos=self._build_chaos())
         self.sampler: OnCpuSampler | None = None
         self.tpuprobe = None
         self.dispatcher = None
@@ -176,6 +186,23 @@ class Agent:
         return Spool(directory, max_bytes=sc.max_mb << 20,
                      segment_bytes=sc.segment_mb << 20,
                      max_age_s=sc.max_age_s)
+
+    def _build_spool_factory(self):
+        """The replicated sender's spools: one subdirectory a destination
+        (each destination has its own seq space; a shared spool would
+        interleave them and break the trim and replay marks)."""
+        sc = self.config.sender.spool
+        if not sc.enabled:
+            return None
+        base = sc.dir or os.path.join(
+            tempfile.gettempdir(), f"deepflow-spool-{self.config.agent_id}")
+
+        def factory(dest_key: str) -> Spool:
+            return Spool(os.path.join(base, dest_key),
+                         max_bytes=sc.max_mb << 20,
+                         segment_bytes=sc.segment_mb << 20,
+                         max_age_s=sc.max_age_s)
+        return factory
 
     def _build_chaos(self) -> ChaosInjector | None:
         """DF_CHAOS wins over the config block."""
@@ -248,8 +275,10 @@ class Agent:
 
     def agent_threads(self) -> list[threading.Thread]:
         """The threads this agent started (the guard's CPU reading)."""
-        threads = [self.sender._thread, self._stats_thread,
-                   self.deadman._thread]
+        threads = (self.sender.threads()
+                   if isinstance(self.sender, ReplicatedSender)
+                   else [self.sender._thread])
+        threads += [self._stats_thread, self.deadman._thread]
         if self.guard is not None:
             threads.append(self.guard._thread)
         sampler, tpuprobe = self.sampler, self.tpuprobe

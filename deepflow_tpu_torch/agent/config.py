@@ -111,6 +111,11 @@ class SenderConfig:
     # sent-but-unacked frames kept for retransmit after a reconnect (the
     # transport is always durable: per-frame seq, server acks, dedup)
     ack_window: int = 1024
+    # replication factor R: every HIGH/MID frame to the first R servers
+    # (a seq space, ack window and spool each), so a dead primary's
+    # frames are held on a replica; 1 = one copy (a plain UniformSender).
+    # The controller's ring pushes the owners down analyzer_addrs
+    replication: int = 1
     spool: SpoolConfig = field(default_factory=SpoolConfig)
 
 
@@ -261,6 +266,7 @@ class AgentConfig:
         num(self.selfmon.check_interval_s, "selfmon.check_interval_s", 0)
         num(self.sender.queue_size, "sender.queue_size", 1)
         num(self.sender.ack_window, "sender.ack_window", 1)
+        num(self.sender.replication, "sender.replication", 1, 8)
         num(self.sender.spool.max_mb, "sender.spool.max_mb", 1)
         num(self.sender.spool.segment_mb, "sender.spool.segment_mb", 1)
         if self.sender.spool.segment_mb > self.sender.spool.max_mb:

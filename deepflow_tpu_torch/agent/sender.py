@@ -31,6 +31,14 @@ Ledger (the ``sender`` hop): ``emitted`` once per ``send()``,
 count in ``stats`` only), every shed, evicted or undeliverable frame a
 ``dropped(reason)``, so ``emitted == delivered + dropped + in_flight``
 holds, spool or no spool.
+
+``ReplicatedSender`` (the reference's, ``agent/sender.py:614-796``) runs
+one ``UniformSender`` per owner of the agent in the replication ring,
+each with its own seq space, ack window and spool: HIGH and MID frames
+go to every owner, LOW frames to the primary only. A new owner list
+(the controller's analyzers after a ring epoch) keeps the retained
+owners' senders as they are and re-ships a removed owner's unacked and
+spooled frames (``UniformSender.drain_unsent``) to the owners added.
 """
 
 from __future__ import annotations
@@ -228,6 +236,54 @@ class UniformSender:
         self._close()
         if self.spool is not None:
             self.spool.close()
+
+    def drain_unsent(self) -> list[tuple[MessageType, bytes]]:
+        """Stop this sender and hand back every frame not yet acked, in
+        seq order: the rebalance path, when this destination loses its
+        ownership. Acked frames stay out (they are at the old owner);
+        an unacked frame that did land may be reported once more after
+        the ownership change (at-least-once across rebalances, exactly
+        once within a ring). The undelivered frames leave this ledger as
+        dropped(rebalance); sending them through another sender emits
+        them on its hop again, so the ledger balances end to end."""
+        self._stop.set()
+        if self._thread:
+            self._thread.join(timeout=2.0)
+            self._thread = None
+        frames: dict[int, _Frame] = {}
+        leftovers: list[_Frame] = []
+        while True:
+            try:
+                f = self._q.get_nowait()
+            except queue.Empty:
+                break
+            if f.seq is None:
+                leftovers.append(f)
+            else:
+                frames.setdefault(f.seq, f)
+        self._close()  # moves the window's frames into _pending
+        for f in self._pending:
+            if f.seq is None:
+                leftovers.append(f)
+            elif f.seq > self._acked:
+                frames.setdefault(f.seq, f)
+        self._pending = []
+        if self.spool is not None:
+            for mt, seq, payload in self.spool.replay(self._acked):
+                if seq in frames:
+                    continue
+                try:
+                    msg_type = MessageType(mt)
+                except ValueError:
+                    continue
+                frames[seq] = _Frame(msg_type, payload, seq=seq)
+            self.spool.close()
+        out = []
+        for f in sorted(frames.values(), key=lambda fr: fr.seq) + leftovers:
+            if f.needs_account:
+                self._drop("rebalance")
+            out.append((f.msg_type, f.payload))
+        return out
 
     def _spool_backlog(self) -> bool:
         """True while the spool holds records not yet handed to replay."""
@@ -476,3 +532,170 @@ class UniformSender:
                 self._load_replay()
                 continue
             self._send_frame(f)
+
+
+class ReplicatedSender:
+    """One independent UniformSender per owner destination: HIGH and MID
+    frames to all of them, LOW frames to the primary only (sheddable
+    data does not earn R copies). Each destination has its own seq
+    space, ack window and spool subdirectory, so a dead primary's frames
+    sit durably in its replicas' senders, and the replicas' copies are
+    what the query-time claim filter promotes when the primary dies.
+
+    Duck-types the UniformSender surface the agent uses: send, start,
+    flush, flush_and_stop, servers, agent_id, stats."""
+
+    def __init__(self, servers: list, replication: int = 2,
+                 agent_id: int = 0, queue_size: int = 8192,
+                 connect_timeout: float = 3.0, ack_window: int = 1024,
+                 telemetry: Telemetry | None = None, spool_factory=None,
+                 chaos=None) -> None:
+        if not servers:
+            raise ValueError("need at least one server address")
+        parsed = [parse_addr(s) if isinstance(s, str) else tuple(s)
+                  for s in servers]
+        self.replication = max(1, int(replication))
+        self._agent_id = agent_id
+        self._kw = dict(queue_size=queue_size,
+                        connect_timeout=connect_timeout,
+                        ack_window=ack_window, telemetry=telemetry,
+                        chaos=chaos)
+        # spool_factory(dest_key) -> Spool | None: one directory per
+        # destination (their seq spaces are unrelated; a shared spool
+        # would interleave them and break the trim and replay marks)
+        self._spool_factory = spool_factory or (lambda key: None)
+        self._lock = threading.Lock()
+        self._senders: dict[tuple, UniformSender] = {}
+        self._order: list[tuple] = []
+        self._started = False
+        self.stats = {"rebalances": 0, "reshipped": 0}
+        for dest in parsed[:self.replication]:
+            self._add_dest(dest)
+
+    @staticmethod
+    def _dest_key(dest: tuple) -> str:
+        return f"{dest[0]}_{dest[1]}".replace(":", "_")
+
+    def _add_dest(self, dest: tuple) -> None:
+        s = UniformSender([dest], agent_id=self._agent_id,
+                          spool=self._spool_factory(self._dest_key(dest)),
+                          **self._kw)
+        self._senders[dest] = s
+        self._order.append(dest)
+        if self._started:
+            s.start()
+
+    # -- the UniformSender surface --------------------------------------------
+
+    @property
+    def agent_id(self) -> int:
+        return self._agent_id
+
+    @agent_id.setter
+    def agent_id(self, v: int) -> None:
+        self._agent_id = v
+        with self._lock:
+            for s in self._senders.values():
+                s.agent_id = v
+
+    @property
+    def servers(self) -> list:
+        with self._lock:
+            return list(self._order)
+
+    @servers.setter
+    def servers(self, addrs: list) -> None:
+        self.set_destinations(addrs)
+
+    def threads(self) -> list:
+        """Every destination's worker thread (the guard's CPU reading)."""
+        with self._lock:
+            return [s._thread for s in self._senders.values()]
+
+    def start(self) -> "ReplicatedSender":
+        with self._lock:
+            self._started = True
+            for s in self._senders.values():
+                s.start()
+        return self
+
+    def send(self, msg_type: MessageType, payload: bytes) -> bool:
+        with self._lock:
+            if not self._order:
+                return False
+            if priority_of(msg_type) >= 2:  # LOW: the primary only
+                targets = [self._senders[self._order[0]]]
+            else:
+                targets = [self._senders[d] for d in self._order]
+        ok = False
+        for s in targets:
+            ok = s.send(msg_type, payload) or ok
+        return ok
+
+    def flush(self, timeout: float = 5.0) -> bool:
+        """Every destination's ``flush`` within one shared deadline."""
+        deadline = time.monotonic() + timeout
+        with self._lock:
+            senders = list(self._senders.values())
+        return all([s.flush(max(0.0, deadline - time.monotonic()))
+                    for s in senders])
+
+    def flush_and_stop(self, timeout: float = 5.0) -> None:
+        with self._lock:
+            senders = list(self._senders.values())
+        threads = [threading.Thread(
+            target=s.flush_and_stop, kwargs={"timeout": timeout},
+            daemon=True) for s in senders]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=timeout + 2.0)
+
+    # -- rebalance -------------------------------------------------------------
+
+    def set_destinations(self, addrs: list) -> None:
+        """Adopt a new owner list (ring order, primary first). Retained
+        destinations' senders run on untouched: their windows, spools and
+        seq spaces survive the rebalance, so no frame is dropped."""
+        parsed = [parse_addr(a) if isinstance(a, str) else tuple(a)
+                  for a in addrs][:self.replication]
+        with self._lock:
+            if parsed == self._order or not parsed:
+                return
+            removed = [d for d in self._order if d not in parsed]
+            added = [d for d in parsed if d not in self._senders]
+            harvested: list[tuple] = []
+            for dest in removed:
+                harvested.extend(self._senders.pop(dest).drain_unsent())
+            for dest in added:
+                self._add_dest(dest)
+            self._order = parsed
+            new_targets = [self._senders[d] for d in added]
+            self.stats["rebalances"] += 1
+        # a lost owner's outstanding frames go to the NEW owners only: a
+        # retained one holds its own copy, and a second would be a row
+        # twice on one shard (each sender's seq space is its own, so the
+        # server's dedup window cannot catch it)
+        if harvested and new_targets:
+            for mt, payload in harvested:
+                for s in new_targets:
+                    s.send(mt, payload)
+            self.stats["reshipped"] += len(harvested)
+
+    # -- diagnostics -----------------------------------------------------------
+
+    def stat_totals(self) -> dict:
+        """The destinations' UniformSender stats, summed."""
+        out: dict = {}
+        with self._lock:
+            senders = list(self._senders.values())
+        for s in senders:
+            for k, v in s.stats.items():
+                if isinstance(v, (int, float)):
+                    out[k] = out.get(k, 0) + v
+        return out
+
+    def per_destination(self) -> dict:
+        with self._lock:
+            return {f"{h}:{p}": dict(s.stats)
+                    for (h, p), s in self._senders.items()}

@@ -25,12 +25,17 @@ output for the same answers:
     agent list
     agent-group-config set FILE [--group G]
     org [--assign GROUP ORG_ID]
+    cluster [--json]
 
 ``agent``, ``agent-group-config`` and ``org`` read and drive the
 server's controller (reference: cli/dfctl.py:142-216): the fleet with
 each agent's staleness and health, a group's new config (validated,
 then pushed to its agents), and the group -> org assignments that scope
-the group's rows.
+the group's rows. ``cluster`` prints the federation's peer table as
+the answering shard sees it: each shard's address, epoch, last heartbeat,
+raw row count (a replicated row counts once on each of its R owners),
+probe latency and state, then the fan-out clients' attempts, hedges and
+errors.
 ``datasources`` prints the reference's storage view of a server started
 with ``--storage`` (per table its tier, segments, rows, bytes and time
 span; ``--zones`` adds the segments with zone maps) and the rollup
@@ -497,6 +502,35 @@ def _query_trace(server: str, trace_id: str, flame: bool) -> None:
         waterfall(root)
 
 
+def _cluster(server: str, as_json: bool) -> None:
+    st = _api(server, "/v1/cluster/status")
+    if as_json:
+        print(json.dumps(st, indent=2))
+        return
+    print(f"answering shard: {st['shard_id']}  "
+          f"directory version: {st['version']}")
+    peers = sorted(st.get("peers", []), key=lambda p: p["shard_id"])
+    print_table(
+        ["SHARD", "ADDR", "EPOCH", "LAST_SEEN_S", "RAW_ROWS",
+         "LATENCY_MS", "STATE"],
+        [[p["shard_id"],
+          p["addr"] + (" *" if p["shard_id"] == st["shard_id"] else ""),
+          p["epoch"], p["last_seen_s"],
+          # raw physical count: a replicated row is on R shards
+          p["raw_rows"] if p.get("raw_rows") is not None else "-",
+          p["latency_ms"] if p["latency_ms"] is not None else "-",
+          "alive" if p["alive"]
+          else ("DEAD " + p.get("error", "")).strip()]
+         for p in peers])
+    fan = st.get("fanout") or {}
+    if fan:
+        print("\nfan-out clients (this shard -> peer):")
+        print_table(
+            ["ADDR", "ATTEMPTS", "HEDGES", "ERRORS"],
+            [[addr, f.get("attempts", 0), f.get("hedges", 0),
+              f.get("errors", 0)] for addr, f in sorted(fan.items())])
+
+
 def main(argv: list[str] | None = None) -> int:
     parser = argparse.ArgumentParser(prog="dfctl")
     parser.add_argument("--server", default="127.0.0.1:20416",
@@ -640,6 +674,12 @@ def main(argv: list[str] | None = None) -> int:
     p_org.add_argument("--assign", nargs=2, metavar=("GROUP", "ORG_ID"),
                        default=None)
 
+    p_cluster = sub.add_parser(
+        "cluster", help="federation peer table: shard id, epoch, "
+                        "last seen, raw rows, probe latency")
+    p_cluster.add_argument("--json", action="store_true",
+                           help="raw /v1/cluster/status JSON")
+
     args = parser.parse_args(argv)
     server = args.server
     if args.cmd == "health":
@@ -714,6 +754,8 @@ def main(argv: list[str] | None = None) -> int:
         print_table(["GROUP", "ORG_ID"],
                     [[g, o] for g, o in rows] or
                     [["(all groups)", out["default_org"]]])
+    elif args.cmd == "cluster":
+        _cluster(server, args.json)
     elif args.cmd == "replay":
         from deepflow_tpu_torch.agent.dispatcher import Dispatcher
         from deepflow_tpu_torch.agent.sender import UniformSender

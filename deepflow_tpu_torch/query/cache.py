@@ -1,8 +1,7 @@
 """Querier-level result + partial-aggregate cache with exact invalidation.
 
 Own copy of ``deepflow_tpu/query/cache.py`` without its distributed hook
-(the cluster-wide partial cache), the standing-query fold and the
-shard-side ``partial``. Two layers, both keyed by (table name,
+(the cluster-wide partial cache) and the standing-query fold. Two layers, both keyed by (table name,
 whitespace-normalized SQL) and validated by monotonic change tokens —
 never by TTL:
 
@@ -290,6 +289,30 @@ class QueryCache:
                     store[b] = (mark, gens, part)
                 slot[b] = part
         return view, [slot[b] for b, _m in ordered]
+
+    def partial(self, table, sql: str, *, select=None,
+                extra_key=None) -> dict:
+        """engine.execute_partial(encoded=True) through the bucket cache:
+        a warm shard answers a scatter by folding cached bucket slices
+        instead of rescanning (the shard-side half of federation)."""
+        query = select if select is not None else sql
+        if not self._enabled():
+            return engine.execute_partial(table, query, encoded=True)
+        key = (table.name, normalize_sql(sql), extra_key)
+        try:
+            if isinstance(query, str):
+                query = S.parse(query)
+            got = self._bucket_partials(table, query, key)
+            if got is not None:
+                view, parts = got
+                return engine.combine_partials(view, query, parts)
+        except engine._FastUnsupported:
+            self._drop_buckets(key)
+        except engine.QueryError:
+            raise
+        except Exception:
+            self._drop_buckets(key)
+        return engine.execute_partial(table, query, encoded=True)
 
     @staticmethod
     def _bucket_query(query: S.Select, tc: str, lo: int,

@@ -1,10 +1,10 @@
 """Dogfooded query tracing: one span tree per query.
 
-Own copy of ``deepflow_tpu/query/qtrace.py`` without the federation
-parts (``QueryTracer.adopt`` and ``ctx_for_wire``, which join a shard's
-spans to a coordinator's). Every DF-SQL, PromQL and Tempo query the
-port's querier serves gets a trace id and a span tree: parse, plan, execute, the cache lookup,
-the scan with its prune decision and morsel degree, the partial merge.
+Own copy of ``deepflow_tpu/query/qtrace.py``. Every DF-SQL, PromQL and
+Tempo query the port's querier serves gets a trace id and a span tree:
+parse, plan, execute, the cache lookup, the scan with its prune decision
+and morsel degree, the partial merge; a federated query's shards adopt
+its context (``adopt``, ``ctx_for_wire``), so their spans join it.
 Spans land in the server's own ``deepflow_system.query_trace`` table, the
 same self-monitoring channel the DFSTATS rows use.
 
@@ -361,6 +361,22 @@ class QueryTracer:
         buf.root = root
         return root
 
+    def adopt(self, ctx, name: str, **attrs) -> Span:
+        """Shard-side join of a propagated trace context (the ``qtrace``
+        dict of a scatter body, ``cluster/wire.py``). Returns a root-like
+        span parented under the coordinator's ``shard.call`` span; the
+        sampling verdict is the coordinator's, so the whole trace lives
+        or dies together."""
+        if not isinstance(ctx, dict) or not ctx.get("tid"):
+            return _NULL_SPAN  # type: ignore[return-value]
+        if not _enabled():
+            return _NULL_SPAN  # type: ignore[return-value]
+        buf = _TraceBuf(self, str(ctx["tid"]), bool(ctx.get("sampled", True)),
+                        False)
+        root = _RootSpan(buf, name, str(ctx.get("sid", "")), attrs)
+        buf.root = root
+        return root
+
     def _complete(self, buf: _TraceBuf) -> None:
         """Hand a finished trace over.  Runs on the query thread at root
         exit, so it does the absolute minimum: one lock-free append onto
@@ -591,6 +607,20 @@ def current_span_id() -> str:
     if buf is not None and buf.root is not None:
         return buf.root.span_id
     return ""
+
+
+def ctx_for_wire() -> dict | None:
+    """The context dict a scatter body carries: the receiving shard
+    adopts it so its spans stitch under the coordinator's."""
+    buf = getattr(_tls, "buf", None)
+    if buf is None:
+        return None
+    if buf.sampled is None:
+        # fan-out forces the head verdict now so every shard of this
+        # trace lives or dies together (local traces decide at drain)
+        buf.sampled = _head_keep(buf.trace_id, _sample_n())
+    return {"tid": buf.trace_id, "sid": current_span_id(),
+            "sampled": buf.sampled}
 
 
 class use_buf:

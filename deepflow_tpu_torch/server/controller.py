@@ -45,10 +45,14 @@ agent alone on its host gets the reference's gpids.
 agents' labelers: the entries only when the agent's version or epoch is
 stale, so a steady-state fetch is a few bytes.
 
+With a replication ring (``ring_provider``, the server's adopted
+``cluster/hashring.py`` ring) each agent's analyzers are the ring's
+owners of its id, primary first: the synchronizer hands them to the
+agent's ``ReplicatedSender``, which completes a leader's rebalance.
+
 Left out until their slices (ROADMAP Queue 1): ``PackageRepo``,
 ``CommandQueue``, ``FetchPackage`` and command delivery (the agent's
-operations, item 15); the QoS directive (the ``qos/`` item); the
-replication ring's ``ring_provider`` (item 9).
+operations, item 15); the QoS directive (the ``qos/`` item).
 """
 
 from __future__ import annotations
@@ -308,9 +312,13 @@ class Controller:
 
     def __init__(self, platform_table: PlatformInfoTable,
                  host: str = "127.0.0.1",
-                 port: int = DEFAULT_SYNC_PORT, pod_index=None) -> None:
+                 port: int = DEFAULT_SYNC_PORT, pod_index=None,
+                 ring_provider=None) -> None:
         self.platform_table = platform_table
         self.pod_index = pod_index  # genesis's PodIpIndex, or None
+        # zero-arg callable -> HashRing or None: an active ring's owner
+        # order wins over the flat analyzer list below
+        self.ring_provider = ring_provider
         self.registry = AgentRegistry()
         self.gpids = GpidAllocator()
         # agent group -> org (the group routes configs, so it is the
@@ -475,11 +483,20 @@ class Controller:
             return list(self._analyzers)
 
     def assign_analyzers(self, agent_id: int) -> list[str]:
-        """The agent's ingest nodes in preference order: rendezvous
-        hashing over the analyzer list (an even spread, and few agents
-        move when a node joins or leaves)."""
+        """The agent's ingest nodes in preference order. With a ring,
+        its owners of the agent (primary first, then the replicas), the
+        assignment the agent's sender adopts at its next sync. Else
+        rendezvous hashing over the analyzer list (an even spread, and
+        few agents move when a node joins or leaves)."""
+        ring = self.ring_provider() if self.ring_provider else None
+        if ring is not None:
+            addrs = ring.ingest_addrs(agent_id)
+            if addrs:
+                return addrs
         with self._analyzer_lock:
             addrs = list(self._analyzers)
+        if not addrs:
+            return []
 
         def weight(addr: str) -> int:
             h = hashlib.blake2s(f"{agent_id}|{addr}".encode(),

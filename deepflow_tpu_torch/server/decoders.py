@@ -12,7 +12,12 @@ decoder refuses as malformed, and a flow or document batch that carries
 an address other than IPv4 (the reference's routing), takes the
 ``wire`` path, counted in ``pure_batches``. The L7 rows that carry a
 trace id feed the ingest-time trace trees (``server/tracetree.py``) on
-both paths. Each decoder accounts
+both paths. With a replication ring (``cluster/hashring.py``) every
+row an agent's frame carries is tagged with the ring's primary owner
+of that agent (``owner_shard``) and the ring's ``ring_epoch``, on the
+native and the pure path alike: the coordinates the query-time claim
+filter dedups the replicas' copies by; rows without a ring, and the
+server's own sinks, stay at epoch 0. Each decoder accounts
 its frames on a ``decoder.<TYPE>`` hop (delivered, or dropped as a dup
 or a decode error) and its rows on the ``table_write`` hop, and its
 worker beats a heartbeat.
@@ -160,7 +165,7 @@ class Decoder:
                  seq_tracker=None, telemetry: Telemetry | None = None,
                  msg_type: MessageType | None = None,
                  durability=None, pod_index=None, gpid_table=None,
-                 resources=None) -> None:
+                 resources=None, ring=None) -> None:
         if msg_type is not None:  # a decoder that serves several types
             self.MSG_TYPE = msg_type
         self.q = q
@@ -175,6 +180,10 @@ class Decoder:
         self.dedup = dedup
         self.seq_tracker = seq_tracker
         self.durability = durability
+        # zero-arg callable -> the current HashRing or None (the
+        # server's _current_ring: the ring is adopted after the
+        # decoders start)
+        self.ring = ring
         self._stop = threading.Event()
         self._threads: list[threading.Thread] = []
         self._stats_lock = threading.Lock()
@@ -292,7 +301,17 @@ class Decoder:
         raise NotImplementedError
 
     def _agent_tags(self, header: FrameHeader) -> dict:
-        return self.platform.tags_for(header.agent_id)
+        """The frame's agent's universal tags and, with a ring, the
+        replication coordinates (owner_shard, ring_epoch)."""
+        tags = self.platform.tags_for(header.agent_id)
+        ring = self.ring() if self.ring is not None else None
+        if ring is not None:
+            owners = ring.owners(header.agent_id)
+            if owners:
+                tags = dict(tags)
+                tags["owner_shard"] = owners[0]
+                tags["ring_epoch"] = ring.epoch
+        return tags
 
     def _clock_offset(self, header: FrameHeader) -> int:
         """ns to add to this agent's absolute timestamps (sub-ms offsets

@@ -27,7 +27,16 @@ values``, with the trace tree (``POST /v1/trace/Tracing``, from the
 ingest-time ``flow_log.trace_tree`` rows, the trace builder's pending
 spans and the querier's own query traces) and the service-path search
 (``POST /v1/trace/Search``); external Jaeger or OTLP-JSON backends join
-a trace through ``POST /v1/tracing-adapters``. No federation. ``GET
+a trace through ``POST /v1/tracing-adapters``. In a cluster
+(``cluster/``, the server's ``--shard-id`` and ``--cluster-seed``) every
+surface scatters to the alive shards through ``POST /v1/shard/exec``
+(the six ops of the reference: ``sql_partial``, ``promql_raw``,
+``tempo_scan``, ``trace_spans``, ``profile_flame``, ``table_counts``,
+answered from the replication ring's claim view) and merges here; an
+answer carries ``"federation": {"shards", "missing_shards"}`` (and
+``covered_shards`` when the ring covers a dead one), never a 500 for a
+dead shard; ``POST /v1/cluster/join``, ``GET /v1/cluster/peers`` and
+``/v1/cluster/status`` serve the membership. ``GET
 /v1/health`` carries the cache's, the scan pool's and the tracer's stats
 (``query_cache``, ``query``, ``query_trace``), the server's own
 self-telemetry (``selfmon``, ``stages``, ``pipeline``,
@@ -58,15 +67,18 @@ from urllib.parse import parse_qs, parse_qsl, urlparse
 
 import numpy as np
 
+from deepflow_tpu_torch.cluster import wire as cluster_wire
+from deepflow_tpu_torch.cluster.dictsync import build_sync
+from deepflow_tpu_torch.cluster.hashring import claim_db_from_body
 from deepflow_tpu_torch.query import catalog, engine, promql, qtrace
 from deepflow_tpu_torch.query import datasource as qds
 from deepflow_tpu_torch.query import pool as qpool
 from deepflow_tpu_torch.query import sql as S
-from deepflow_tpu_torch.query.cache import QueryCache
+from deepflow_tpu_torch.query.cache import QueryCache, change_token
 from deepflow_tpu_torch.query.costmodel import KernelCostModel
 from deepflow_tpu_torch.query.engine import QueryError
 from deepflow_tpu_torch.query.flamegraph import (
-    build_flame_tree, profile_flame_tree)
+    build_flame_tree, profile_flame_tree, profile_stack_values)
 from deepflow_tpu_torch.query.tracing import (
     build_syscall_trace, build_trace_from_spans, scan_trace_spans)
 from deepflow_tpu_torch.query.tracing_adapter import AdapterRegistry
@@ -103,6 +115,11 @@ class QuerierAPI:
                  trace_trees=None, controller=None,
                  storage_provider=None) -> None:
         self.db = db
+        self.shard_id = db.shard_id
+        # the server's _start_cluster sets both (cluster/membership.py,
+        # cluster/federation.py); None: a standalone server
+        self.membership = None
+        self.federation = None
         # the server's storage block for /v1/health (None: storage off)
         self.storage_provider = storage_provider
         # server/controller.py's Controller, or None: the fleet routes
@@ -164,6 +181,16 @@ class QuerierAPI:
             out["ledger_imbalance"] = selfmon["ledger_imbalance"]
             out["wedges"] = selfmon["wedges"]
             wedged_stages += [w["stage"] for w in selfmon["wedges"]]
+        if self.membership is not None:
+            out["cluster"] = {
+                "shard_id": self.shard_id,
+                "version": self.membership.directory.version,
+                "peers_alive": len(self.membership.peers()),
+            }
+        if self.federation is not None:
+            out["dict_sync"] = self.federation.dict_sync.snapshot()
+            out["federation_cache"] = dict(
+                self.federation.sql_cache_counters)
         agents = collect_agent_selfmon(self.db)
         if agents["pipeline"] or agents["heartbeats"] or agents["wedges"]:
             out["agents_selfmon"] = agents
@@ -243,6 +270,13 @@ class QuerierAPI:
         select.where = (cond if select.where is None
                         else S.BinOp("AND", select.where, cond))
 
+    def _fed(self):
+        """The FederationCoordinator iff remote peers are alive right
+        now; otherwise every query takes the plain local path."""
+        if self.federation is not None and self.federation.active():
+            return self.federation
+        return None
+
     def query(self, body: dict) -> dict:
         """One DF-SQL statement: body {"sql", "db", "org_id"}; the answer
         {"result": {"columns", "values"}, "debug": {"table"}}, for SHOW
@@ -284,20 +318,22 @@ class QuerierAPI:
     def _plan(self, body: dict, select: S.Select, db_name: str,
               sketches: bool = True):
         """The plan span: resolve the table, scope it to the org, and
-        choose the datasource: a rollup tier that answers the query
+        choose the datasource (a cluster's scatter takes the raw table
+        as the reference's does): a rollup tier that answers the query
         exactly takes the table's place (the rollups share its column
         names, so the SQL text runs unchanged and the cache keys on the
         table), and a PERCENTILE the tiers' sketches cover is answered
         from them (``sketches``). Returns (table, debug, sketch answer or
-        None)."""
+        None, the FederationCoordinator or None)."""
         with qtrace.span("plan") as pl:
             table = self._resolve_table(select.table, db_name)
             org = body.get("org_id")
             if org is not None:
                 self._org_scope(select, table, org)
+            fed = self._fed()
             debug: dict = {"table": table.name}
             sketch = None
-            if self.rollup is not None:
+            if fed is None and self.rollup is not None:
                 horizons = self.rollup.horizons()
                 if sketches:
                     sketch = qds.sketch_percentile(self.db, table, select,
@@ -308,21 +344,29 @@ class QuerierAPI:
                     if picked is not None:
                         table, debug["datasource"] = picked
                         debug["table"] = table.name
-            pl.annotate(table=debug["table"], federated=False,
+            pl.annotate(table=debug["table"], federated=fed is not None,
                         **({"datasource": str(debug["datasource"])}
                            if "datasource" in debug else {}))
-        return table, debug, sketch
+        return table, debug, sketch, fed
 
     def _run_select(self, body: dict, select: S.Select, sql_text: str,
                     db_name: str) -> dict:
         """Plan + execute one SELECT (the body of ``query()``, shared
         with the EXPLAIN ANALYZE path, under whatever trace is open)."""
-        table, debug, sketch = self._plan(body, select, db_name)
+        table, debug, sketch, fed = self._plan(body, select, db_name)
+        org = body.get("org_id")
+        if fed is not None:
+            with qtrace.span("execute", path="federation") as ex:
+                result, info = fed.sql_query(table, select, sql_text,
+                                             org_id=org)
+                ex.annotate(shards=int(info.get("shards", 1)),
+                            cache=str(info.get("cache", "")))
+            return {"result": result.to_dict(), "debug": debug,
+                    "federation": info}
         if sketch is not None:
             result, debug["datasource"] = sketch
             qtrace.annotate(datasource=str(debug["datasource"]))
             return {"result": result.to_dict(), "debug": debug}
-        org = body.get("org_id")
         # org scoping rewrote the AST, not the text — fold it into the
         # cache key so scoped variants of one SQL string don't collide
         with qtrace.span("execute", path="local") as ex:
@@ -345,7 +389,9 @@ class QuerierAPI:
                 # work of no stage, and would count in total_ms alone
                 answer = self._run_select(body, stmt.select, stmt.sql,
                                           db_name)
+                fed_info = answer.get("federation")
             else:
+                fed_info = None
                 self._plan(body, stmt.select, db_name, sketches=False)
         del answer
         # E2E = the root span's wall (query work only; excludes the
@@ -375,6 +421,10 @@ class QuerierAPI:
             elif nm == "execute":
                 plan["path"] = a.get("path", "")
                 rows_out = int(a.get("rows", 0) or 0)
+                if "shards" in a:
+                    plan["shards"] = a["shards"]
+                if a.get("cache"):
+                    plan["scatter_cache"] = a["cache"]
             elif nm.startswith("prune"):
                 pr = plan.setdefault("prune", {"candidates": 0,
                                                "zone_pruned": 0,
@@ -408,6 +458,8 @@ class QuerierAPI:
                    "spans": len(spans)}
         if stmt.analyze:
             explain["rows_returned"] = rows_out
+            if fed_info is not None:
+                explain["federation"] = fed_info
         return {"result": {"columns": ["stage", "wall_ms", "cpu_ms",
                                        "detail"],
                            "values": result_rows},
@@ -418,14 +470,39 @@ class QuerierAPI:
         """CPU flame graph of the sampled stacks; each of time_start,
         time_end (ns), event_type, app_service and profiler filters when
         given."""
+        params = {k: body.get(k) for k in ("time_start", "time_end",
+                                           "event_type", "app_service",
+                                           "profiler")}
+        fed = self._fed()
+        if fed is not None:
+            def flame_fn(p, db):
+                part = self._flame_stacks(p, db)
+                return part["stacks"], part["values"]
+
+            (stacks, values), info = fed.flame_stacks(flame_fn, params)
+            return {"result": build_flame_tree(stacks, values).to_dict(),
+                    "federation": info}
         tree = profile_flame_tree(
             self.db.table("profile.in_process_profile"),
-            time_start_ns=body.get("time_start"),
-            time_end_ns=body.get("time_end"),
-            event_type=body.get("event_type"),
-            app_service=body.get("app_service"),
-            profiler=body.get("profiler"))
+            time_start_ns=params["time_start"],
+            time_end_ns=params["time_end"],
+            event_type=params["event_type"],
+            app_service=params["app_service"],
+            profiler=params["profiler"])
         return {"result": tree.to_dict()}
+
+    def _flame_stacks(self, params: dict, db=None) -> dict:
+        """A shard's half of a federated flame graph: summed by stack in
+        its own encoded space, the stacks decoded."""
+        stacks, values = profile_stack_values(
+            (db if db is not None else self.db).table(
+                "profile.in_process_profile"),
+            time_start_ns=params.get("time_start"),
+            time_end_ns=params.get("time_end"),
+            event_type=params.get("event_type"),
+            app_service=params.get("app_service"),
+            profiler=params.get("profiler"))
+        return {"stacks": stacks, "values": values}
 
     def tpu_flame(self, body: dict) -> dict:
         """Flame view over device spans: module -> category -> op.
@@ -438,16 +515,26 @@ class QuerierAPI:
         where += _time_window(body)
         if body.get("device_id") is not None:
             where.append(f"device_id = {int(body['device_id'])}")
-        res = engine.execute(
-            self.db.table("profile.tpu_hlo_span"),
+        table = self.db.table("profile.tpu_hlo_span")
+        sql_text = (
             "SELECT hlo_module, hlo_category, hlo_op, Sum(duration_ns) AS d "
             f"FROM t WHERE {' AND '.join(where)} "
             "GROUP BY hlo_module, hlo_category, hlo_op")
+        fed = self._fed()
+        info = None
+        if fed is not None:
+            # an exact push-down: Sum partials keyed by decoded names
+            res, info = fed.sql_query(table, S.parse(sql_text), sql_text)
+        else:
+            res = engine.execute(table, sql_text)
         stacks, values = [], []
         for mod, cat, op, d in res.values:
             stacks.append(";".join(x for x in (mod, cat or "other", op) if x))
             values.append(int(d))
-        return {"result": build_flame_tree(stacks, values).to_dict()}
+        out = {"result": build_flame_tree(stacks, values).to_dict()}
+        if info is not None:
+            out["federation"] = info
+        return out
 
     def tpu_memory(self, body: dict) -> dict:
         """Memory view: per-device usage timeline, headroom summary, top
@@ -531,9 +618,12 @@ class QuerierAPI:
             self._tpu_span_rows(body),
             run_id=None if run_id is None else int(run_id))}
 
-    def _step_rollups(self, body: dict) -> list[dict]:
+    def _step_rollups(self, body: dict) -> tuple[list[dict], dict | None]:
         """Per-host step records merged into one rollup per
-        (job, run_id, step), time-ordered."""
+        (job, run_id, step), time-ordered, and the federation info when
+        the query scattered. A shard's partial is a plain row SELECT:
+        each host's record is held (claimed) on one shard, so the union
+        of the shards' rows is the single node's row set."""
         where = []
         if body.get("job"):
             job = str(body["job"]).replace("'", "")
@@ -544,24 +634,33 @@ class QuerierAPI:
         sql_text = f"SELECT {_STEP_COLS} FROM t"
         if where:
             sql_text += f" WHERE {' AND '.join(where)}"
-        res = engine.execute(self.db.table("profile.tpu_step_metrics"),
-                             sql_text)
+        table = self.db.table("profile.tpu_step_metrics")
+        fed = self._fed()
+        info = None
+        if fed is not None:
+            res, info = fed.sql_query(table, S.parse(sql_text), sql_text)
+        else:
+            res = engine.execute(table, sql_text)
         return stephealth.merge_host_partials(
-            [dict(zip(res.columns, row)) for row in res.values])
+            [dict(zip(res.columns, row)) for row in res.values]), info
 
     def tpu_steps(self, body: dict) -> dict:
         """Per-step health timeline, each step scored by the EWMA+MAD
         regression detector."""
-        scored = stephealth.score_timeline(self._step_rollups(body))
+        rollups, info = self._step_rollups(body)
+        scored = stephealth.score_timeline(rollups)
         limit = int(body.get("limit", 500))
-        return {"result": {"steps": scored[-limit:],
-                           "total_steps": len(scored)}}
+        out = {"result": {"steps": scored[-limit:],
+                          "total_steps": len(scored)}}
+        if info is not None:
+            out["federation"] = info
+        return out
 
     def tpu_step_critical_path(self, body: dict) -> dict:
         """Where one step's latency went (compute, collective wait or
         device skew) against a baseline of the healthy steps before it;
         the latest step unless step (and run_id) name one."""
-        rollups = self._step_rollups(body)
+        rollups, info = self._step_rollups(body)
         if not rollups:
             raise QueryError("no step records in window")
         want_run = body.get("run_id")
@@ -582,7 +681,10 @@ class QuerierAPI:
             if r["job"] == target["job"]:
                 sc.feed(r)
         att = stephealth.attribute(target, sc.baseline())
-        return {"result": {"step": target, "attribution": att}}
+        out = {"result": {"step": target, "attribution": att}}
+        if info is not None:
+            out["federation"] = info
+        return out
 
     def _tpu_span_rows(self, body: dict,
                        collectives_only: bool = False) -> list[dict]:
@@ -601,6 +703,27 @@ class QuerierAPI:
 
     # -- PromQL (reference: querier/app/prometheus) --------------------------
 
+    def _prom_db(self):
+        """The db promql evaluates over: the federated shim while peers
+        are alive (raw selectors fan out, the AST evaluates here, so
+        every function stays exact), else the local store."""
+        fed = self._fed()
+        return fed.prom_db() if fed is not None else self.db
+
+    @staticmethod
+    def _prom_annotate(out: dict, db) -> dict:
+        missing = sorted(getattr(db, "missing_shards", ()))
+        info = dict(getattr(db, "fed_info", None) or {})
+        # only when there is something to say: a healthy federated
+        # answer is byte-identical to a standalone one
+        if missing or info.get("covered_shards"):
+            info["missing_shards"] = missing
+            out["federation"] = info
+        if missing:
+            out.setdefault("warnings", []).append(
+                f"partial result: shards {missing} did not answer")
+        return out
+
     def prom_query_range(self, params: dict) -> dict:
         """GET /api/v1/query_range: query, start, end (epoch s), step."""
         q = params.get("query", "")
@@ -610,6 +733,7 @@ class QuerierAPI:
             step = max(1, int(float(params.get("step", 15))))
         except ValueError as e:
             raise QueryError(f"bad time param: {e}") from None
+        db = self._prom_db()
         with self.qtracer.start_trace("query", kind="promql",
                                       promql=q[:200]):
             try:
@@ -618,12 +742,13 @@ class QuerierAPI:
                     promql.scope_to_org(ast, int(params["org_id"]))
                 with qtrace.span("execute", path="promql_range",
                                  step=step):
-                    result = promql.evaluate(self.db, ast, start, end, step)
+                    result = promql.evaluate(db, ast, start, end, step)
             except promql.PromqlError as e:
                 return {"status": "error", "errorType": "bad_data",
                         "error": str(e)}
-        return {"status": "success",
-                "data": {"resultType": "matrix", "result": result}}
+        return self._prom_annotate(
+            {"status": "success",
+             "data": {"resultType": "matrix", "result": result}}, db)
 
     def prom_query(self, params: dict) -> dict:
         """GET /api/v1/query: an instant query at ``time`` (default now)."""
@@ -632,6 +757,7 @@ class QuerierAPI:
             t = int(float(params.get("time", time.time())))
         except ValueError as e:
             raise QueryError(f"bad time param: {e}") from None
+        db = self._prom_db()
         with self.qtracer.start_trace("query", kind="promql",
                                       promql=q[:200]):
             try:
@@ -639,11 +765,11 @@ class QuerierAPI:
                 if params.get("org_id") is not None:
                     promql.scope_to_org(ast, int(params["org_id"]))
                 with qtrace.span("execute", path="promql_instant"):
-                    data = promql.evaluate_instant(self.db, ast, t)
+                    data = promql.evaluate_instant(db, ast, t)
             except promql.PromqlError as e:
                 return {"status": "error", "errorType": "bad_data",
                         "error": str(e)}
-        return {"status": "success", "data": data}
+        return self._prom_annotate({"status": "success", "data": data}, db)
 
     @staticmethod
     def _prom_meta_args(params: dict) -> tuple:
@@ -658,9 +784,10 @@ class QuerierAPI:
             raise QueryError(f"bad time param: {e}") from None
         return matches, start, end
 
-    def _prom_meta(self, fn) -> dict:
+    def _prom_meta(self, fn, db) -> dict:
         try:
-            return {"status": "success", "data": fn()}
+            return self._prom_annotate({"status": "success",
+                                        "data": fn(db)}, db)
         except promql.PromqlError as e:
             return {"status": "error", "errorType": "bad_data",
                     "error": str(e)}
@@ -672,19 +799,24 @@ class QuerierAPI:
         if not matches:
             return {"status": "error", "errorType": "bad_data",
                     "error": "no match[] parameter"}
+        # series() goes through fetch_raw: it federates
         return self._prom_meta(
-            lambda: promql.series(self.db, matches, start, end))
+            lambda db: promql.series(db, matches, start, end),
+            self._prom_db())
 
     def prom_labels(self, params: dict) -> dict:
         matches, start, end = self._prom_meta_args(params)
+        # with match[] through series() (federated); without, metadata
+        # stays local (the schema is the same on every shard)
         return self._prom_meta(
-            lambda: promql.label_names(self.db, matches, start, end))
+            lambda db: promql.label_names(db, matches, start, end),
+            self._prom_db() if matches else self.db)
 
     def prom_label_values(self, label: str, params: dict) -> dict:
         matches, start, end = self._prom_meta_args(params)
         return self._prom_meta(
-            lambda: promql.label_values(self.db, label, matches, start,
-                                        end))
+            lambda db: promql.label_values(db, label, matches, start, end),
+            self._prom_db() if matches else self.db)
 
     # -- Tempo and the trace tree (reference: querier/tempo) -----------------
 
@@ -700,10 +832,12 @@ class QuerierAPI:
             raise QueryError(f"bad duration {s!r}")
         return int(float(m.group(1)) * cls._TEMPO_DUR[m.group(2)])
 
-    def _tempo_scan(self, params: dict) -> list[dict]:
+    def _tempo_scan(self, params: dict, db=None) -> list[dict]:
         """One partial dict per trace in the window. Tags select per
-        span, but start, end and duration are the whole trace's, so the
-        duration filters and the limit apply after the scan."""
+        span, but start, end and duration are the whole trace's (and a
+        trace's spans may lie on several shards), so the duration
+        filters and the limit apply after the scan (and the merge).
+        ``db``: a claim view to scan instead of the local store."""
         tags = {}
         for k, v_quoted, v_plain in re.findall(
                 r'([\w.]+)=(?:"([^"]*)"|(\S+))', params.get("tags", "")):
@@ -727,7 +861,8 @@ class QuerierAPI:
         if params.get("end"):
             end_ns = int(float(params["end"])) * 1_000_000_000
             where.append(f"time < {end_ns}")
-        traces = self._tempo_l7(start_ts * 1_000_000_000, end_ns, tags)
+        traces = self._tempo_l7(start_ts * 1_000_000_000, end_ns, tags,
+                                db if db is not None else self.db)
 
         # the querier's own query traces answer through the same search
         self.qtracer.flush()
@@ -763,14 +898,14 @@ class QuerierAPI:
                 tr["rootTraceName"] = name or tid
         return list(traces.values())
 
-    def _tempo_l7(self, lo_ns: int, hi_ns: int | None,
-                  tags: dict) -> dict[str, dict]:
+    def _tempo_l7(self, lo_ns: int, hi_ns: int | None, tags: dict,
+                  db) -> dict[str, dict]:
         """The l7_flow_log half of the Tempo scan, columnar: one partial
         per trace in [lo_ns, hi_ns), in the order of its first row, as
         the reference's row loop builds them (start, end, spans, the
         earliest span as the root, whether any span matches every
         tag)."""
-        v = self.db.table("flow_log.l7_flow_log").view()
+        v = db.table("flow_log.l7_flow_log").view()
         names = ("time", "trace_id", "app_service", "request_type",
                  "endpoint", "response_duration", "l7_protocol",
                  "response_code")
@@ -846,10 +981,17 @@ class QuerierAPI:
                   if params.get("minDuration") else 0)
         max_ns = (self._tempo_duration_ns(params["maxDuration"])
                   if params.get("maxDuration") else 0)
+        fed = self._fed()
+        info = None
         with self.qtracer.start_trace("query", kind="tempo",
                                       tags=params.get("tags", "")):
-            with qtrace.span("execute", path="local"):
-                traces = self._tempo_scan(params)
+            if fed is not None:
+                with qtrace.span("execute", path="federation"):
+                    traces, info = fed.tempo_search(self._tempo_scan,
+                                                    params)
+            else:
+                with qtrace.span("execute", path="local"):
+                    traces = self._tempo_scan(params)
         out = []
         for tr in traces:
             if not tr["_matched"]:
@@ -863,8 +1005,11 @@ class QuerierAPI:
                         "startTimeUnixNano": str(tr["_start_ns"]),
                         "durationMs": dur_ns // 1_000_000})
         out.sort(key=lambda tr: -int(tr["startTimeUnixNano"]))
-        return {"traces": out[:limit],
+        resp = {"traces": out[:limit],
                 "metrics": {"inspectedTraces": len(traces)}}
+        if info is not None:
+            resp["federation"] = info
+        return resp
 
     def tempo_search_tags(self) -> dict:
         return {"tagNames": list(self._TEMPO_TAGS)}
@@ -943,13 +1088,17 @@ class QuerierAPI:
         tree = self._assemble_trace(trace_id)
         return {"result": self.trace_adapters.merge_into(tree, trace_id)}
 
-    def collect_trace_spans(self, trace_id: str) -> list[dict]:
-        """One trace's span dicts: its flow_log.trace_tree rows and the
-        trace builder's pending spans, else (rows ingested before any
-        tree) an l7_flow_log scan; then the querier's own query-trace
-        spans of that id."""
+    def collect_trace_spans(self, trace_id: str, db=None) -> list[dict]:
+        """This shard's span dicts of one trace: its flow_log.trace_tree
+        rows and the trace builder's pending spans, else (rows ingested
+        before any tree) an l7_flow_log scan; then the querier's own
+        query-trace spans of that id. ``db``: a claim view (replication);
+        replica copies also dedup at assembly by (span_id, start_ns,
+        flow_id)."""
+        if db is None:
+            db = self.db
         spans: list[dict] = []
-        tree_table = self.db.table("flow_log.trace_tree")
+        tree_table = db.table("flow_log.trace_tree")
         code = tree_table.dicts["trace_id"].lookup(trace_id)
         if code is not None:
             for ch in tree_table.snapshot():
@@ -961,7 +1110,7 @@ class QuerierAPI:
         if self.trace_trees is not None:
             spans.extend(self.trace_trees.pending_spans(trace_id))
         if not spans:
-            spans = scan_trace_spans(self.db.table("flow_log.l7_flow_log"),
+            spans = scan_trace_spans(db.table("flow_log.l7_flow_log"),
                                      trace_id)
         spans.extend(self._query_trace_spans(trace_id))
         return spans
@@ -993,10 +1142,23 @@ class QuerierAPI:
         return spans
 
     def _assemble_trace(self, trace_id: str, max_spans: int = 1000) -> dict:
-        return build_trace_from_spans(
-            trace_id, self.collect_trace_spans(trace_id),
+        """One trace's tree: this shard's spans and, while peers are
+        alive, every other shard's (a trace's spans may be ingested
+        anywhere; build_trace_from_spans dedups the union)."""
+        fed = self._fed()
+        info = None
+        if fed is not None:
+            spans, info = fed.trace_spans(self.collect_trace_spans,
+                                          trace_id)
+        else:
+            spans = self.collect_trace_spans(trace_id)
+        tree = build_trace_from_spans(
+            trace_id, spans,
             tpu_table=self.db.table("profile.tpu_hlo_span"),
             max_spans=max_spans)
+        if info is not None:
+            tree["federation"] = info
+        return tree
 
     def trace_search(self, body: dict) -> dict:
         """POST /v1/trace/Search: the traces whose service path holds
@@ -1036,6 +1198,115 @@ class QuerierAPI:
                 raise QueryError(str(e)) from None
         return {"adapters": self.trace_adapters.list()}
 
+
+    # -- cluster (scatter-gather) ------------------------------------------
+
+    def shard_exec(self, body: dict) -> dict:
+        """POST /v1/shard/exec: the shard-local half of every federated
+        query. Strictly local (never fans out again, even with peers
+        alive): the coordinator is the only merge point. With the ring
+        and alive set in the body it answers from the claim view, so
+        each replicated row is reported by exactly one alive owner; a
+        traced coordinator's context makes this shard's spans join its
+        trace (landing in this shard's query_trace table)."""
+        op = body.get("op", "")
+        db = claim_db_from_body(body, self.db, self.shard_id)
+        with self.qtracer.adopt(cluster_wire.extract_ctx(body),
+                                "shard.exec", op=op, shard=self.shard_id):
+            return self._shard_exec_op(body, db, op)
+
+    def _shard_exec_op(self, body: dict, db, op: str) -> dict:
+        if op == "sql_partial":
+            table = (db.table(body["table"]) if body.get("table")
+                     else self._resolve_table("", ""))
+            select = S.parse_statement(body.get("sql", ""))
+            if not isinstance(select, S.Select):
+                raise QueryError("sql_partial needs a SELECT")
+            org = body.get("org_id")
+            if org is not None:
+                # the coordinator's org filter lives in its AST, not
+                # the SQL text: re-inject it from the op body
+                self._org_scope(select, table, org)
+            if not body.get("enc"):
+                # a decoded partial: the remap escape hatch
+                return engine.execute_partial(table, select)
+            return self._sql_partial_enc(body, table, select, org)
+        if op == "promql_raw":
+            vs = promql.VectorSelector(
+                metric=str(body.get("metric", "")),
+                matchers=[tuple(m) for m in body.get("matchers", [])])
+            try:
+                series = promql.fetch_raw(db, vs,
+                                          float(body.get("lo_s", 0)),
+                                          float(body.get("hi_s", 0)))
+            except promql.UnknownMetricError:
+                return {"unknown": True}
+            return {"series": [
+                {"labels": s.labels, "t": s.t.tolist(), "v": s.v.tolist(),
+                 "counter": bool(s.counter)} for s in series]}
+        if op == "tempo_scan":
+            return {"traces": self._tempo_scan(body.get("params") or {},
+                                               db)}
+        if op == "trace_spans":
+            return {"spans": self.collect_trace_spans(
+                str(body.get("trace_id", "")), db)}
+        if op == "profile_flame":
+            return self._flame_stacks(body.get("params") or {}, db)
+        if op == "table_counts":
+            return {name: len(self.db.table(name))
+                    for name in self.db.tables()}
+        raise QueryError(f"unknown shard op {op!r}")
+
+    def _sql_partial_enc(self, body: dict, table, select: S.Select,
+                         org) -> dict:
+        """The encoded half of sql_partial: the change-token short
+        circuit, the bucket-cached encoded partial, and the dictionary
+        delta the coordinator needs to remap our ids."""
+        # a claim view answers for other rows under another ring or
+        # alive set, the table unchanged: the ring context joins both
+        # the change token and the cache key
+        ring = body.get("ring") or {}
+        ring_ctx = None if not ring else [
+            ring.get("epoch"), ring.get("token"),
+            sorted(int(s) for s in body.get("alive") or [])]
+        tok = [change_token(table), ring_ctx]  # read BEFORE computing
+        if_state = (body.get("if_state") or {}).get(str(self.shard_id))
+        if if_state is not None and if_state == tok:
+            return {"kind": "unchanged", "state": tok}
+        part = dict(self.query_cache.partial(
+            table, body.get("sql", ""), select=select,
+            extra_key=("fed", org, repr(ring_ctx))))
+        dicts = part.get("dicts")
+        if dicts:
+            known = (body.get("dict_known") or {}).get(
+                str(self.shard_id)) or {}
+            sync = build_sync(table, dicts, known)
+            if sync is None:
+                # a dictionary's gen flipped since the partial was built:
+                # its ids are unremappable, so answer decoded instead
+                return dict(engine.execute_partial(table, select))
+            part["dict_sync"] = sync
+        part["state"] = tok
+        return part
+
+    def cluster_join(self, body: dict) -> dict:
+        if self.membership is None:
+            raise QueryError("clustering not enabled")
+        return self.membership.handle_join(body)
+
+    def cluster_peers(self) -> dict:
+        if self.membership is None:
+            return {"version": 0, "peers": []}
+        self.membership.refresh_self()
+        return self.membership.directory.snapshot()
+
+    def cluster_status(self) -> dict:
+        """The dfctl ``cluster`` view: the peer table with each shard's
+        raw row count and probe latency."""
+        if self.federation is None:
+            return {"shard_id": self.shard_id, "version": 0, "peers": [],
+                    "fanout": {}}
+        return self.federation.cluster_status()
 
     # -- the controller's routes ------------------------------------------
 
@@ -1167,6 +1438,7 @@ class QuerierHTTP:
             "/v1/orgs": api.orgs_api,
             "/v1/analyzers": api.analyzers_api,
             "/v1/pcaps": api.pcaps,
+            "/v1/cluster/join": api.cluster_join,
         }
 
         class Handler(BaseHTTPRequestHandler):
@@ -1193,6 +1465,10 @@ class QuerierHTTP:
                         v1_only=params.get("v1") in ("1", "true"))
                 if path == "/v1/analyzers":
                     return api.analyzers_api()
+                if path == "/v1/cluster/peers":
+                    return api.cluster_peers()
+                if path == "/v1/cluster/status":
+                    return api.cluster_status()
                 if path.startswith("/prom/"):
                     path = path[len("/prom"):]
                 if path == "/api/v1/query_range":
@@ -1239,7 +1515,21 @@ class QuerierHTTP:
                 try:
                     n = int(self.headers.get("Content-Length", 0))
                     body = json.loads(self.rfile.read(n) if n else b"{}")
-                    fn = routes.get(self.path.split("?")[0].rstrip("/"))
+                    path = self.path.split("?")[0].rstrip("/")
+                    if path == "/v1/shard/exec":
+                        # a SHARD_RESULT frame, not JSON: numeric columns
+                        # ride as raw little-endian arrays
+                        payload = cluster_wire.encode_result(
+                            api.shard_exec(body), shard_id=api.shard_id)
+                        self.send_response(200)
+                        self.send_header("Content-Type",
+                                         "application/octet-stream")
+                        self.send_header("Content-Length",
+                                         str(len(payload)))
+                        self.end_headers()
+                        self.wfile.write(payload)
+                        return
+                    fn = routes.get(path)
                     if fn is None:
                         self._send(404, {"error": f"no route {self.path}"})
                     else:

@@ -65,11 +65,27 @@ and the janitor) run only while this server is the elected leader
 Lease with no cluster to hold it fails the start (the reference runs the
 singletons locally then).
 
+Servers form a cluster (``cluster/``) with a shard id and a seed: each
+stamps its rows with ``shard_id``, joins the seed's directory on its
+query port (heartbeats every 2 s, gossiping its receiver port as
+``ingest_addr``), and every query surface scatters to the alive shards
+and merges (``server/querier.py``). With ``replication`` R > 0 the
+elected leader (the seed when no lease is set) builds the consistent-
+hash ring over the ingest shards, fenced by its election token, and
+rebuilds it when the directory changes; the decoders tag each row with
+its agent's ring coordinates, the controller hands each agent the
+ring's owner order as its analyzers (primary first), the agents'
+``ReplicatedSender`` ships HIGH and MID frames to all R owners, and a
+query stays exact through R - 1 dead shards (``covered_shards``). A
+cluster flag with a bad value fails the start.
+
     python -m deepflow_tpu_torch.server [--host H] [--ingest-port P]
         [--query-port Q] [--sync-port S] [--no-controller]
         [--ha-lease FILE | --ha-k8s-lease NAME]
         [--data-dir DIR [--storage] [--flush-interval-s S]
          [--compact-interval-s S] [--storage-max-mb MB]]
+        [--shard-id N [--cluster-seed H:Q | --advertise H:Q]
+         [--fanout-timeout-s S] [--replication R]]
 
 Once it listens it prints one JSON line with the bound ports, so that a
 parent process that asked for port 0 can find them. SIGTERM or SIGINT
@@ -119,13 +135,37 @@ class Server:
                  data_dir: str | None = None, storage: bool = False,
                  flush_interval_s: float = 1.0,
                  compact_interval_s: float = 60.0,
-                 storage_max_bytes: int = 0) -> None:
+                 storage_max_bytes: int = 0,
+                 shard_id: int = 0,
+                 cluster_seed: str | None = None,
+                 cluster_advertise: str | None = None,
+                 fanout_timeout_s: float = 5.0,
+                 replication: int = 0) -> None:
+        # cluster federation: this node's shard identity and how to find
+        # the others; a seed (or an advertise address, even an empty
+        # one) turns it on, and a lone seed is a working 1-node cluster
+        self._cluster_on = (cluster_seed is not None
+                            or cluster_advertise is not None)
+        _check_cluster_args(self._cluster_on, shard_id, cluster_seed,
+                            cluster_advertise, fanout_timeout_s, replication)
+        self.shard_id = shard_id
+        self.cluster_seed = cluster_seed
+        self.cluster_advertise = cluster_advertise
+        self._fanout_timeout_s = fanout_timeout_s
+        # replicated ingest: R > 0 turns on the ring (cluster/hashring.py)
+        self.replication = int(replication)
+        self.membership = None
+        self.fanout = None
+        self.federation = None
+        self._ring_stop = threading.Event()
+        self._ring_thread: threading.Thread | None = None
         # acks are released only after the commit that made their rows
         # durable (server/flusher.py)
         self.storage = bool(storage and data_dir)
         self.flush_interval_s = flush_interval_s
         self.compact_interval_s = compact_interval_s
-        self.db = Database(data_dir=data_dir, storage=self.storage)
+        self.db = Database(data_dir=data_dir, storage=self.storage,
+                           shard_id=shard_id)
         self.durability = DurabilityGate() if self.storage else None
         self.flusher: Flusher | None = None
         self.compactor: Compactor | None = None
@@ -137,7 +177,8 @@ class Server:
         self.genesis = None  # start_genesis()
         self.controller = (Controller(self.platform, host=host,
                                       port=sync_port,
-                                      pod_index=self.pod_index)
+                                      pod_index=self.pod_index,
+                                      ring_provider=self._current_ring)
                            if enable_controller else None)
         self.ha_lease_path = ha_lease_path
         self.ha_k8s_lease = ha_k8s_lease
@@ -326,7 +367,13 @@ class Server:
                 resources=self.resources,
                 gpid_table=(self.controller.gpids
                             if self.controller is not None else None),
-                **kw).start())
+                ring=self._current_ring, **kw))
+        # a replicated shard tags every row with the ring: its decoders
+        # start once it holds one (_start_cluster); frames wait queued,
+        # unacked, until then
+        if not (self._cluster_on and self.replication > 0):
+            for d in self.decoders:
+                d.start()
         if self.storage:
             self.flusher = Flusher(self.db, gate=self.durability,
                                    seq_tracker=self.receiver.seq_tracker,
@@ -342,6 +389,8 @@ class Server:
         self.deadman.start()
         self.receiver.start()
         self.http.start()
+        if self._cluster_on:
+            self._start_cluster()
         if self.election is not None:
             self.election.start()
         else:
@@ -352,6 +401,98 @@ class Server:
                  self.query_port,
                  f" sync :{self.sync_port}" if self.controller else "")
         return self
+
+    def _start_cluster(self) -> None:
+        """Membership, the fan-out client and the coordinator; the ring
+        loop with replication. After the listeners bind: with
+        ``--query-port 0`` the advertised address needs the real port."""
+        from deepflow_tpu_torch.cluster.federation import \
+            FederationCoordinator
+        from deepflow_tpu_torch.cluster.membership import ClusterMembership
+        from deepflow_tpu_torch.cluster.remote import FanOut
+        adv = self.cluster_advertise or f"127.0.0.1:{self.http.port}"
+        self.membership = ClusterMembership(
+            self.shard_id, adv, seed=self.cluster_seed,
+            telemetry=self.telemetry)
+        # agents ship to the RECEIVER port: peers gossip it so the ring
+        # can hand agent-facing ingest addresses around
+        self.membership.ingest_addr = (
+            f"{adv.rsplit(':', 1)[0]}:{self.receiver.port}")
+        self.membership.start()
+        self.fanout = FanOut(telemetry=self.telemetry,
+                             timeout_s=self._fanout_timeout_s)
+        self.federation = FederationCoordinator(
+            self.db, self.membership, self.fanout, shard_id=self.shard_id)
+        self.api.membership = self.membership
+        self.api.federation = self.federation
+        if self.replication > 0:
+            self._ring_tick()  # a seed (or leader) holds its ring at once
+            self._ring_stop.clear()
+            self._ring_thread = threading.Thread(
+                target=self._ring_loop, name="df-ring", daemon=True)
+            self._ring_thread.start()
+
+    def _start_decoders_with_ring(self) -> None:
+        """The ring loop's first duty on a replicated shard: start the
+        decoders once a ring is held (built, or adopted from the seed).
+        A row decoded before would carry ring_epoch 0, the single-copy
+        tag, and be counted once on each of its R owners."""
+        if self.membership.ring is not None:
+            for d in self.decoders:
+                d.start()
+            return
+        log.info("replication: decoders wait for the ring")
+        while not self._ring_stop.wait(0.02):
+            if self.membership.ring is not None:
+                log.info("replication: ring epoch %d held; decoders start",
+                         self.membership.ring.epoch)
+                for d in self.decoders:
+                    d.start()
+                return
+
+    def _current_ring(self):
+        """The adopted replication ring, or None (a zero-arg callable for
+        the decoders and the controller, built before the membership)."""
+        m = self.membership
+        return m.ring if m is not None else None
+
+    def _ring_tick(self) -> None:
+        """The leader's ring maintenance: rebuild the ring when the peer
+        directory changes (a join, an address move, a restart). A shard
+        merely going silent bumps no epoch: failover is the query-time
+        claim shift to the surviving replica, not a rebalance. Fenced:
+        the ring carries the election token, and adoption everywhere is
+        forward-only on (token, epoch)."""
+        m = self.membership
+        if m is None:
+            return
+        if self.election is not None:
+            if not self.election.is_leader:
+                return
+            token = self.election.token
+        elif not m.is_seed:
+            return
+        else:
+            token = 0
+        from deepflow_tpu_torch.cluster.hashring import HashRing
+        snap = m.directory.snapshot()
+        members = {p["shard_id"]: {"addr": p["addr"],
+                                   "ingest": p.get("ingest_addr", "")}
+                   for p in snap["peers"]
+                   # the reference's queriers take no agent traffic
+                   if p.get("role", "ingest") == "ingest"}
+        ring = HashRing.build(m.ring, members, self.replication, token)
+        if ring is not m.ring and m.publish_ring(ring):
+            log.info("ring: epoch %d published (token %d, members %s)",
+                     ring.epoch, ring.token, sorted(ring.members))
+
+    def _ring_loop(self) -> None:
+        self._start_decoders_with_ring()
+        while not self._ring_stop.wait(1.0):
+            try:
+                self._ring_tick()
+            except Exception:
+                log.exception("ring maintenance failed")
 
     def _start_singletons(self) -> None:
         """The leader's components (each a no-op when running)."""
@@ -373,6 +514,14 @@ class Server:
         if self.genesis is not None:
             self.genesis.stop()
             self.genesis = None
+        self._ring_stop.set()
+        if self._ring_thread is not None:
+            self._ring_thread.join(timeout=2.0)
+            self._ring_thread = None
+        if self.membership is not None:
+            self.membership.stop()
+        if self.fanout is not None:
+            self.fanout.close()
         # the receiver first: once its handlers are gone nothing enqueues,
         # and each decoder's stop drains what is queued
         self.deadman.stop()
@@ -420,6 +569,37 @@ class Server:
         return len(t) >= n
 
 
+def _check_cluster_args(on: bool, shard_id, seed, advertise,
+                        fanout_timeout_s, replication) -> None:
+    """A cluster flag with a bad value fails the start (ValueError)."""
+    if isinstance(shard_id, bool) or not isinstance(shard_id, int) \
+            or not 0 <= shard_id <= 0xFFFF:
+        raise ValueError(f"shard id must be an int in 0..65535 (the "
+                         f"rows' u16 shard_id), got {shard_id!r}")
+    if isinstance(replication, bool) or not isinstance(replication, int) \
+            or not 0 <= replication <= 8:
+        raise ValueError(f"replication must be an int in 0..8 (0 = off), "
+                         f"got {replication!r}")
+    if not fanout_timeout_s > 0:
+        raise ValueError(f"fanout timeout must be > 0 s, "
+                         f"got {fanout_timeout_s!r}")
+    if not on:
+        if shard_id or replication:
+            raise ValueError("a shard id or replication needs a cluster: "
+                             "give --cluster-seed, or --advertise on the "
+                             "seed")
+        return
+    if not shard_id:
+        raise ValueError("a cluster member needs a shard id >= 1 "
+                         "(0 stamps a standalone server's rows)")
+    for what, addr in (("cluster seed", seed), ("advertise", advertise)):
+        if addr:
+            host, sep, port = addr.rpartition(":")
+            if not sep or not host or not port.isdigit() \
+                    or not 0 < int(port) < 65536:
+                raise ValueError(f"{what} must be host:port, got {addr!r}")
+
+
 def main(argv: list[str] | None = None, on_start=None) -> None:
     """Serve until SIGTERM or SIGINT. ``on_start(server)``, when given,
     runs once the server listens: a process that embeds the entry point
@@ -458,6 +638,24 @@ def main(argv: list[str] | None = None, on_start=None) -> None:
                         help="on-disk tier size budget per node; the "
                              "janitor evicts oldest segments past it "
                              "(0 = TTL-only eviction)")
+    parser.add_argument("--shard-id", type=int, default=0,
+                        help="this node's cluster shard identity "
+                             "(stamps ingested rows; 0 = standalone)")
+    parser.add_argument("--cluster-seed", default=None,
+                        help="seed node host:query_port to join (the "
+                             "leader controller's querier)")
+    parser.add_argument("--advertise", default=None,
+                        help="host:port other shards reach THIS querier "
+                             "at (default 127.0.0.1:<query-port>; an "
+                             "empty value makes a seed)")
+    parser.add_argument("--fanout-timeout-s", type=float, default=5.0,
+                        help="per-shard scatter-gather call deadline; "
+                             "slower shards degrade to missing_shards")
+    parser.add_argument("--replication", type=int, default=0,
+                        help="replication factor R for ingested HIGH/MID "
+                             "frames (0 = off): each agent ships to R "
+                             "ring owners; queries stay exact through "
+                             "R-1 simultaneous shard failures")
     args = parser.parse_args(argv)
     logging.basicConfig(
         level=logging.INFO,
@@ -473,7 +671,12 @@ def main(argv: list[str] | None = None, on_start=None) -> None:
                     data_dir=args.data_dir, storage=args.storage,
                     flush_interval_s=args.flush_interval_s,
                     compact_interval_s=args.compact_interval_s,
-                    storage_max_bytes=args.storage_max_mb << 20).start()
+                    storage_max_bytes=args.storage_max_mb << 20,
+                    shard_id=args.shard_id,
+                    cluster_seed=args.cluster_seed,
+                    cluster_advertise=args.advertise,
+                    fanout_timeout_s=args.fanout_timeout_s,
+                    replication=args.replication).start()
     try:
         print(json.dumps({"ingest_port": server.ingest_port,
                           "query_port": server.query_port,

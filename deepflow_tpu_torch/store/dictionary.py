@@ -143,6 +143,12 @@ class Dictionary:
         with self._lock:
             return list(self._strings)
 
+    def strings_slice(self, start: int, end: int) -> list[str]:
+        """Entries [start:end), a federation dict-sync delta
+        (``cluster/dictsync.py``). The list only grows within a gen, so
+        a bounded slice needs no lock."""
+        return self._strings[start:end]
+
     def match_ids(self, predicate) -> np.ndarray:
         """Ids of all entries satisfying predicate(str): LIKE and ordered
         string filters resolve over the (small) dictionary, not the

@@ -94,6 +94,12 @@ _ROLE = {**dict.fromkeys(DEVICE_CATS, _DEVICE),
          **dict.fromkeys(LAUNCH_CATS, _LAUNCH)}
 
 
+# runtime and driver calls that enqueue device work: each has a device
+# record of the same correlation in a whole capture
+_ENQUEUE = ("cudaLaunchKernel", "cuLaunchKernel", "cudaMemcpy", "cuMemcpy",
+            "cudaMemset", "cuMemset")
+
+
 def _ns(ts_us, base_ns: int) -> int:
     return base_ns + round(float(ts_us) * 1000.0)
 
@@ -141,17 +147,25 @@ def comm_of(launch_ns: int, calls: list, starts: list[int]) -> int:
 
 def extract_device_spans(trace: dict, steps=(), rank: int | None = None,
                          calls=(), comm_sizes: dict | None = None,
-                         world: int = 0) -> list[TpuSpanEvent]:
+                         world: int = 0,
+                         dropped: list | None = None) -> list[TpuSpanEvent]:
     """Per-op device spans (plus per-step module spans) from a parsed
     chrome trace. ``steps``: [(step, hook wall-clock ns)]; ``rank``: the
     process's global rank (every span's device_id), None for a lone
     process (device_id is then the CUDA ordinal); ``calls``: the logged
     collective calls [(t0 ns, t1 ns, comm)], ``comm_sizes`` their groups'
     sizes, ``world`` the size of the group an unlogged call is taken to
-    run on (the default one)."""
+    run on (the default one).
+
+    A capture's first step is left out when one of its launches has no
+    device record: the profiler loses the device records of the first
+    kernels launched after a session opens, now and then (their launch
+    records are kept), and a step short of kernels is not a whole step.
+    Its number goes into ``dropped`` when one is given."""
     base = int(trace.get("baseTimeNanoseconds", 0) or 0)
     events = trace.get("traceEvents", [])
     launches: dict = {}  # correlation -> the launch's ts
+    enqueues: list = []  # (correlation, ts) of the calls that enqueue
     device_events = []  # one pass over the trace; its flows, host
     for e in events:    # events and metadata are most of it
         role = _ROLE.get(e.get("cat"))
@@ -164,9 +178,24 @@ def extract_device_spans(trace: dict, steps=(), rank: int | None = None,
             corr = (e.get("args") or {}).get("correlation")
             if corr is not None:
                 launches[corr] = e["ts"]
+                if str(e.get("name", "")).startswith(_ENQUEUE):
+                    enqueues.append((corr, e["ts"]))
     ordered = sorted(steps, key=lambda s: s[1])
     hook_steps = [int(s) for s, _ in ordered]
     hook_ns = [int(t) for _, t in ordered]
+    partial = 0  # the first step, when a launch of it lost its record
+    if hook_steps and enqueues:
+        # the capture's first step: its earliest launch's (the marks may
+        # begin with the one before the window, the held step's)
+        first = step_of(_ns(min(ts for _c, ts in enqueues), base),
+                        hook_ns, hook_steps)
+        recorded = {(e.get("args") or {}).get("correlation")
+                    for e in device_events}
+        if any(step_of(_ns(ts, base), hook_ns, hook_steps) == first
+               for corr, ts in enqueues if corr not in recorded):
+            partial = first
+            if dropped is not None:
+                dropped.append(partial)
 
     out: list[TpuSpanEvent] = []
     bounds: dict[tuple[int, int], list[int]] = {}  # (device, step) -> [t0, t1]
@@ -183,6 +212,8 @@ def extract_device_spans(trace: dict, steps=(), rank: int | None = None,
         launch_ts = launches.get(args.get("correlation"))
         launch = start if launch_ts is None else _ns(launch_ts, base)
         step = step_of(launch, hook_ns, hook_steps)
+        if partial and step == partial:
+            continue
         ordinal = int(args.get("device", 0))
         device = ordinal if rank is None else rank
         name = str(e.get("name", ""))

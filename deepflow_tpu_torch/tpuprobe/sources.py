@@ -198,7 +198,10 @@ class KinetoSource:
     before the stop and most still run, and a capture loses some of them
     even after a synchronize (26 of 1,788 on one H100, nearly all on a
     rank of four; PERF.md, slice 8), so a window ships the whole steps
-    before it.
+    before it. Its first step is left out too when the profiler lost the
+    device record of one of its first launches (their launch records
+    stay; 4 of 8 ResNet-50 captures on one H100 were short by 2 to 5
+    kernels, PERF.md, slice 15); ``partial_first_steps`` counts them.
 
     Ranks of a data-parallel job (a launcher's WORLD_SIZE, or the default
     process group's, above 1): a rank that holds its step stalls every
@@ -268,6 +271,7 @@ class KinetoSource:
                       "coverage_pct": 0.0, "est_step_ms": 0.0,
                       "captured_s": 0.0, "dead_ms": 0.0, "unheld": 0,
                       "period_steps": 0, "retunes": 0,
+                      "partial_first_steps": 0,
                       "interval_s": interval_s,
                       "steps_per_capture": steps_per_capture}
 
@@ -501,10 +505,13 @@ class KinetoSource:
                 trace = load_trace(path)
                 cpu0 = time.thread_time()
                 n_trace = len(trace.get("traceEvents", ()))
+                partial: list[int] = []
                 events = extract_device_spans(
                     trace, self.step_hook.since(window_wall_ns),
                     rank=global_rank(), calls=CALLS.since(calls_from_ns),
-                    comm_sizes=CALLS.sizes(), world=world_size())
+                    comm_sizes=CALLS.sizes(), world=world_size(),
+                    dropped=partial)
+                self.stats["partial_first_steps"] += len(partial)
                 del trace
                 t_parsed = time.monotonic()
                 cpu1 = time.thread_time()
