@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Which kernels a capture keeps at its edges, on one GPU.
 
-    python3 capture_tail.py [CAPTURES]
+    python3 capture_tail.py [CAPTURES] [--start-sync]
 
 Trains ResNet-50 (batch 128, 224 x 224, bf16, weights and images from
 seeds) in this process with TpuProbe attached until CAPTURES captures
@@ -20,6 +20,13 @@ start in microseconds after the session's start returned and after the
 held mark), the kernels the first step lacks against the fullest step
 (each with its position in that step's launch order), and whether the
 trace holds a launch or a kernel from before the session's start.
+
+``--start-sync`` synchronizes the workload's device right after
+``profile.start()`` returns, inside the probe's hold (before the held
+step's thread is released): the experiment on the device records a
+capture's first launches lose. The kineto line then carries
+``start_sync``, and every run prints the median and mean ms of the
+steps trained under the probe (each ended by reading its loss).
 """
 
 import collections
@@ -152,9 +159,13 @@ def main() -> int:
     hook: dict = {}
     prof_start = torch.profiler.profile.start
 
+    start_sync = "--start-sync" in sys.argv[1:]
+
     def timed_start(self):
         t0 = time.time_ns()
         prof_start(self)
+        if start_sync:
+            torch.cuda.synchronize()
         starts.append((t0, time.time_ns()))
     torch.profiler.profile.start = timed_start
 
@@ -192,12 +203,21 @@ def main() -> int:
     probe = TpuProbe(sink).start()
     kineto = probe.sources[0]
     hook["step_hook"] = kineto.step_hook
-    want = int(sys.argv[1]) if len(sys.argv) > 1 else 3
+    args = [a for a in sys.argv[1:] if not a.startswith("--")]
+    want = int(args[0]) if args else 3
     t0 = time.time()
+    step_ms = []
     while kineto.stats["captures"] < want and time.time() - t0 < 30 * want:
+        t1 = time.perf_counter()
         step()
+        step_ms.append((time.perf_counter() - t1) * 1000.0)
     probe.stop()
-    print(json.dumps({"kineto": kineto.stats}))
+    step_ms.sort()
+    print(json.dumps({"kineto": kineto.stats, "start_sync": start_sync,
+                      "steps": len(step_ms),
+                      "median_step_ms": step_ms[len(step_ms) // 2],
+                      "mean_step_ms": sum(step_ms) / len(step_ms),
+                      "max_step_ms": step_ms[-1]}))
     for c in captures:
         print(json.dumps(c))
     return 0

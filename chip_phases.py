@@ -2,7 +2,7 @@
 """Run some of chip_smoke.py's phases alone, for a shorter call.
 
     python3 chip_phases.py resnet dp parallel mp flows control storage \
-        cluster enrich
+        cluster readtier enrich
 
 The device phase (the card's name and power limit) first, then each named
 phase (``resnet``: ResNet-50 trained with the probe in this process;
@@ -14,8 +14,9 @@ on the card's host, chip_flows.py; ``control``: the control plane with
 two jobs on the card, chip_control.py; ``storage``: the durable tier,
 chip_storage.py, fed the span frames of phases 2-4, which run first;
 ``cluster``: three servers as one replicated cluster, chip_cluster.py,
-fed the same frames; ``enrich``: every flow row's process and pod,
-chip_enrich.py)
+fed the same frames; ``readtier``: an ingest shard and four querier
+replicas over an object store, chip_readtier.py, fed the same frames;
+``enrich``: every flow row's process and pod, chip_enrich.py)
 with the same checks as the smoke.
 The numbers land in results/chip_phases.json; a failed check raises.
 """
@@ -53,7 +54,8 @@ def main(names: list[str]) -> int:
               "control": lambda res: cs.control_phase(res),
               "enrich": lambda res: cs.enrich_phase(res),
               "storage": lambda res: cs.storage_phase(sink(), res),
-              "cluster": lambda res: cs.cluster_phase(sink(), res)}
+              "cluster": lambda res: cs.cluster_phase(sink(), res),
+              "readtier": lambda res: cs.readtier_phase(sink(), res)}
     unknown = [n for n in names if n not in phases]
     if unknown or not names:
         print(f"chip_phases: name phases among {sorted(phases)}",

@@ -159,7 +159,7 @@ Phases, each printing its own lines:
    print world=1 and the checks that need two GPUs;
 13. flows: the flow/L7 agent on the card's host (chip_flows.py): the 29
    golden captures on both engines; the JAX package's bench traffic
-   shape (20,000 flows, 1,980,000 packets) through the native flow map
+   shape (12,000 flows, 1,188,000 packets) through the native flow map
    on one core, the Python map on a twentieth, and the dispatcher with
    HTTP in its payload slots; that run's L4 logs, L7 logs and documents
    into a server process (rows/s per table; every batch decoded
@@ -224,6 +224,24 @@ Phases, each printing its own lines:
    acked with none dropped and the answers equal again. Rows/s at R = 2
    and R = 1, query ms, the kill-to-exact seconds, the fan-out hops'
    ledgers and each shard's RSS are printed.
+18. readtier (run right after phase 16, with phase 3's frames;
+   chip_readtier.py): storage that heals itself and reads that scale.
+   One --storage ingest shard publishing into an object store every
+   second and four --role querier replicas with 16 MiB segment caches;
+   four agents ship 2,000,000 span rows; every replica adopts the newest
+   pointer and answers the six profile queries and a storm of bucketable
+   aggregates equal to the ingest node's; after the first replica warms
+   the storm the others scan no bucket (served_buckets ==
+   fetched_buckets); then a flipped published segment is quarantined and
+   repaired from its blob while a trickle agent ships, a flipped blob is
+   re-published, a segment with no healthy copy makes the answers
+   degraded with its rows missing until its blob returns, a flipped
+   cached copy is discarded and fetched again, fsck ends clean and every
+   hop ledger balances. The publish lag, segment-cache counters, query
+   ms, storm queries/s at 1, 2 and 4 replicas with the host's cores,
+   ack p99 with and without the storm, the flip-to-quarantine and
+   flip-to-repair seconds, fsck's MB/s and each replica's RSS are
+   printed.
 17. enrich (run last, chip_enrich.py): every flow row names its process
    and its pod. (a) The port's server with its controller in this
    process, the node agent on lo with its socket scan every 2 s, a stdlib
@@ -2638,6 +2656,16 @@ def cluster_phase(sink, nums: dict) -> None:
     chip_cluster.cluster_phase(sink, nums)
 
 
+def readtier_phase(sink, nums: dict) -> None:
+    """Phase 18 (chip_readtier.py): an ingest shard publishing into an
+    object store and four querier replicas over it, fed phase 3's span
+    frames; the scrubber's quarantine and repair, the cluster-wide
+    partial cache."""
+    import chip_readtier
+    chip_readtier.cs.CARD.update(CARD)
+    chip_readtier.readtier_phase(sink, nums)
+
+
 def control_phase(nums: dict) -> None:
     """Phase 14 (chip_control.py): the control plane on the card's host."""
     import chip_control
@@ -2684,6 +2712,9 @@ def main() -> int:
         gc.collect()
         result["cluster"] = {}
         cluster_phase(sink, result["cluster"])
+        gc.collect()
+        result["readtier"] = {}
+        readtier_phase(sink, result["readtier"])
         gc.collect()
         # the card's memory to the children
         del model, tokens, sink, probe, seen

@@ -52,7 +52,8 @@ import numpy as np
 
 import chip_smoke as cs
 
-STORAGE_ROWS = 10_000_000     # the query phase's ~39 minutes of a process
+STORAGE_ROWS = 3_000_000      # ~12 minutes of a process (cut from 10 M to
+                              # leave the smoke's time to its readtier phase)
 FLUSH_S = 1.0
 COMPACT_S = 10
 PRUNE_WINDOW_NS = 600 * 10**9  # the pruned query's ten minutes

@@ -9,7 +9,9 @@ the tier,
                        PARTIAL frame and then reset;
   * ``on_accept``      accept, then stall before the first read;
   * ``on_spool_write`` disk full (ENOSPC) on a spool append;
-  * ``on_tier_write``  disk full (ENOSPC) on a tier flush commit,
+  * ``on_tier_write``  disk full (ENOSPC) on a tier flush commit;
+  * ``on_objstore_write`` an I/O error (EIO) on an object-store blob
+                       write, before any byte lands,
 
 and ``corrupt_segment``, which rots a sealed segment file on purpose.
 
@@ -22,9 +24,7 @@ k=v list,
 
 Probabilities are per call in [0, 1]; absent keys are 0 (off).
 ``chaos_from_env()`` returns None when DF_CHAOS is unset, and the hot
-paths then pay one ``is None`` check. The object-store knob
-(``objstore_eio``) parses, so a spec stays valid in both packages, but
-has no hook: the port has no object store yet.
+paths then pay one ``is None`` check.
 """
 
 from __future__ import annotations
@@ -161,6 +161,14 @@ class ChaosInjector:
             self.stats["tier_enospc"] += 1
             raise OSError(errno.ENOSPC,
                           "chaos: no space left on device (tier)")
+
+    def on_objstore_write(self) -> None:
+        """Called by ObjStore.put_if_absent before staging a blob: an
+        I/O error on the shared store fails the publish (the pointer
+        never names a blob that is not there), never tears it."""
+        if self._hit(self.config.objstore_eio):
+            self.stats["objstore_eio"] += 1
+            raise OSError(errno.EIO, "chaos: I/O error (objstore)")
 
 
 def corrupt_segment(path: str, seed: int = 0,

@@ -18,6 +18,8 @@ output for the same answers:
     replay CAPTURE.pcap [--ingest HOST:PORT]
     datasources [--json] [--zones]
     segments [TABLE] [--v1] [--json]
+    fsck [TABLE] [--no-repair] [--json]
+    readtier [--json]
     promql EXPR [--time S | --start S --end S [--step S]] [--org N]
     trace TRACE_ID
     trace-search [--tags "endpoint=/x"] [--min-duration 10ms] [--limit N]
@@ -42,7 +44,12 @@ span; ``--zones`` adds the segments with zone maps) and the rollup
 horizons; on a server without storage it lists the flow-metric tables
 by tier with their rows and the horizons (the reference prints only
 that storage is off). ``segments`` lists each on-disk segment: format,
-rows, bytes, sorted run, zones, skip indexes and codecs.
+rows, bytes, sorted run, zones, skip indexes and codecs. ``fsck``
+verifies every block checksum of every sealed segment now, quarantines
+and repairs a corrupt one from its published blob, and exits 1 unless
+the tier is clean (``fsck: OK``). ``readtier`` prints a querier
+replica's adopted publish gens, its adopted tables, its segment cache's
+ledger and the cluster-wide partial cache's counters.
 ``replay`` runs a pcap through the agent's flow path (the dispatcher's
 native flow map, the L7 parsers, the collector) and ships its L4_LOG,
 L7_LOG and METRICS frames over the durable sender to an ingester; it
@@ -384,6 +391,80 @@ def _segments(server: str, args) -> None:
     print(f"\ncompact_gen: {out.get('compact_gen', 0)}")
 
 
+def _fsck(server: str, args) -> int:
+    q = ([f"table={args.table}"] if args.table else []) \
+        + (["repair=0"] if args.no_repair else [])
+    out = _api(server, "/v1/fsck" + ("?" + "&".join(q) if q else ""))
+    if not out.get("storage"):
+        print("(storage tier disabled — start the server with "
+              "--storage)")
+        return 0
+    if args.json:
+        print(json.dumps(out, indent=2))
+        return 0
+    tables = sorted(out.get("tables", {}).items())
+    print_table(["TABLE", "SEGS", "CLEAN", "UNVERIF", "CORRUPT",
+                 "REPAIRED", "REPAIR_FAIL", "QUARANTINED", "BLOCKS",
+                 "BYTES"],
+                [[name, t["segments"], t["clean"], t["unverifiable"],
+                  len(t["corrupt"]), len(t["repaired"]),
+                  len(t["repair_failed"]), len(t.get("quarantined") or {}),
+                  t["blocks_checked"], t["bytes"]] for name, t in tables])
+    for name, t in tables:
+        for c in t["corrupt"]:
+            print(f"  corrupt: {name}/{c['file']} "
+                  f"blocks={','.join(c['blocks'])}")
+        for fn, info in sorted((t.get("quarantined") or {}).items()):
+            print(f"  quarantined: {name}/{fn} "
+                  f"reason={info.get('reason', '?')} "
+                  f"rows={info.get('rows', 0)}")
+    print(f"\nfsck: {'OK' if out.get('ok') else 'DEGRADED'}")
+    return 0 if out.get("ok") else 1
+
+
+def _readtier(server: str, as_json: bool) -> None:
+    h = _api(server, "/v1/health")
+    rt = h.get("readtier")
+    if rt is None:
+        print("(no read tier — this server is not a "
+              "--role=querier replica)")
+        return
+    if as_json:
+        print(json.dumps({"readtier": rt,
+                          "partial_cache": h.get("partial_cache"),
+                          "query_cache": h.get("query_cache")}, indent=2))
+        return
+    adopted = rt.get("adopted", {})
+    print("adopted manifests (ingest shard -> publish gen): "
+          + (", ".join(f"{s}->{g}" for s, g in sorted(adopted.items()))
+             or "(none)"))
+    print_table(["TABLE", "SEGMENTS", "ROWS", "BYTES", "PUB_TOKEN"],
+                [[name, t["segments"], t["rows"], t["bytes"],
+                  (t.get("pub_token") or "-")[:12]]
+                 for name, t in sorted(rt.get("tables", {}).items())])
+    sc = rt.get("segcache", {})
+    print(f"\nsegment cache ({sc.get('segments', 0)} segments, "
+          f"{sc.get('bytes', 0)}/{sc.get('max_bytes', 0)} bytes):")
+    print_table(["HITS", "MISSES", "FETCH_ERRS", "EVICTIONS",
+                 "ROWS_EVICTED", "DEFERRED_UNLINKS"],
+                [[sc.get("hits", 0), sc.get("misses", 0),
+                  sc.get("fetch_errors", 0), sc.get("evictions", 0),
+                  sc.get("rows_evicted", 0),
+                  sc.get("deferred_unlinks", 0)]])
+    pc = h.get("partial_cache") or {}
+    qc = h.get("query_cache") or {}
+    if pc:
+        print("\ndistributed partial cache:")
+        print_table(["DIST_HITS", "FETCHES", "FETCHED_BKTS", "SERVED_BKTS",
+                     "FETCH_ERRS", "REMAP_FAILS", "ADVERTISED"],
+                    [[qc.get("dist_hits", 0), pc.get("fetches", 0),
+                      pc.get("fetched_buckets", 0),
+                      pc.get("served_buckets", 0),
+                      pc.get("fetch_errors", 0),
+                      pc.get("remap_failures", 0),
+                      pc.get("advertised", 0)]])
+
+
 def _datasources(server: str, args) -> None:
     h = _api(server, "/v1/health")
     if h.get("storage") is not None:
@@ -628,6 +709,28 @@ def main(argv: list[str] | None = None) -> int:
     p_seg.add_argument("--json", action="store_true",
                        help="raw /v1/segments JSON")
 
+    p_fsck = sub.add_parser(
+        "fsck", help="verify every block checksum of every sealed "
+                     "segment now; corrupt segments are quarantined "
+                     "and repaired from their published object-store "
+                     "copy (the background scrubber's on-demand form)")
+    p_fsck.add_argument("table", nargs="?", default=None,
+                        help="limit to one table (default: all)")
+    p_fsck.add_argument("--no-repair", action="store_true",
+                        help="report only: leave corrupt segments in "
+                             "service (no quarantine, no repair)")
+    p_fsck.add_argument("--json", action="store_true",
+                        help="raw /v1/fsck JSON")
+
+    p_rt = sub.add_parser(
+        "readtier", help="stateless querier view: adopted publish gens "
+                         "per ingest shard, per-table adopted "
+                         "segments/rows, segment-cache hit/evict "
+                         "ledger and distributed partial-cache "
+                         "counters")
+    p_rt.add_argument("--json", action="store_true",
+                      help="raw readtier + partial_cache health JSON")
+
     p_trace = sub.add_parser("trace")
     p_trace.add_argument("trace_id")
 
@@ -717,6 +820,10 @@ def main(argv: list[str] | None = None) -> int:
         _datasources(server, args)
     elif args.cmd == "segments":
         _segments(server, args)
+    elif args.cmd == "fsck":
+        return _fsck(server, args)
+    elif args.cmd == "readtier":
+        _readtier(server, args.json)
     elif args.cmd == "promql":
         _promql(server, args)
     elif args.cmd == "trace":

@@ -7,9 +7,10 @@ columnar result wire (``wire.py``), the retry and hedge remote client
 (``remote.py``), the consistent-hash replication ring and its
 query-time claim filter (``hashring.py``), shard-dictionary sync for
 encoded partials (``dictsync.py``) and the scatter-gather coordinator
-(``federation.py``). ``Percentile`` merges through ``query/sketch.py``,
-the reference's ``cluster/sketch.py``. Left out with the read tier:
-``partialcache.py``, the cluster-wide partial-aggregate cache.
+(``federation.py``, the read tier's handshake included), and the
+cluster-wide partial-aggregate cache of the querier replicas
+(``partialcache.py``). ``Percentile`` merges through
+``query/sketch.py``, the reference's ``cluster/sketch.py``.
 """
 
 from deepflow_tpu_torch.cluster.membership import (ClusterMembership, Peer,

@@ -1,10 +1,15 @@
 """Scatter-gather coordinator: one querier answers for N sharded servers.
 
-Own copy of ``deepflow_tpu/cluster/federation.py`` without the read
-tier's branches (the adopted-segment tier, its publish-gen handshake
-and the querier role's bucket-cached local partial; the read tier is
-not ported). ``Percentile`` partials merge through the port's
-``query/sketch.py``, the reference's ``cluster/sketch.py``.
+Own copy of ``deepflow_tpu/cluster/federation.py``, the read tier's half
+included: on a querier replica the coordinator freezes the adopted
+segments across the scatter and its local partial, sends each ingest
+shard the publish gen it adopted (a shard whose gen matches answers
+without its published segments), drops the adopted segments of a shard
+that answered in full, routes the local read-tier partial through the
+bucket cache (and so through the cluster-wide partial cache), and
+reports ``degraded_shards`` (shards serving with quarantined segments).
+``Percentile`` partials merge through the port's ``query/sketch.py``,
+the reference's ``cluster/sketch.py``.
 
 Merge semantics (docs/CLUSTER.md spells out the contract):
 
@@ -171,12 +176,20 @@ class FederationCoordinator:
         self.sql_cache_counters = {"warm_hits": 0, "shard_unchanged": 0,
                                    "shard_refetched": 0,
                                    "remap_failures": 0}
+        # the read tier (server/server.py, querier role): the adopted
+        # segments this coordinator serves sealed history from, and the
+        # QueryCache its local partial goes through, so bucket slices
+        # (and the cluster-wide partial cache) warm up
+        self.readtier = None
+        self.query_cache = None
 
     # -- plumbing -----------------------------------------------------------
 
     def remote_peers(self) -> list[Peer]:
-        # scatter targets are INGEST shards only (the reference's
-        # querier role holds no rows of its own)
+        # scatter targets are INGEST shards only: a querier replica
+        # holds no rows of its own (its table is the same published
+        # history this coordinator adopted), so scattering to one would
+        # count every sealed row twice
         return self.membership.peers(include_self=False, ttl_s=self.ttl_s,
                                      role="ingest")
 
@@ -196,7 +209,8 @@ class FederationCoordinator:
         snap = self.membership.directory.snapshot()
         self.fanout.prune({p["addr"] for p in snap["peers"]})
 
-    def scatter_claim(self, body: dict, hop_name: str):
+    def scatter_claim(self, body: dict, hop_name: str,
+                      readtier_exclude: bool = True):
         """Replica-exact scatter: -> (results, fed_info, local_db).
 
         Without a ring this is the PR-3 degraded path (raw local db,
@@ -208,7 +222,18 @@ class FederationCoordinator:
         set, because the survivors' first-round answers were computed
         assuming the dead shard would claim its own rows. The local
         partial MUST be computed from the returned db AFTER this call,
-        so it sees the final alive set."""
+        so it sees the final alive set. On a read-tier querier
+        (``readtier_exclude``; DF-SQL has its handshake instead) every
+        shard that answered answered for its whole history, so the
+        returned db leaves that shard's adopted segments out; a dead
+        shard's stay in."""
+        results, info, local_db = self._scatter_claim(body, hop_name)
+        if self.readtier is not None and readtier_exclude and results:
+            from deepflow_tpu_torch.store.segcache import ShardExcludeDb
+            local_db = ShardExcludeDb(local_db, set(results))
+        return results, info, local_db
+
+    def _scatter_claim(self, body: dict, hop_name: str):
         self._prune_clients()
         ring = self.ring()
         peers = self.remote_peers()
@@ -248,6 +273,17 @@ class FederationCoordinator:
 
     def sql_query(self, table, select: qsql.Select, sql_text: str,
                   org_id=None):
+        """The entry point. With a read tier, adoption is frozen across
+        the scatter AND the local partial, so a pointer swap mid-query
+        cannot move segments between a shard's answer and the local
+        read-tier scan (both sides see one snapshot)."""
+        if self.readtier is None:
+            return self._sql_query(table, select, sql_text, org_id)
+        with self.readtier.freeze():
+            return self._sql_query(table, select, sql_text, org_id)
+
+    def _sql_query(self, table, select: qsql.Select, sql_text: str,
+                   org_id=None):
         """table/select: the coordinator's locally-resolved table and
         (org-scoped) AST. The exact resolved table NAME, the original
         sql_text and org_id travel to the shards, which re-scope
@@ -275,6 +311,17 @@ class FederationCoordinator:
                         p.shard_id, table.name) for p in peers}}
         if org_id is not None:
             body["org_id"] = org_id
+        rt = self.readtier
+        if rt is not None:
+            # the publish-gen handshake: tell each shard which of its
+            # pointer gens we adopted. A shard whose current gen matches
+            # answers WITHOUT its published segments (we serve them from
+            # the read tier); any other shard answers in full and we drop
+            # its adopted segments from the local scan
+            adopted = {str(p.shard_id): rt.gen_for(p.shard_id)
+                       for p in peers if rt.gen_for(p.shard_id)}
+            if adopted:
+                body["readtier"] = adopted
         if ent is not None:
             # one shared scatter body: per-shard tokens keyed by id
             body["if_state"] = {str(sid): st
@@ -282,10 +329,20 @@ class FederationCoordinator:
                                 if st is not None}
         addr_by_sid = {p.shard_id: p.addr for p in peers}
         with qtrace.span("scatter", peers=len(peers)) as sc:
-            results, info, db = self.scatter_claim(body,
-                                                   hop_name="cluster.sql")
+            results, info, db = self.scatter_claim(
+                body, hop_name="cluster.sql", readtier_exclude=False)
             sc.annotate(answered=len(results),
                         missing=len(info.get("missing_shards", [])))
+        # integrity degradation: a shard serving with quarantined
+        # (corrupt, awaiting repair) segments says so on every reply,
+        # "unchanged" ones included, so a quarantine that appears
+        # between two equal queries still surfaces
+        deg_shards = {str(sid): r["degraded"]
+                      for sid, r in results.items()
+                      if isinstance(r, dict) and r.get("degraded")}
+        if deg_shards:
+            info = dict(info)
+            info["degraded_shards"] = deg_shards
         local = db.table(table.name) if db is not self.db else table
         ring = self.ring()
         # the local partial's validity depends on the claim view too:
@@ -321,9 +378,31 @@ class FederationCoordinator:
                            if isinstance(r, dict) else None)
             parts_raw[sid] = r
 
+        rt_excluded: set[int] = set()
+        if rt is not None:
+            def _acked(sid: int) -> bool:
+                for src in (parts_raw.get(sid), results.get(sid)):
+                    if isinstance(src, dict) and \
+                            (src.get("rt") or {}).get("excluded"):
+                        return True
+                return False
+            # an ANSWERING shard that did not apply the exclusion (its
+            # gen moved on, a compaction's window, a decoded fallback)
+            # covered its published rows itself: drop its adopted
+            # segments from the local scan or they would count twice.
+            # Dead shards stay IN: the read tier keeps their history
+            rt_excluded = {sid for sid in parts_raw
+                           if rt.gen_for(sid) and not _acked(sid)}
+            if rt_excluded:
+                from deepflow_tpu_torch.store.segcache import \
+                    ShardExcludeView
+                local = ShardExcludeView(local, frozenset(rt_excluded))
         # change_token, not sync_state: the remap below grows local
-        # dictionaries, which must not read as "table changed"
-        local_token = [cache.change_token(table), ring_ctx]
+        # dictionaries, which must not read as "table changed". The
+        # read-tier exclusion joins the token: the same table state
+        # answers for other rows under another exclusion
+        local_token = [cache.change_token(table), ring_ctx] + \
+            ([sorted(rt_excluded)] if rt is not None else [])
 
         if (ent is not None and not failed_sync
                 and ent["local"] == local_token
@@ -341,6 +420,16 @@ class FederationCoordinator:
         if ent is not None and ent["local"] == local_token \
                 and ent.get("local_part") is not None:
             local_part = ent["local_part"]
+        elif rt is not None and self.query_cache is not None \
+                and ring is None:
+            # a querier coordinator: the local read-tier partial goes
+            # through the bucket cache, so repeats recompute only stale
+            # buckets, and cold buckets can come from a warm replica
+            # through the cluster-wide partial cache (QueryCache.dist)
+            extra = (("rt", org_id) if not rt_excluded
+                     else ("rt", org_id, tuple(sorted(rt_excluded))))
+            local_part = self.query_cache.partial(
+                local, sql_text, select=select, extra_key=extra)
         else:
             local_part = engine.execute_partial(local, select,
                                                 encoded=True)

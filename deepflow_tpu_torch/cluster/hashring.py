@@ -6,7 +6,10 @@ a port server, a reference server and an agent agree on every owner
 list. The claim views are the port's: its engine scans a ``TableView``
 (``table.view()``), so ``ClaimTableView.view()`` hands it the claimed
 rows of every scan unit, a tier segment's lazily decoded columns
-included.
+included. A read tier's published segment (``store/segcache.py``) is
+claimed as the shard that published it (its ``claim_as``), and only
+once a scan touches it, so a segment the planner prunes is never
+fetched.
 
 Reference analog: the controller's Trisolaris agent->analyzer assignment
 (controller/trisolaris + controller/monitor rebalance), upgraded from
@@ -255,6 +258,43 @@ class _ClaimedChunk(Mapping):
         return name in self._ch
 
 
+class _LazyClaimedChunk(Mapping):
+    """A published segment's claimed rows: the claim is computed on the
+    first touch (which fetches the segment), so a unit the planner
+    prunes costs no fetch."""
+
+    __slots__ = ("_ch", "_claim", "_idx")
+
+    def __init__(self, ch, claim) -> None:
+        self._ch = ch
+        self._claim = claim
+        self._idx = False  # not computed; None = every row claimed
+
+    def _index(self):
+        if self._idx is False:
+            self._idx = self._claim(self._ch)
+        return self._idx
+
+    @property
+    def rows(self) -> int:
+        idx = self._index()
+        return self._ch.rows if idx is None else len(idx)
+
+    def __getitem__(self, name: str) -> np.ndarray:
+        idx = self._index()
+        a = self._ch[name]
+        return a if idx is None else a[idx]
+
+    def __iter__(self):
+        return iter(self._ch)
+
+    def __len__(self) -> int:
+        return len(self._ch)
+
+    def __contains__(self, name) -> bool:
+        return name in self._ch
+
+
 class ClaimTableView:
     """Read-only ColumnarTable facade that hides replica copies: only
     rows this shard claims (see HashRing.claim_mask) appear in
@@ -272,24 +312,34 @@ class ClaimTableView:
         self._shard = int(self_shard)
         self._alive = set(alive)
 
-    def _claim(self, ch):
+    def _claimed_idx(self, ch, shard: int):
+        """Row indexes ``shard`` claims in ch, None for every row."""
         if not ch or "agent_id" not in ch or "ring_epoch" not in ch:
-            return ch
+            return None
         m = self._ring.claim_mask(ch["agent_id"], ch["ring_epoch"],
-                                  self._shard, self._alive)
-        return ch if m.all() else _ClaimedChunk(ch, np.flatnonzero(m))
+                                  shard, self._alive)
+        return None if m.all() else np.flatnonzero(m)
+
+    def _claim(self, ch, seg=None):
+        shard = getattr(seg, "claim_as", None)
+        if shard is not None:
+            return _LazyClaimedChunk(
+                ch, lambda c, s=int(shard): self._claimed_idx(c, s))
+        idx = self._claimed_idx(ch, self._shard)
+        return ch if idx is None else _ClaimedChunk(ch, idx)
 
     def scan_units(self) -> list:
         """Claim-filtered scan units. A segment's zone map and skip
         indexes stay attached: both are necessary conditions over the
         full chunk, so they stay sound for the claimed subset."""
-        return [(self._claim(ch), z, seg)
+        return [(self._claim(ch, seg), z, seg)
                 for ch, z, seg in self._table.scan_units()]
 
     def view(self) -> TableView:
         """The engine's entry: one moment of the table, claimed."""
         v = self._table.view()
-        units = [(self._claim(ch), z, seg) for ch, z, seg in v.scan_units()]
+        units = [(self._claim(ch, seg), z, seg)
+                 for ch, z, seg in v.scan_units()]
         return TableView(v.name, v.columns, v.dicts,
                          [u[0] for u in units], [u[1:] for u in units])
 

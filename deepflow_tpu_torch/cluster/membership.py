@@ -1,8 +1,8 @@
 """Cluster membership: seed-anchored join/heartbeat with gossip readback.
 
-Own copy of ``deepflow_tpu/cluster/membership.py`` without the
-partial-cache adverts that ride its join exchange (the read tier's
-cluster-wide cache is not ported).
+Own copy of ``deepflow_tpu/cluster/membership.py``, the adverts of the
+cluster-wide partial cache (``cluster/partialcache.py``) that ride its
+join exchange included.
 
 Reference analog: controller node registration + the genesis sync that
 lets every DeepFlow component read one authoritative node list. Peers
@@ -133,6 +133,14 @@ class ClusterMembership:
         self.ingest_addr = ""      # set by the server once receiver binds
         self.ring = None           # adopted/authored HashRing (replication)
         self._ring_lock = threading.Lock()
+        # the partial cache's gossip: local warm-key digests ride the
+        # join exchange in both directions; the seed merges every
+        # joiner's adverts and the merged map rides every join response,
+        # so any node knows who holds (table, sql, org) warm after one
+        # heartbeat round-trip
+        self.cache_adv_local = None      # zero-arg -> list[str] digests
+        self._cache_advs: dict[str, tuple[int, str]] = {}
+        self._adv_lock = threading.Lock()
         self._stop = threading.Event()
         self._thread: threading.Thread | None = None
 
@@ -144,6 +152,50 @@ class ClusterMembership:
         return Peer(shard_id=self.shard_id, addr=self.advertise,
                     epoch=self.epoch, last_seen_ns=time.time_ns(),
                     ingest_addr=self.ingest_addr, role=self.role)
+
+    # -- the partial cache's adverts ----------------------------------
+    def _local_advs(self) -> dict:
+        fn = self.cache_adv_local
+        if fn is None:
+            return {}
+        try:
+            return {str(d): [self.shard_id, self.advertise]
+                    for d in (fn() or [])}
+        except Exception:
+            return {}
+
+    def _merge_advs(self, advs: dict | None) -> None:
+        if not advs:
+            return
+        with self._adv_lock:
+            for digest, ent in advs.items():
+                try:
+                    sid, addr = int(ent[0]), str(ent[1])
+                except (TypeError, ValueError, IndexError):
+                    continue
+                if sid != self.shard_id:
+                    self._cache_advs[str(digest)] = (sid, addr)
+
+    def cache_adverts(self) -> dict:
+        """Everything known warm, the local keys included (the seed's
+        view)."""
+        with self._adv_lock:
+            snap = dict(self._cache_advs)
+        out = {d: [s, a] for d, (s, a) in snap.items()}
+        out.update(self._local_advs())
+        return out
+
+    def advert_for(self, digest: str,
+                   ttl_s: float = DEFAULT_TTL_S) -> tuple | None:
+        """(shard_id, addr) of an ALIVE peer advertising this cache key
+        digest, or None. Own adverts are left out: a local miss is a
+        local miss."""
+        with self._adv_lock:
+            ent = self._cache_advs.get(digest)
+        if ent is None:
+            return None
+        alive = {p.shard_id for p in self.directory.alive(ttl_s=ttl_s)}
+        return ent if ent[0] in alive else None
 
     # -- replication ring ---------------------------------------------
     def adopt_ring(self, snap: dict | None) -> bool:
@@ -187,11 +239,15 @@ class ClusterMembership:
             log.info("cluster: shard %d at %s joined (epoch %d)",
                      peer.shard_id, peer.addr, peer.epoch)
         self.adopt_ring(body.get("ring"))
+        self._merge_advs(body.get("cache_adv"))
         self.directory.upsert(self.self_peer())
         out = self.directory.snapshot()
         ring = self.ring_snapshot()
         if ring is not None:
             out["ring"] = ring
+        advs = self.cache_adverts()
+        if advs:
+            out["cache_adv"] = advs
         return out
 
     # -- joiner side --------------------------------------------------
@@ -200,6 +256,9 @@ class ClusterMembership:
         ring = self.ring_snapshot()
         if ring is not None:
             body["ring"] = ring
+        advs = self._local_advs()
+        if advs:
+            body["cache_adv"] = advs
         req = urllib.request.Request(
             f"http://{self.seed}/v1/cluster/join",
             data=json.dumps(body).encode(),
@@ -208,6 +267,7 @@ class ClusterMembership:
             snap = json.loads(resp.read())
         self.directory.adopt(snap)
         self.adopt_ring(snap.get("ring"))
+        self._merge_advs(snap.get("cache_adv"))
         self.stats["joins"] += 1
 
     def _loop(self) -> None:

@@ -10,17 +10,19 @@ dropped (reason timeout|error) when every attempt fails — so
 ``emitted == delivered + dropped`` holds across a quiesced cluster and
 a check can assert ledger balance over federated queries.
 Retries and the hedged second request are attempts WITHIN one item,
-tracked in client stats only.
+tracked in client stats only. Each calling thread keeps one HTTP/1.1
+connection a peer open (the reference opens one a call): with the
+querier's keep-alive a warm federated query costs a peer no connect and
+no thread.
 """
 
 from __future__ import annotations
 
+import http.client
 import json
 import logging
 import threading
 import time
-import urllib.error
-import urllib.request
 from concurrent.futures import FIRST_COMPLETED, ThreadPoolExecutor, wait
 
 from deepflow_tpu_torch.cluster import wire
@@ -48,6 +50,30 @@ class ShardClient:
         self.api_token = api_token
         self.stats = {"attempts": 0, "hedges": 0, "errors": 0}
         self._lock = threading.Lock()
+        # one kept-alive connection a calling thread (the fan-out's
+        # attempt workers): a call costs no connect and no server thread
+        self._local = threading.local()
+
+    def _conn(self, budget: float) -> tuple[http.client.HTTPConnection, bool]:
+        """(this thread's connection to the peer, whether its socket is
+        already open)."""
+        conn = getattr(self._local, "conn", None)
+        if conn is not None:
+            conn.timeout = budget
+            if conn.sock is not None:
+                conn.sock.settimeout(budget)
+                return conn, True
+            return conn, False
+        host, _, port = self.addr.rpartition(":")
+        conn = self._local.conn = http.client.HTTPConnection(
+            host, int(port), timeout=budget)
+        return conn, False
+
+    def _drop_conn(self) -> None:
+        conn = getattr(self._local, "conn", None)
+        self._local.conn = None
+        if conn is not None:
+            conn.close()
 
     def _attempt(self, body: dict, deadline: float):
         budget = deadline - time.monotonic()
@@ -59,22 +85,30 @@ class ShardClient:
         headers = {"Content-Type": "application/json"}
         if self.api_token:
             headers["X-DF-Token"] = self.api_token
-        req = urllib.request.Request(
-            f"http://{self.addr}/v1/shard/exec",
-            data=json.dumps(body).encode(), headers=headers)
-        try:
-            with urllib.request.urlopen(req, timeout=budget) as resp:
-                obj, _sid = wire.decode_result(resp.read())
-                return obj
-        except urllib.error.HTTPError as e:
-            detail = e.read()[:200].decode(errors="replace")
-            raise ShardCallError(
-                f"{self.addr}: HTTP {e.code} {detail}") from None
-        except (TimeoutError, OSError) as e:
-            reason = ("timeout" if isinstance(e, TimeoutError)
-                      or "timed out" in str(e).lower() else "error")
-            raise ShardCallError(f"{self.addr}: {e}", reason=reason) \
-                from None
+        payload = json.dumps(body).encode()
+        while True:
+            conn, reused = self._conn(budget)
+            try:
+                conn.request("POST", "/v1/shard/exec", payload, headers)
+                resp = conn.getresponse()
+                data = resp.read()
+            except (http.client.HTTPException, TimeoutError, OSError) as e:
+                self._drop_conn()
+                if reused and not isinstance(e, TimeoutError):
+                    # the peer closed a kept-alive connection (a restart,
+                    # its stop): one more try on a fresh one
+                    continue
+                reason = ("timeout" if isinstance(e, TimeoutError)
+                          or "timed out" in str(e).lower() else "error")
+                raise ShardCallError(f"{self.addr}: {e}", reason=reason) \
+                    from None
+            break
+        if resp.status != 200:
+            self._drop_conn()
+            detail = data[:200].decode(errors="replace")
+            raise ShardCallError(f"{self.addr}: HTTP {resp.status} {detail}")
+        obj, _sid = wire.decode_result(data)
+        return obj
 
     def call(self, body: dict, pool: ThreadPoolExecutor | None = None):
         """One logical call: bounded retries, plus a hedged second
@@ -163,8 +197,8 @@ class FanOut:
         scatter touched for ttl_s — long-lived coordinators would
         otherwise accumulate one cached client per address ever seen
         across rebalances. Safe mid-flight: a scatter already holds its
-        ShardClient reference, and clients keep no open sockets between
-        requests."""
+        ShardClient reference; an evicted client's kept-alive connections
+        close with it."""
         horizon = time.monotonic() - ttl_s
         active = set(active_addrs)
         with self._lock:

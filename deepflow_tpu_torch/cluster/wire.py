@@ -1,9 +1,9 @@
 """Shard-result wire format: one codec frame, columnar payload.
 
 Own copy of ``deepflow_tpu/cluster/wire.py``, built on the port's
-``codec.py``: the same object gives the same bytes in both packages.
-The reference's CACHE_PARTIAL frames (its cluster-wide partial cache)
-are not ported.
+``codec.py``: the same object gives the same bytes in both packages,
+the CACHE_PARTIAL frames of the cluster-wide partial cache
+(``cluster/partialcache.py``) included.
 
 Layout inside a MessageType.SHARD_RESULT frame (zlib handled by the
 frame layer for payloads > 512B):
@@ -68,16 +68,6 @@ def inject_ctx(body: dict) -> dict:
 def extract_ctx(body: dict) -> dict | None:
     ctx = body.get(QTRACE_KEY) if isinstance(body, dict) else None
     return ctx if isinstance(ctx, dict) else None
-
-
-def _has_ndarray(obj) -> bool:
-    if isinstance(obj, np.ndarray):
-        return True
-    if isinstance(obj, dict):
-        return any(_has_ndarray(v) for v in obj.values())
-    if isinstance(obj, (list, tuple)):
-        return any(_has_ndarray(v) for v in obj)
-    return False
 
 
 def _encode_jsonb(obj) -> bytes:
@@ -189,12 +179,16 @@ def encode_result(obj, shard_id: int = 0) -> bytes:
     if (isinstance(obj, dict) and "columns" in obj and "values" in obj
             and isinstance(obj.get("values"), list)):
         payload = _encode_table(obj)
-    elif _has_ndarray(obj):
-        payload = _encode_jsonb(obj)
     else:
-        b = json.dumps({"kind": "json", "obj": obj},
-                       separators=(",", ":")).encode()
-        payload = _LEN.pack(len(b)) + b
+        # the json form unless obj holds ndarrays (json refuses them):
+        # no walk over every answer, a shard's change token included
+        try:
+            b = json.dumps({"kind": "json", "obj": obj},
+                           separators=(",", ":")).encode()
+        except TypeError:
+            payload = _encode_jsonb(obj)
+        else:
+            payload = _LEN.pack(len(b)) + b
     return encode_frame(
         FrameHeader(MessageType.SHARD_RESULT, agent_id=shard_id & 0xFFFF),
         payload)
@@ -215,3 +209,29 @@ def decode_result(frame: bytes):
     if meta.get("kind") == "jsonb":
         return _decode_jsonb(meta, view[4 + mlen:]), header.agent_id
     return meta.get("obj"), header.agent_id
+
+
+def encode_cache_partial(obj, shard_id: int = 0) -> bytes:
+    """Serialize one distributed partial-cache exchange (request ack or
+    warm bucket response) into a CACHE_PARTIAL frame. Always the jsonb
+    form — encoded per-bucket partials are exactly the ndarray-bearing
+    payloads jsonb exists for, and the kind doubles as the type check
+    (a stray SHARD_RESULT on this path must fail loudly)."""
+    return encode_frame(
+        FrameHeader(MessageType.CACHE_PARTIAL, agent_id=shard_id & 0xFFFF),
+        _encode_jsonb(obj))
+
+
+def decode_cache_partial(frame: bytes):
+    """Inverse of encode_cache_partial -> (obj, shard_id)."""
+    header, payload, consumed = decode_frame(frame)
+    if consumed == 0:
+        raise WireError("short cache-partial frame")
+    if header.msg_type != MessageType.CACHE_PARTIAL:
+        raise WireError(f"unexpected frame type {header.msg_type}")
+    view = memoryview(payload)
+    (mlen,) = _LEN.unpack(view[:4])
+    meta = json.loads(bytes(view[4:4 + mlen]))
+    if meta.get("kind") != "jsonb":
+        raise WireError(f"unexpected cache-partial kind {meta.get('kind')!r}")
+    return _decode_jsonb(meta, view[4 + mlen:]), header.agent_id

@@ -1,9 +1,8 @@
 """Querier-level result + partial-aggregate cache with exact invalidation.
 
-Own copy of ``deepflow_tpu/query/cache.py`` without its distributed hook
-(the cluster-wide partial cache) and the standing-query fold. Two layers, both keyed by (table name,
-whitespace-normalized SQL) and validated by monotonic change tokens —
-never by TTL:
+Own copy of ``deepflow_tpu/query/cache.py`` without the standing-query
+fold. Two layers, both keyed by (table name, whitespace-normalized SQL)
+and validated by monotonic change tokens — never by TTL:
 
 - whole-result cache: validated against ``change_token(table)``
   ([write watermark, [[dict, gen], ...]]). Any append, trim or
@@ -28,6 +27,12 @@ fill can only make the stored token stale (a harmless recompute next
 time), never let a stale entry validate. One fill scans one view of the
 table, so every bucket it computes encodes against the same
 dictionaries, and its gens are read from that view.
+
+The ``dist`` hook (``cluster/partialcache.py``, on a read-tier querier)
+asks a warm peer replica for the stale buckets before scanning them;
+``warm_keys`` and ``peek_buckets`` are the serving side. A fetched slice
+is stored under the (mark, gens) read before the fetch, so a write that
+races the round trip can only leave a stale entry, as a local fill.
 
 Admission goes through the learned cost hook (``query/costmodel.py``):
 queries whose observed cold cost stays under DF_QUERY_CACHE_MIN_NS are
@@ -94,8 +99,7 @@ class QueryCache:
         self.counters = {"hits": 0, "misses": 0, "stale": 0, "bypass": 0,
                          "evictions": 0, "bucket_hits": 0,
                          "bucket_misses": 0, "bucket_pruned": 0,
-                         # the reference's distributed partial cache's
-                         # hits: not ported, so always 0
+                         # buckets a peer replica served (dist hook)
                          "dist_hits": 0}
         self._hop = telemetry.hop("query.cache") if telemetry else None
         # learned cold-cost per cached query shape (admission hook)
@@ -105,6 +109,10 @@ class QueryCache:
         # pass over the table's rows, so the pool loses to the serial
         # loop on a small table and wins on a large one (query_refill.py)
         self._refill: dict[str, KernelCostModel] = {}
+        # the cluster-wide partial cache's hook: dist(table, key,
+        # [bucket, ...], gens) -> {bucket: partial} of slices a warm peer
+        # computed, in LOCAL dictionary ids. None: a single node
+        self.dist = None
 
     # -- helpers -------------------------------------------------------------
 
@@ -249,6 +257,8 @@ class QueryCache:
                     slot[b] = ent[2]
                 else:
                     stale.append((b, mark))
+        if stale and self.dist is not None:
+            stale = self._fetch_peer(table, key, stale, gens, store, slot)
         qtrace.annotate(buckets=len(ordered), bucket_stale=len(stale))
         if stale:
             def _scan(bm):
@@ -289,6 +299,28 @@ class QueryCache:
                     store[b] = (mark, gens, part)
                 slot[b] = part
         return view, [slot[b] for b, _m in ordered]
+
+    def _fetch_peer(self, table, key: tuple, stale: list, gens: tuple,
+                    store: OrderedDict, slot: dict) -> list:
+        """The stale buckets a warm peer serves go into the store and
+        the slots; returns the buckets still to scan."""
+        try:
+            got = self.dist(table, key, [b for b, _m in stale], gens)
+        except Exception:
+            got = {}
+        if not got:
+            return stale
+        still = []
+        for b, mark in stale:
+            part = got.get(b)
+            if part is not None and part.get("kind") == "agg":
+                with self._lock:
+                    self.counters["dist_hits"] += 1
+                    store[b] = (mark, gens, part)
+                slot[b] = part
+            else:
+                still.append((b, mark))
+        return still
 
     def partial(self, table, sql: str, *, select=None,
                 extra_key=None) -> dict:
@@ -334,6 +366,41 @@ class QueryCache:
     def _drop_buckets(self, key: tuple) -> None:
         with self._lock:
             self._buckets.pop(key, None)
+
+    # -- the partial cache's serving side ------------------------------------
+
+    def warm_keys(self) -> list[tuple]:
+        """Bucket-store keys holding at least one slice: the adverts'
+        source (membership gossips digests of the shareable ones)."""
+        with self._lock:
+            return [k for k, v in self._buckets.items() if v]
+
+    def peek_buckets(self, table, sql: str, extra_keys: list,
+                     wanted: list) -> dict:
+        """The cached slices of the wanted buckets that are valid NOW,
+        under any of the candidate key variants. Validated against this
+        node's own marks and dictionary gens; the caller established
+        that the requester's table holds the same rows (the read tier's
+        publish token)."""
+        _wm, marks, wide, div = table.bucket_marks()
+        if div <= 0 or wide:
+            return {}
+        gens = tuple(sorted((n, d.gen) for n, d in table.dicts.items()))
+        norm = normalize_sql(sql)
+        out: dict[int, dict] = {}
+        with self._lock:
+            for ek in extra_keys:
+                store = self._buckets.get((table.name, norm, ek))
+                if not store:
+                    continue
+                for b in wanted:
+                    if b in out or b not in marks:
+                        continue
+                    ent = store.get(b)
+                    if ent is not None and ent[0] == marks[b] \
+                            and ent[1] == gens:
+                        out[b] = ent[2]
+        return out
 
     # -- introspection -------------------------------------------------------
 

@@ -717,7 +717,9 @@ def _fold_ranges(prims: list[tuple]) -> list[tuple]:
             at[col] = len(out)
             out.append(p)
         else:
-            _, _, lo0, hi0 = out[at[col]]
+            kind0, _, lo0, hi0 = out[at[col]]
+            if kind0 == "never":
+                continue  # an empty intersection stays empty
             lo, hi = max(lo, lo0), min(hi, hi0)
             out[at[col]] = ("range", col, lo, hi) if lo <= hi \
                 else ("never", col, 0, 0)

@@ -1,8 +1,9 @@
 """Datasource rollups: derived 1m/1h/1d aggregates from 1s metric tables.
 
 Own copy of ``deepflow_tpu/server/datasource.py``, on the port's engine,
-scan pool and ``query/sketch.py``. The reference's compaction of the
-rollup tables' tier segments is left out with the storage tiers.
+scan pool and ``query/sketch.py``. With storage on, each roll that wrote
+rows folds the rollup tables' tier segments into sorted runs
+(``db.compact_tier``; ``stats["compact_runs"]``).
 
 Reference analog: server/ingester/datasource (rollup management with
 configurable aggregators per datasource). A periodic job aggregates
@@ -102,7 +103,8 @@ class RollupJob:
         self._watermark: dict[tuple, int] = {}
         self._stop = threading.Event()
         self._thread: threading.Thread | None = None
-        self.stats = {"rollups": 0, "rows": 0, "sketch_rows": 0}
+        self.stats = {"rollups": 0, "rows": 0, "sketch_rows": 0,
+                      "compact_runs": 0}
         self._stats_lock = threading.Lock()  # families roll concurrently
 
     def start(self) -> "RollupJob":
@@ -185,7 +187,26 @@ class RollupJob:
         if total:
             self.stats["rollups"] += 1
             self.stats["rows"] += total
+            self._compact_destinations()
         return total
+
+    def _compact_destinations(self) -> None:
+        """A rollup table gains one small flushed segment per completed
+        bucket; fold them into sorted format-v2 runs, so a long-range
+        query over a coarse tier scans a few runs instead of hundreds of
+        slivers. A no-op without tiered storage, and cheap with nothing
+        to merge (the planner skips single-run groups)."""
+        if self.db.tier_store is None:
+            return
+        for family in FAMILIES:
+            for _src_sfx, dst_sfx, _bucket in _STAGES:
+                try:
+                    res = self.db.compact_tier(f"{family}.{dst_sfx}")
+                except Exception:
+                    log.exception("rollup compaction failed")
+                    continue
+                with self._stats_lock:
+                    self.stats["compact_runs"] += res.get("runs_built", 0)
 
     def _sketch_map(self, src, spec: RollupSpec, sketch_col: str,
                     wm: int, horizon: int, bucket: int) -> dict:

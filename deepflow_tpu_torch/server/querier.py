@@ -36,14 +36,28 @@ answered from the replication ring's claim view) and merges here; an
 answer carries ``"federation": {"shards", "missing_shards"}`` (and
 ``covered_shards`` when the ring covers a dead one), never a 500 for a
 dead shard; ``POST /v1/cluster/join``, ``GET /v1/cluster/peers`` and
-``/v1/cluster/status`` serve the membership. ``GET
+``/v1/cluster/status`` serve the membership. On a read-tier cluster (the
+server's ``--objstore``, ``--role querier``) a shard answers a querier's
+``sql_partial`` without the segments it published when the querier
+adopted its current publish gen (``store/segcache.py``
+``PublishedExcludeView``), and ``POST /v1/cache/partial`` serves warm
+bucket slices to peer replicas (``cluster/partialcache.py``; gated by
+the API token, ``DF_API_TOKEN``, when one is set). A DF-SQL answer over
+a table with quarantined segments carries ``degraded`` (rows awaiting
+repair) and a warning, and a federated one ``degraded_shards``; ``GET
+/v1/fsck`` verifies every sealed segment now and quarantines and
+repairs the corrupt ones (``store/scrub.py``). The HTTP server speaks
+HTTP/1.1 with keep-alive, so a coordinator's shard calls reuse their
+connections (``cluster/remote.py``). ``GET
 /v1/health`` carries the cache's, the scan pool's and the tracer's stats
 (``query_cache``, ``query``, ``query_trace``), the server's own
 self-telemetry (``selfmon``, ``stages``, ``pipeline``,
 ``ledger_imbalance``, ``wedges``) and the agents', read back from
 ``deepflow_system`` (``agents_selfmon``), and with ``--storage`` the tier's ``storage`` block
 (segments, rows and bytes per table, codecs, flush, eviction and
-compaction counters); a current wedge makes its
+compaction counters, and the scrubber's ``scrub``), the publisher's
+``publish``, a querier's ``readtier`` and ``partial_cache``; a current
+wedge makes its
 ``status`` ``degraded`` with the ``wedged_stages``. ``GET /v1/segments``
 lists each on-disk segment (``?table=``, ``?v1=1``). With the server's
 controller: ``GET /v1/agents`` (the fleet with each agent's health, its
@@ -60,6 +74,7 @@ import json
 import logging
 import os
 import re
+import socket
 import threading
 import time
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
@@ -91,6 +106,10 @@ from deepflow_tpu_torch.tpuprobe.collectives import stitch, step_trace
 
 log = logging.getLogger("df.querier")
 
+
+class AuthError(Exception):
+    """A gated route called without the API token (HTTP 403)."""
+
 _STEP_COLS = ("time, end_ns, latency_ns, run_id, step, job, "
               "device_count, device_skew_ns, compute_ns, "
               "collective_ns, straggler_device, straggler_lag_ns, "
@@ -113,9 +132,21 @@ class QuerierAPI:
     def __init__(self, db: Database, stats_provider=None,
                  telemetry: Telemetry | None = None, rollup=None,
                  trace_trees=None, controller=None,
-                 storage_provider=None) -> None:
+                 storage_provider=None,
+                 api_token: str | None = None) -> None:
         self.db = db
         self.shard_id = db.shard_id
+        # the shared token gating POST /v1/cache/partial; empty: open
+        self.api_token = (api_token if api_token is not None
+                          else os.environ.get("DF_API_TOKEN", ""))
+        # set by the server: the segment publisher (an ingest node with
+        # an object store), the read tier and the cluster-wide partial
+        # cache (a querier replica), and the scrubber (/v1/fsck repair
+        # and the storage block's scrub); None when off
+        self.publisher = None
+        self.readtier = None
+        self.partial_cache = None
+        self.scrubber = None
         # the server's _start_cluster sets both (cluster/membership.py,
         # cluster/federation.py); None: a standalone server
         self.membership = None
@@ -191,6 +222,17 @@ class QuerierAPI:
             out["dict_sync"] = self.federation.dict_sync.snapshot()
             out["federation_cache"] = dict(
                 self.federation.sql_cache_counters)
+        if self.readtier is not None:
+            # the adopted publish state and the segment cache's fetch,
+            # hit, miss and evict ledger
+            out["readtier"] = self.readtier.snapshot()
+            if self.scrubber is not None:
+                out["scrub"] = self.scrubber.snapshot()
+        if self.partial_cache is not None:
+            out["partial_cache"] = self.partial_cache.snapshot()
+        if self.publisher is not None:
+            out["publish"] = dict(self.publisher.stats)
+            out["publish"]["publish_gen"] = self.publisher.publish_gen
         agents = collect_agent_selfmon(self.db)
         if agents["pipeline"] or agents["heartbeats"] or agents["wedges"]:
             out["agents_selfmon"] = agents
@@ -238,6 +280,53 @@ class QuerierAPI:
                 tables[name] = rows
         return {"tables": tables, "storage": True,
                 "compact_gen": store.compact_gen}
+
+    def fsck(self, table: str | None = None, repair: bool = True) -> dict:
+        """GET /v1/fsck (the `dfctl fsck` backend): verify every block
+        checksum of every sealed local segment now, without waiting for
+        the scrubber's paced walk. Corrupt segments go through the
+        scrubber's quarantine and repair (``repair=False`` reports
+        only). Pre-checksum segments count as unverifiable, never as
+        corrupt."""
+        store = self.db.tier_store
+        if store is None:
+            return {"storage": False, "tables": {}}
+        self.db._ensure_loaded()
+        scrub = self.scrubber
+        if scrub is None and repair:
+            from deepflow_tpu_torch.store.scrub import Scrubber
+            scrub = Scrubber(self.db, shard_id=self.shard_id,
+                             telemetry=self.telemetry)
+        tables: dict[str, dict] = {}
+        for name in [table] if table else sorted(store.tables()):
+            res = {"segments": 0, "blocks_checked": 0, "bytes": 0,
+                   "clean": 0, "unverifiable": 0, "corrupt": [],
+                   "repaired": [], "repair_failed": []}
+            for seg in store.tier(name).segments():
+                v = seg.verify()
+                res["segments"] += 1
+                res["blocks_checked"] += v["checked"]
+                res["bytes"] += v["bytes"]
+                if v["corrupt"]:
+                    fn = os.path.basename(seg.path)
+                    res["corrupt"].append({"file": fn,
+                                           "blocks": v["corrupt"]})
+                    if scrub is not None:
+                        ok = scrub.quarantine_and_repair(
+                            name, seg, f"fsck:{','.join(v['corrupt'])}")
+                        res["repaired" if ok
+                            else "repair_failed"].append(fn)
+                elif v["verifiable"]:
+                    res["clean"] += 1
+                else:
+                    res["unverifiable"] += 1
+            q = store.quarantined().get(name)
+            if q:
+                res["quarantined"] = q
+            tables[name] = res
+        return {"storage": True, "tables": tables,
+                "ok": not any(t["corrupt"] or t.get("quarantined")
+                              for t in tables.values())}
 
     def _resolve_table(self, table_name: str, db_name: str = ""):
         # resolution order: as-given, db-prefixed, then with the default
@@ -361,12 +450,14 @@ class QuerierAPI:
                                              org_id=org)
                 ex.annotate(shards=int(info.get("shards", 1)),
                             cache=str(info.get("cache", "")))
-            return {"result": result.to_dict(), "debug": debug,
-                    "federation": info}
+            return self._annotate_degraded(
+                {"result": result.to_dict(), "debug": debug,
+                 "federation": info}, table.name)
         if sketch is not None:
             result, debug["datasource"] = sketch
             qtrace.annotate(datasource=str(debug["datasource"]))
-            return {"result": result.to_dict(), "debug": debug}
+            return self._annotate_degraded(
+                {"result": result.to_dict(), "debug": debug}, table.name)
         # org scoping rewrote the AST, not the text — fold it into the
         # cache key so scoped variants of one SQL string don't collide
         with qtrace.span("execute", path="local") as ex:
@@ -374,7 +465,41 @@ class QuerierAPI:
                 table, sql_text, select=select,
                 extra_key=None if org is None else ("org", org))
             ex.annotate(rows=len(result.values))
-        return {"result": result.to_dict(), "debug": debug}
+        return self._annotate_degraded(
+            {"result": result.to_dict(), "debug": debug}, table.name)
+
+    def _degraded_for(self, table_name: str) -> dict | None:
+        """The quarantine marker of a table: rows the scrubber pulled
+        from service (corrupt segments) and has not repaired yet. None
+        when the table serves its whole history."""
+        store = self.db.tier_store
+        if store is None:
+            return None
+        info = store.quarantine_info(table_name)
+        if not info:
+            return None
+        return {"reason": "segment_quarantine", **info}
+
+    def _annotate_degraded(self, out: dict, table_name: str) -> dict:
+        """The degraded marker and a warning on an answer, the honesty
+        contract of federation's missing_shards: rows in a quarantine
+        gap are missing from the answer, and the answer says so. The
+        shards' markers come in under federation."""
+        deg = self._degraded_for(table_name)
+        fed = out.get("federation")
+        fed_deg = (fed.get("degraded_shards")
+                   if isinstance(fed, dict) else None)
+        if deg is not None:
+            out["degraded"] = deg
+            out.setdefault("warnings", []).append(
+                f"results may be incomplete: {deg['rows']} rows in "
+                f"{deg['segments']} quarantined segment(s) of "
+                f"{table_name} await repair")
+        if fed_deg:
+            out.setdefault("warnings", []).append(
+                f"results may be incomplete: quarantined segments on "
+                f"shard(s) {sorted(fed_deg)} await repair")
+        return out
 
     def _explain(self, body: dict, stmt: S.Explain, db_name: str) -> dict:
         """EXPLAIN: plan only. EXPLAIN ANALYZE: run the query under a
@@ -1219,18 +1344,28 @@ class QuerierAPI:
         if op == "sql_partial":
             table = (db.table(body["table"]) if body.get("table")
                      else self._resolve_table("", ""))
-            select = S.parse_statement(body.get("sql", ""))
-            if not isinstance(select, S.Select):
-                raise QueryError("sql_partial needs a SELECT")
             org = body.get("org_id")
-            if org is not None:
-                # the coordinator's org filter lives in its AST, not
-                # the SQL text: re-inject it from the op body
-                self._org_scope(select, table, org)
+
+            def select_for(table) -> S.Select:
+                select = S.parse_statement(body.get("sql", ""))
+                if not isinstance(select, S.Select):
+                    raise QueryError("sql_partial needs a SELECT")
+                if org is not None:
+                    # the coordinator's org filter lives in its AST, not
+                    # the SQL text: re-inject it from the op body
+                    self._org_scope(select, table, org)
+                return select
             if not body.get("enc"):
                 # a decoded partial: the remap escape hatch
-                return engine.execute_partial(table, select)
-            return self._sql_partial_enc(body, table, select, org)
+                out = engine.execute_partial(table, select_for(table))
+            else:
+                out = self._sql_partial_enc(body, table, select_for, org)
+            # computed fresh per call: an "unchanged" reply still reports
+            # a NEW quarantine (federation.degraded_shards)
+            deg = self._degraded_for(str(body.get("table") or ""))
+            if deg is not None:
+                out["degraded"] = deg
+            return out
         if op == "promql_raw":
             vs = promql.VectorSelector(
                 metric=str(body.get("metric", "")),
@@ -1257,11 +1392,13 @@ class QuerierAPI:
                     for name in self.db.tables()}
         raise QueryError(f"unknown shard op {op!r}")
 
-    def _sql_partial_enc(self, body: dict, table, select: S.Select,
+    def _sql_partial_enc(self, body: dict, table, select_for,
                          org) -> dict:
         """The encoded half of sql_partial: the change-token short
         circuit, the bucket-cached encoded partial, and the dictionary
-        delta the coordinator needs to remap our ids."""
+        delta the coordinator needs to remap our ids. ``select_for``
+        parses the statement, only when the answer is computed (an
+        unchanged table answers without it)."""
         # a claim view answers for other rows under another ring or
         # alive set, the table unchanged: the ring context joins both
         # the change token and the cache key
@@ -1269,13 +1406,57 @@ class QuerierAPI:
         ring_ctx = None if not ring else [
             ring.get("epoch"), ring.get("token"),
             sorted(int(s) for s in body.get("alive") or [])]
+        # the publish-gen handshake: a read-tier coordinator names the
+        # pointer gen it adopted from us. On a match answer WITHOUT the
+        # published segments (it serves those from the object store), so
+        # each sealed row counts once; otherwise answer in full and it
+        # drops our adopted segments. The exclusion wraps the claim view
+        # (a published segment is claimed there as its publisher, us)
+        rt_req = (body.get("readtier") or {}).get(str(self.shard_id))
+        rt_ack = excl = None
+        gen, fn_sets = (self.publisher.current if self.publisher is not None
+                        else (0, {}))
+        if rt_req is not None and self.publisher is not None \
+                and int(rt_req) == gen:
+            fns = fn_sets.get(table.name)
+            # a compaction or eviction may have retired published fns
+            # before the next publish moves `current`: the replacement run
+            # (the same rows) would stay in our answer while the
+            # coordinator serves the blobs, so ack only while every
+            # published fn is still live (checked here on the tier's
+            # names, and again by the view that computes)
+            if not fns:
+                rt_ack = gen
+            elif fns <= {s.path.rpartition(os.sep)[2]
+                         for s in table.tier.segments()}:
+                rt_ack, excl = gen, fns
         tok = [change_token(table), ring_ctx]  # read BEFORE computing
+        # the exclusion joins the token: the same table state answers for
+        # other rows at another publish gen
         if_state = (body.get("if_state") or {}).get(str(self.shard_id))
-        if if_state is not None and if_state == tok:
-            return {"kind": "unchanged", "state": tok}
+        if if_state is not None and if_state == tok + (
+                [["pub", rt_ack]] if rt_ack is not None else []):
+            out = {"kind": "unchanged", "state": if_state}
+            if rt_req is not None:
+                out["rt"] = {"gen": gen, "excluded": rt_ack is not None}
+            return out
+        if excl is not None:
+            from deepflow_tpu_torch.store.segcache import \
+                PublishedExcludeView
+            view = PublishedExcludeView(table, excl)
+            if view.complete:
+                table = view
+            else:
+                rt_ack = None
+        if rt_ack is not None:
+            tok = tok + [["pub", rt_ack]]
+        rt_reply = (None if rt_req is None else
+                    {"gen": gen, "excluded": rt_ack is not None})
+        select = select_for(table)
+        extra = ("fed", org, repr(ring_ctx)) + \
+            ((("pub", rt_ack),) if rt_ack is not None else ())
         part = dict(self.query_cache.partial(
-            table, body.get("sql", ""), select=select,
-            extra_key=("fed", org, repr(ring_ctx))))
+            table, body.get("sql", ""), select=select, extra_key=extra))
         dicts = part.get("dicts")
         if dicts:
             known = (body.get("dict_known") or {}).get(
@@ -1284,10 +1465,32 @@ class QuerierAPI:
             if sync is None:
                 # a dictionary's gen flipped since the partial was built:
                 # its ids are unremappable, so answer decoded instead
-                return dict(engine.execute_partial(table, select))
+                # (over the same exclusion, still carrying the ack)
+                part = dict(engine.execute_partial(table, select))
+                if rt_reply is not None:
+                    part["rt"] = rt_reply
+                return part
             part["dict_sync"] = sync
         part["state"] = tok
+        if rt_reply is not None:
+            part["rt"] = rt_reply
         return part
+
+    def _require_token(self, token: str | None, what: str) -> None:
+        """Refuse a gated route unless the caller presented the shared
+        token (open when none is set)."""
+        if self.api_token and (token or "") != self.api_token:
+            raise AuthError(f"{what} requires a valid API token "
+                            "(X-DF-Token header or token field)")
+
+    def cache_partial(self, body: dict, token: str | None = None) -> dict:
+        """POST /v1/cache/partial: the serving side of the cluster-wide
+        partial cache: the warm, currently valid bucket slices this
+        replica holds for a peer's (table, sql, org, pub_token)."""
+        self._require_token(token, "/v1/cache/partial")
+        if self.partial_cache is None:
+            return {"buckets": {}}
+        return self.partial_cache.serve(body)
 
     def cluster_join(self, body: dict) -> dict:
         if self.membership is None:
@@ -1419,6 +1622,7 @@ class QuerierHTTP:
         self.host = host
         self.port = port
         self._httpd: ThreadingHTTPServer | None = None
+        self._conns: set = set()
 
     def start(self) -> "QuerierHTTP":
         api = self.api
@@ -1441,7 +1645,24 @@ class QuerierHTTP:
             "/v1/cluster/join": api.cluster_join,
         }
 
+        conns = self._conns
+
         class Handler(BaseHTTPRequestHandler):
+            # keep-alive: a shard answers a coordinator's scatter calls on
+            # one connection (a thread of its own) instead of a
+            # connection and a thread a call; every answer carries its
+            # Content-Length, and small writes go out at once
+            protocol_version = "HTTP/1.1"
+            disable_nagle_algorithm = True
+
+            def setup(self) -> None:
+                super().setup()
+                conns.add(self.connection)
+
+            def finish(self) -> None:
+                conns.discard(self.connection)
+                super().finish()
+
             def log_message(self, fmt, *args):
                 log.debug(fmt, *args)
 
@@ -1453,6 +1674,17 @@ class QuerierHTTP:
                 self.end_headers()
                 self.wfile.write(data)
 
+            def _token(self, body: dict) -> str | None:
+                """The API token: the X-DF-Token header, Bearer auth or
+                the body's ``token`` field."""
+                tok = self.headers.get("X-DF-Token")
+                if tok:
+                    return tok
+                auth = self.headers.get("Authorization", "")
+                if auth.startswith("Bearer "):
+                    return auth[len("Bearer "):]
+                return body.get("token")
+
             def _get(self, path: str, query: str):
                 params = dict(parse_qsl(query))
                 if path in ("/v1/health", "/health"):
@@ -1463,6 +1695,10 @@ class QuerierHTTP:
                     return api.segments(
                         table=params.get("table") or None,
                         v1_only=params.get("v1") in ("1", "true"))
+                if path == "/v1/fsck":
+                    return api.fsck(
+                        table=params.get("table") or None,
+                        repair=params.get("repair") not in ("0", "false"))
                 if path == "/v1/analyzers":
                     return api.analyzers_api()
                 if path == "/v1/cluster/peers":
@@ -1516,11 +1752,19 @@ class QuerierHTTP:
                     n = int(self.headers.get("Content-Length", 0))
                     body = json.loads(self.rfile.read(n) if n else b"{}")
                     path = self.path.split("?")[0].rstrip("/")
+                    payload = None
                     if path == "/v1/shard/exec":
                         # a SHARD_RESULT frame, not JSON: numeric columns
                         # ride as raw little-endian arrays
                         payload = cluster_wire.encode_result(
                             api.shard_exec(body), shard_id=api.shard_id)
+                    elif path == "/v1/cache/partial":
+                        # a CACHE_PARTIAL frame: bucket slices carry
+                        # ndarray id columns, the jsonb form keeps them raw
+                        payload = cluster_wire.encode_cache_partial(
+                            api.cache_partial(body, token=self._token(body)),
+                            shard_id=api.shard_id)
+                    if payload is not None:
                         self.send_response(200)
                         self.send_header("Content-Type",
                                          "application/octet-stream")
@@ -1534,6 +1778,8 @@ class QuerierHTTP:
                         self._send(404, {"error": f"no route {self.path}"})
                     else:
                         self._send(200, fn(body))
+                except AuthError as e:
+                    self._send(403, {"error": str(e)})
                 except (QueryError, S.SqlError, KeyError, ValueError) as e:
                     # json.JSONDecodeError is a ValueError
                     self._send(400, {"error": str(e)})
@@ -1552,3 +1798,10 @@ class QuerierHTTP:
             self._httpd.shutdown()
             self._httpd.server_close()
             self._httpd = None
+            # a stopped server answers nothing more: end the kept-alive
+            # connections its handlers still wait on
+            for c in list(self._conns):
+                try:
+                    c.shutdown(socket.SHUT_RDWR)
+                except OSError:
+                    pass

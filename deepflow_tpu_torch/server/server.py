@@ -32,8 +32,28 @@ every ``compact_interval_s``; the janitor evicts segments past the TTLs
 and ``storage_max_bytes``. A restart recovers the tier and seeds the
 receiver's ack tracker and the dedup floors from the persisted floors,
 so the retransmit of a frame committed but not acked is a dup.
-``/v1/health`` carries the ``storage`` block. The reference's querier
-role, object store and scrubber are not ported.
+``/v1/health`` carries the ``storage`` block. A ``Scrubber``
+(``store/scrub.py``) verifies the sealed segments' block checksums every
+``scrub_interval_s`` at a byte-budgeted pace, quarantines a corrupt one
+(its rows leave the answers, which say ``degraded``) and repairs it from
+its published blob.
+
+With ``objstore`` (a shared directory) an ingest server with storage
+publishes its sealed segments and dictionary dumps there every
+``publish_interval_s`` (``store/objstore.py``: a no-op tick when
+nothing sealed, a final publish at stop). A ``role="querier"`` server is
+a stateless read replica: no receiver, decoders, flusher, controller or
+local storage; it adopts the published segments every
+``readtier_poll_s`` into a byte-budgeted local segment cache
+(``segcache_max_bytes`` under ``<data_dir>/segcache``, which it wipes at
+start; ``store/segcache.py``), scrubs its cached copies, and, in a
+cluster, answers every query surface with the ingest shards' live rows
+(the publish-gen handshake) and shares warm bucket slices with the other
+replicas (``cluster/partialcache.py``). Queriers stay out of the ingest
+ring and the rollups. ``role="querier"`` without ``objstore`` fails the
+start. With self-telemetry on, the server writes its own hop ledgers and
+heartbeats (``Telemetry.stats_metrics``) into
+``deepflow_system.deepflow_system`` every ``selfstats_interval_s``.
 
 Every flow and metric row names its processes and its resources: the
 flow decoders join each side against the controller's gpid table (the
@@ -83,9 +103,13 @@ cluster flag with a bad value fails the start.
         [--query-port Q] [--sync-port S] [--no-controller]
         [--ha-lease FILE | --ha-k8s-lease NAME]
         [--data-dir DIR [--storage] [--flush-interval-s S]
-         [--compact-interval-s S] [--storage-max-mb MB]]
+         [--compact-interval-s S] [--storage-max-mb MB]
+         [--scrub-interval-s S]]
         [--shard-id N [--cluster-seed H:Q | --advertise H:Q]
          [--fanout-timeout-s S] [--replication R]]
+        [--role {ingest,querier}] [--objstore DIR
+         [--objstore-mirror DIR ...] [--publish-interval-s S]
+         [--segcache-max-mb MB] [--readtier-poll-s S]]
 
 Once it listens it prints one JSON line with the bound ports, so that a
 parent process that asked for port 0 can find them. SIGTERM or SIGINT
@@ -140,14 +164,51 @@ class Server:
                  cluster_seed: str | None = None,
                  cluster_advertise: str | None = None,
                  fanout_timeout_s: float = 5.0,
-                 replication: int = 0) -> None:
+                 replication: int = 0,
+                 scrub_interval_s: float = 30.0,
+                 role: str = "ingest",
+                 objstore: str | None = None,
+                 objstore_mirrors: list[str] | None = None,
+                 segcache_max_bytes: int = 256 << 20,
+                 publish_interval_s: float = 2.0,
+                 readtier_poll_s: float = 2.0,
+                 selfstats_interval_s: float = 10.0,
+                 api_token: str | None = None) -> None:
+        # the read tier: an ingest server with an object store publishes
+        # its sealed segments; a querier is a stateless read replica
+        if role not in ("ingest", "querier"):
+            raise ValueError(f"role must be ingest or querier, got {role!r}")
+        if role == "querier" and not objstore:
+            raise ValueError("role=querier requires an --objstore path")
+        self.role = role
+        self.objstore_path = objstore
+        # read-only alternate roots: fetches fail over to them when the
+        # primary copy is missing or fails its checksums
+        self.objstore_mirrors = list(objstore_mirrors or [])
+        self.segcache_max_bytes = max(1 << 20, int(segcache_max_bytes))
+        self.publish_interval_s = publish_interval_s
+        self.readtier_poll_s = readtier_poll_s
+        self.scrub_interval_s = scrub_interval_s
+        self.objstore = None
+        self.publisher = None
+        self.segcache = None
+        self.readtier = None
+        self.partial_cache = None
+        self.scrubber = None
+        self._loops: list[tuple[threading.Event, threading.Thread]] = []
+        self._selfstats_interval_s = selfstats_interval_s
+        # a querier's data_dir only roots its segment cache
+        self._cache_root = data_dir if role == "querier" else None
+        if role == "querier":
+            data_dir, storage = None, False
         # cluster federation: this node's shard identity and how to find
         # the others; a seed (or an advertise address, even an empty
         # one) turns it on, and a lone seed is a working 1-node cluster
         self._cluster_on = (cluster_seed is not None
                             or cluster_advertise is not None)
         _check_cluster_args(self._cluster_on, shard_id, cluster_seed,
-                            cluster_advertise, fanout_timeout_s, replication)
+                            cluster_advertise, fanout_timeout_s, replication,
+                            querier=role == "querier")
         self.shard_id = shard_id
         self.cluster_seed = cluster_seed
         self.cluster_advertise = cluster_advertise
@@ -179,7 +240,8 @@ class Server:
                                       port=sync_port,
                                       pod_index=self.pod_index,
                                       ring_provider=self._current_ring)
-                           if enable_controller else None)
+                           if enable_controller and role == "ingest"
+                           else None)
         self.ha_lease_path = ha_lease_path
         self.ha_k8s_lease = ha_k8s_lease
         self.election = None
@@ -202,7 +264,8 @@ class Server:
                               telemetry=self.telemetry, rollup=self.rollup,
                               trace_trees=self.trace_trees,
                               controller=self.controller,
-                              storage_provider=self._storage_stats)
+                              storage_provider=self._storage_stats,
+                              api_token=api_token)
         self.http = QuerierHTTP(self.api, host=host, port=query_port)
 
     def start_genesis(self, api_base: str | None = None, token: str = "",
@@ -241,6 +304,8 @@ class Server:
                         if self.flusher is not None else None),
             "compactor": (dict(self.compactor.stats)
                           if self.compactor is not None else None),
+            "scrubber": (dict(self.scrubber.stats)
+                         if self.scrubber is not None else None),
             "genesis": (dict(self.genesis.stats)
                         if self.genesis is not None else None),
         }
@@ -255,10 +320,56 @@ class Server:
         if self.flusher is not None:
             snap["flush_consec_errors"] = self.flusher.consec_errors
             snap["commit_ms"] = self.flusher.commit_ms_quantiles()
+        if self.scrubber is not None:
+            snap["scrub"] = self.scrubber.snapshot()
         snap["rollup_horizons"] = {
             f"{fam}.{sfx}": wm
             for (fam, sfx), wm in self.rollup.horizons().items()}
         return snap
+
+    def _write_selfstats(self) -> None:
+        """The server's own hop ledgers and heartbeats as
+        ``deepflow_system.deepflow_system`` rows (the server has no agent
+        in front of it, so it writes them itself)."""
+        tags = self.platform.tags_for(0)
+        now = time.time_ns()
+        rows = []
+        for name, mtags, values in self.telemetry.stats_metrics():
+            tag_json = json.dumps(mtags, sort_keys=True)
+            for vname, v in values.items():
+                rows.append({"time": now, "metric_name": name,
+                             "tag_json": tag_json, "value_name": vname,
+                             "value": v, **tags})
+        if rows:
+            self.db.table("deepflow_system.deepflow_system") \
+                .append_rows(rows)
+
+    def _start_loop(self, name: str, interval_s: float, tick,
+                    beat: bool = False) -> None:
+        """A daemon thread calling ``tick`` every ``interval_s`` (a
+        failed tick is logged; the next one retries), with ``beat`` a
+        heartbeat of its own; ``stop()`` ends it."""
+        stop = threading.Event()
+        hb = (self.telemetry.heartbeat(name, interval_hint_s=interval_s)
+              if beat else None)
+
+        def run() -> None:
+            while not stop.wait(interval_s):
+                if hb is not None:
+                    hb.beat()
+                try:
+                    tick()
+                except Exception:
+                    log.exception("%s failed", name)
+        t = threading.Thread(target=run, name=f"df-{name}", daemon=True)
+        t.start()
+        self._loops.append((stop, t))
+
+    def _stop_loops(self) -> None:
+        for stop, t in self._loops:
+            stop.set()
+            t.join(timeout=2.0)
+        self._loops = []
 
     def _ack_state_path(self) -> str | None:
         return (os.path.join(self.db.data_dir, "ack_state.json")
@@ -322,10 +433,47 @@ class Server:
                 on_deposed=self._stop_singletons)
         if self.db.data_dir:
             self.db.load()  # resume the saved tables, adopt the tier
+        # storage-scope chaos (DF_CHAOS tier_enospc / objstore_eio) hooks
+        # into the tier commit and the blob publish
+        chaos = chaos_from_env()
+        if self.objstore_path is not None:
+            from deepflow_tpu_torch.store.objstore import ObjStore
+            self.objstore = ObjStore(self.objstore_path,
+                                     mirrors=self.objstore_mirrors)
+            self.objstore.chaos = chaos
+        if self.role == "querier":
+            self._start_readtier()
+        else:
+            self._start_ingest(chaos)
+        self.trace_trees.start()
+        self.deadman.start()
+        if self.role == "ingest":
+            self.receiver.start()
+        self.http.start()
+        if self._cluster_on:
+            self._start_cluster()
+        if self.telemetry.enabled:
+            self._start_loop("selfstats", self._selfstats_interval_s,
+                             self._write_selfstats, beat=True)
+        if self.election is not None:
+            self.election.start()
+        else:
+            self._start_singletons()
+        if os.environ.get("KUBERNETES_SERVICE_HOST"):
+            self.start_genesis()  # in a cluster: watch it
+        log.info("server up: role %s ingest :%d query :%d%s", self.role,
+                 self.ingest_port if self.role == "ingest" else 0,
+                 self.query_port,
+                 f" sync :{self.sync_port}" if self.controller else "")
+        return self
+
+    def _start_ingest(self, chaos) -> None:
+        """The write path: decoders, the flusher, compactor and
+        scrubber with storage, and the publisher with an object store."""
         floors = self._load_ack_state()
         parked: dict[int, list[int]] = {}
         if self.db.tier_store is not None:
-            self.db.tier_store.chaos = chaos_from_env()
+            self.db.tier_store.chaos = chaos
             if self.db.tier_store.stats.get("manifest_corrupt"):
                 # recovery met an unreadable MANIFEST.json and scavenged
                 # the segment files instead
@@ -385,22 +533,59 @@ class Server:
                 self.compactor = Compactor(
                     self.db, interval_s=self.compact_interval_s,
                     telemetry=self.telemetry).start()
-        self.trace_trees.start()
-        self.deadman.start()
-        self.receiver.start()
-        self.http.start()
-        if self._cluster_on:
-            self._start_cluster()
-        if self.election is not None:
-            self.election.start()
-        else:
-            self._start_singletons()
-        if os.environ.get("KUBERNETES_SERVICE_HOST"):
-            self.start_genesis()  # in a cluster: watch it
-        log.info("server up: ingest :%d query :%d%s", self.ingest_port,
-                 self.query_port,
-                 f" sync :{self.sync_port}" if self.controller else "")
-        return self
+            if self.scrub_interval_s > 0:
+                from deepflow_tpu_torch.store.scrub import Scrubber
+                self.scrubber = Scrubber(
+                    self.db, objstore=self.objstore,
+                    shard_id=self.shard_id,
+                    interval_s=self.scrub_interval_s,
+                    telemetry=self.telemetry).start()
+                self.api.scrubber = self.scrubber
+            if self.objstore is not None:
+                # publish the sealed state to the shared store, so that
+                # stateless querier replicas can adopt it
+                from deepflow_tpu_torch.store.objstore import \
+                    SegmentPublisher
+                self.publisher = SegmentPublisher(self.objstore,
+                                                  self.shard_id)
+                self.api.publisher = self.publisher
+                self._start_loop(
+                    "publish", self.publish_interval_s,
+                    lambda: self.publisher.maybe_publish(self.db.tier_store))
+
+    def _start_readtier(self) -> None:
+        """The querier role: no receiver, decoders or flusher. The node
+        adopts published segments from the object store into a
+        byte-budgeted local cache and serves sealed history over them."""
+        import tempfile
+        from deepflow_tpu_torch.store.segcache import ReadTier, SegmentCache
+        # a subdirectory, never data_dir itself: the cache wipes its root
+        # at start, and a --data-dir naming an existing tier (an ingest
+        # node's) must survive a querier started on it by mistake
+        root = (os.path.join(self._cache_root, "segcache")
+                if self._cache_root
+                else tempfile.mkdtemp(prefix="df-segcache-"))
+        self.segcache = SegmentCache(
+            root, self.objstore, max_bytes=self.segcache_max_bytes,
+            telemetry=self.telemetry)
+        self.readtier = ReadTier(self.db, self.objstore, self.segcache,
+                                 shard_id=self.shard_id)
+        self.api.readtier = self.readtier
+        if self.scrub_interval_s > 0:
+            # a querier scrubs its CACHED copies: a corrupt one is
+            # discarded and fetched again on the next pin
+            from deepflow_tpu_torch.store.scrub import Scrubber
+            self.scrubber = Scrubber(
+                self.db, segcache=self.segcache, shard_id=self.shard_id,
+                interval_s=self.scrub_interval_s,
+                telemetry=self.telemetry).start()
+            self.api.scrubber = self.scrubber
+        try:
+            self.readtier.poll()  # the first adoption before serving
+        except Exception:
+            log.exception("initial read-tier poll failed")
+        self._start_loop("readtier", self.readtier_poll_s,
+                         self.readtier.poll)
 
     def _start_cluster(self) -> None:
         """Membership, the fan-out client and the coordinator; the ring
@@ -412,12 +597,13 @@ class Server:
         from deepflow_tpu_torch.cluster.remote import FanOut
         adv = self.cluster_advertise or f"127.0.0.1:{self.http.port}"
         self.membership = ClusterMembership(
-            self.shard_id, adv, seed=self.cluster_seed,
+            self.shard_id, adv, seed=self.cluster_seed, role=self.role,
             telemetry=self.telemetry)
-        # agents ship to the RECEIVER port: peers gossip it so the ring
-        # can hand agent-facing ingest addresses around
-        self.membership.ingest_addr = (
-            f"{adv.rsplit(':', 1)[0]}:{self.receiver.port}")
+        if self.role == "ingest":
+            # agents ship to the RECEIVER port: peers gossip it so the
+            # ring can hand agent-facing ingest addresses around
+            self.membership.ingest_addr = (
+                f"{adv.rsplit(':', 1)[0]}:{self.receiver.port}")
         self.membership.start()
         self.fanout = FanOut(telemetry=self.telemetry,
                              timeout_s=self._fanout_timeout_s)
@@ -425,7 +611,21 @@ class Server:
             self.db, self.membership, self.fanout, shard_id=self.shard_id)
         self.api.membership = self.membership
         self.api.federation = self.federation
-        if self.replication > 0:
+        if self.readtier is not None:
+            # a read-tier coordinator: freeze the adopted snapshot across
+            # the scatter, send the publish-gen handshake, and join the
+            # cluster-wide partial cache
+            from deepflow_tpu_torch.cluster.partialcache import PartialCache
+            self.federation.readtier = self.readtier
+            self.federation.query_cache = self.api.query_cache
+            self.partial_cache = PartialCache(
+                self.api.query_cache, self.membership,
+                self.federation.dict_sync, self.db,
+                shard_id=self.shard_id, telemetry=self.telemetry,
+                api_token=self.api.api_token or None)
+            self.partial_cache.readtier = self.readtier
+            self.api.partial_cache = self.partial_cache
+        if self.replication > 0 and self.role == "ingest":
             self._ring_tick()  # a seed (or leader) holds its ring at once
             self._ring_stop.clear()
             self._ring_thread = threading.Thread(
@@ -496,7 +696,8 @@ class Server:
 
     def _start_singletons(self) -> None:
         """The leader's components (each a no-op when running)."""
-        self.rollup.start()
+        if self.role == "ingest":
+            self.rollup.start()
         self.janitor.start()
         if self.controller is not None and not self.controller.running():
             self.controller.start()
@@ -508,6 +709,7 @@ class Server:
             self.controller.stop()
 
     def stop(self) -> None:
+        self._stop_loops()
         if self.election is not None:
             self.election.stop()  # its resign stops the singletons
             self.election = None
@@ -529,6 +731,10 @@ class Server:
         for d in self.decoders:
             d.stop()
         self.trace_trees.stop()  # writes the traces still pending
+        if self.scrubber is not None:
+            # before the final flush: a quarantine renames the manifest
+            self.scrubber.stop()
+            self.scrubber = None
         if self.compactor is not None:
             # before the final flush: both rename the manifest
             self.compactor.stop()
@@ -538,6 +744,13 @@ class Server:
             # wrote and parked, and releases the last gated seqs
             self.flusher.stop()
             self.flusher = None
+        if self.publisher is not None:
+            # after the final flush: publish what it sealed, so the
+            # queriers hold the whole history across a clean restart
+            try:
+                self.publisher.maybe_publish(self.db.tier_store)
+            except Exception:
+                log.exception("final segment publish failed")
         # after the drain: every acked frame is in a table now
         self._save_ack_state()
         self._stop_singletons()
@@ -570,8 +783,11 @@ class Server:
 
 
 def _check_cluster_args(on: bool, shard_id, seed, advertise,
-                        fanout_timeout_s, replication) -> None:
-    """A cluster flag with a bad value fails the start (ValueError)."""
+                        fanout_timeout_s, replication,
+                        querier: bool = False) -> None:
+    """A cluster flag with a bad value fails the start (ValueError). A
+    standalone querier may carry a shard id (its read tier skips its own
+    pointer)."""
     if isinstance(shard_id, bool) or not isinstance(shard_id, int) \
             or not 0 <= shard_id <= 0xFFFF:
         raise ValueError(f"shard id must be an int in 0..65535 (the "
@@ -584,7 +800,7 @@ def _check_cluster_args(on: bool, shard_id, seed, advertise,
         raise ValueError(f"fanout timeout must be > 0 s, "
                          f"got {fanout_timeout_s!r}")
     if not on:
-        if shard_id or replication:
+        if (shard_id and not querier) or replication:
             raise ValueError("a shard id or replication needs a cluster: "
                              "give --cluster-seed, or --advertise on the "
                              "seed")
@@ -656,6 +872,35 @@ def main(argv: list[str] | None = None, on_start=None) -> None:
                              "frames (0 = off): each agent ships to R "
                              "ring owners; queries stay exact through "
                              "R-1 simultaneous shard failures")
+    parser.add_argument("--scrub-interval-s", type=float, default=30.0,
+                        help="background integrity-scrub cadence "
+                             "(storage and querier modes): verify segment "
+                             "block checksums, quarantine and repair "
+                             "corrupt segments; 0 disables")
+    parser.add_argument("--role", default="ingest",
+                        choices=("ingest", "querier"),
+                        help="ingest: the full write path (receiver, "
+                             "decoders, flusher); querier: a stateless "
+                             "read replica serving sealed history fetched "
+                             "on demand from --objstore")
+    parser.add_argument("--objstore", default=None,
+                        help="shared object-store directory: ingest nodes "
+                             "publish sealed segments and manifest "
+                             "pointers there, queriers adopt them "
+                             "(required for --role querier)")
+    parser.add_argument("--objstore-mirror", action="append",
+                        default=None, metavar="DIR",
+                        help="read-only alternate object-store root "
+                             "(repeatable): fetches fail over to it when "
+                             "the primary copy is missing or corrupt")
+    parser.add_argument("--segcache-max-mb", type=int, default=256,
+                        help="querier segment-cache byte budget; least "
+                             "recently used segments past it are evicted "
+                             "(fetched again on demand)")
+    parser.add_argument("--publish-interval-s", type=float, default=2.0,
+                        help="ingest publish cadence to --objstore")
+    parser.add_argument("--readtier-poll-s", type=float, default=2.0,
+                        help="querier manifest-pointer poll cadence")
     args = parser.parse_args(argv)
     logging.basicConfig(
         level=logging.INFO,
@@ -665,7 +910,8 @@ def main(argv: list[str] | None = None, on_start=None) -> None:
         signal.signal(sig, lambda *_: stop.set())
     server = Server(host=args.host, ingest_port=args.ingest_port,
                     query_port=args.query_port, sync_port=args.sync_port,
-                    enable_controller=not args.no_controller,
+                    enable_controller=(not args.no_controller
+                                       and args.role == "ingest"),
                     ha_lease_path=args.ha_lease,
                     ha_k8s_lease=args.ha_k8s_lease,
                     data_dir=args.data_dir, storage=args.storage,
@@ -676,7 +922,13 @@ def main(argv: list[str] | None = None, on_start=None) -> None:
                     cluster_seed=args.cluster_seed,
                     cluster_advertise=args.advertise,
                     fanout_timeout_s=args.fanout_timeout_s,
-                    replication=args.replication).start()
+                    replication=args.replication,
+                    scrub_interval_s=args.scrub_interval_s,
+                    role=args.role, objstore=args.objstore,
+                    objstore_mirrors=args.objstore_mirror,
+                    segcache_max_bytes=args.segcache_max_mb << 20,
+                    publish_interval_s=args.publish_interval_s,
+                    readtier_poll_s=args.readtier_poll_s).start()
     try:
         print(json.dumps({"ingest_port": server.ingest_port,
                           "query_port": server.query_port,

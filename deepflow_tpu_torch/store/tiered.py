@@ -6,9 +6,8 @@ unlisted segments deleted, an unreadable manifest scavenged and
 counted), compaction into sorted v2 runs (``DF_COMPACT_CRASH``), TTL and
 size eviction, ``persist_ack_floors``, ``migrate_v1_remaining``,
 ``snapshot`` and the quarantine bookkeeping. It writes the reference's
-manifest, so either package recovers the other's directory. Left out:
-nothing of the module; the scrubber and the object store that call the
-quarantine half are not ported yet.
+manifest, so either package recovers the other's directory. Nothing is
+left out; the scrubber (``store/scrub.py``) drives the quarantine half.
 
 One TieredStore per Database owns a directory of per-table segment
 files plus ONE manifest — the single atomic commit point (tmp + fsync +

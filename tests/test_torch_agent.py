@@ -175,7 +175,8 @@ def test_validate_ranges_equal_reference(sub, name, values):
 
 @pytest.fixture
 def server():
-    s = Server(ingest_port=0, query_port=0).start()
+    s = Server(ingest_port=0, query_port=0,
+               selfstats_interval_s=3600).start()
     yield s
     s.stop()
 
@@ -275,7 +276,8 @@ def test_agent_carries_the_probe_contract(server):
         agent.stop()
     sink = FrameSink(process_name="trainer")
     _feed_probe(sink)
-    other = Server(ingest_port=0, query_port=0).start()
+    other = Server(ingest_port=0, query_port=0,
+                   selfstats_interval_s=3600).start()
     try:
         import socket
         with socket.create_connection(("127.0.0.1", other.ingest_port),

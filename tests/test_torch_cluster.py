@@ -499,7 +499,7 @@ def clusters():
 
     def start(cls, **kw):
         s = cls(host="127.0.0.1", ingest_port=0, query_port=0,
-                sync_port=0, **kw).start()
+                sync_port=0, selfstats_interval_s=3600, **kw).start()
         started.append(s)
         return s
 

@@ -264,7 +264,8 @@ def test_port_server_multihost_merge():
     hosts = {0: "node-0", 1: "node-0", 2: "node-1", 3: "node-1"}
     ref_by_host = _ref_spans(kw, devices={"node-0": [0, 1],
                                           "node-1": [2, 3]})
-    port = Server(ingest_port=0, query_port=0).start()
+    port = Server(ingest_port=0, query_port=0,
+                  selfstats_interval_s=3600).start()
     ref = RefServer(host="127.0.0.1", ingest_port=0, query_port=0,
                     selfstats_interval_s=3600).start()
     try:
@@ -346,7 +347,8 @@ def test_step_health_names_the_straggler_rank():
     step health does on the same rows."""
     kw = dict(n_ranks=4, n_buckets=2, n_steps=3, straggler=2)
     by_rank = _port_spans(kineto_synth.synth_dp_ranks(**kw))
-    port = Server(ingest_port=0, query_port=0).start()
+    port = Server(ingest_port=0, query_port=0,
+                  selfstats_interval_s=3600).start()
     try:
         for r, spans in by_rank.items():
             records = []
@@ -453,7 +455,8 @@ def test_two_ranks_agents_land_every_row_once(monkeypatch):
     """Both ranks' agents at agent_id 0 share one dedup floor: the rank
     that ships second loses its frames as duplicates. Under the
     launcher's ids every row of both lands exactly once."""
-    lost = Server(ingest_port=0, query_port=0).start()
+    lost = Server(ingest_port=0, query_port=0,
+                  selfstats_interval_s=3600).start()
     try:
         sent = _two_ranks_ship(lost, monkeypatch, (0, 0))
         time.sleep(0.5)
@@ -461,7 +464,8 @@ def test_two_ranks_agents_land_every_row_once(monkeypatch):
         assert lost.dedup.stats["dups"] >= 5
     finally:
         lost.stop()
-    srv = Server(ingest_port=0, query_port=0).start()
+    srv = Server(ingest_port=0, query_port=0,
+                 selfstats_interval_s=3600).start()
     try:
         sent = _two_ranks_ship(srv, monkeypatch, (None, None))
         total = sent[0] + sent[1]

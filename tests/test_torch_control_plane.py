@@ -388,6 +388,7 @@ def test_config_store_listeners_and_epoch():
 @pytest.fixture
 def server():
     s = Server(ingest_port=0, query_port=0, sync_port=0,
+               selfstats_interval_s=3600,
                enable_controller=True).start()
     yield s
     s.stop()
@@ -706,6 +707,7 @@ def server_pair():
     ref = RefServer(host="127.0.0.1", ingest_port=0, query_port=0,
                     sync_port=0, enable_controller=True).start()
     port = Server(ingest_port=0, query_port=0, sync_port=0,
+                  selfstats_interval_s=3600,
                   enable_controller=True).start()
     yield ref, port
     ref.stop()
@@ -834,6 +836,7 @@ def test_two_jobs_rank0_agents_lose_no_frame_with_a_controller(
     monkeypatch.setenv("WORLD_SIZE", "2")
     monkeypatch.setenv("RANK", "0")
     server = Server(ingest_port=0, query_port=0, sync_port=0,
+                    selfstats_interval_s=3600,
                     enable_controller=controller).start()
     agents = []
     try:

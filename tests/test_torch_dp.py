@@ -166,7 +166,8 @@ def test_example_under_torchrun_ships_per_rank(tmp_path):
     ships under its own id into one port server with no duplicate."""
     from deepflow_tpu_torch.server import Server
 
-    server = Server(ingest_port=0, query_port=0).start()
+    server = Server(ingest_port=0, query_port=0,
+                    selfstats_interval_s=3600).start()
     try:
         cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
                "--nproc-per-node", "2", "-m", "deepflow_tpu_torch.cli.runner",

@@ -244,7 +244,8 @@ def test_example_under_torchrun_with_a_mesh_ships_per_rank(tmp_path):
     from deepflow_tpu_torch.server import Server
 
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-    server = Server(ingest_port=0, query_port=0).start()
+    server = Server(ingest_port=0, query_port=0,
+                    selfstats_interval_s=3600).start()
     try:
         cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
                "--nproc-per-node", "4", "-m", "deepflow_tpu_torch.cli.runner",

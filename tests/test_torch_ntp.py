@@ -135,6 +135,7 @@ def test_ntp_rpc_and_sync_report():
     """An agent on the port's transport measures a small offset and a
     positive RTT, and the registry shows clock_offset_ms."""
     server = Server(ingest_port=0, query_port=0, sync_port=0,
+                    selfstats_interval_s=3600,
                     enable_controller=True).start()
     agent = None
     try:
@@ -236,6 +237,7 @@ def test_reported_offset_shifts_rows_at_ingest():
     """An agent that reports a 3 s offset to the port server's controller
     has its rows moved 3 s at ingest; another agent's are not."""
     server = Server(ingest_port=0, query_port=0, sync_port=0,
+                    selfstats_interval_s=3600,
                     enable_controller=True).start()
     client = SyncClient(f"127.0.0.1:{server.sync_port}")
     senders = []
@@ -276,6 +278,7 @@ def test_synchronizer_sends_no_offset_before_measuring(monkeypatch):
     """Until an exchange has measured it, a Sync carries no offset (a
     restarted agent must not clear the controller's stored skew)."""
     server = Server(ingest_port=0, query_port=0, sync_port=0,
+                    selfstats_interval_s=3600,
                     enable_controller=True).start()
     try:
         server.platform.set_clock_offset(1, 7_000_000_000)

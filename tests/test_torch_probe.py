@@ -489,8 +489,9 @@ def _port_files():
         "chip_smoke.py", "probe_stall.py", "chip_phases.py",
         "nccl_explore.py", "capture_tail.py", "chip_parallel.py",
         "chip_flows.py", "chip_control.py", "chip_storage.py",
-        "chip_enrich.py", "chip_cluster.py", "kineto_loss.py",
-        "query_refill.py", "flow_probe.py")]
+        "chip_enrich.py", "chip_cluster.py", "chip_readtier.py",
+        "readtier_storm.py", "kineto_loss.py", "query_refill.py",
+        "flow_probe.py")]
     for d, _, names in os.walk(os.path.join(ROOT, "deepflow_tpu_torch")):
         files += [os.path.join(d, n) for n in names if n.endswith(".py")]
     return files
@@ -527,7 +528,9 @@ def test_port_imports_no_jax_and_no_reference():
                 "agent/config.py", "proto/wire.py", "cluster/__init__.py",
                 "cluster/wire.py", "cluster/membership.py",
                 "cluster/remote.py", "cluster/hashring.py",
-                "cluster/dictsync.py", "cluster/federation.py"):
+                "cluster/dictsync.py", "cluster/federation.py",
+                "store/objstore.py", "store/scrub.py", "store/segcache.py",
+                "cluster/partialcache.py"):
         assert os.path.join(ROOT, "deepflow_tpu_torch", mod) in files, mod
     for path in files:
         with open(path) as f:
@@ -595,7 +598,12 @@ def test_port_import_leaves_jax_unloaded():
     "deepflow_tpu_torch.cluster.membership",
     "deepflow_tpu_torch.cluster.remote", "deepflow_tpu_torch.cluster.hashring",
     "deepflow_tpu_torch.cluster.dictsync",
-    "deepflow_tpu_torch.cluster.federation"])
+    "deepflow_tpu_torch.cluster.federation",
+    # the read tier: the object store, the scrubber, the segment cache
+    # and the cluster-wide partial cache
+    "deepflow_tpu_torch.store.objstore", "deepflow_tpu_torch.store.scrub",
+    "deepflow_tpu_torch.store.segcache",
+    "deepflow_tpu_torch.cluster.partialcache"])
 def test_server_and_dfctl_import_leaves_torch_unloaded(module):
     """The server, dfctl and the flow path touch no device, so importing
     them in a fresh interpreter loads no torch; the package still gives

@@ -276,7 +276,8 @@ def test_querier_routes_answer_as_the_engine(dbs):
     over the same rows."""
     from deepflow_tpu_torch.server import Server
     net, app, sysrows = _rows(0)
-    server = Server(ingest_port=0, query_port=0).start()
+    server = Server(ingest_port=0, query_port=0,
+                    selfstats_interval_s=3600).start()
     try:
         server.db.table("flow_metrics.network.1s").append_rows(net)
         server.db.table("flow_metrics.application.1s").append_rows(app)

@@ -268,7 +268,8 @@ def test_assign_analyzers_gives_the_ring_order():
 
 def _server(**kw):
     from deepflow_tpu_torch.server.server import Server
-    return Server(host="127.0.0.1", ingest_port=0, query_port=0, **kw).start()
+    return Server(host="127.0.0.1", ingest_port=0, query_port=0,
+                  selfstats_interval_s=3600, **kw).start()
 
 
 def _steps(srv) -> list[int]:

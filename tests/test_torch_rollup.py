@@ -232,3 +232,37 @@ def test_querier_answers_from_the_tier_and_explains_it(rolled):
             "datasource"]
         assert ex["explain"]["plan"]["table"] == \
             "flow_metrics.application.1h"
+
+
+def test_rollup_slivers_fold_into_runs_with_storage(tmp_path):
+    """With storage on, each roll that wrote rows compacts the rollup
+    tables' tier: the 1m slivers flushed after earlier rolls fold into a
+    sorted run, as the reference's do (``stats["compact_runs"]``), and
+    the 1m answers equal a store's without a tier."""
+    sql = ("SELECT host, server_port, Sum(byte_tx) AS b, Count() AS n "
+           "FROM t GROUP BY host, server_port ORDER BY host, server_port")
+    out = []
+    for Db, Job, run in ((RefDatabase, RefRollupJob, ref_engine.execute),
+                         (Database, RollupJob, engine.execute)):
+        db = Db(data_dir=str(tmp_path / Db.__module__), storage=True)
+        job = Job(db)
+        segs = []
+        for h in range(3):
+            lo, hi = T0 + h * 3600, T0 + (h + 1) * 3600
+            _fill((db,), lo, hi, seed=10 + h)
+            job.roll(hi + 600)
+            db.flush_to_tier()
+            segs.append(db.table("flow_metrics.network.1m").tier
+                        .segment_count())
+        got = run(db.table("flow_metrics.network.1m"), sql).values
+        out.append((job.stats["compact_runs"], segs, got))
+    plain = Database()
+    plain_job = RollupJob(plain)
+    for h in range(3):
+        _fill((plain,), T0 + h * 3600, T0 + (h + 1) * 3600, seed=10 + h)
+        plain_job.roll(T0 + (h + 1) * 3600 + 600)
+    want = engine.execute(plain.table("flow_metrics.network.1m"), sql)
+    assert out[1] == out[0]
+    runs, segs, got = out[1]
+    assert runs >= 1 and segs[1] == 2 and segs[2] < 3
+    assert got == want.values and got

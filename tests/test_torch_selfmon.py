@@ -300,7 +300,8 @@ def test_agent_dfstats_in_both_servers_equal_selfmon():
     agent, frame = _stats_frame()
     ref = RefServer(host="127.0.0.1", ingest_port=0, query_port=0,
                     selfstats_interval_s=3600).start()
-    port = Server(ingest_port=0, query_port=0).start()
+    port = Server(ingest_port=0, query_port=0,
+                  selfstats_interval_s=3600).start()
     try:
         table = "deepflow_system.deepflow_system"
         for srv in (ref, port):
@@ -453,3 +454,47 @@ def test_wedge_ships_at_once_and_clears(server):
         agent.stop()
     assert _wait(lambda: _get(server.query_port,
                               "/v1/health")["status"] == "ok")
+
+
+def test_server_selfstats_rows_equal_reference():
+    """Each server writes its own hop ledgers and heartbeats into
+    deepflow_system.deepflow_system: the same counters give rows of the
+    same names, tags and values in both packages, and the port's loop
+    writes them on its own every selfstats_interval_s."""
+    ref = RefServer(host="127.0.0.1", ingest_port=0, query_port=0,
+                    selfstats_interval_s=3600, selfmon=True).start()
+    port = Server(ingest_port=0, query_port=0, selfstats_interval_s=0.2,
+                  selfmon=True).start()
+    # the port's loop may write the same counters again: Max folds them
+    sql = ("SELECT metric_name, tag_json, value_name, Max(value) AS v "
+           "FROM deepflow_system WHERE metric_name = 'server.pipeline' "
+           "AND tag_json = '{\"hop\": \"storage.scrub\"}' "
+           "GROUP BY metric_name, tag_json, value_name ORDER BY value_name")
+    try:
+        table = "deepflow_system.deepflow_system"
+        assert _wait(lambda: len(port.db.table(table)) > 0)
+        for srv in (ref, port):
+            srv.telemetry.hop("storage.scrub").account(
+                emitted=5, delivered=4, dropped=1, reason="corrupt")
+            srv._write_selfstats()
+        got = _query(port.query_port, sql)
+        assert got and got == _query(ref.query_port, sql)
+        assert {r[2]: r[3] for r in got} == {
+            "delivered": 4.0, "dropped": 1.0, "emitted": 5.0,
+            "in_flight": 0.0, "wait_p99_ms": 0.0}
+        hb = _query(port.query_port,
+                    "SELECT tag_json FROM deepflow_system WHERE "
+                    "metric_name = 'server.heartbeat' AND "
+                    "value_name = 'beats'")
+        assert ['{"stage": "selfstats"}'] in hb
+    finally:
+        port.stop()
+        ref.stop()
+
+
+def _query(port: int, sql: str) -> list:
+    req = urllib.request.Request(
+        f"http://127.0.0.1:{port}/v1/query",
+        data=json.dumps({"sql": sql, "db": "deepflow_system"}).encode())
+    with urllib.request.urlopen(req, timeout=10) as resp:
+        return json.loads(resp.read())["result"]["values"]

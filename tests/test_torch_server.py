@@ -208,11 +208,12 @@ def _ingest(servers, frames, counts) -> None:
 
 
 def _start_pair(offset_ns=None):
-    # the reference server writes its own telemetry into deepflow_system
-    # every selfstats_interval_s: keep it out of the comparison
+    # both servers write their own telemetry into deepflow_system every
+    # selfstats_interval_s: keep it out of the comparison
     ref = RefServer(host="127.0.0.1", ingest_port=0, query_port=0,
                     selfstats_interval_s=3600).start()
-    port = Server(ingest_port=0, query_port=0).start()
+    port = Server(ingest_port=0, query_port=0,
+                  selfstats_interval_s=3600).start()
     # small chunks: the port's tables hold several sealed chunks each
     for name in port.db.tables():
         port.db.table(name).chunk_rows = 8

@@ -595,6 +595,21 @@ _conds = st.one_of(
 )
 
 
+@pytest.mark.parametrize("conds", [
+    ["time = 0", "time = 1000000", "time = 0"],
+    ["time >= 5000000000", "time < 1000000", "time <= 9000000000"],
+    ["time = 7000000", "time > 8000000", "time = 7000000",
+     "app_service = 'svc-1'"]])
+def test_a_range_emptied_by_one_conjunct_stays_empty(tiers, conds):
+    """Three conjuncts on one column whose first two leave no row: the
+    third must not bring rows back (the range fold kept the third's
+    interval over the empty one's), pruned or not."""
+    sql = ("SELECT Count() AS c, Sum(request_id) AS s FROM t WHERE "
+           + " AND ".join(conds))
+    assert engine.execute(tiers["port"], sql).values \
+        == ref_engine.execute(tiers["ref"], sql).values == []
+
+
 @settings(max_examples=120, deadline=None,
           suppress_health_check=[HealthCheck.function_scoped_fixture])
 @given(conds=st.lists(_conds, min_size=1, max_size=3))

@@ -230,7 +230,8 @@ def test_senders_cross_servers_same_rows_all_acked():
     payloads = _payloads(6)
     ref_srv = RefServer(host="127.0.0.1", ingest_port=0, query_port=0,
                         selfstats_interval_s=3600).start()
-    port_srv = Server(ingest_port=0, query_port=0).start()
+    port_srv = Server(ingest_port=0, query_port=0,
+                      selfstats_interval_s=3600).start()
     senders = []
     try:
         mine = UniformSender([("127.0.0.1", ref_srv.ingest_port)],
@@ -263,7 +264,8 @@ def test_senders_cross_servers_same_rows_all_acked():
 
 @pytest.fixture
 def server():
-    s = Server(ingest_port=0, query_port=0).start()
+    s = Server(ingest_port=0, query_port=0,
+               selfstats_interval_s=3600).start()
     yield s
     s.stop()
 
