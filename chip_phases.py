@@ -2,7 +2,7 @@
 """Run some of chip_smoke.py's phases alone, for a shorter call.
 
     python3 chip_phases.py resnet dp parallel mp flows control storage \
-        cluster readtier enrich
+        cluster readtier enrich integrations
 
 The device phase (the card's name and power limit) first, then each named
 phase (``resnet``: ResNet-50 trained with the probe in this process;
@@ -16,7 +16,11 @@ chip_storage.py, fed the span frames of phases 2-4, which run first;
 ``cluster``: three servers as one replicated cluster, chip_cluster.py,
 fed the same frames; ``readtier``: an ingest shard and four querier
 replicas over an object store, chip_readtier.py, fed the same frames;
-``enrich``: every flow row's process and pod, chip_enrich.py)
+``enrich``: every flow row's process and pod, chip_enrich.py;
+``integrations``: OTLP, remote-write, Telegraf, Datadog and SkyWalking in
+through the agent's proxy, the four exporters out and the file-I/O
+windows, chip_integrations.py, with phase 3's span frames replayed,
+which phases 2-4 make first)
 with the same checks as the smoke.
 The numbers land in results/chip_phases.json; a failed check raises.
 """
@@ -53,6 +57,8 @@ def main(names: list[str]) -> int:
               "flows": lambda res: cs.flows_phase(res),
               "control": lambda res: cs.control_phase(res),
               "enrich": lambda res: cs.enrich_phase(res),
+              "integrations": lambda res: cs.integrations_phase(
+                  sink().frames, res),
               "storage": lambda res: cs.storage_phase(sink(), res),
               "cluster": lambda res: cs.cluster_phase(sink(), res),
               "readtier": lambda res: cs.readtier_phase(sink(), res)}

@@ -33,7 +33,9 @@ Phases, each printing its own lines:
    sums and flame graph, the spans per run_id less its module span
    equal phase 4's kernels per step, SHOW TABLES lists the port's
    tables (the five above, deepflow_system.query_trace, the flow tables
-   with their rollups and trace trees, and event.event, as
+   with their rollups and trace trees, event.event and event.file_agg,
+   and the integrations' application_log.log, prometheus.samples,
+   prometheus.label_sets and ext_metrics.metrics, empty here, as
    the reference's server lists them), and org_id 1 keeps
    every row, 2
    none. Every query, the six profile
@@ -242,7 +244,7 @@ Phases, each printing its own lines:
    ack p99 with and without the storm, the flip-to-quarantine and
    flip-to-repair seconds, fsck's MB/s and each replica's RSS are
    printed.
-17. enrich (run last, chip_enrich.py): every flow row names its process
+17. enrich (run after phase 14, chip_enrich.py): every flow row names its process
    and its pod. (a) The port's server with its controller in this
    process, the node agent on lo with its socket scan every 2 s, a stdlib
    HTTP server child taking 500 requests, and phase 6's child training
@@ -260,10 +262,28 @@ Phases, each printing its own lines:
    dfctl: no row for the ignored port, captures holding exactly the pcap
    port's frames, VXLAN datagrams of the npb port's frames.
 
+19. integrations (run last, chip_integrations.py): telemetry in and out.
+   The server's entry point with its controller in a process of its own;
+   phase 3's span frames through the agent's sender with no exporter,
+   then with the four dfctl attaches (otlp-json, remote-write, kafka to
+   a stub broker, json-lines of event.event), then with a json-lines
+   exporter of the span tables too: acked rows/s each way. The node
+   agent captures lo; phase 6's child trains 60 steps under the runner
+   with -f, its config file turning on the integration proxy, while a
+   client process posts a seeded corpus (OTLP traces and logs, app logs,
+   remote-write, Telegraf, Datadog, SkyWalking, a folded profile) to the
+   proxy and this process sends file-I/O events. Every step row is one
+   step span at the OTLP sink, every 1 s flow-metric row reaches the
+   remote-write sink, the Kafka messages and json-lines lines equal their
+   tables' rows, the posted rows are held exactly, PromQL, Tempo and
+   DF-SQL answer them, event.file_agg holds the events' windows, and
+   every exporter's ledger balances through a 3 s outage of the OTLP
+   sink.
+
 The dp phase's ranks run with --controller too: their ids are the
 controller's, one a rank (not rank + 1), found by the rank in each agent's
 launcher identity. The runner's agents of phases 10, 14 and 16 run the
-socket scan (every 30 s, the reference's default) beside their sync. The servers of phases 5-8, 10, 12-16 run
+socket scan (every 30 s, the reference's default) beside their sync. The servers of phases 5-8, 10, 12-16 and 19 run
 the server's entry point (its main(),
 stopped by SIGTERM after its drain) in a process of their own
 (multiprocessing, spawn) that then hands the smoke their tables' rows.
@@ -828,8 +848,12 @@ def server_phase(sink, probe, seen) -> dict:
             # tiers and the trace trees the server derives from them
             "flow_log.l4_flow_log": 0, "flow_log.l7_flow_log": 0,
             "flow_log.trace_tree": 0,
-            # the resource recorder's events (no cluster here)
-            "event.event": 0,
+            # the resource recorder's events (no cluster here), the
+            # file-I/O windows and the integrations' tables (phase 19
+            # fills them)
+            "event.event": 0, "event.file_agg": 0,
+            "application_log.log": 0, "prometheus.samples": 0,
+            "prometheus.label_sets": 0, "ext_metrics.metrics": 0,
             **{f"flow_metrics.{fam}.{sfx}": 0
                for fam in ("application", "network")
                for sfx in ("1s", "1m", "1h", "1d")},
@@ -1040,9 +1064,8 @@ def _sql_checks(qport: int, seen: dict, want: dict) -> dict:
     """DF-SQL over POST /v1/query on phase 4's rows: the top kernels by
     device time equal phase 4's flame graph, the spans per run_id less
     its module spans equal phase 4's kernels per step, SHOW TABLES lists
-    the port's ten tables (the reference server's list cut to the
-    port's: the five of phase 4's rows, deepflow_system.query_trace and
-    the four flow tables), and org 1 scoping keeps every row, org 2 none.
+    the port's tables (the reference server's list cut to the port's:
+    those of ``want``), and org 1 scoping keeps every row, org 2 none.
     Returns each query's wall ms and its table's rows."""
     from deepflow_tpu_torch.store.schema import TPU_SPAN_KINDS
     kinds = ", ".join(f"'{k}'" for k in TPU_SPAN_KINDS
@@ -2681,6 +2704,17 @@ def enrich_phase(nums: dict) -> None:
     chip_enrich.enrich_phase(nums)
 
 
+def integrations_phase(frames: list, nums: dict,
+                       runner_median_ms: float | None = None) -> None:
+    """Phase 19 (chip_integrations.py): OTLP, remote-write, Telegraf,
+    Datadog and SkyWalking in through the agent's proxy, the four
+    exporters out, the event decoder's file-I/O windows; phase 3's span
+    frames replayed with and without exporters."""
+    import chip_integrations
+    chip_integrations.cs.CARD.update(CARD)
+    chip_integrations.integrations_phase(frames, nums, runner_median_ms)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2716,7 +2750,9 @@ def main() -> int:
         result["readtier"] = {}
         readtier_phase(sink, result["readtier"])
         gc.collect()
-        # the card's memory to the children
+        # the card's memory to the children; the span frames stay for
+        # the integrations phase's replays
+        span_frames = sink.frames
         del model, tokens, sink, probe, seen
         gc.collect()
         torch.cuda.empty_cache()
@@ -2741,6 +2777,9 @@ def main() -> int:
         control_phase(result["control"])
         result["enrich"] = {}
         enrich_phase(result["enrich"])
+        result["integrations"] = {}
+        integrations_phase(span_frames, result["integrations"],
+                           result["runner"].get("runner_step_ms_median"))
     finally:
         # every number so far, also when a check failed
         result["seconds"] = time.perf_counter() - t0

@@ -35,6 +35,13 @@ SOCK_RAW capture; an agent started without a dispatcher builds one when
 such ACLs are pushed (``ensure_packet_actions``), and the NPB target's
 port is excluded from capture as the sender's are.
 
+With ``integration.enabled`` the agent runs the node-local integration
+listener (``agent/integration_proxy.py``, port 38086 by default): the
+workload's sidecars post OTLP, remote-write, Telegraf, Datadog,
+SkyWalking, profiles and logs to ``localhost`` and it forwards them to
+the server's querier; its counters ride in ``agent.integration_proxy``
+rows, and a port it cannot bind fails the start.
+
 The agent runs beside a workload on the card: ``device`` defaults to
 "cuda" and a missing CUDA device is an error. With ``device="cpu"`` the
 device probe (its Kineto and memory sources read CUDA only) is left out
@@ -149,6 +156,7 @@ class Agent:
         self.tpuprobe = None
         self.dispatcher = None
         self.live_capture = None
+        self.integration_proxy = None
         # the probe's step hook is the agent's: installed with the first
         # probe, it counts on while the guard has the probe paused, so the
         # step numbers (the spans' run_id) of a resumed probe continue
@@ -319,6 +327,18 @@ class Agent:
                 raise
         elif has_packet_acls(self.config.acls):
             self.ensure_packet_actions()  # for pcap replay
+        if self.config.integration.enabled:
+            from deepflow_tpu_torch.agent.integration_proxy import \
+                IntegrationProxy
+            ic = self.config.integration
+            try:
+                self.integration_proxy = IntegrationProxy(
+                    ic.server_http, host=ic.host, port=ic.port).start()
+            except OSError:
+                self._abort_start()
+                raise
+            self._components.append(
+                f"integration-proxy (:{self.integration_proxy.port})")
         if self.config.guard.enabled:
             g = self.config.guard
             self.guard = Guard(
@@ -440,6 +460,8 @@ class Agent:
             self.live_capture.stop()
         if self.dispatcher is not None:
             self.dispatcher.stop()  # closes every flow and ships it
+        if self.integration_proxy is not None:
+            self.integration_proxy.stop()
         with self._profiler_lock:  # after a pause or resume in progress
             if self.sampler:
                 self.sampler.stop()
@@ -541,6 +563,8 @@ class Agent:
             if pa is not None:
                 metric("agent.packet_actions", pa.stats)
         metric("agent.labeler", self.labeler.stats)
+        if self.integration_proxy is not None:
+            metric("agent.integration_proxy", self.integration_proxy.stats)
         scanner = self.socket_scanner
         if scanner is not None:
             metric("agent.socket_scan", scanner.stats)
@@ -575,13 +599,16 @@ class _Attached:
 
 
 def attach(app_service: str = "", servers: list | None = None,
-           device: str | None = "cuda", **overrides) -> Agent:
+           device: str | None = "cuda", config: AgentConfig | None = None,
+           **overrides) -> Agent:
     """Start an agent inside the current process, once; later calls
-    return the running one. ``overrides`` set AgentConfig fields; with a
-    ``controller`` and no ``agent_id`` the controller assigns the id."""
+    return the running one. ``config`` (an agent config file's, say) is
+    the base, the defaults without it; ``overrides`` set AgentConfig
+    fields; with a ``controller`` and no ``agent_id`` the controller
+    assigns the id."""
     if _Attached.agent is not None:
         return _Attached.agent
-    cfg = AgentConfig()
+    cfg = config if config is not None else AgentConfig()
     if app_service:
         cfg.app_service = app_service
     if servers:

@@ -12,7 +12,9 @@ packet capture into the flow path (``FlowConfig``), server-directed
 backpressure (``BackpressureConfig``) and the agent's identity, ACLs,
 controller, group and cadences (``AgentConfig``). The guard and
 self-telemetry are on by default, the spool, fault injection and flow
-capture off. ``AgentConfig.from_dict`` builds one from a parsed YAML
+capture off, and so is the integration listener (``IntegrationConfig``:
+host, port 38086 and the server's querier address, not validated, as
+the reference's). ``AgentConfig.from_dict`` builds one from a parsed YAML
 mapping as the reference's does (a section's unknown key raises, an
 unknown top-level key is ignored), and ``AgentConfig.load`` reads a
 YAML file with the port's own reader (``agent/yamlcfg.py``). The ACLs
@@ -160,6 +162,17 @@ class FlowConfig:
 
 
 @dataclass
+class IntegrationConfig:
+    """The node-local integration listener (agent/integration_proxy.py):
+    workloads post OTLP, remote-write, Telegraf, Datadog, SkyWalking,
+    profiles and logs to it and it forwards them to ``server_http``."""
+    enabled: bool = False
+    host: str = "0.0.0.0"           # pods reach it by the node's address
+    port: int = 38086
+    server_http: str = "127.0.0.1:20416"
+
+
+@dataclass
 class BackpressureConfig:
     """Server-directed degradation: one factor per pressure level 0..3
     (SyncResponse.qos), applied to the configured value. Parsed and
@@ -194,6 +207,8 @@ class AgentConfig:
     chaos: ChaosConfig = field(default_factory=ChaosConfig)
     selfmon: SelfmonConfig = field(default_factory=SelfmonConfig)
     flow: FlowConfig = field(default_factory=FlowConfig)
+    integration: IntegrationConfig = field(
+        default_factory=IntegrationConfig)
     qos: BackpressureConfig = field(default_factory=BackpressureConfig)
     stats_interval_s: float = 10.0
     sync_interval_s: float = 10.0
@@ -336,6 +351,7 @@ class AgentConfig:
 # AgentConfig's nested blocks, as from_dict reads them
 _SECTIONS = {"profiler": ProfilerConfig, "tpuprobe": TpuProbeConfig,
              "guard": GuardConfig, "flow": FlowConfig,
+             "integration": IntegrationConfig,
              "sender": SenderConfig, "chaos": ChaosConfig,
              "selfmon": SelfmonConfig, "qos": BackpressureConfig}
 

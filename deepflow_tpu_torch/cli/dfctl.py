@@ -28,6 +28,8 @@ output for the same answers:
     agent-group-config set FILE [--group G]
     org [--assign GROUP ORG_ID]
     cluster [--json]
+    exporter list|add <json>|delete <endpoint>
+    events [--type T] [--limit N]
 
 ``agent``, ``agent-group-config`` and ``org`` read and drive the
 server's controller (reference: cli/dfctl.py:142-216): the fleet with
@@ -50,6 +52,12 @@ and repairs a corrupt one from its published blob, and exits 1 unless
 the tier is clean (``fsck: OK``). ``readtier`` prints a querier
 replica's adopted publish gens, its adopted tables, its segment cache's
 ledger and the cluster-wide partial cache's counters.
+``exporter`` lists the server's exporters with their counters and
+hop ledgers, attaches one (``add '{"type": "otlp-json", "endpoint":
+"http://collector:4318/v1/traces"}'``, inline JSON, a file, or ``@file``;
+types json-lines, otlp-json, remote-write and kafka) or removes those of
+an endpoint. ``events`` prints the newest ``event.event`` rows
+(``--follow`` needs the standing queries, a later slice).
 ``replay`` runs a pcap through the agent's flow path (the dispatcher's
 native flow map, the L7 parsers, the collector) and ships its L4_LOG,
 L7_LOG and METRICS frames over the durable sender to an ingester; it
@@ -61,6 +69,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import sys
 import time
 import urllib.error
@@ -79,6 +88,22 @@ def _api(server: str, path: str, body: dict | None = None) -> dict:
         raise SystemExit(f"error {e.code}: {err}")
     except urllib.error.URLError as e:
         raise SystemExit(f"cannot reach {url}: {e.reason}")
+
+
+def _load_json_arg(spec: str) -> dict:
+    """A JSON spec given inline, as a file's path or as ``@file``."""
+    if not spec:
+        raise SystemExit("a json spec (inline or @file) is required")
+    if spec.startswith("@"):
+        with open(spec[1:]) as f:
+            return json.load(f)
+    if os.path.exists(spec):
+        with open(spec) as f:
+            return json.load(f)
+    try:
+        return json.loads(spec)
+    except json.JSONDecodeError as e:
+        raise SystemExit(f"bad json spec: {e}\n{spec}") from None
 
 
 def print_table(columns: list[str], rows: list[list]) -> None:
@@ -783,6 +808,18 @@ def main(argv: list[str] | None = None) -> int:
     p_cluster.add_argument("--json", action="store_true",
                            help="raw /v1/cluster/status JSON")
 
+    p_events = sub.add_parser(
+        "events", help="the newest event.event rows (resource changes, "
+                       "the agents' process and file-I/O events)")
+    p_events.add_argument("--type", default=None,
+                          help="filter by event_type")
+    p_events.add_argument("--limit", type=int, default=50)
+
+    p_exp = sub.add_parser("exporter")
+    p_exp.add_argument("action", choices=["list", "add", "delete"])
+    p_exp.add_argument("spec", nargs="?",
+                       help="add: json {type,endpoint,...}; delete: endpoint")
+
     args = parser.parse_args(argv)
     server = args.server
     if args.cmd == "health":
@@ -863,6 +900,32 @@ def main(argv: list[str] | None = None) -> int:
                     [["(all groups)", out["default_org"]]])
     elif args.cmd == "cluster":
         _cluster(server, args.json)
+    elif args.cmd == "events":
+        ev_sql = ("SELECT time, event_type, resource_type, "
+                  "resource_name, description FROM event")
+        if args.type:
+            safe = args.type.replace("'", "")
+            ev_sql += f" WHERE event_type = '{safe}'"
+        r = _api(server, "/v1/query/",
+                 {"db": "event", "sql": ev_sql + f" ORDER BY time DESC "
+                                                 f"LIMIT {args.limit}"})
+        print_table(r["result"]["columns"], r["result"]["values"])
+    elif args.cmd == "exporter":
+        if args.action == "list":
+            out = _api(server, "/v1/exporters")
+            for name, st in out["exporters"].items():
+                print(name, st)
+            if not out["exporters"]:
+                print("(none)")
+        elif args.action == "add":
+            out = _api(server, "/v1/exporters", _load_json_arg(args.spec))
+            print(f"added {out['added']} -> {out['endpoint']}")
+        else:
+            if not args.spec:
+                raise SystemExit("usage: dfctl exporter delete <endpoint>")
+            out = _api(server, "/v1/exporters/delete",
+                       {"endpoint": args.spec})
+            print(f"removed: {out['removed']}")
     elif args.cmd == "replay":
         from deepflow_tpu_torch.agent.dispatcher import Dispatcher
         from deepflow_tpu_torch.agent.sender import UniformSender

@@ -1,7 +1,8 @@
 """Dependency-free protobuf codec for the messages the agent ships.
 
 Encodes and decodes ``TpuSpan``, ``TpuMemorySample``, ``TpuSpanBatch``,
-``Profile``, ``ProfileBatch``, ``StatsMetric`` and ``StatsBatch`` of
+``Profile``, ``ProfileBatch``, ``StatsMetric``, ``StatsBatch``, ``Event``
+and ``EventBatch`` of
 ``deepflow_tpu/proto/messages.proto``, and its flow messages (``FlowKey``,
 ``L4FlowLog``, ``L7FlowLog``, ``FlowLogBatch``, ``MetricTag``,
 ``FlowMeter``, ``AppMeter``, ``Document``, ``DocumentBatch``, on
@@ -12,7 +13,8 @@ and the labeler's feed (``PodMapRequest``, ``PodMapEntry``,
 ``PodMapResponse``; messages.proto:513-554), without the protobuf package: the
 fields are written in field-number order and proto3 defaults (0, "", b"")
 are skipped, so ``TpuSpanBatch`` and ``ProfileBatch`` serialize to the
-same bytes as the generated classes. ``StatsMetric``'s two maps are
+same bytes as the generated classes. ``StatsMetric``'s two maps and
+``Event``'s ``attrs`` are
 written in their dicts' order, each entry with its key and value; map
 order on the wire is not fixed, so only the parsed messages compare.
 Decoding parses as protobuf does: unknown fields, and known ones of
@@ -365,6 +367,55 @@ class StatsBatch:
                     for num, wt, v in _iter_fields(bytes(data))
                     if num == 1 and wt == 2])
 
+
+
+@dataclass
+class Event:
+    """A resource or process event (messages.proto:315-323); a file-I/O
+    event carries ``latency_ns`` and ``bytes`` in ``attrs``."""
+    timestamp_ns: int = 0
+    event_type: str = ""
+    resource_type: str = ""
+    resource_name: str = ""
+    pid: int = 0
+    description: str = ""
+    attrs: dict = field(default_factory=dict)    # str -> str
+
+    def encode(self) -> bytes:
+        out = bytearray(_encode_msg(self, _EVENT_SCHEMA))
+        for k, v in self.attrs.items():
+            out += _len_field(7, _len_field(1, k.encode())
+                              + _len_field(2, v.encode()))
+        return bytes(out)
+
+    @classmethod
+    def decode(cls, buf: bytes) -> "Event":
+        e = _decode_msg(buf, cls, _EVENT_SCHEMA)
+        e.attrs = {}
+        for num, wt, v in _iter_fields(buf):
+            if num == 7 and wt == 2:
+                key, val = _map_entry(v, 3)
+                e.attrs[key] = val
+        return e
+
+
+_EVENT_SCHEMA = (("timestamp_ns", 1, "u", _U64), ("event_type", 2, "s", 0),
+                 ("resource_type", 3, "s", 0), ("resource_name", 4, "s", 0),
+                 ("pid", 5, "u", _U32), ("description", 6, "s", 0))
+
+
+@dataclass
+class EventBatch:
+    events: list = field(default_factory=list)
+
+    def SerializeToString(self) -> bytes:  # noqa: N802
+        return b"".join(_len_field(1, e.encode()) for e in self.events)
+
+    @classmethod
+    def FromString(cls, data) -> "EventBatch":  # noqa: N802
+        return cls([Event.decode(v)
+                    for num, wt, v in _iter_fields(bytes(data))
+                    if num == 1 and wt == 2])
 
 # -- flow logs and metric documents ------------------------------------------
 # messages.proto:147-297. The agent's flow path fills these field by field,

@@ -1,7 +1,8 @@
-"""Own copy of ``deepflow_tpu/query/promql.py``. The port has no
-``ext_metrics`` or ``prometheus.samples`` table yet (they come with the
-integrations): a name that would resolve there answers "unknown metric",
-as the reference's does on a store where they hold no rows.
+"""Own copy of ``deepflow_tpu/query/promql.py``. Remote-write series
+(``prometheus.samples``, written by ``server/integration.py``) and
+Telegraf's ``ext_metrics_<measurement>_<field>`` (``ext_metrics.metrics``)
+resolve as in the reference; a name with no rows there answers "unknown
+metric", as the reference's does.
 
 PromQL engine over the metric tables.
 

@@ -4,7 +4,11 @@ Own copy of the profile and flow paths of ``deepflow_tpu/server/
 decoders.py``: the ``DedupWindow`` that makes retransmitted frames into no
 second row, the ``Decoder`` base (one receiver queue, a worker thread,
 stats) and the PROFILE, TPU_SPAN, STEP_METRICS, DFSTATS, L4_LOG / L7_LOG
-(``FlowLogDecoder``) and METRICS (``MetricsDecoder``) decoders.
+(``FlowLogDecoder``), METRICS (``MetricsDecoder``) and EVENT
+(``EventDecoder``, with the file-I/O minute windows) decoders. Every
+table write feeds the exporters (``server/exporters.py``) when the
+server has them; the columnar writes build row dicts only for a table
+an exporter wants.
 TPU_SPAN, flow-log and metric-document payloads decode with the port's
 native columnar decoders (``native/ingest.cpp``, ``native/pbcols.cpp``),
 the others with this package's ``proto/wire.py``; a batch the native
@@ -165,7 +169,7 @@ class Decoder:
                  seq_tracker=None, telemetry: Telemetry | None = None,
                  msg_type: MessageType | None = None,
                  durability=None, pod_index=None, gpid_table=None,
-                 resources=None, ring=None) -> None:
+                 resources=None, ring=None, exporters=None) -> None:
         if msg_type is not None:  # a decoder that serves several types
             self.MSG_TYPE = msg_type
         self.q = q
@@ -184,13 +188,17 @@ class Decoder:
         # server's _current_ring: the ring is adopted after the
         # decoders start)
         self.ring = ring
+        # the ExporterManager (server/exporters.py), or None: every table
+        # write feeds it
+        self.exporters = exporters
         self._stop = threading.Event()
         self._threads: list[threading.Thread] = []
         self._stats_lock = threading.Lock()
         # handle_ns: wall time inside handle(); append_ns: the part spent
-        # in store appends (handle_ns - append_ns = decode)
+        # in store appends (handle_ns - append_ns = decode); export_rows:
+        # row dicts built from columns for an exporter that wants them
         self.stats = {"batches": 0, "rows": 0, "errors": 0, "dups": 0,
-                      "handle_ns": 0, "append_ns": 0}
+                      "handle_ns": 0, "append_ns": 0, "export_rows": 0}
         self.telemetry = telemetry or Telemetry("server", enabled=False)
         self._hop = self.telemetry.hop(f"decoder.{self.MSG_TYPE.name}")
         self._tw_hop = self.telemetry.hop("table_write")
@@ -328,12 +336,30 @@ class Decoder:
             self.stats["append_ns"] += dt
 
     def write(self, table_name: str, rows: list[dict]) -> None:
+        """Append, and feed the exporters the rows."""
         self._timed_append(len(rows), self.db.table(table_name).append_rows,
                            rows)
+        if self.exporters is not None and rows:
+            self.exporters.feed(table_name, rows)
 
     def write_columns(self, table_name: str, cols: dict, n: int) -> None:
+        """Columnar append (one list, array or scalar a column, no row
+        dicts). Row dicts are built for the exporters only when one wants
+        the table, with Python numbers and decoded strings for cells (a
+        numpy scalar would export as its string)."""
         self._timed_append(n, self.db.table(table_name).append_columns,
                            cols, n)
+        if (self.exporters is not None and n
+                and self.exporters.wants(table_name)):
+            names = list(cols)
+            expanded = [v.tolist()
+                        if isinstance(v, (np.ndarray, ArenaStrings))
+                        else v if isinstance(v, list) else [v] * n
+                        for v in cols.values()]
+            rows = [dict(zip(names, vals)) for vals in zip(*expanded)]
+            with self._stats_lock:
+                self.stats["export_rows"] += len(rows)
+            self.exporters.feed(table_name, rows)
 
 
 class ProfileDecoder(Decoder):
@@ -520,6 +546,96 @@ class StepMetricsDecoder(Decoder):
             })
         self.write("profile.tpu_step_metrics", rows)
         return len(rows)
+
+
+class EventDecoder(Decoder):
+    """EventBatch -> event.event, and the file-I/O reducer: the
+    ``file-io-read`` / ``file-io-write`` events roll up into per-(pid,
+    path, op, agent tags) minute windows in event.file_agg (count, bytes,
+    max and sum latency). A window is written once the newest event seen
+    (the watermark) is past its end by the grace period; a later event of
+    that window starts a fresh row (the counts stay right, the window
+    splits). ``flush`` writes every open window (the server's stop). The
+    event rows' times take the agent's clock offset, as every decoder's
+    do; the windows are cut on the agent's own times, as the
+    reference's are."""
+
+    MSG_TYPE = MessageType.EVENT
+
+    WINDOW_NS = 60 * 1_000_000_000
+    GRACE_NS = 5 * 1_000_000_000
+
+    def __init__(self, *a, **kw) -> None:
+        super().__init__(*a, **kw)
+        # (window_ns, pid, path, op, tags_json) -> [count, bytes, max, sum]
+        self._agg: dict[tuple, list] = {}
+        self._agg_lock = threading.Lock()
+        self._watermark = 0
+
+    def handle(self, header: FrameHeader, payload: bytes) -> int:
+        batch = wire.EventBatch.FromString(payload)
+        tags = self._agent_tags(header)
+        off = self._clock_offset(header)
+        rows = [{
+            "time": e.timestamp_ns + off,
+            "event_type": e.event_type,
+            "resource_type": e.resource_type,
+            "resource_name": e.resource_name,
+            "pid": e.pid,
+            "description": e.description,
+            "attrs": json.dumps(e.attrs, sort_keys=True),
+            **tags,
+        } for e in batch.events]
+        self.write("event.event", rows)
+        # the tags are the batch's: one JSON text for all its io events
+        tags_json = json.dumps(tags, sort_keys=True)
+        for e in batch.events:
+            if e.event_type in ("file-io-read", "file-io-write"):
+                self._reduce_file_io(e, tags_json)
+        self._flush_agg()
+        return len(rows)
+
+    def _reduce_file_io(self, e: wire.Event, tags_json: str) -> None:
+        op = 0 if e.event_type == "file-io-read" else 1
+        window = e.timestamp_ns - e.timestamp_ns % self.WINDOW_NS
+        try:
+            latency = int(e.attrs.get("latency_ns", "0"))
+            nbytes = int(e.attrs.get("bytes", "0"))
+        except ValueError:
+            latency = nbytes = 0
+        key = (window, e.pid, e.resource_name, op, tags_json)
+        with self._agg_lock:
+            acc = self._agg.get(key)
+            if acc is None:
+                acc = self._agg[key] = [0, 0, 0, 0]
+            acc[0] += 1
+            acc[1] += nbytes
+            acc[2] = max(acc[2], latency)
+            acc[3] += latency
+            if e.timestamp_ns > self._watermark:
+                self._watermark = e.timestamp_ns
+
+    def _flush_agg(self, force: bool = False) -> None:
+        """Write the windows the watermark has passed (all with
+        ``force``)."""
+        rows = []
+        with self._agg_lock:
+            limit = self._watermark - self.WINDOW_NS - self.GRACE_NS
+            for key in [k for k in self._agg if force or k[0] <= limit]:
+                window, pid, path, op, tags_json = key
+                count, nbytes, mx, total = self._agg.pop(key)
+                rows.append({
+                    "time": window, "pid": pid, "path": path, "op": op,
+                    "count": count, "bytes": nbytes,
+                    "max_latency_ns": mx, "sum_latency_ns": total,
+                    **json.loads(tags_json),
+                })
+        if rows:
+            self.write("event.file_agg", rows)
+
+    def flush(self) -> None:
+        """The final flush: every open window (the server's stop)."""
+        self._flush_agg(force=True)
 
 
 class PcapDecoder(Decoder):

@@ -36,8 +36,10 @@ DEFAULT_TTL_S = {
     "flow_metrics.application.1m": 7 * 86400,
     "flow_metrics.network.1h": 30 * 86400,
     "flow_metrics.application.1h": 30 * 86400,
+    "prometheus.samples": 7 * 86400,
     "deepflow_system.deepflow_system": 7 * 86400,
     "event.event": 7 * 86400,
+    "application_log.log": 7 * 86400,
 }
 
 

@@ -65,11 +65,22 @@ clock offset and its platform's devices), ``POST /v1/agent-group-config``
 (a group's new YAML, validated and pushed), ``POST /v1/orgs`` (list, or
 assign a group to an org) and ``GET`` / ``POST /v1/analyzers``. ``POST
 /v1/pcaps`` lists the agents' pcap ACL captures, or with ``{"name"}``
-answers one, gzip'd and in base64.
+answers one, gzip'd and in base64. The integrations' ingest routes
+(``server/integration.py``) take what workloads already emit: ``POST
+/api/v1/otlp/traces``, ``/api/v1/otlp/logs``, ``/api/v1/log``,
+``/api/v1/profile/ingest``, ``/api/v1/write`` (Prometheus remote-write),
+``/api/v1/telegraf``, ``/v0.3/traces`` and ``/v0.4/traces`` (Datadog,
+PUT too) and ``/v3/segments`` (SkyWalking); a gzip'd body is unpacked,
+and a body that does not decode answers 400. ``GET /v1/exporters``
+lists the exporters (``server/exporters.py``) with their counters and
+hop ledgers, ``POST /v1/exporters`` attaches one and ``POST
+/v1/exporters/delete`` removes one; ``/v1/health`` carries both and the
+integrations' row counts (``integration``).
 """
 
 from __future__ import annotations
 
+import gzip
 import json
 import logging
 import os
@@ -77,6 +88,7 @@ import re
 import socket
 import threading
 import time
+import zlib
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from urllib.parse import parse_qs, parse_qsl, urlparse
 
@@ -99,6 +111,7 @@ from deepflow_tpu_torch.query.tracing import (
 from deepflow_tpu_torch.query.tracing_adapter import AdapterRegistry
 from deepflow_tpu_torch.server import stephealth
 from deepflow_tpu_torch.server import tracetree as tt
+from deepflow_tpu_torch.server.integration import IntegrationAPI
 from deepflow_tpu_torch.store.db import Database
 from deepflow_tpu_torch.store.schema import TPU_SPAN_KINDS
 from deepflow_tpu_torch.telemetry import Telemetry, collect_agent_selfmon
@@ -109,6 +122,9 @@ log = logging.getLogger("df.querier")
 
 class AuthError(Exception):
     """A gated route called without the API token (HTTP 403)."""
+
+
+_DD_TRACE_PATHS = ("/v0.3/traces", "/v0.4/traces")
 
 _STEP_COLS = ("time, end_ns, latency_ns, run_id, step, job, "
               "device_count, device_skew_ns, compute_ns, "
@@ -133,7 +149,8 @@ class QuerierAPI:
                  telemetry: Telemetry | None = None, rollup=None,
                  trace_trees=None, controller=None,
                  storage_provider=None,
-                 api_token: str | None = None) -> None:
+                 api_token: str | None = None, exporters=None,
+                 prom_encoder=None) -> None:
         self.db = db
         self.shard_id = db.shard_id
         # the shared token gating POST /v1/cache/partial; empty: open
@@ -162,6 +179,16 @@ class QuerierAPI:
         self.rollup = rollup
         # TraceTreeBuilder: its pending spans join the stored trees
         self.trace_trees = trace_trees
+        # the server's ExporterManager (server/exporters.py), or None
+        self.exporters = exporters
+        # the integrations' ingest routes; remote-write ids from the
+        # controller's allocator in a combined server, else from
+        # ``prom_encoder`` (a PromEncoderClient) or a local allocator
+        if prom_encoder is None and controller is not None:
+            prom_encoder = controller.prom_encoder
+        self.integration = IntegrationAPI(
+            db, exporters=exporters, prom_encoder=prom_encoder,
+            trace_trees=trace_trees)
         # external tracing backends spliced into /v1/trace/Tracing
         self.trace_adapters = AdapterRegistry()
         # result + partial-aggregate cache behind POST /v1/query
@@ -233,6 +260,12 @@ class QuerierAPI:
         if self.publisher is not None:
             out["publish"] = dict(self.publisher.stats)
             out["publish"]["publish_gen"] = self.publisher.publish_gen
+        if self.exporters is not None:
+            ex = self.exporters.stats()
+            if ex:
+                # each exporter's counters with its exporter.<kind> hop
+                out["exporters"] = ex
+        out["integration"] = dict(self.integration.stats)
         agents = collect_agent_selfmon(self.db)
         if agents["pipeline"] or agents["heartbeats"] or agents["wedges"]:
             out["agents_selfmon"] = agents
@@ -1611,6 +1644,52 @@ class QuerierAPI:
                 raise QueryError(f"bad analyzer address: {e}") from None
         return {"analyzers": ctl.analyzers()}
 
+    def exporters_api(self, body: dict) -> dict:
+        """POST /v1/exporters: attach one exporter (``type``
+        json-lines | otlp-json | remote-write | kafka, ``endpoint``, and
+        ``tables`` for json-lines and kafka); adding one that is there
+        (same type and endpoint) keeps the running one."""
+        if self.exporters is None:
+            raise QueryError("exporters not running")
+        from deepflow_tpu_torch.server.exporters import (
+            JsonLinesExporter, KafkaExporter, OtlpJsonExporter,
+            RemoteWriteExporter)
+        etype = body.get("type", "")
+        endpoint = body.get("endpoint", "")
+        if not endpoint:
+            raise QueryError("endpoint required")
+        if etype == "json-lines":
+            exp = JsonLinesExporter(endpoint,
+                                    tables=tuple(body.get("tables", [])))
+        elif etype == "otlp-json":
+            exp = OtlpJsonExporter(endpoint)
+        elif etype == "remote-write":
+            exp = RemoteWriteExporter(endpoint)
+        elif etype == "kafka":
+            try:
+                exp = KafkaExporter(endpoint,
+                                    tables=tuple(body.get("tables", [])))
+            except ValueError as e:
+                raise QueryError(str(e)) from None
+        else:
+            raise QueryError(
+                "type must be json-lines|otlp-json|remote-write|kafka")
+        self.exporters.add(exp)
+        return {"added": etype, "endpoint": endpoint,
+                "exporters": self.exporters.stats()}
+
+    def exporters_delete(self, body: dict) -> dict:
+        """POST /v1/exporters/delete: stop and remove the exporters of
+        ``endpoint``."""
+        if self.exporters is None:
+            raise QueryError("exporters not running")
+        return {"removed": self.exporters.remove(body.get("endpoint", ""))}
+
+    def exporters_list(self) -> dict:
+        """GET /v1/exporters."""
+        return {"exporters": self.exporters.stats()
+                if self.exporters else {}}
+
 
 class QuerierHTTP:
     """The querier's HTTP server: POST /v1/query, the profile and trace
@@ -1643,7 +1722,27 @@ class QuerierHTTP:
             "/v1/analyzers": api.analyzers_api,
             "/v1/pcaps": api.pcaps,
             "/v1/cluster/join": api.cluster_join,
+            "/v1/exporters": api.exporters_api,
+            "/v1/exporters/delete": api.exporters_delete,
+            "/api/v1/otlp/traces": api.integration.ingest_otlp_traces,
+            "/api/v1/otlp/logs": api.integration.ingest_otlp_logs,
+            "/api/v1/log": api.integration.ingest_app_log,
+            "/v3/segments": api.integration.ingest_skywalking,
         }
+        # the routes whose body is not JSON: (raw bytes, query params,
+        # content type) -> answer
+        raw_routes = {
+            "/api/v1/write":
+                lambda raw, q, ct: api.integration.ingest_prometheus(raw),
+            "/api/v1/telegraf":
+                lambda raw, q, ct: api.integration.ingest_telegraf(raw),
+            "/api/v1/profile/ingest":
+                lambda raw, q, ct: api.integration.ingest_profile(
+                    dict(parse_qsl(q)), raw),
+        }
+        for path in _DD_TRACE_PATHS:
+            raw_routes[path] = (lambda raw, q, ct:
+                                api.integration.ingest_datadog(raw, ct))
 
         conns = self._conns
 
@@ -1701,6 +1800,8 @@ class QuerierHTTP:
                         repair=params.get("repair") not in ("0", "false"))
                 if path == "/v1/analyzers":
                     return api.analyzers_api()
+                if path == "/v1/exporters":
+                    return api.exporters_list()
                 if path == "/v1/cluster/peers":
                     return api.cluster_peers()
                 if path == "/v1/cluster/status":
@@ -1747,11 +1848,39 @@ class QuerierHTTP:
                     log.exception("querier 500")
                     self._send(500, {"error": f"{type(e).__name__}: {e}"})
 
+            def _raw(self) -> bytes:
+                """The request body, gunzipped when its Content-Encoding
+                says gzip (Telegraf's HTTP output gzips by default)."""
+                n = int(self.headers.get("Content-Length", 0))
+                raw = self.rfile.read(n) if n else b""
+                if raw and self.headers.get("Content-Encoding",
+                                            "").lower() == "gzip":
+                    try:
+                        raw = gzip.decompress(raw)
+                    except (OSError, EOFError, zlib.error) as e:
+                        raise ValueError(f"bad gzip body: {e}") from None
+                return raw
+
+            def do_PUT(self) -> None:
+                # dd-trace clients PUT their traces; no other route
+                # takes a PUT
+                if urlparse(self.path).path.rstrip("/") in _DD_TRACE_PATHS:
+                    return self.do_POST()
+                n = int(self.headers.get("Content-Length", 0))
+                self.rfile.read(n)  # the kept-alive connection's next
+                self._send(405, {"error": "method not allowed"})
+
             def do_POST(self) -> None:
                 try:
-                    n = int(self.headers.get("Content-Length", 0))
-                    body = json.loads(self.rfile.read(n) if n else b"{}")
-                    path = self.path.split("?")[0].rstrip("/")
+                    parsed = urlparse(self.path)
+                    path = parsed.path.rstrip("/")
+                    raw_fn = raw_routes.get(path)
+                    if raw_fn is not None:
+                        self._send(200, raw_fn(
+                            self._raw(), parsed.query,
+                            self.headers.get("Content-Type", "")))
+                        return
+                    body = json.loads(self._raw() or b"{}")
                     payload = None
                     if path == "/v1/shard/exec":
                         # a SHARD_RESULT frame, not JSON: numeric columns

@@ -2,8 +2,9 @@
 
 Own copy of the profile and flow paths of
 ``deepflow_tpu/server/server.py::Server``: PROFILE, TPU_SPAN,
-STEP_METRICS, L4_LOG, L7_LOG, METRICS and DFSTATS frames arrive over TCP,
-decode into the profile, flow-log, flow-metric and self-stats tables
+STEP_METRICS, L4_LOG, L7_LOG, METRICS, DFSTATS and EVENT frames arrive
+over TCP, decode into the profile, flow-log, flow-metric, self-stats and
+event tables (with the file-I/O minute windows, flushed at stop)
 through one shared dedup window, the receiver acks what was written, and
 the querier answers DF-SQL and the profile queries over HTTP, each server with its own query cache and
 query tracer, whose spans land in ``deepflow_system.query_trace`` (the
@@ -67,6 +68,14 @@ rows untagged and returns False. The recorder's resource-change events
 land in ``event.event``, and ``/v1/health`` carries genesis's stats.
 PCAP frames (the agents' pcap ACL captures) land in the pcap store that
 ``POST /v1/pcaps`` lists and serves.
+
+The querier's integration routes (``server/integration.py``) take OTLP,
+Prometheus remote-write, Telegraf, Datadog, SkyWalking, folded profiles
+and app logs; remote-write ids come from this server's controller, or
+with ``prom_encoder_controller`` (``--prom-encoder H:P``) from a remote
+one. An ``ExporterManager`` (``server/exporters.py``) takes every
+decoder's and integration route's writes; ``/v1/exporters`` attaches and
+removes exporters, and the stop ships what the decoders' drain fed it.
 The server touches no device and imports no torch; span, flow-log and
 metric-document frames decode with the native library, which starting
 the server builds (or raises).
@@ -110,6 +119,7 @@ cluster flag with a bad value fails the start.
         [--role {ingest,querier}] [--objstore DIR
          [--objstore-mirror DIR ...] [--publish-interval-s S]
          [--segcache-max-mb MB] [--readtier-poll-s S]]
+        [--prom-encoder H:P]
 
 Once it listens it prints one JSON line with the bound ports, so that a
 parent process that asked for port 0 can find them. SIGTERM or SIGINT
@@ -130,8 +140,9 @@ from deepflow_tpu_torch.chaos import chaos_from_env
 from deepflow_tpu_torch.codec import MessageType
 from deepflow_tpu_torch.server.datasource import RollupJob
 from deepflow_tpu_torch.server.decoders import (
-    DedupWindow, FlowLogDecoder, MetricsDecoder, PcapDecoder, ProfileDecoder,
-    StatsDecoder, StepMetricsDecoder, TpuSpanDecoder)
+    DedupWindow, EventDecoder, FlowLogDecoder, MetricsDecoder, PcapDecoder,
+    ProfileDecoder, StatsDecoder, StepMetricsDecoder, TpuSpanDecoder)
+from deepflow_tpu_torch.server.exporters import ExporterManager
 from deepflow_tpu_torch.server.controller import Controller
 from deepflow_tpu_torch.server.flusher import (
     Compactor, DurabilityGate, Flusher)
@@ -173,7 +184,8 @@ class Server:
                  publish_interval_s: float = 2.0,
                  readtier_poll_s: float = 2.0,
                  selfstats_interval_s: float = 10.0,
-                 api_token: str | None = None) -> None:
+                 api_token: str | None = None,
+                 prom_encoder_controller: str | None = None) -> None:
         # the read tier: an ingest server with an object store publishes
         # its sealed segments; a querier is a stateless read replica
         if role not in ("ingest", "querier"):
@@ -260,12 +272,22 @@ class Server:
         self.rollup = RollupJob(self.db)
         # ingest-time trace precompute (reference: tracetree_writer.go)
         self.trace_trees = TraceTreeBuilder(self.db)
+        # re-export: every decoder's and integration route's writes feed it
+        self.exporters = ExporterManager(telemetry=self.telemetry)
+        # remote-write ids: this server's controller's allocator, or a
+        # remote controller's (an ingest node without its own)
+        prom_encoder = None
+        if self.controller is None and prom_encoder_controller:
+            from deepflow_tpu_torch.server.prom_encoder import \
+                PromEncoderClient
+            prom_encoder = PromEncoderClient(prom_encoder_controller)
         self.api = QuerierAPI(self.db, stats_provider=self._stats,
                               telemetry=self.telemetry, rollup=self.rollup,
                               trace_trees=self.trace_trees,
                               controller=self.controller,
                               storage_provider=self._storage_stats,
-                              api_token=api_token)
+                              api_token=api_token, exporters=self.exporters,
+                              prom_encoder=prom_encoder)
         self.http = QuerierHTTP(self.api, host=host, port=query_port)
 
     def start_genesis(self, api_base: str | None = None, token: str = "",
@@ -308,6 +330,7 @@ class Server:
                          if self.scrubber is not None else None),
             "genesis": (dict(self.genesis.stats)
                         if self.genesis is not None else None),
+            "integration": dict(self.api.integration.stats),
         }
 
     def _storage_stats(self) -> dict | None:
@@ -503,7 +526,8 @@ class Server:
                            (FlowLogDecoder, MessageType.L4_LOG),
                            (FlowLogDecoder, MessageType.L7_LOG),
                            (MetricsDecoder, MessageType.METRICS),
-                           (StatsDecoder, MessageType.DFSTATS)):
+                           (StatsDecoder, MessageType.DFSTATS),
+                           (EventDecoder, MessageType.EVENT)):
             q = self.receiver.register(mtype)
             kw = ({"trace_trees": self.trace_trees}
                   if cls is FlowLogDecoder else {})
@@ -515,7 +539,7 @@ class Server:
                 resources=self.resources,
                 gpid_table=(self.controller.gpids
                             if self.controller is not None else None),
-                ring=self._current_ring, **kw))
+                ring=self._current_ring, exporters=self.exporters, **kw))
         # a replicated shard tags every row with the ring: its decoders
         # start once it holds one (_start_cluster); frames wait queued,
         # unacked, until then
@@ -730,7 +754,10 @@ class Server:
         self.receiver.stop()
         for d in self.decoders:
             d.stop()
+            if isinstance(d, EventDecoder):
+                d.flush()  # the file-I/O windows still open
         self.trace_trees.stop()  # writes the traces still pending
+        self.exporters.stop()  # ships what the drain fed them
         if self.scrubber is not None:
             # before the final flush: a quarantine renames the manifest
             self.scrubber.stop()
@@ -901,6 +928,10 @@ def main(argv: list[str] | None = None, on_start=None) -> None:
                         help="ingest publish cadence to --objstore")
     parser.add_argument("--readtier-poll-s", type=float, default=2.0,
                         help="querier manifest-pointer poll cadence")
+    parser.add_argument("--prom-encoder", default=None, metavar="H:P",
+                        help="a remote controller's sync address: this "
+                             "node's remote-write ingest takes its "
+                             "SmartEncoding ids (with --no-controller)")
     args = parser.parse_args(argv)
     logging.basicConfig(
         level=logging.INFO,
@@ -928,7 +959,8 @@ def main(argv: list[str] | None = None, on_start=None) -> None:
                     objstore_mirrors=args.objstore_mirror,
                     segcache_max_bytes=args.segcache_max_mb << 20,
                     publish_interval_s=args.publish_interval_s,
-                    readtier_poll_s=args.readtier_poll_s).start()
+                    readtier_poll_s=args.readtier_poll_s,
+                    prom_encoder_controller=args.prom_encoder).start()
     try:
         print(json.dumps({"ingest_port": server.ingest_port,
                           "query_port": server.query_port,

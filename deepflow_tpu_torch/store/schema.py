@@ -1,14 +1,17 @@
 """Schemas of the port's tables, where the agents' frames and the
 querier's own query traces land.
 
-Own copy of the profile, flow-log, 1 s flow-metric, self-telemetry and
-query-trace parts of ``deepflow_tpu/store/schema.py``, with the
-flow-metric rollups (1m, 1h, 1d) and ``flow_log.trace_tree``: the same
-table names, columns, kinds and defaults, so rows and queries mean the
-same in both packages. Times are u64 nanoseconds, but for the
-flow-metric tables' u32 epoch seconds. Of the ``event`` tables only
-``event.event`` is ported, where the resource recorder's change events
-land (``server/recorder.py``); ``event.file_agg`` is not.
+Own copy of ``deepflow_tpu/store/schema.py``: the profile, flow-log,
+1 s flow-metric, self-telemetry and query-trace tables, the flow-metric
+rollups (1m, 1h, 1d), ``flow_log.trace_tree``, the events
+(``event.event``, where the agents' events and the resource recorder's
+changes land, and ``event.file_agg``, the file-I/O minute windows), and
+the integrations' tables (``application_log.log``,
+``prometheus.samples`` with its ``prometheus.label_sets`` join table,
+``ext_metrics.metrics``): the same table names, columns, kinds and
+defaults, so rows and queries mean the same in both packages. Times are
+u64 nanoseconds, but for the flow-metric and Prometheus tables' u32
+epoch seconds.
 """
 
 from __future__ import annotations
@@ -324,6 +327,58 @@ _table("event.event", [
     *UNIVERSAL_TAGS,
 ])
 
+# windowed file-I/O aggregation (server/decoders.py EventDecoder): per
+# (pid, path, op) minute windows of the raw file-io events
+_table("event.file_agg", [
+    C("time", "u64"),                   # window start ns
+    C("pid", "u32"),
+    C("path", "str"),
+    C("op", "enum", ["read", "write"]),
+    C("count", "u64"),
+    C("bytes", "u64"),
+    C("max_latency_ns", "u64"),
+    C("sum_latency_ns", "u64"),
+    *UNIVERSAL_TAGS,
+])
+
+# application logs (server/integration.py): the whole body, OTLP severity,
+# and trace_id / span_id, so a log line joins its trace
+_table("application_log.log", [
+    C("time", "u64"),                   # ns
+    C("app_service", "str"),
+    C("app_instance", "str"),
+    C("log_source", "enum",
+      ("unknown", "app", "otlp", "syslog", "agent")),
+    C("severity_number", "u8"),         # OTLP severity 1-24 (0 unknown)
+    C("severity_text", "str"),
+    C("body", "str"),                   # the full line, never truncated
+    C("trace_id", "str"),
+    C("span_id", "str"),
+    C("attrs", "str"),                  # json
+    *UNIVERSAL_TAGS,
+])
+
+# Prometheus remote-write samples; a series' label set is one canonical
+# JSON string, with the cluster-wide SmartEncoding ids beside it
+_table("prometheus.samples", [
+    C("time", "u32"),                   # epoch s (remote-write ms / 1000)
+    C("metric_name", "str"),
+    C("labels_json", "str"),
+    C("metric_id", "u32"),
+    C("label_set_id", "u32"),
+    C("value", "f64"),
+    *UNIVERSAL_TAGS,
+])
+
+# the id -> label-set join table
+_table("prometheus.label_sets", [
+    C("time", "u32"),                   # first seen, epoch s
+    C("label_set_id", "u32"),
+    C("metric_id", "u32"),
+    C("metric_name", "str"),
+    C("labels_json", "str"),
+])
+
 # the agents' self-stats: one row per (metric, value name) per emit
 _table("deepflow_system.deepflow_system", [
     C("time", "u64"),
@@ -346,5 +401,16 @@ _table("deepflow_system.query_trace", [
     C("cpu_ns", "u64"),
     C("status", "str"),             # ok | error
     C("attr_json", "str"),          # prune counts, cache layer, degree...
+    *UNIVERSAL_TAGS,
+])
+
+# Telegraf's influx lines: the shape of deepflow_system, so PromQL serves
+# both (metric ext_metrics_<measurement>_<field>)
+_table("ext_metrics.metrics", [
+    C("time", "u64"),
+    C("metric_name", "str"),            # measurement
+    C("tag_json", "str"),
+    C("value_name", "str"),             # field key
+    C("value", "f64"),
     *UNIVERSAL_TAGS,
 ])

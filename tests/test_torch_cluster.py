@@ -910,6 +910,10 @@ def test_cluster_server_and_dfctl_cluster_load_no_torch():
     code = (
         "import io, contextlib, json, sys\n"
         "from deepflow_tpu_torch.server.server import Server\n"
+        "from deepflow_tpu_torch.server import integration, exporters\n"
+        "from deepflow_tpu_torch.agent import integration_proxy\n"
+        "from deepflow_tpu_torch.utils import (influxline, kafkawire,\n"
+        "    msgpack, promwire, snappy)\n"
         "from deepflow_tpu_torch.cli import dfctl\n"
         "s = Server(host='127.0.0.1', ingest_port=0, query_port=0,\n"
         "           shard_id=1, cluster_advertise='', replication=2).start()\n"

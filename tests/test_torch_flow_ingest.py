@@ -206,6 +206,7 @@ def test_dfctl_replay_as_a_process_leaves_torch_unloaded(server):
     assert out.stdout.startswith("replayed 7 packets")
     code = ("import sys\n"
             "from deepflow_tpu_torch.cli import dfctl\n"
+            "from deepflow_tpu_torch.server import integration, exporters\n"
             f"dfctl.main(['replay', {path!r}, '--ingest', {addr!r}])\n"
             "assert 'torch' not in sys.modules, 'torch loaded'\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,

@@ -491,7 +491,7 @@ def _port_files():
         "chip_flows.py", "chip_control.py", "chip_storage.py",
         "chip_enrich.py", "chip_cluster.py", "chip_readtier.py",
         "readtier_storm.py", "kineto_loss.py", "query_refill.py",
-        "flow_probe.py")]
+        "flow_probe.py", "chip_integrations.py")]
     for d, _, names in os.walk(os.path.join(ROOT, "deepflow_tpu_torch")):
         files += [os.path.join(d, n) for n in names if n.endswith(".py")]
     return files
@@ -530,7 +530,11 @@ def test_port_imports_no_jax_and_no_reference():
                 "cluster/remote.py", "cluster/hashring.py",
                 "cluster/dictsync.py", "cluster/federation.py",
                 "store/objstore.py", "store/scrub.py", "store/segcache.py",
-                "cluster/partialcache.py"):
+                "cluster/partialcache.py", "server/integration.py",
+                "server/exporters.py", "agent/integration_proxy.py",
+                "utils/snappy.py", "utils/promwire.py",
+                "utils/influxline.py", "utils/msgpack.py",
+                "utils/kafkawire.py"):
         assert os.path.join(ROOT, "deepflow_tpu_torch", mod) in files, mod
     for path in files:
         with open(path) as f:
@@ -603,7 +607,13 @@ def test_port_import_leaves_jax_unloaded():
     # and the cluster-wide partial cache
     "deepflow_tpu_torch.store.objstore", "deepflow_tpu_torch.store.scrub",
     "deepflow_tpu_torch.store.segcache",
-    "deepflow_tpu_torch.cluster.partialcache"])
+    "deepflow_tpu_torch.cluster.partialcache",
+    # the integrations, the exporters and their wire codecs
+    "deepflow_tpu_torch.server.integration",
+    "deepflow_tpu_torch.server.exporters",
+    "deepflow_tpu_torch.agent.integration_proxy",
+    "deepflow_tpu_torch.utils.kafkawire",
+    "deepflow_tpu_torch.utils.influxline"])
 def test_server_and_dfctl_import_leaves_torch_unloaded(module):
     """The server, dfctl and the flow path touch no device, so importing
     them in a fresh interpreter loads no torch; the package still gives

@@ -8,8 +8,8 @@ other's files and must read the same columns, zones, zstr zones and
 reference's own format cases (``tests/test_segment_v2.py`` and the
 segment half of ``tests/test_storage.py``) run on both packages with the
 same outcomes, over ``flow_log.l7_flow_log``, a table both schemas hold
-(the reference's cases use ``application_log.log``, which the port does
-not have yet).
+(the reference's cases use ``application_log.log``, which the port took
+only later).
 """
 
 import json

@@ -53,8 +53,12 @@ DERIVED_TABLES = tuple(f"flow_metrics.{fam}.{sfx}"
                        for fam in ("network", "application")
                        for sfx in ("1m", "1h", "1d")) + (
                            "flow_log.trace_tree", "event.event")
+# the file-I/O windows and the integrations' tables (no frames here)
+INTEGRATION_TABLES = ("event.file_agg", "application_log.log",
+                      "prometheus.samples", "prometheus.label_sets",
+                      "ext_metrics.metrics")
 SCHEMA_TABLES = (TABLES + ("deepflow_system.query_trace",) + FLOW_TABLES
-                 + DERIVED_TABLES)
+                 + DERIVED_TABLES + INTEGRATION_TABLES)
 QUERIES = ("tpu_flame", "tpu_memory", "tpu_collectives", "tpu_step_trace",
            "tpu_steps", "tpu_step_critical_path", "profile_tracing")
 
@@ -188,7 +192,8 @@ def _frames():
               # the querier's own spans: no query has run yet
               "deepflow_system.query_trace": 0,
               # no flow frames (test_torch_flow_ingest.py sends those)
-              **dict.fromkeys(FLOW_TABLES + DERIVED_TABLES, 0),
+              **dict.fromkeys(FLOW_TABLES + DERIVED_TABLES
+                              + INTEGRATION_TABLES, 0),
               **more_counts}
     return frames, counts
 
@@ -456,7 +461,7 @@ def test_undecodable_payload_counts_as_decode_error():
         errs = {d.MSG_TYPE.name: d.stats["errors"] for d in port.decoders}
         assert errs == {"TPU_SPAN": 1, "STEP_METRICS": 1, "PROFILE": 0,
                         "DFSTATS": 0, "L4_LOG": 0, "L7_LOG": 0,
-                        "METRICS": 0, "PCAP": 0}
+                        "METRICS": 0, "PCAP": 0, "EVENT": 0}
         assert {d.MSG_TYPE.name: d.stats["errors"] for d in ref.decoders
                 if d.MSG_TYPE.name in errs} == errs
     finally:
@@ -517,7 +522,7 @@ def test_http_routes_and_errors(pair):
     assert health["stats"]["receiver"]["bad_frames"] == 0
     assert set(health["stats"]["decoders"]) == {
         "PROFILE", "TPU_SPAN", "STEP_METRICS", "DFSTATS", "L4_LOG",
-        "L7_LOG", "METRICS", "PCAP"}
+        "L7_LOG", "METRICS", "PCAP", "EVENT"}
     assert health["stats"]["receiver"]["acks_sent"] == 0  # v1 frames only
 
 

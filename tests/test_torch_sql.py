@@ -224,6 +224,15 @@ ROLES = {
     "flow_log.trace_tree": ("root_service", "trace_id", None, "span_count",
                             "duration_ns"),
     "event.event": ("event_type", "resource_name", None, "agent_id", "pid"),
+    "event.file_agg": ("path", "host", "op", "pid", "bytes"),
+    "application_log.log": ("app_service", "body", "log_source", "agent_id",
+                            "severity_number"),
+    "prometheus.samples": ("metric_name", "labels_json", None, "metric_id",
+                           "value"),
+    "prometheus.label_sets": ("metric_name", "labels_json", None,
+                              "metric_id", "label_set_id"),
+    "ext_metrics.metrics": ("metric_name", "value_name", None, "agent_id",
+                            "value"),
 }
 TABLES = tuple(ROLES)
 
@@ -544,15 +553,17 @@ def test_show_databases_and_tables_are_the_ports():
     ref_tables = [r[0] for r in ref_catalog.show("tables")["values"]]
     assert set(tables) <= set(ref_tables)
     assert catalog.show("databases") == {
-        "columns": ["name"], "values": [["deepflow_system"], ["event"],
-                                        ["flow_log"], ["flow_metrics"],
-                                        ["profile"]]}
+        "columns": ["name"], "values": [["application_log"],
+                                        ["deepflow_system"], ["event"],
+                                        ["ext_metrics"], ["flow_log"],
+                                        ["flow_metrics"], ["profile"],
+                                        ["prometheus"]]}
     assert catalog.show("tags", "flow_log.trace_tree") == \
         ref_catalog.show("tags", "flow_log.trace_tree")
     assert catalog.show("tags", "event.event") == \
         ref_catalog.show("tags", "event.event")
-    with pytest.raises(KeyError):
-        catalog.show("tags", "event.file_agg")  # not in the port
+    assert catalog.show("tags", "event.file_agg") == \
+        ref_catalog.show("tags", "event.file_agg")
 
 
 def test_derived_metric_rewrite_like_reference(monkeypatch):
